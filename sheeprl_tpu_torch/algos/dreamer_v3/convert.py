@@ -1,0 +1,120 @@
+"""Flax -> port weight conversion for the Dreamer-V3 acting path.
+
+The JAX package's param trees (``{"params": {...}}``, nested dicts of numpy
+arrays, as its checkpoints hold them) become state dicts of this package's
+``WorldModel`` and ``Actor``. The layout rules:
+
+- a flax ``Dense`` kernel is ``[in, out]`` and becomes ``nn.Linear.weight``
+  ``[out, in]``; the recurrent model keeps ``[in, out]``, which the fused
+  CUDA step reads as it is;
+- a flax conv kernel is HWIO and becomes OIHW (the encoder convs have no
+  bias);
+- the repo's LayerNorm wrapper nests a flax ``LayerNorm``, so its params sit
+  one level down, at ``.../LayerNorm_i/LayerNorm_0/{scale,bias}``;
+- an ``_LNMLP`` is a flat ``Dense_i``/``LayerNorm_i`` list; an
+  ``nn.Sequential`` head is ``layers_0`` (the ``_LNMLP``) and ``layers_1``
+  (the output ``Dense``).
+
+Leaves that this slice does not use are returned by name in a "not yet
+ported" list; a leaf that is neither converted nor listed there raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# world-model subtrees that later slices port
+NOT_PORTED = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    return _flatten(tree["params"] if "params" in tree else tree)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+class _Converter:
+    def __init__(self, flat: Dict[str, np.ndarray]) -> None:
+        self.flat = flat
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def has(self, src: str) -> bool:
+        return src in self.flat
+
+    def take(self, src: str, dst: str, transpose: Tuple[int, ...] = ()) -> None:
+        a = self.flat.pop(src)
+        self.out[dst] = _t(a.transpose(transpose) if transpose else a)
+
+    def dense(self, src: str, dst: str) -> None:
+        self.take(f"{src}/kernel", f"{dst}.weight", (1, 0))
+        if self.has(f"{src}/bias"):
+            self.take(f"{src}/bias", f"{dst}.bias")
+
+    def layer_norm(self, src: str, dst: str) -> None:
+        self.take(f"{src}/LayerNorm_0/scale", f"{dst}.weight")
+        self.take(f"{src}/LayerNorm_0/bias", f"{dst}.bias")
+
+    def lnmlp(self, src: str, dst: str) -> None:
+        i = 0
+        while self.has(f"{src}/Dense_{i}/kernel"):
+            self.dense(f"{src}/Dense_{i}", f"{dst}.linears.{i}")
+            self.layer_norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
+            i += 1
+
+
+def world_model_from_flax(tree: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """``(state_dict, not_ported)`` from a JAX ``WorldModel`` param tree;
+    ``not_ported`` names every leaf of the decoders and the reward and
+    continue heads."""
+    c = _Converter(_params(tree))
+    i = 0
+    while c.has(f"cnn_encoder/Conv_{i}/kernel"):
+        c.take(f"cnn_encoder/Conv_{i}/kernel", f"cnn_encoder.convs.{i}.weight", (3, 2, 0, 1))
+        c.layer_norm(f"cnn_encoder/LayerNorm_{i}", f"cnn_encoder.norms.{i}")
+        i += 1
+    c.lnmlp("mlp_encoder/_LNMLP_0", "mlp_encoder.mlp")
+    rec = "recurrent_model"
+    c.take(f"{rec}/Dense_0/kernel", "recurrent_model.in_kernel")
+    c.take(f"{rec}/Dense_0/bias", "recurrent_model.in_bias")
+    c.layer_norm(f"{rec}/LayerNorm_0", "recurrent_model.in_norm")
+    c.take(f"{rec}/LayerNormGRUCell_0/Dense_0/kernel", "recurrent_model.gru.kernel")
+    c.layer_norm(f"{rec}/LayerNormGRUCell_0/LayerNorm_0", "recurrent_model.gru.norm")
+    for head in ("representation_model", "transition_model"):
+        c.lnmlp(f"{head}/layers_0", f"{head}.0")
+        c.dense(f"{head}/layers_1", f"{head}.1")
+    if c.has("initial_recurrent_state"):
+        c.take("initial_recurrent_state", "initial_recurrent_state")
+    not_ported = sorted(k for k in c.flat if k.split("/")[0] in NOT_PORTED)
+    unknown = sorted(set(c.flat) - set(not_ported))
+    if unknown:
+        raise KeyError(f"world-model leaves with no port counterpart: {unknown}")
+    return c.out, not_ported
+
+
+def actor_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``Actor`` from a JAX ``Actor`` param tree."""
+    c = _Converter(_params(tree))
+    c.lnmlp("_LNMLP_0", "mlp")
+    i = 0
+    while c.has(f"head_{i}/kernel"):
+        c.dense(f"head_{i}", f"heads.{i}")
+        i += 1
+    if c.flat:
+        raise KeyError(f"actor leaves with no port counterpart: {sorted(c.flat)}")
+    return c.out

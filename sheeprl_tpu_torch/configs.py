@@ -1,0 +1,135 @@
+"""The configuration values the port reads, as Python (no YAML on the card).
+
+Copied from the JAX package's config tree: ``configs/algo/dreamer_v3.yaml``
+and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``
+and ``configs/env/{default,pixel_catcher,dummy}.yaml``. ``compose`` applies
+the size, then the env, then dotted overrides, and resolves the ``${...}``
+references last, as the JAX composer does. The precision is ``32-true``: the
+port computes in fp32 only (bf16-mixed comes with a later slice).
+"""
+
+from __future__ import annotations
+
+import copy
+import re
+from typing import Any, Dict, Mapping, Optional
+
+SIZES = ("XS", "S", "M", "L", "XL")
+
+_ROOT: Dict[str, Any] = {
+    "seed": 42,
+    "dry_run": False,
+    "fabric": {"precision": "32-true"},
+    "distribution": {"type": "auto"},
+    "env": {
+        "id": "pixel_catcher",
+        "num_envs": 4,
+        "frame_stack": 1,
+        "screen_size": 64,
+        "grayscale": False,
+        "max_episode_steps": None,
+    },
+    "algo": {
+        "name": "dreamer_v3",
+        "cnn_keys": {"encoder": ["rgb"]},
+        "mlp_keys": {"encoder": []},
+        "dense_units": 1024,
+        "mlp_layers": 5,
+        "unimix": 0.01,
+        "world_model": {
+            "discrete_size": 32,
+            "stochastic_size": 32,
+            "learnable_initial_recurrent_state": True,
+            "encoder": {
+                "cnn_channels_multiplier": 96,
+                "mlp_layers": "${algo.mlp_layers}",
+                "dense_units": "${algo.dense_units}",
+            },
+            "recurrent_model": {
+                "recurrent_state_size": 4096,
+                "dense_units": "${algo.dense_units}",
+                "fused": "auto",
+            },
+            "transition_model": {"hidden_size": 1024},
+            "representation_model": {"hidden_size": 1024},
+        },
+        "actor": {
+            "cls": "sheeprl_tpu.algos.dreamer_v3.agent.Actor",
+            "min_std": 0.1,
+            "max_std": 1.0,
+            "init_std": 2.0,
+            "mlp_layers": "${algo.mlp_layers}",
+            "dense_units": "${algo.dense_units}",
+            "unimix": "${algo.unimix}",
+            "action_clip": 1.0,
+        },
+    },
+}
+
+
+def _size(dense: int, layers: int, cnn: int, rec: int, hidden: int) -> Dict[str, Any]:
+    return {
+        "algo.dense_units": dense,
+        "algo.mlp_layers": layers,
+        "algo.world_model.encoder.cnn_channels_multiplier": cnn,
+        "algo.world_model.recurrent_model.recurrent_state_size": rec,
+        "algo.world_model.transition_model.hidden_size": hidden,
+        "algo.world_model.representation_model.hidden_size": hidden,
+    }
+
+
+_SIZE_OVERRIDES: Dict[str, Dict[str, Any]] = {
+    "XS": _size(256, 1, 24, 256, 256),
+    "S": _size(512, 2, 32, 512, 512),
+    "M": _size(640, 3, 48, 1024, 640),
+    "L": _size(768, 4, 64, 2048, 768),
+    "XL": {},
+}
+
+_ENV_OVERRIDES: Dict[str, Dict[str, Any]] = {
+    "pixel_catcher": {"env.id": "pixel_catcher", "env.screen_size": 64},
+    "dummy_discrete": {"env.id": "dummy_discrete"},
+    "dummy_continuous": {"env.id": "dummy_continuous"},
+}
+
+_REF = re.compile(r"^\$\{([^}]+)\}$")
+
+
+def _set(tree: Dict[str, Any], dotted: str, value: Any) -> None:
+    *path, leaf = dotted.split(".")
+    node = tree
+    for p in path:
+        node = node[p]
+    if leaf not in node:
+        raise KeyError(f"no config key {dotted!r}")
+    node[leaf] = value
+
+
+def _get(tree: Mapping[str, Any], dotted: str) -> Any:
+    node: Any = tree
+    for p in dotted.split("."):
+        node = node[p]
+    return node
+
+
+def _resolve(tree: Dict[str, Any], node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _resolve(tree, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolve(tree, v) for v in node]
+    m = _REF.match(node) if isinstance(node, str) else None
+    return _resolve(tree, _get(tree, m.group(1))) if m else node
+
+
+def compose(size: str = "S", env: str = "pixel_catcher", overrides: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """The Dreamer-V3 config at ``size`` on ``env`` with dotted ``overrides``
+    such as ``{"env.num_envs": 1}``."""
+    if size not in _SIZE_OVERRIDES:
+        raise ValueError(f"unknown Dreamer-V3 size {size!r}; one of {SIZES}")
+    if env not in _ENV_OVERRIDES:
+        raise ValueError(f"unknown env preset {env!r}; one of {tuple(_ENV_OVERRIDES)}")
+    tree = copy.deepcopy(_ROOT)
+    for layer in (_SIZE_OVERRIDES[size], _ENV_OVERRIDES[env], overrides or {}):
+        for k, v in layer.items():
+            _set(tree, k, v)
+    return _resolve(tree, tree)

@@ -1,0 +1,84 @@
+"""The port stands alone: no module of sheeprl_tpu_torch/ and not
+chip_smoke.py imports JAX, flax, gymnasium, PyYAML or sheeprl_tpu, and the
+package imports and runs ``evaluate`` on the CPU with those blocked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "gymnasium", "yaml", "sheeprl_tpu"}
+
+
+def _port_files():
+    files = sorted((REPO / "sheeprl_tpu_torch").rglob("*.py"))
+    assert len(files) >= 15
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module",
+            "__import__",
+        ):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import(path):
+    bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_the_scan_sees_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom sheeprl_tpu.ops import math\nimport sheeprl_tpu_torch\n")
+    assert [r for r, _ in _imported_roots(f) if r in FORBIDDEN] == ["sheeprl_tpu"]
+
+
+def test_package_runs_with_jax_and_friends_blocked():
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None  # any import of it raises ImportError
+from sheeprl_tpu_torch.configs import compose
+from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import evaluate
+cfg = compose("XS", overrides={{
+    "algo.dense_units": 16, "algo.mlp_layers": 1,
+    "algo.world_model.encoder.cnn_channels_multiplier": 4,
+    "algo.world_model.recurrent_model.recurrent_state_size": 16,
+    "algo.world_model.transition_model.hidden_size": 16,
+    "algo.world_model.representation_model.hidden_size": 16,
+    "algo.world_model.stochastic_size": 4, "algo.world_model.discrete_size": 4,
+    "env.screen_size": 16, "env.max_episode_steps": 4}})
+reward, steps = evaluate(cfg, device="cpu")
+assert steps == 4, steps
+import chip_smoke
+print("OK")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
