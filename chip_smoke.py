@@ -11,7 +11,9 @@ which exits non-zero:
    from ``sheeprl_tpu_torch/csrc`` (build seconds and ptxas's report).
 2. Kernel against plain: ``fused_recurrent_step`` against ``reference_step``
    at the Dreamer-V3 S shapes (B = 1, 4, 16) and at M width, forward and
-   gradients, then CUDA-event times of the kernel and the plain version.
+   gradients, then the device time of the kernel and of the plain version
+   (CUDA-event time of a replayed CUDA graph) and, apart, their time per call
+   issued from Python.
 3. The slice: the Dreamer-V3 S player (seeded init, 4 PixelCatcher envs)
    and one capped ``evaluate()`` episode, with the kernel launch count held
    to one per step; a torch.profiler window over 8 player steps (device busy
@@ -99,7 +101,9 @@ def gru_bound_ms(batch: int, in_dim: int, dense: int, hidden: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
+def host_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
+    """CUDA-event time of one ``fn()`` call issued back to back from Python:
+    where the launches are short, the host's dispatch sets this pace."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -111,6 +115,34 @@ def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, calls: int = 20, replays: int = 50) -> float:
+    """Device time of one ``fn()`` call: ``calls`` calls captured in one CUDA
+    graph, the graph replayed ``replays`` times between CUDA events, so the
+    host is out of the loop. The inputs stay in the 50 MB L2 between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
 
 
 def phase_kernel(torch, fg, shapes):
@@ -144,8 +176,10 @@ def phase_kernel(torch, fg, shapes):
                 raise AssertionError(f"{name}: gradients differ from reference_step by {gerr}")
 
         with torch.no_grad():
-            ms = cuda_ms(torch, lambda: fg.launch(*args))
-            plain_ms = cuda_ms(torch, lambda: fg.reference_step(*args))
+            ms = device_ms(torch, lambda: fg.launch(*args))
+            plain_ms = device_ms(torch, lambda: fg.reference_step(*args))
+            call_ms = host_ms(torch, lambda: fg.launch(*args))
+            plain_call_ms = host_ms(torch, lambda: fg.reference_step(*args))
         bound_ms, bound_by = gru_bound_ms(batch, in_dim, dense, hidden)
         row = {
             "shape": name,
@@ -157,15 +191,18 @@ def phase_kernel(torch, fg, shapes):
             "grad_max_abs_err": gerr,
             "ms": ms,
             "plain_ms": plain_ms,
+            "host_call_ms": call_ms,
+            "plain_host_call_ms": plain_call_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
         rows.append(row)
         print("fused_gru " + json.dumps(row), flush=True)
         print(
-            f"fused_gru {name}: kernel {1e3 * ms:.1f} us, plain {1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.2f} us"
-            f" ({'memory' if bound_by == 'bytes' else 'fp32 arithmetic'} bounds it); no library time: no single"
-            " PyTorch call computes this step",
+            f"fused_gru {name}: device time (CUDA graph) kernel {1e3 * ms:.1f} us, plain {1e3 * plain_ms:.1f} us,"
+            f" bound {1e3 * bound_ms:.2f} us ({'memory' if bound_by == 'bytes' else 'fp32 arithmetic'} bounds it);"
+            f" per call from the host kernel {1e3 * call_ms:.1f} us, plain {1e3 * plain_call_ms:.1f} us;"
+            " no library time: no single PyTorch call computes this step",
             flush=True,
         )
     return worst, rows
@@ -338,7 +375,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fg.load_library()
     print(f"build: {fg.KERNEL} in {time.perf_counter() - t0:.2f} s", flush=True)
-    print(_build.BUILD_INFO[fg.KERNEL]["ptxas"], flush=True)
+    print(_build.PTXAS_REPORT[fg.KERNEL], flush=True)
 
     # phase 2: kernel against plain (S: X = 32*32 + 3 actions)
     shapes = {

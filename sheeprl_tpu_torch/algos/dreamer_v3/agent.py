@@ -216,8 +216,9 @@ class FusedRecurrentModel(RecurrentModel):
 
 def resolve_backend(mode: Any) -> bool:
     """``fused`` config value -> use the fused kernel? ``auto`` and
-    ``pallas`` take the kernel (on CUDA; its plain version on CPU tensors),
-    ``flax`` the plain :class:`RecurrentModel`."""
+    ``pallas`` take the kernel (its wrapper computes the plain version only
+    on CPU tensors), ``flax`` the plain :class:`RecurrentModel` on any
+    device, the card included."""
     if mode in (False, None, "flax", "off"):
         return False
     if mode in (True, "pallas", "force") or str(mode).lower() == "auto":

@@ -21,7 +21,7 @@
 //   1. splitk_matmul: partial1[s, b, :] = x[b, Ks] @ W1[Ks, :]. Each block
 //      owns 128 output columns (one per thread) and 16 batch rows, for one
 //      chunk Ks of the depth. The depth is split so that enough blocks are in
-//      flight to draw on the card's bandwidth (the wrapper picks the split).
+//      flight to draw on the card's bandwidth (split_plan, below).
 //   2. bias_ln_silu: one block per row sums the split partials in a fixed
 //      order, adds b1, takes a two-pass LayerNorm and SiLU -> feat[B, D].
 //   3. splitk_matmul again, with W2 read as its two row blocks: the depth
@@ -192,37 +192,97 @@ __global__ void ln_gru(float* partial, int splits, int rows, int hidden,
   }
 }
 
+constexpr int kBlocksPerSm = 2;  // blocks in flight per SM that the split aims for
+
+// (splits, chunk) of the depth for one splitk_matmul launch over rows x cols:
+// enough blocks to give every SM kBlocksPerSm, no chunk shorter than one
+// staged tile, and each chunk a whole number of tiles.
+int split_plan(int depth, int cols, int rows, int sm_count, int* chunk) {
+  const int col_blocks = (cols + kCols - 1) / kCols;
+  const int row_tiles = (rows + kRows - 1) / kRows;
+  const int max_splits = (depth + kKTile - 1) / kKTile;
+  int want = (kBlocksPerSm * sm_count) / (col_blocks * row_tiles);
+  if (want < 1) want = 1;
+  const int splits = want < max_splits ? want : max_splits;
+  int c = (depth + splits - 1) / splits;
+  c = (c + kKTile - 1) / kKTile * kKTile;
+  *chunk = c;
+  return (depth + c - 1) / c;
+}
+
+// The launch plan of one step on the current device, and where its three
+// scratch arrays lie in the one scratch buffer: partial1[split1, B, D],
+// feat[B, D], partial2[split2, B, 3H].
+struct Plan {
+  int split1, chunk1, split2, chunk2;
+  size_t feat_offset, partial2_offset, floats;
+};
+
+cudaError_t make_plan(int batch, int in_dim, int dense, int hidden, Plan* p) {
+  int device, sm_count;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  p->split1 = split_plan(in_dim, dense, batch, sm_count, &p->chunk1);
+  p->split2 = split_plan(hidden + dense, 3 * hidden, batch, sm_count, &p->chunk2);
+  p->feat_offset = (size_t)p->split1 * batch * dense;
+  p->partial2_offset = p->feat_offset + (size_t)batch * dense;
+  p->floats = p->partial2_offset + (size_t)p->split2 * batch * 3 * hidden;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// Floats of scratch that fused_gru_forward needs for these sizes on the
+// current device, written to *floats; returns a CUDA error code (0 = success).
+extern "C" int fused_gru_scratch_floats(int batch, int in_dim, int dense, int hidden,
+                                        long long* floats) {
+  Plan p;
+  const cudaError_t err = make_plan(batch, in_dim, dense, hidden, &p);
+  if (err == cudaSuccess) *floats = (long long)p.floats;
+  return (int)err;
+}
+
+// The depth split of one projection (splits returned, chunk in *chunk), for
+// a given SM count: the plan fused_gru_forward follows, open to tests.
+extern "C" int fused_gru_split_plan(int depth, int cols, int rows, int sm_count, int* chunk) {
+  return split_plan(depth, cols, rows, sm_count, chunk);
+}
+
 // Launches the four kernels of one step on `stream` and returns
-// cudaGetLastError() (0 on success). scratch1 holds split1*B*D floats,
-// scratch2 split2*B*3H, feat B*D; the caller allocates all of them.
+// cudaGetLastError() (0 on success). scratch holds fused_gru_scratch_floats()
+// floats; the caller allocates it and out.
 extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1,
                                  const float* b1, const float* g1, const float* be1,
                                  const float* w2, const float* g2, const float* be2,
-                                 float* out, float* scratch1, float* feat, float* scratch2,
+                                 float* out, float* scratch,
                                  int batch, int in_dim, int dense, int hidden,
-                                 int split1, int chunk1, int split2, int chunk2,
                                  float eps1, float eps2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Plan p;
+  cudaError_t err = make_plan(batch, in_dim, dense, hidden, &p);
+  if (err != cudaSuccess) return (int)err;
+  float* partial1 = scratch;
+  float* feat = scratch + p.feat_offset;
+  float* partial2 = scratch + p.partial2_offset;
   const int row_tiles = (batch + kRows - 1) / kRows;
-  cudaError_t err;
 
-  dim3 grid1((dense + kCols - 1) / kCols, split1, row_tiles);
+  dim3 grid1((dense + kCols - 1) / kCols, p.split1, row_tiles);
   splitk_matmul<<<grid1, kCols, 0, stream>>>(x, in_dim, nullptr, 0, w1, dense, batch,
-                                             chunk1, scratch1);
+                                             p.chunk1, partial1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  bias_ln_silu<<<batch, kRowThreads, 0, stream>>>(scratch1, split1, batch, dense, b1, g1,
+  bias_ln_silu<<<batch, kRowThreads, 0, stream>>>(partial1, p.split1, batch, dense, b1, g1,
                                                  be1, eps1, feat);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  dim3 grid2((3 * hidden + kCols - 1) / kCols, split2, row_tiles);
+  dim3 grid2((3 * hidden + kCols - 1) / kCols, p.split2, row_tiles);
   splitk_matmul<<<grid2, kCols, 0, stream>>>(h, hidden, feat, dense, w2, 3 * hidden, batch,
-                                             chunk2, scratch2);
+                                             p.chunk2, partial2);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  ln_gru<<<batch, kRowThreads, 0, stream>>>(scratch2, split2, batch, hidden, g2, be2, eps2,
+  ln_gru<<<batch, kRowThreads, 0, stream>>>(partial2, p.split2, batch, hidden, g2, be2, eps2,
                                            h, out);
   return (int)cudaGetLastError();
 }

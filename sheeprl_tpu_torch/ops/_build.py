@@ -16,7 +16,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,9 +25,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per kernel source: seconds the build took (0.0 when the cache held it) and
-# what ptxas printed about registers and shared memory
-BUILD_INFO: Dict[str, Dict[str, object]] = {}
+# per kernel source: what ptxas printed about registers and shared memory
+PTXAS_REPORT: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -37,13 +35,12 @@ class KernelBuildError(RuntimeError):
 
 def find_nvcc() -> str:
     for cand in (
-        os.environ.get("NVCC"),
         shutil.which("nvcc"),
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
     ):
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
-    raise KernelBuildError("nvcc not found (set NVCC or CUDA_HOME); the CUDA kernels cannot be built")
+    raise KernelBuildError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
 
 
 def nvcc_command(name: str, out_path: str, nvcc: str = "nvcc") -> List[str]:
@@ -75,13 +72,12 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"{name}_{_source_digest(name)}.so")
     if os.path.exists(so_path):
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "(cached build)"})
+        PTXAS_REPORT.setdefault(name, "(cached build)")
         return so_path
     nvcc = find_nvcc()
     # a per-process temporary name, published by rename: two processes that
     # build at once never load a half-written library
     tmp_path = f"{so_path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run(nvcc_command(name, tmp_path, nvcc), capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
@@ -90,7 +86,7 @@ def build(name: str) -> str:
     finally:
         if os.path.exists(tmp_path):
             os.remove(tmp_path)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr.strip()}
+    PTXAS_REPORT[name] = proc.stderr.strip()
     return so_path
 
 

@@ -2,10 +2,12 @@
 ``reference_step`` and ``fused_recurrent_step``).
 
 ``fused_recurrent_step`` is the wrapper of the hand-written CUDA kernel in
-``csrc/fused_gru.cu``. On CUDA tensors it launches the kernel (or raises);
-on CPU tensors, and only there, it computes the plain ``reference_step``.
-The backward pass recomputes through ``reference_step``, as the JAX custom
-VJP does (``pallas_gru.py:215-221``).
+``csrc/fused_gru.cu``. On CUDA tensors it launches the kernel (or raises),
+never the plain ``reference_step``; it computes ``reference_step`` only for
+CPU tensors. The backward pass recomputes through ``reference_step``, as the
+JAX custom VJP does (``pallas_gru.py:215-221``). A model that should run the
+plain step on the card selects the plain ``RecurrentModel`` instead
+(``fused: flax``).
 """
 
 from __future__ import annotations
@@ -22,11 +24,6 @@ KERNEL = "fused_gru"
 # launches of the CUDA kernel since the last reset; plain CPU calls and
 # backward recomputes do not count
 launch_count = 0
-
-_COLS_PER_BLOCK = 128  # kCols in csrc/fused_gru.cu
-_ROWS_PER_BLOCK = 16  # kRows
-_K_TILE = 32  # kKTile
-_BLOCKS_PER_SM = 2
 
 
 def reset_launch_count() -> None:
@@ -65,24 +62,14 @@ def reference_step(
     return update * cand + (1.0 - update) * h
 
 
-def split_plan(depth: int, cols: int, rows: int, sm_count: int) -> Tuple[int, int]:
-    """``(splits, chunk)`` of the depth for one ``splitk_matmul`` launch: enough
-    blocks to keep every SM busy (``_BLOCKS_PER_SM`` each), no chunk shorter
-    than one staged tile, and each chunk a whole number of tiles."""
-    col_blocks = -(-cols // _COLS_PER_BLOCK)
-    row_tiles = -(-rows // _ROWS_PER_BLOCK)
-    max_splits = -(-depth // _K_TILE)
-    want = max(1, (_BLOCKS_PER_SM * sm_count) // (col_blocks * row_tiles))
-    splits = min(want, max_splits)
-    chunk = -(-depth // splits)
-    chunk = -(-chunk // _K_TILE) * _K_TILE
-    return -(-depth // chunk), chunk
-
-
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_gru_forward.restype = ctypes.c_int
-    lib.fused_gru_forward.argtypes = [p] * 13 + [i] * 8 + [f, f, p]
+    lib.fused_gru_forward.restype = i
+    lib.fused_gru_forward.argtypes = [p] * 11 + [i] * 4 + [f, f, p]
+    lib.fused_gru_scratch_floats.restype = i
+    lib.fused_gru_scratch_floats.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_gru_split_plan.restype = i
+    lib.fused_gru_split_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     lib.fused_gru_error_string.restype = ctypes.c_char_p
     lib.fused_gru_error_string.argtypes = [i]
 
@@ -90,6 +77,12 @@ def _declare(lib: ctypes.CDLL) -> None:
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/fused_gru.cu``."""
     return _build.load(KERNEL, _declare)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        msg = lib.fused_gru_error_string(err).decode()
+        raise RuntimeError(f"fused_gru kernel launch failed: CUDA error {err} ({msg})")
 
 
 def _check(args: List[torch.Tensor]) -> Tuple[int, int, int, int]:
@@ -143,23 +136,17 @@ def launch(
     if x.device.type != "cuda":
         raise ValueError(f"fused_recurrent_step: the CUDA kernel needs CUDA tensors, got {x.device}")
     lib = load_library()
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    split1, chunk1 = split_plan(in_dim, dense, batch, sm_count)
-    split2, chunk2 = split_plan(hidden + dense, 3 * hidden, batch, sm_count)
-    out = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
-    scratch1 = torch.empty((split1, batch, dense), dtype=torch.float32, device=x.device)
-    feat = torch.empty((batch, dense), dtype=torch.float32, device=x.device)
-    scratch2 = torch.empty((split2, batch, 3 * hidden), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the C side plans for the current device
+        floats = ctypes.c_longlong()
+        _raise_on(lib, lib.fused_gru_scratch_floats(batch, in_dim, dense, hidden, ctypes.byref(floats)))
+        out = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
+        scratch = torch.empty(floats.value, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.fused_gru_forward(
-        *(t.data_ptr() for t in (*args, out, scratch1, feat, scratch2)),
-        batch, in_dim, dense, hidden, split1, chunk1, split2, chunk2,
-        float(eps1), float(eps2), stream,
-    )
-    if err != 0:
-        msg = lib.fused_gru_error_string(err).decode()
-        raise RuntimeError(f"fused_gru kernel launch failed: CUDA error {err} ({msg})")
+        err = lib.fused_gru_forward(
+            *(t.data_ptr() for t in (*args, out, scratch)),
+            batch, in_dim, dense, hidden, float(eps1), float(eps2), stream,
+        )
+    _raise_on(lib, err)
     launch_count += 1
     return out
 

@@ -22,13 +22,6 @@ import pytest
 import torch
 import flax.linen as nn
 
-# TensorFlow, which torch.utils.tensorboard pulls in (as the JAX package's
-# TensorBoard logger does), segfaults when a process first imports it after
-# dm_control has loaded EGL (tests/test_envs/test_dmc.py). Importing it here,
-# while each worker collects the suite and before any test runs, keeps a
-# worker that runs both kinds of test alive.
-import torch.utils.tensorboard  # noqa: E402,F401
-
 from sheeprl_tpu.algos.dreamer_v3 import agent as jagent
 from sheeprl_tpu.algos.dreamer_v3.utils import prepare_obs as jax_prepare_obs
 from sheeprl_tpu.envs.toy import PixelCatcher as JaxPixelCatcher

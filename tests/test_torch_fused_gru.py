@@ -96,6 +96,9 @@ def test_cpu_path_launches_no_kernel():
         (6, lambda t: t[:, :-3], ValueError),  # w2 columns
         (2, lambda t: t.t().contiguous().t(), ValueError),  # w1 not contiguous
         (1, lambda t: t[:2], ValueError),  # h rows != x rows
+        (3, lambda t: t[:-1], ValueError),  # b1 shorter than D
+        (7, lambda t: t.half(), TypeError),  # g2 not fp32
+        (0, lambda t: t[0], ValueError),  # x not [B, X]
     ],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(index, bad, error):
@@ -108,21 +111,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(index, bad, error):
 def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tgru.launch(*_torch(_np_args(5)))
-
-
-@pytest.mark.parametrize(
-    "depth, cols, rows, want",
-    [
-        (1027, 512, 4, (33, 32)),  # S input projection, num_envs=4: 4 x 33 blocks
-        (1024, 1536, 4, (16, 64)),  # S joint projection: 12 x 16 blocks
-        (1024, 1536, 1024, (1, 1024)),  # many rows fill the card without a split
-        (7, 3, 1, (1, 32)),  # shallower than one tile
-    ],
-)
-def test_split_plan(depth, cols, rows, want):
-    splits, chunk = tgru.split_plan(depth, cols, rows, sm_count=132)
-    assert (splits, chunk) == want
-    assert chunk % 32 == 0 and (splits - 1) * chunk < depth <= splits * chunk
 
 
 def _recurrent_pair(in_dim=10, hidden=8, dense=12, seed=0):
@@ -182,6 +170,27 @@ def test_backend_choice_rejects_unknown_mode():
         resolve_backend("bogus")
 
 
+def test_find_nvcc_raises_without_nvcc(monkeypatch, tmp_path):
+    from sheeprl_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_find_nvcc_looks_under_cuda_home(monkeypatch, tmp_path):
+    from sheeprl_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.find_nvcc() == str(nvcc)
+
+
 def test_nvcc_command_targets_sm90a():
     from sheeprl_tpu_torch.ops import _build
 
@@ -199,9 +208,29 @@ def test_nvcc_command_targets_sm90a():
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+        pytest.skip("needs a CUDA card and nvcc: the CUDA kernel and its launch plan have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "depth, cols, rows, want",
+    [
+        (1027, 512, 4, (33, 32)),  # S input projection, num_envs=4: 4 x 33 blocks
+        (1024, 1536, 4, (16, 64)),  # S joint projection: 12 x 16 blocks
+        (1024, 1536, 1024, (1, 1024)),  # many rows fill the card without a split
+        (7, 3, 1, (1, 32)),  # shallower than one tile
+    ],
+)
+def test_split_plan(cuda, depth, cols, rows, want):
+    """The depth split that csrc/fused_gru.cu plans for a 132-SM card."""
+    import ctypes
+
+    chunk = ctypes.c_int()
+    splits = tgru.load_library().fused_gru_split_plan(depth, cols, rows, 132, ctypes.byref(chunk))
+    assert (splits, chunk.value) == want
+    assert chunk.value % 32 == 0 and (splits - 1) * chunk.value < depth <= splits * chunk.value
 
 
 @pytest.mark.cuda
