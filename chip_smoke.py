@@ -20,7 +20,22 @@ which exits non-zero:
    time, idle share, top kernels); then the same observations replayed
    through the fused and the plain (``fused="flax"``) players in
    mode/greedy, h compared.
-4. The kernels line (JSON), then the device line (JSON) last.
+4. The model-sharded step (``sharded_recurrent_step``): (a) its projection
+   kernel ``sharded_proj`` against its plain version at one rank's shapes
+   (S mp=1 fp32 B=4; L/4-way and XL/16-way bf16 at B=16 and B=1024), with
+   device, plain, library (one cuBLAS ``torch.mm``) and per-call host
+   times beside the bound, and its max abs error at most 1e-5 at every
+   shape; (b) the full-width step on a 1-rank NCCL mesh
+   (file store in a temporary directory): S fp32 at B=4 and B=16 against
+   ``fused_recurrent_step`` and ``reference_step``, XL with bf16 W2 at B=16
+   against ``reference_step`` on the upcast W2, and the S gradients of all
+   nine inputs against plain autograd, with the projection kernel launched
+   once per step; then the S steps again with ``use_pallas=False`` (the
+   plain projection: no launch, the same h'), and the S B=4 step once more
+   on one CUDA rank spawned by ``parallel.launch.run`` (its default device,
+   NCCL), against the same h'. (a) holds the kernel at every projection
+   shape (b) gives it: S mp=1 fp32 at B=4 and B=16, XL mp=1 bf16 at B=16.
+5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the plain versions compute in full
@@ -43,6 +58,10 @@ GRAD_TOL = 1e-4
 # h trajectories of the fused and plain players over the replayed steps:
 # per-step fp32 differences of ~1e-6 carried through the recurrence
 TRAJ_TOL = 1e-4
+# the sharded step with a bf16 W2 against reference_step on the upcast W2:
+# the same values in fp32, with XL's 12288-wide LayerNorm summed in another
+# order
+BF16_STEP_TOL = 1e-4
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -206,6 +225,216 @@ def phase_kernel(torch, fg, shapes):
             flush=True,
         )
     return worst, rows
+
+
+def proj_bound_ms(batch: int, hidden: int, dense: int, cols: int, w_bytes: int):
+    """Least time of one sharded projection: h, feat and W2s (at its storage
+    width) read once and out written once over the HBM rate, against its
+    FLOPs over the fp32 rate. Returns (ms, 'bytes' or 'operations')."""
+    nbytes = 4 * batch * (hidden + dense + cols) + w_bytes * (hidden + dense) * cols
+    flops = 2 * batch * (hidden + dense) * cols
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_proj(torch, fg, shapes):
+    """sharded_proj's kernel against its plain version at one rank's shapes,
+    and its times. Returns (max_abs_err, rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    rows = []
+    for name, (batch, hidden, dense, cols, w_dtype) in shapes.items():
+        h = torch.randn(batch, hidden, device="cuda", generator=gen).tanh()
+        feat = torch.nn.functional.silu(torch.randn(batch, dense, device="cuda", generator=gen))
+        w2s = (torch.randn(hidden + dense, cols, device="cuda", generator=gen) * (hidden + dense) ** -0.5).to(w_dtype)
+        with torch.no_grad():
+            got = fg.proj_launch(h, feat, w2s)
+            want = fg.proj_reference(h, feat, w2s)
+        torch.cuda.synchronize()
+        if got.shape != (batch, cols) or not torch.isfinite(got).all():
+            raise AssertionError(f"sharded_proj {name}: kernel output is not finite [{batch}, {cols}]")
+        err = (got - want).abs().max().item()
+        if err > FWD_TOL:
+            raise AssertionError(f"sharded_proj {name}: kernel differs from its plain version by {err}")
+        worst = max(worst, err)
+        # the library call: one cuBLAS product on the concatenated activations
+        # and an fp32 copy of W2s, both made outside the timing (for a bf16
+        # slice it reads twice the weight bytes the kernel reads)
+        hf = torch.cat([h, feat], 1)
+        w2f = w2s.float()
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: fg.proj_launch(h, feat, w2s))
+            plain_ms = device_ms(torch, lambda: fg.proj_reference(h, feat, w2s))
+            library_ms = device_ms(torch, lambda: torch.mm(hf, w2f))
+            call_ms = host_ms(torch, lambda: fg.proj_launch(h, feat, w2s))
+        bound_ms, bound_by = proj_bound_ms(batch, hidden, dense, cols, w2s.element_size())
+        row = {
+            "shape": name,
+            "B": batch,
+            "H": hidden,
+            "D": dense,
+            "C": cols,
+            "w2s_dtype": str(w_dtype).replace("torch.", ""),
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "host_call_ms": call_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        rows.append(row)
+        print("sharded_proj " + json.dumps(row), flush=True)
+        del h, feat, w2s, hf, w2f, got, want
+    return worst, rows
+
+
+def np_gru_args(np, seed: int, batch: int, in_dim: int, dense: int, hidden: int):
+    """The step's nine arrays, seeded (numpy, as the CPU tests make them)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0):
+        return (rng.standard_normal(shape, dtype=np.float32) * scale).astype(np.float32)
+
+    return [
+        r(batch, in_dim),
+        np.tanh(r(batch, hidden)),
+        r(in_dim, dense, scale=in_dim**-0.5),
+        r(dense, scale=0.1),
+        1 + r(dense, scale=0.1),
+        r(dense, scale=0.1),
+        r(hidden + dense, 3 * hidden, scale=(hidden + dense) ** -0.5),
+        1 + r(3 * hidden, scale=0.1),
+        r(3 * hidden, scale=0.1),
+    ]
+
+
+def phase_sharded_step(torch, np, fg):
+    """The model-sharded step on a 1-rank NCCL mesh at full width, through
+    shard_recurrent and sharded_recurrent_step. Returns the projection
+    kernel's launches on this path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.convert import shard_recurrent
+    from sheeprl_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    # (B, X, D, H, W2 storage): S = the player's widths; XL = 32*32 + 3 inputs
+    cases = {
+        "S_B4": (4, 1027, 512, 512, None),
+        "S_B16": (16, 1027, 512, 512, None),
+        "XL_B16_bf16": (16, 1027, 1024, 4096, torch.bfloat16),
+    }
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+        init_distributed("cuda", f"file://{store}/store", 1, 0)
+        try:
+            mesh = make_mesh(1, 1, "cuda")
+            full, local = {}, {}
+            for i, (name, (batch, in_dim, dense, hidden, w_dtype)) in enumerate(cases.items()):
+                arrays = np_gru_args(np, SEED + i, batch, in_dim, dense, hidden)
+                full[name] = [torch.from_numpy(a).cuda() for a in arrays]
+                local[name] = [t.cuda() for t in shard_recurrent(arrays, 1, 0, w_dtype)]
+                del arrays
+            grad_leaves = [t.clone().requires_grad_(True) for t in local["S_B4"]]
+            torch.cuda.synchronize()
+
+            # ---- the main path: counts at 0 just before, read just after ----
+            fg.reset_launch_count()
+            with torch.no_grad():
+                outs = {name: fg.sharded_recurrent_step(*args, mesh=mesh) for name, args in local.items()}
+            fg.sharded_recurrent_step(*grad_leaves, mesh=mesh).square().sum().backward()
+            torch.cuda.synchronize()
+            launches = fg.proj_launch_count
+            # ------------------------------------------------------------------
+            if launches != len(cases) + 1:
+                raise AssertionError(f"sharded_proj launched {launches} times for {len(cases) + 1} sharded steps")
+
+            report = {"mesh": list(mesh.shape), "backend": dist.get_backend(), "launches": launches}
+            with torch.no_grad():
+                for name, (batch, _, _, hidden, w_dtype) in cases.items():
+                    got = outs[name]
+                    if got.shape != (batch, hidden) or not torch.isfinite(got).all():
+                        raise AssertionError(f"sharded step {name}: output is not finite [{batch}, {hidden}]")
+                    ref_args = list(full[name])
+                    if w_dtype is not None:  # the reference reads the same, upcast values
+                        ref_args[6] = local[name][6].float()
+                    want = fg.reference_step(*ref_args)
+                    tol = FWD_TOL if w_dtype is None else BF16_STEP_TOL
+                    err = (got - want).abs().max().item()
+                    if not torch.allclose(got, want, atol=tol, rtol=tol):
+                        raise AssertionError(f"sharded step {name}: differs from reference_step by {err}")
+                    report[f"{name}_vs_reference"] = err
+                    if w_dtype is None:
+                        fused = fg.launch(*full[name])
+                        ferr = (got - fused).abs().max().item()
+                        if not torch.allclose(got, fused, atol=tol, rtol=tol):
+                            raise AssertionError(f"sharded step {name}: differs from fused_recurrent_step by {ferr}")
+                        report[f"{name}_vs_fused_gru"] = ferr
+            ref_leaves = [t.clone().requires_grad_(True) for t in full["S_B4"]]
+            fg.reference_step(*ref_leaves).square().sum().backward()
+            gerr = max((a.grad - b.grad).abs().max().item() for a, b in zip(grad_leaves, ref_leaves))
+            for i, (a, b) in enumerate(zip(grad_leaves, ref_leaves)):
+                if not torch.allclose(a.grad, b.grad, atol=GRAD_TOL, rtol=GRAD_TOL):
+                    raise AssertionError(f"sharded step S_B4: gradient of input {i} differs from plain autograd")
+            report["S_B4_grad_vs_autograd"] = gerr
+
+            # use_pallas=False: the plain projection inside the same step
+            before = fg.proj_launch_count
+            with torch.no_grad():
+                for name in ("S_B4", "S_B16"):
+                    plain = fg.sharded_recurrent_step(*local[name], mesh=mesh, use_pallas=False)
+                    perr = (outs[name] - plain).abs().max().item()
+                    if not torch.allclose(outs[name], plain, atol=FWD_TOL, rtol=FWD_TOL):
+                        raise AssertionError(f"sharded step {name}: use_pallas=False differs by {perr}")
+                    report[f"{name}_vs_use_pallas_false"] = perr
+            if fg.proj_launch_count != before:
+                raise AssertionError("sharded_recurrent_step(use_pallas=False) launched the projection kernel")
+        finally:
+            dist.destroy_process_group()
+
+        # the launcher's CUDA ranks: the S B=4 step on one spawned rank
+        from sheeprl_tpu_torch.parallel import launch
+
+        np.savez(f"{store}/in.npz", **{f"a{i}": a for i, a in enumerate(np_gru_args(np, SEED, 4, 1027, 512, 512))})
+        t0 = time.perf_counter()
+        launch.run(launched_rank, 1, f"{store}/in.npz", f"{store}/out.npz", timeout=300)
+        report["launch_run_cuda_seconds"] = time.perf_counter() - t0
+        with np.load(f"{store}/out.npz") as f:
+            got, child_launches, backend = torch.from_numpy(f["h"]).cuda(), int(f["launches"]), str(f["backend"])
+        lerr = (got - outs["S_B4"]).abs().max().item()
+        if backend != "nccl" or child_launches != 1 or not torch.allclose(got, outs["S_B4"], atol=FWD_TOL, rtol=FWD_TOL):
+            raise AssertionError(
+                f"launch.run's CUDA rank: backend {backend}, {child_launches} launches, h' differs by {lerr}"
+            )
+        report["S_B4_launch_run_vs_in_process"] = lerr
+    print("sharded_step " + json.dumps(report), flush=True)
+    return launches
+
+
+def launched_rank(rank: int, world: int, in_path: str, out_path: str) -> None:
+    """Rank body for ``parallel.launch.run`` on the card: the sharded step on
+    a 1 x ``world`` mesh of the launcher's default device, h' and this
+    process's launch count to ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.convert import shard_recurrent
+    from sheeprl_tpu_torch.ops import fused_gru as fg
+    from sheeprl_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, world)
+    with np.load(in_path) as f:
+        local = [t.cuda() for t in shard_recurrent([f[f"a{i}"] for i in range(9)], world, rank)]
+    fg.reset_launch_count()
+    with torch.no_grad():
+        h = fg.sharded_recurrent_step(*local, mesh=mesh)
+    torch.cuda.synchronize()
+    if rank == 0:
+        np.savez(out_path, h=h.cpu().numpy(), launches=fg.proj_launch_count, backend=dist.get_backend())
 
 
 def run_player(torch, np, player, cfg, envs, steps, generator, greedy, sample_state, replay=None):
@@ -389,8 +618,23 @@ def main() -> int:
     # phase 3: the slice
     launches = phase_slice(torch, np, fg)
 
-    # phase 4: the kernels line, then the device line
+    # phase 4: the model-sharded step, (a) its projection kernel, (b) the step
+    bf16 = torch.bfloat16
+    proj_shapes = {  # (B, H, D, C = 3H/mp, W2s storage)
+        "S_mp1_fp32_B4": (4, 512, 512, 1536, torch.float32),
+        "S_mp1_fp32_B16": (16, 512, 512, 1536, torch.float32),
+        "XL_mp1_bf16_B16": (16, 4096, 1024, 12288, bf16),
+        "L_mp4_bf16_B16": (16, 2048, 768, 1536, bf16),
+        "L_mp4_bf16_B1024": (1024, 2048, 768, 1536, bf16),
+        "XL_mp16_bf16_B16": (16, 4096, 1024, 768, bf16),
+        "XL_mp16_bf16_B1024": (1024, 4096, 1024, 768, bf16),
+    }
+    proj_err, proj_rows = phase_proj(torch, fg, proj_shapes)
+    proj_launches = phase_sharded_step(torch, np, fg)
+
+    # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
+    proj_row = next(r for r in proj_rows if r["shape"] == "L_mp4_bf16_B16")
     kernels = [
         {
             "name": "fused_gru",
@@ -405,7 +649,20 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             # no single PyTorch call computes the fused step
             "library_ms": None,
-        }
+        },
+        {
+            "name": "sharded_proj",
+            "route": "cuda",
+            "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
+            "replaces": "sheeprl_tpu/ops/pallas_gru.py:307",
+            "launches": proj_launches,
+            "max_abs_err": proj_err,
+            "ms": proj_row["ms"],
+            "plain_ms": proj_row["plain_ms"],
+            "bound_ms": proj_row["bound_ms"],
+            "bound_by": proj_row["bound_by"],
+            "library_ms": proj_row["library_ms"],
+        },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -9,7 +9,10 @@ for the CPU (``device="cpu"``); the hand-written CUDA kernels build at first
 use from ``csrc/``.
 
 Ported so far: the Dreamer-V3 observe+act path (``algos.dreamer_v3``), with
-the RSSM step as the CUDA kernel ``csrc/fused_gru.cu``.
+the RSSM step as the CUDA kernel ``csrc/fused_gru.cu``; and the model-sharded
+RSSM step (``ops.fused_gru.sharded_recurrent_step``) on a (data, model)
+``torch.distributed`` mesh (``parallel``), with its projection as the second
+kernel of that source.
 """
 
 __version__ = "0.1.0"

@@ -17,11 +17,15 @@ arrays, as its checkpoints hold them) become state dicts of this package's
 
 Leaves that this slice does not use are returned by name in a "not yet
 ported" list; a leaf that is neither converted nor listed there raises.
+
+``shard_recurrent`` cuts the recurrent model's params into one model rank's
+arguments of the model-sharded step (``pallas_gru.py:393-395`` and the
+``in_specs`` at :427-441).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,3 +122,59 @@ def actor_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if c.flat:
         raise KeyError(f"actor leaves with no port counterpart: {sorted(c.flat)}")
     return c.out
+
+
+# the recurrent model's params in the fused step's order (w1, b1, g1, be1,
+# w2, g2, be2), as leaves of its flax subtree
+RECURRENT_LEAVES = (
+    "Dense_0/kernel",
+    "Dense_0/bias",
+    "LayerNorm_0/LayerNorm_0/scale",
+    "LayerNorm_0/LayerNorm_0/bias",
+    "LayerNormGRUCell_0/Dense_0/kernel",
+    "LayerNormGRUCell_0/LayerNorm_0/LayerNorm_0/scale",
+    "LayerNormGRUCell_0/LayerNorm_0/LayerNorm_0/bias",
+)
+
+
+def shard_recurrent(
+    src: Union[Mapping[str, Any], Sequence[Any]],
+    mp: int,
+    idx: int,
+    dtype: Optional[torch.dtype] = None,
+) -> List[torch.Tensor]:
+    """One model rank's arguments of ``ops.fused_gru.sharded_recurrent_step``.
+
+    ``src`` is either the recurrent model's flax subtree (or a world-model
+    tree holding ``recurrent_model``), giving ``[w1, b1, g1, be1, w2s, g2s,
+    be2s]``, or the step's nine arrays ``x, h, w1, b1, g1, be1, w2, g2, be2``,
+    giving the nine arguments. The last three are cut: ``W2 [H+D, 3H]`` is
+    viewed gate-major as ``[H+D, 3, H]``, columns ``idx*H/mp : (idx+1)*H/mp``
+    of each gate are kept and reshaped to ``[H+D, 3H/mp]``; ``g2, be2 [3H]``
+    alike. The rest stay whole (replicated). ``dtype`` is the storage type
+    of the W2 slice (``torch.bfloat16`` allowed); every other tensor is
+    fp32. Raises ``ValueError`` unless ``H % mp == 0`` and ``0 <= idx < mp``.
+    """
+    if isinstance(src, Mapping):
+        flat = _params(src)
+        prefix = "recurrent_model/" if f"recurrent_model/{RECURRENT_LEAVES[0]}" in flat else ""
+        arrays = [flat[prefix + leaf] for leaf in RECURRENT_LEAVES]
+    else:
+        arrays = list(src)
+        if len(arrays) != 9:
+            raise ValueError(f"shard_recurrent: expected the step's nine arrays, got {len(arrays)}")
+    *whole, w2, g2, be2 = (np.asarray(a, dtype=np.float32) for a in arrays)
+    rows, cols = w2.shape
+    hidden = cols // 3
+    if cols != 3 * hidden or hidden % mp != 0:
+        raise ValueError(f"shard_recurrent: hidden ({hidden}, from W2 {w2.shape}) must divide by mp ({mp})")
+    if not 0 <= idx < mp:
+        raise ValueError(f"shard_recurrent: idx {idx} is not a model rank of mp={mp}")
+    hs = hidden // mp
+    cut = slice(idx * hs, (idx + 1) * hs)
+    w2s = w2.reshape(rows, 3, hidden)[:, :, cut].reshape(rows, 3 * hs)
+    g2s, be2s = (v.reshape(3, hidden)[:, cut].reshape(3 * hs) for v in (g2, be2))
+    out = [_t(a) for a in (*whole, w2s, g2s, be2s)]
+    if dtype is not None:
+        out[-3] = out[-3].to(dtype)
+    return out

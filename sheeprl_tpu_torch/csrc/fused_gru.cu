@@ -1,4 +1,5 @@
-// Fused RSSM recurrent step for Hopper (sm_90a), all in fp32.
+// Fused RSSM recurrent step for Hopper (sm_90a), all in fp32, and the
+// projection of its model-sharded variant (fp32 or bf16 weights).
 //
 // Replaces sheeprl_tpu/ops/pallas_gru.py::_kernel, the Pallas TPU body that
 // _make_fused_step._forward launches through pl.pallas_call:
@@ -34,7 +35,31 @@
 // result is deterministic. No launch has a size limit of its own; any X, D,
 // H and B are taken. Making the step fast (wgmma, TMA, one persistent launch)
 // is later work; this is the simple design that is right first.
+//
+// The second entry, sharded_proj_forward, replaces
+// sheeprl_tpu/ops/pallas_gru.py::_proj_kernel, the Pallas TPU body that
+// _make_sharded_proj._forward launches through pl.pallas_call: one model
+// rank's slice of the joint projection of the model-sharded step,
+//
+//   out[B, C] = h[B, H] @ W2s[:H] + feat[B, D] @ W2s[H:]   (no concat, no bias)
+//
+// with W2s[H+D, C] (C = 3H/mp, gate-major) at its storage type, fp32 or bf16,
+// upcast in registers, and fp32 sums. It is launch 3 above templated on the
+// weight type (splitk_matmul, planned by the same split_plan), then, when the
+// depth is split, a pass that sums the split partials in a fixed order into
+// out (sum_splits): no atomics, deterministic like the step.
+//
+// What bounds it on an H100: memory at the acting batch, fp32 arithmetic at
+// the imagination batch. It reads W2s once, plus h, feat and out:
+//   S, mp=1, fp32 [1024, 1536], B=4:        6.3 MB, >= 1.9 us at 3.35 TB/s;
+//   L, mp=4, bf16 [2816, 1536], B=16:       8.9 MB, >= 2.7 us;
+//   XL, mp=16, bf16 [5120, 768], B=16:      8.2 MB, >= 2.5 us.
+// At B=1024 (16 sequences x 64 imagination steps) L/4 does 8.9 GFLOP, which
+// take >= 132 us at the 67 TFLOP/s fp32 rate outside the tensor cores.
+// Making it fast (wgmma on bf16 tiles, TMA, a weight slice kept resident
+// across a scan) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -46,12 +71,19 @@ constexpr int kRows = 16;   // batch rows per block: accumulators per thread
 constexpr int kKTile = 32;  // depth of the activation tile staged in smem
 constexpr int kRowThreads = 256;  // threads of the per-row LayerNorm blocks
 
+// A weight read through the read-only cache and upcast to fp32.
+__device__ __forceinline__ float load_weight(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_weight(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // partial[s, row, col] = sum over k in [s*k_chunk, (s+1)*k_chunk) of
 // a(row, k) * w[k, col], where a(row, k) = a1[row, k] for k < k1 and
-// a2[row, k - k1] for k >= k1.
+// a2[row, k - k1] for k >= k1. W is the weights' storage type.
+template <typename W>
 __global__ void splitk_matmul(const float* __restrict__ a1, int k1,
                               const float* __restrict__ a2, int k2,
-                              const float* __restrict__ w, int n, int rows,
+                              const W* __restrict__ w, int n, int rows,
                               int k_chunk, float* __restrict__ partial) {
   __shared__ float a_tile[kRows][kKTile];
   const int col = blockIdx.x * kCols + threadIdx.x;
@@ -80,13 +112,20 @@ __global__ void splitk_matmul(const float* __restrict__ a1, int k1,
     __syncthreads();
     if (col < n) {
       const int kmax = min(kKTile, k_end - kt);
-      const float* wp = w + (size_t)kt * n + col;
+      const W* wp = w + (size_t)kt * n + col;
+      // sum each tile apart, then add it to the running sum: the rounding
+      // error grows with depth / kKTile + kKTile, not with the depth
+      float part[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) part[r] = 0.f;
 #pragma unroll 8
       for (int kk = 0; kk < kmax; ++kk) {
-        const float wv = __ldg(wp + (size_t)kk * n);
+        const float wv = load_weight(wp + (size_t)kk * n);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a_tile[r][kk], wv, acc[r]);
+        for (int r = 0; r < kRows; ++r) part[r] = fmaf(a_tile[r][kk], wv, part[r]);
       }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] += part[r];
     }
     __syncthreads();
   }
@@ -192,6 +231,17 @@ __global__ void ln_gru(float* partial, int splits, int rows, int hidden,
   }
 }
 
+// out[row, col] = sum over s of partial[s, row, col], in split order.
+__global__ void sum_splits(const float* __restrict__ partial, int splits,
+                           size_t elems, float* __restrict__ out) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < elems;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = partial[i];
+    for (int sp = 1; sp < splits; ++sp) v += partial[sp * elems + i];
+    out[i] = v;
+  }
+}
+
 constexpr int kBlocksPerSm = 2;  // blocks in flight per SM that the split aims for
 
 // (splits, chunk) of the depth for one splitk_matmul launch over rows x cols:
@@ -218,11 +268,17 @@ struct Plan {
   size_t feat_offset, partial2_offset, floats;
 };
 
-cudaError_t make_plan(int batch, int in_dim, int dense, int hidden, Plan* p) {
-  int device, sm_count;
-  cudaError_t err = cudaGetDevice(&device);
+// SM count of the current device.
+cudaError_t current_sm_count(int* sm_count) {
+  int device;
+  const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+  return cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
+}
+
+cudaError_t make_plan(int batch, int in_dim, int dense, int hidden, Plan* p) {
+  int sm_count;
+  const cudaError_t err = current_sm_count(&sm_count);
   if (err != cudaSuccess) return err;
   p->split1 = split_plan(in_dim, dense, batch, sm_count, &p->chunk1);
   p->split2 = split_plan(hidden + dense, 3 * hidden, batch, sm_count, &p->chunk2);
@@ -230,6 +286,40 @@ cudaError_t make_plan(int batch, int in_dim, int dense, int hidden, Plan* p) {
   p->partial2_offset = p->feat_offset + (size_t)batch * dense;
   p->floats = p->partial2_offset + (size_t)p->split2 * batch * 3 * hidden;
   return cudaSuccess;
+}
+
+// The plan of one sharded projection on the current device: the depth split
+// of its one splitk_matmul and the scratch of the split partials
+// (partial[splits, B, C]; none when the depth is not split, as splitk_matmul
+// then writes out directly).
+struct ProjPlan {
+  int splits, chunk;
+  size_t floats;
+};
+
+cudaError_t make_proj_plan(int batch, int hidden, int dense, int cols, ProjPlan* p) {
+  int sm_count;
+  const cudaError_t err = current_sm_count(&sm_count);
+  if (err != cudaSuccess) return err;
+  p->splits = split_plan(hidden + dense, cols, batch, sm_count, &p->chunk);
+  p->floats = p->splits > 1 ? (size_t)p->splits * batch * cols : 0;
+  return cudaSuccess;
+}
+
+template <typename W>
+cudaError_t launch_proj(const float* h, const float* feat, const W* w2s, float* out,
+                        float* scratch, int batch, int hidden, int dense, int cols,
+                        const ProjPlan& p, cudaStream_t stream) {
+  float* partial = p.splits > 1 ? scratch : out;
+  dim3 grid((cols + kCols - 1) / kCols, p.splits, (batch + kRows - 1) / kRows);
+  splitk_matmul<W><<<grid, kCols, 0, stream>>>(h, hidden, feat, dense, w2s, cols, batch,
+                                               p.chunk, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const size_t elems = (size_t)batch * cols;
+  const int blocks = (int)((elems + kRowThreads - 1) / kRowThreads);
+  sum_splits<<<blocks, kRowThreads, 0, stream>>>(partial, p.splits, elems, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -269,7 +359,7 @@ extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1
   const int row_tiles = (batch + kRows - 1) / kRows;
 
   dim3 grid1((dense + kCols - 1) / kCols, p.split1, row_tiles);
-  splitk_matmul<<<grid1, kCols, 0, stream>>>(x, in_dim, nullptr, 0, w1, dense, batch,
+  splitk_matmul<float><<<grid1, kCols, 0, stream>>>(x, in_dim, nullptr, 0, w1, dense, batch,
                                              p.chunk1, partial1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -278,13 +368,43 @@ extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   dim3 grid2((3 * hidden + kCols - 1) / kCols, p.split2, row_tiles);
-  splitk_matmul<<<grid2, kCols, 0, stream>>>(h, hidden, feat, dense, w2, 3 * hidden, batch,
+  splitk_matmul<float><<<grid2, kCols, 0, stream>>>(h, hidden, feat, dense, w2, 3 * hidden, batch,
                                              p.chunk2, partial2);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   ln_gru<<<batch, kRowThreads, 0, stream>>>(partial2, p.split2, batch, hidden, g2, be2, eps2,
                                            h, out);
   return (int)cudaGetLastError();
+}
+
+// Floats of scratch that sharded_proj_forward needs for these sizes on the
+// current device (0 when the depth is not split), written to *floats;
+// returns a CUDA error code (0 = success).
+extern "C" int sharded_proj_scratch_floats(int batch, int hidden, int dense, int cols,
+                                           long long* floats) {
+  ProjPlan p;
+  const cudaError_t err = make_proj_plan(batch, hidden, dense, cols, &p);
+  if (err == cudaSuccess) *floats = (long long)p.floats;
+  return (int)err;
+}
+
+// out[B, C] = h[B, H] @ w2s[:H] + feat[B, D] @ w2s[H:], w2s[H+D, C] fp32
+// (w2s_bf16 = 0) or bf16 (w2s_bf16 = 1), on `stream`. Launches one or two
+// kernels and returns cudaGetLastError() (0 on success). scratch holds
+// sharded_proj_scratch_floats() floats; the caller allocates it and out.
+extern "C" int sharded_proj_forward(const float* h, const float* feat, const void* w2s,
+                                    int w2s_bf16, float* out, float* scratch, int batch,
+                                    int hidden, int dense, int cols, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  ProjPlan p;
+  const cudaError_t err = make_proj_plan(batch, hidden, dense, cols, &p);
+  if (err != cudaSuccess) return (int)err;
+  if (w2s_bf16) {
+    return (int)launch_proj(h, feat, static_cast<const __nv_bfloat16*>(w2s), out, scratch,
+                            batch, hidden, dense, cols, p, stream);
+  }
+  return (int)launch_proj(h, feat, static_cast<const float*>(w2s), out, scratch, batch,
+                          hidden, dense, cols, p, stream);
 }
 
 // Error text for a code returned above.

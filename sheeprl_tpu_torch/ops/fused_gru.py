@@ -1,5 +1,7 @@
-"""The fused RSSM recurrent step (port of ``sheeprl_tpu/ops/pallas_gru.py``:
-``reference_step`` and ``fused_recurrent_step``).
+"""The fused RSSM recurrent step and its model-sharded variant (port of
+``sheeprl_tpu/ops/pallas_gru.py``: ``reference_step``,
+``fused_recurrent_step``, ``_make_sharded_proj`` and
+``sharded_recurrent_step``).
 
 ``fused_recurrent_step`` is the wrapper of the hand-written CUDA kernel in
 ``csrc/fused_gru.cu``. On CUDA tensors it launches the kernel (or raises),
@@ -8,12 +10,18 @@ CPU tensors. The backward pass recomputes through ``reference_step``, as the
 JAX custom VJP does (``pallas_gru.py:215-221``). A model that should run the
 plain step on the card selects the plain ``RecurrentModel`` instead
 (``fused: flax``).
+
+``sharded_proj`` wraps the second kernel of ``csrc/fused_gru.cu``, one model
+rank's slice of the joint projection, in the same way: the kernel on CUDA
+tensors, the plain ``proj_reference`` on CPU tensors only. Its backward is
+the three plain products of the JAX custom VJP (``pallas_gru.py:328-339``).
+``sharded_recurrent_step`` runs it SPMD on a (data, model) ``Mesh``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,14 +29,23 @@ import torch.nn.functional as F
 from sheeprl_tpu_torch.ops import _build
 
 KERNEL = "fused_gru"
-# launches of the CUDA kernel since the last reset; plain CPU calls and
-# backward recomputes do not count
+# launches of each CUDA kernel since the last reset (the fused step's, then
+# the sharded projection's); plain CPU calls and backward passes do not count
 launch_count = 0
+proj_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
+    global launch_count, proj_launch_count
     launch_count = 0
+    proj_launch_count = 0
+
+
+def _layer_norm(v: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """Two-pass LayerNorm over the last axis, as the JAX step takes it."""
+    mu = v.mean(-1, keepdim=True)
+    var = (v - mu).square().mean(-1, keepdim=True)
+    return (v - mu) * torch.rsqrt(var + eps) * g + b
 
 
 def reference_step(
@@ -48,14 +65,8 @@ def reference_step(
     kernel's reference and its backward's recompute target. All fp32."""
     x = x.float()
     h = h.float()
-
-    def _ln(v, g, b, eps):
-        mu = v.mean(-1, keepdim=True)
-        var = (v - mu).square().mean(-1, keepdim=True)
-        return (v - mu) * torch.rsqrt(var + eps) * g + b
-
-    feat = F.silu(_ln(x @ w1 + b1, g1, be1, eps1))
-    proj = _ln(torch.cat([h, feat], -1) @ w2, g2, be2, eps2)
+    feat = F.silu(_layer_norm(x @ w1 + b1, g1, be1, eps1))
+    proj = _layer_norm(torch.cat([h, feat], -1) @ w2, g2, be2, eps2)
     reset, cand, update = proj.chunk(3, -1)
     update = torch.sigmoid(update - 1.0)
     cand = torch.tanh(torch.sigmoid(reset) * cand)
@@ -70,6 +81,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_gru_scratch_floats.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_gru_split_plan.restype = i
     lib.fused_gru_split_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.sharded_proj_forward.restype = i
+    lib.sharded_proj_forward.argtypes = [p, p, p, i, p, p] + [i] * 4 + [p]
+    lib.sharded_proj_scratch_floats.restype = i
+    lib.sharded_proj_scratch_floats.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_gru_error_string.restype = ctypes.c_char_p
     lib.fused_gru_error_string.argtypes = [i]
 
@@ -83,6 +98,27 @@ def _raise_on(lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
         msg = lib.fused_gru_error_string(err).decode()
         raise RuntimeError(f"fused_gru kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _run(
+    device: torch.device,
+    out_shape: Tuple[int, ...],
+    scratch_floats: Callable[[ctypes.CDLL, object], int],
+    forward: Callable[[ctypes.CDLL, int, int, int], int],
+) -> torch.Tensor:
+    """One launch of a kernel of the library on ``device``'s current stream:
+    ``scratch_floats(lib, floats_ref)`` asks the C side for the scratch size,
+    ``forward(lib, out_ptr, scratch_ptr, stream)`` launches. Returns the fp32
+    ``out``; raises with CUDA's error text on a non-zero return."""
+    lib = load_library()
+    with torch.cuda.device(device):  # the C side plans for the current device
+        floats = ctypes.c_longlong()
+        _raise_on(lib, scratch_floats(lib, ctypes.byref(floats)))
+        out = torch.empty(out_shape, dtype=torch.float32, device=device)
+        scratch = torch.empty(floats.value, dtype=torch.float32, device=device)
+        err = forward(lib, out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err)
+    return out
 
 
 def _check(args: List[torch.Tensor]) -> Tuple[int, int, int, int]:
@@ -135,18 +171,14 @@ def launch(
     batch, in_dim, dense, hidden = _check(args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_recurrent_step: the CUDA kernel needs CUDA tensors, got {x.device}")
-    lib = load_library()
-    with torch.cuda.device(x.device):  # the C side plans for the current device
-        floats = ctypes.c_longlong()
-        _raise_on(lib, lib.fused_gru_scratch_floats(batch, in_dim, dense, hidden, ctypes.byref(floats)))
-        out = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
-        scratch = torch.empty(floats.value, dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_gru_forward(
-            *(t.data_ptr() for t in (*args, out, scratch)),
-            batch, in_dim, dense, hidden, float(eps1), float(eps2), stream,
-        )
-    _raise_on(lib, err)
+    out = _run(
+        x.device,
+        (batch, hidden),
+        lambda lib, floats: lib.fused_gru_scratch_floats(batch, in_dim, dense, hidden, floats),
+        lambda lib, out, scratch, stream: lib.fused_gru_forward(
+            *(t.data_ptr() for t in args), out, scratch, batch, in_dim, dense, hidden, float(eps1), float(eps2), stream
+        ),
+    )
     launch_count += 1
     return out
 
@@ -194,3 +226,157 @@ def fused_recurrent_step(
     ``w2 [H+D, 3H]``, ``g2/be2 [3H]`` -> new ``h [B, H]`` (fp32).
     """
     return _FusedStep.apply(float(eps1), float(eps2), x, h, w1, b1, g1, be1, w2, g2, be2)
+
+
+# --------------------------------------------------------------------------- #
+# model-sharded step: one rank's W2 slice, LayerNorm statistics by psum, the
+# new state by one tiled all-gather
+# --------------------------------------------------------------------------- #
+
+PROJ_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def proj_reference(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sharded projection (``pallas_gru.py:271-279``):
+    ``h @ W2s[:H] + feat @ W2s[H:]`` with W2s upcast to fp32."""
+    hidden = h.shape[1]
+    return h @ w2s[:hidden].float() + feat @ w2s[hidden:].float()
+
+
+def _check_proj(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> Tuple[int, int, int, int]:
+    for n, t in (("h", h), ("feat", feat), ("w2s", w2s)):
+        if t.device != h.device:
+            raise ValueError(f"sharded_proj: {n} is on {t.device}, h on {h.device}")
+        if t.dim() != 2:
+            raise ValueError(f"sharded_proj: {n} must be 2-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"sharded_proj: {n} must be contiguous")
+    for n, t in (("h", h), ("feat", feat)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"sharded_proj: {n} must be float32, got {t.dtype}")
+    if w2s.dtype not in PROJ_WEIGHT_DTYPES:
+        raise TypeError(f"sharded_proj: w2s must be float32 or bfloat16, got {w2s.dtype}")
+    (batch, hidden), (fbatch, dense) = h.shape, feat.shape
+    if batch < 1 or fbatch != batch:
+        raise ValueError(f"sharded_proj: h {tuple(h.shape)} and feat {tuple(feat.shape)} need the same B >= 1 rows")
+    if w2s.shape[0] != hidden + dense or w2s.shape[1] < 1:
+        raise ValueError(f"sharded_proj: w2s has shape {tuple(w2s.shape)}, expected [{hidden + dense}, C]")
+    return batch, hidden, dense, w2s.shape[1]
+
+
+def proj_launch(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> torch.Tensor:
+    """Run the projection kernel on CUDA tensors (no autograd); counts one
+    launch."""
+    global proj_launch_count
+    batch, hidden, dense, cols = _check_proj(h, feat, w2s)
+    if h.device.type != "cuda":
+        raise ValueError(f"sharded_proj: the CUDA kernel needs CUDA tensors, got {h.device}")
+    bf16 = int(w2s.dtype == torch.bfloat16)
+    out = _run(
+        h.device,
+        (batch, cols),
+        lambda lib, floats: lib.sharded_proj_scratch_floats(batch, hidden, dense, cols, floats),
+        lambda lib, out, scratch, stream: lib.sharded_proj_forward(
+            h.data_ptr(), feat.data_ptr(), w2s.data_ptr(), bf16, out, scratch, batch, hidden, dense, cols, stream
+        ),
+    )
+    proj_launch_count += 1
+    return out
+
+
+class _ShardedProj(torch.autograd.Function):
+    """Forward by the kernel (plain version on CPU tensors); backward by the
+    three plain products of ``pallas_gru.py:328-339``, dW2s cast to W2s's
+    storage type."""
+
+    @staticmethod
+    def forward(ctx, h, feat, w2s):
+        ctx.save_for_backward(h, feat, w2s)
+        if h.device.type == "cpu":
+            _check_proj(h, feat, w2s)
+            return proj_reference(h, feat, w2s)
+        return proj_launch(h, feat, w2s)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, feat, w2s = ctx.saved_tensors
+        hidden = h.shape[1]
+        grad = grad.float()
+        dh = df = dw2s = None
+        if ctx.needs_input_grad[0]:
+            dh = grad @ w2s[:hidden].float().t()
+        if ctx.needs_input_grad[1]:
+            df = grad @ w2s[hidden:].float().t()
+        if ctx.needs_input_grad[2]:
+            dw2s = torch.cat([h.t() @ grad, feat.t() @ grad], 0).to(w2s.dtype)
+        return dh, df, dw2s
+
+
+def sharded_proj(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> torch.Tensor:
+    """``[h, feat] @ W2s`` for one rank's slice ``W2s [H+D, C]`` (fp32 or
+    bf16 storage, fp32 sums) -> ``[B, C]`` fp32 (``pallas_gru.py:282-341``).
+    Any size: the port has no VMEM gate (``_proj_tile_b``)."""
+    return _ShardedProj.apply(h, feat, w2s)
+
+
+def sharded_recurrent_step(
+    x: torch.Tensor,
+    h: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    g1: torch.Tensor,
+    be1: torch.Tensor,
+    w2s: torch.Tensor,
+    g2s: torch.Tensor,
+    be2s: torch.Tensor,
+    *,
+    mesh,
+    use_pallas: bool = True,
+    eps1: float = 1e-3,
+    eps2: float = 1e-5,
+) -> torch.Tensor:
+    """Model-sharded fused step on one rank, numerically ``reference_step``
+    (``pallas_gru.py:344-442``, its ``local_step`` run SPMD).
+
+    Each rank of the ``mesh`` (``parallel.mesh.Mesh``) passes its data shard
+    of ``x [B, X]`` and ``h [B, H]``, the replicated ``w1, b1, g1, be1``, and
+    its own gate-major slice of the joint projection: ``w2s [H+D, 3H/mp]``
+    (fp32 or bf16) and ``g2s, be2s [3H/mp]``, as
+    ``algos.dreamer_v3.convert.shard_recurrent`` cuts them. The rank with
+    model coordinate ``idx`` owns hidden columns ``idx*H/mp : (idx+1)*H/mp``
+    of all three gates. Steps: the input projection; the ``[B, 3, H/mp]``
+    projection (``sharded_proj``, or its plain version when ``use_pallas``
+    is False); the LayerNorm over the global 3H from two ``psum``s over the
+    model group (mean, then the centred second moment); the gates on the
+    local columns; the new ``h [B, H]`` by one tiled all-gather. Gradients
+    are the global ones on every model rank; over the data axis the caller
+    sums the replicated weights' gradients, as data parallelism does.
+    Requires ``H % mp == 0``.
+    """
+    from sheeprl_tpu_torch.parallel.collectives import all_gather_tiled, psum, to_model_region
+
+    hidden = h.shape[-1]
+    mp = mesh.model_parallel_size
+    if hidden % mp != 0:
+        raise ValueError(f"hidden ({hidden}) must divide by the model axis ({mp})")
+    hs = hidden // mp
+    dense = w1.shape[-1]
+    want = {"w2s": (hidden + dense, 3 * hs), "g2s": (3 * hs,), "be2s": (3 * hs,)}
+    for n, t in (("w2s", w2s), ("g2s", g2s), ("be2s", be2s)):
+        if tuple(t.shape) != want[n]:
+            raise ValueError(f"sharded_recurrent_step: {n} has shape {tuple(t.shape)}, expected {want[n]} for mp={mp}")
+    group = mesh.model_group
+    idx = mesh.coords[1]
+    x, h, w1, b1, g1, be1 = (to_model_region(t, group) for t in (x, h, w1, b1, g1, be1))
+    x = x.float()
+    h = h.float()
+    feat = F.silu(_layer_norm(x @ w1 + b1, g1, be1, eps1))
+    pre = (sharded_proj if use_pallas else proj_reference)(h, feat, w2s).reshape(-1, 3, hs)
+    n = 3 * hidden
+    mu = psum(pre.sum(dim=(1, 2)), group)[:, None, None] / n
+    var = psum((pre - mu).square().sum(dim=(1, 2)), group)[:, None, None] / n
+    proj = (pre - mu) * torch.rsqrt(var + eps2) * g2s.reshape(3, hs) + be2s.reshape(3, hs)
+    update = torch.sigmoid(proj[:, 2] - 1.0)
+    cand = torch.tanh(torch.sigmoid(proj[:, 0]) * proj[:, 1])
+    h_new = update * cand + (1.0 - update) * h[:, idx * hs : (idx + 1) * hs]
+    return all_gather_tiled(h_new, group)

@@ -1,0 +1,138 @@
+"""The port's CUDA kernels (sheeprl_tpu_torch/csrc/fused_gru.cu) against
+their plain PyTorch versions on the card.
+
+Every test here is marked ``cuda`` and skips where there is no card. The
+file imports neither JAX nor the JAX package, so with ``--noconftest``
+(tests/conftest.py imports the JAX package) it runs on a machine that has
+the card and not the JAX package's dependencies:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+Bounds: 1e-5 on the forward and 1e-4 on the gradients, all fp32 with sums
+taken in another order (the JAX package's own bounds for its kernel,
+tests/test_ops/test_pallas_gru.py). The parity of the plain versions with
+the JAX package is held on the CPU by tests/test_torch_fused_gru.py and
+tests/test_torch_sharded_gru.py.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from sheeprl_tpu_torch.ops import fused_gru as tgru
+
+FWD_TOL = 1e-5
+GRAD_TOL = 1e-4
+
+
+def _np_args(seed, batch=5, in_dim=12, dense=16, hidden=8):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return [
+        n(batch, in_dim),
+        n(batch, hidden),
+        n(in_dim, dense) * 0.3,
+        n(dense) * 0.1,
+        1.0 + 0.1 * n(dense),
+        0.1 * n(dense),
+        n(hidden + dense, 3 * hidden) * 0.3,
+        1.0 + 0.1 * n(3 * hidden),
+        0.1 * n(3 * hidden),
+    ]
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the CUDA kernels and their launch plan have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# --------------------------------------------------------------------------- #
+# fused_gru: the fused RSSM step
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "depth, cols, rows, want",
+    [
+        (1027, 512, 4, (33, 32)),  # S input projection, num_envs=4: 4 x 33 blocks
+        (1024, 1536, 4, (16, 64)),  # S joint projection: 12 x 16 blocks
+        (1024, 1536, 1024, (1, 1024)),  # many rows fill the card without a split
+        (7, 3, 1, (1, 32)),  # shallower than one tile
+    ],
+)
+def test_split_plan(cuda, depth, cols, rows, want):
+    """The depth split that csrc/fused_gru.cu plans for a 132-SM card."""
+    chunk = ctypes.c_int()
+    splits = tgru.load_library().fused_gru_split_plan(depth, cols, rows, 132, ctypes.byref(chunk))
+    assert (splits, chunk.value) == want
+    assert chunk.value % 32 == 0 and (splits - 1) * chunk.value < depth <= splits * chunk.value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, in_dim, dense, hidden", [(1, 1027, 512, 512), (4, 1027, 512, 512), (33, 70, 40, 24)])
+def test_cuda_kernel_matches_plain(cuda, batch, in_dim, dense, hidden):
+    args = [torch.tensor(a, device=cuda) for a in _np_args(6, batch, in_dim, dense, hidden)]
+    before = tgru.launch_count
+    got = tgru.fused_recurrent_step(*args)
+    torch.cuda.synchronize()
+    assert tgru.launch_count == before + 1
+    torch.testing.assert_close(got, tgru.reference_step(*args), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_gradients_match_plain(cuda):
+    args = _np_args(7)
+    leaves = [torch.tensor(a, device=cuda, requires_grad=True) for a in args]
+    ref = [torch.tensor(a, device=cuda, requires_grad=True) for a in args]
+    tgru.fused_recurrent_step(*leaves).square().sum().backward()
+    tgru.reference_step(*ref).square().sum().backward()
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# sharded_proj: one rank's projection of the model-sharded step
+# --------------------------------------------------------------------------- #
+
+
+def _proj_inputs(device, batch, w2_dtype, hidden=2048, dense=768, cols=1536):
+    """One rank's operands at the L / 4-way shapes: h a GRU state in (-1, 1),
+    feat a SiLU output."""
+    gen = torch.Generator(device=device).manual_seed(batch)
+    h = torch.randn(batch, hidden, device=device, generator=gen).tanh()
+    feat = torch.nn.functional.silu(torch.randn(batch, dense, device=device, generator=gen))
+    w2s = (torch.randn(hidden + dense, cols, device=device, generator=gen) * (hidden + dense) ** -0.5).to(w2_dtype)
+    return h, feat, w2s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w2_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 16, 1024])
+def test_cuda_projection_matches_plain(cuda, batch, w2_dtype):
+    h, feat, w2s = _proj_inputs(cuda, batch, w2_dtype)
+    before = tgru.proj_launch_count
+    got = tgru.sharded_proj(h, feat, w2s)
+    torch.cuda.synchronize()
+    assert tgru.proj_launch_count == before + 1
+    torch.testing.assert_close(got, tgru.proj_reference(h, feat, w2s), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w2_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_projection_gradients_match_plain(cuda, w2_dtype):
+    inputs = _proj_inputs(cuda, 16, w2_dtype, hidden=64, dense=32, cols=48)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ref = [t.clone().requires_grad_(True) for t in inputs]
+    cot = torch.randn(16, 48, device=cuda)
+    tgru.sharded_proj(*leaves).backward(cot)
+    tgru.proj_reference(*ref).backward(cot)
+    for a, b in zip(leaves, ref):
+        assert a.grad.dtype == a.dtype
+        tol = GRAD_TOL if a.dtype == torch.float32 else 8e-3  # dW2 stored in bf16: 2 ulps
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), atol=GRAD_TOL, rtol=tol)

@@ -6,7 +6,7 @@ as its own tests run it: ``reference_step`` and the Pallas kernel in
 interpret mode. Bounds are the JAX package's own for its kernel
 (tests/test_ops/test_pallas_gru.py): 1e-5 on the forward, 1e-4 on the
 gradients, all fp32. The CUDA kernel itself is held to the same bounds on
-the card by the ``cuda``-marked tests below and by chip_smoke.py.
+the card by tests/test_torch_cuda.py and by chip_smoke.py.
 """
 
 import jax
@@ -198,58 +198,3 @@ def test_nvcc_command_targets_sm90a():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert {"-O3", "-shared", "-fPIC"} <= set(cmd)
     assert cmd[-1].endswith("csrc/fused_gru.cu")
-
-
-# --------------------------------------------------------------------------- #
-# on the card
-# --------------------------------------------------------------------------- #
-
-
-@pytest.fixture()
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc: the CUDA kernel and its launch plan have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "depth, cols, rows, want",
-    [
-        (1027, 512, 4, (33, 32)),  # S input projection, num_envs=4: 4 x 33 blocks
-        (1024, 1536, 4, (16, 64)),  # S joint projection: 12 x 16 blocks
-        (1024, 1536, 1024, (1, 1024)),  # many rows fill the card without a split
-        (7, 3, 1, (1, 32)),  # shallower than one tile
-    ],
-)
-def test_split_plan(cuda, depth, cols, rows, want):
-    """The depth split that csrc/fused_gru.cu plans for a 132-SM card."""
-    import ctypes
-
-    chunk = ctypes.c_int()
-    splits = tgru.load_library().fused_gru_split_plan(depth, cols, rows, 132, ctypes.byref(chunk))
-    assert (splits, chunk.value) == want
-    assert chunk.value % 32 == 0 and (splits - 1) * chunk.value < depth <= splits * chunk.value
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch, in_dim, dense, hidden", [(1, 1027, 512, 512), (4, 1027, 512, 512), (33, 70, 40, 24)])
-def test_cuda_kernel_matches_plain(cuda, batch, in_dim, dense, hidden):
-    args = [torch.tensor(a, device=cuda) for a in _np_args(6, batch, in_dim, dense, hidden)]
-    before = tgru.launch_count
-    got = tgru.fused_recurrent_step(*args)
-    torch.cuda.synchronize()
-    assert tgru.launch_count == before + 1
-    torch.testing.assert_close(got, tgru.reference_step(*args), atol=FWD_TOL, rtol=FWD_TOL)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_gradients_match_plain(cuda):
-    args = _np_args(7)
-    leaves = [torch.tensor(a, device=cuda, requires_grad=True) for a in args]
-    ref = [torch.tensor(a, device=cuda, requires_grad=True) for a in args]
-    tgru.fused_recurrent_step(*leaves).square().sum().backward()
-    tgru.reference_step(*ref).square().sum().backward()
-    for a, b in zip(leaves, ref):
-        torch.testing.assert_close(a.grad, b.grad, atol=GRAD_TOL, rtol=GRAD_TOL)
