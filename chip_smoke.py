@@ -22,15 +22,17 @@ which exits non-zero:
    mode/greedy, h compared.
 4. The model-sharded step (``sharded_recurrent_step``): (a) its projection
    kernel ``sharded_proj`` against its plain version at one rank's shapes
-   (S mp=1 fp32 B=4; L/4-way and XL/16-way bf16 at B=16 and B=1024), with
-   device, plain, library (one cuBLAS ``torch.mm``) and per-call host
-   times beside the bound, and its max abs error at most 1e-5 at every
-   shape; (b) the full-width step on a 1-rank NCCL mesh
+   (S mp=1 fp32 B=4; L/4-way bf16 at B=16, 64, 256 and 1024; XL/16-way bf16
+   at B=16 and B=1024), with the route the plan took (``splitk`` on the CUDA
+   cores, ``tc16``/``tc64`` on the tensor cores), device, plain, library (one
+   cuBLAS ``torch.mm``) and per-call host times beside the bound and the
+   fp32-rate bound of earlier rows, and its max abs error at most 1e-5 at
+   every shape; (b) the full-width step on a 1-rank NCCL mesh
    (file store in a temporary directory): S fp32 at B=4 and B=16 against
    ``fused_recurrent_step`` and ``reference_step``, XL with bf16 W2 at B=16
    against ``reference_step`` on the upcast W2, and the S gradients of all
    nine inputs against plain autograd, with the projection kernel launched
-   once per step; then the S steps again with ``use_pallas=False`` (the
+   once per step, on the tensor cores for the bf16 step; then the S steps again with ``use_pallas=False`` (the
    plain projection: no launch, the same h'), and the S B=4 step once more
    on one CUDA rank spawned by ``parallel.launch.run`` (its default device,
    NCCL), against the same h'. (a) holds the kernel at every projection
@@ -64,9 +66,13 @@ TRAJ_TOL = 1e-4
 BF16_STEP_TOL = 1e-4
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# bf16 passes the tensor-core route makes over each product: the fp32
+# activations split into three bf16 planes
+TC_PLANES = 3
 
 PLAYER_STEPS = 32
 EVAL_CAP = 64
@@ -230,12 +236,16 @@ def phase_kernel(torch, fg, shapes):
 def proj_bound_ms(batch: int, hidden: int, dense: int, cols: int, w_bytes: int):
     """Least time of one sharded projection: h, feat and W2s (at its storage
     width) read once and out written once over the HBM rate, against its
-    FLOPs over the fp32 rate. Returns (ms, 'bytes' or 'operations')."""
+    operations: for bf16 W2s the three bf16 passes of the fp32-exact product
+    over the tensor cores' bf16 rate, for fp32 W2s its FLOPs over the fp32
+    rate. Returns (ms, 'bytes' or 'operations', ms of the fp32-rate bound
+    that rows of earlier PRs give for either storage)."""
     nbytes = 4 * batch * (hidden + dense + cols) + w_bytes * (hidden + dense) * cols
     flops = 2 * batch * (hidden + dense) * cols
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_fp32 = flops / FP32_FLOP_PER_S
+    t_ops = TC_PLANES * flops / BF16_TC_FLOP_PER_S if w_bytes == 2 else t_fp32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 1e3 * max(t_bytes, t_fp32)
 
 
 def phase_proj(torch, fg, shapes):
@@ -248,10 +258,14 @@ def phase_proj(torch, fg, shapes):
         h = torch.randn(batch, hidden, device="cuda", generator=gen).tanh()
         feat = torch.nn.functional.silu(torch.randn(batch, dense, device="cuda", generator=gen))
         w2s = (torch.randn(hidden + dense, cols, device="cuda", generator=gen) * (hidden + dense) ** -0.5).to(w_dtype)
+        route = fg.proj_plan(h, feat, w2s)[0]
+        tc_before = fg.proj_tc_launch_count
         with torch.no_grad():
             got = fg.proj_launch(h, feat, w2s)
             want = fg.proj_reference(h, feat, w2s)
         torch.cuda.synchronize()
+        if fg.proj_tc_launch_count - tc_before != (route != "splitk"):
+            raise AssertionError(f"sharded_proj {name}: the tensor-core count does not follow route {route}")
         if got.shape != (batch, cols) or not torch.isfinite(got).all():
             raise AssertionError(f"sharded_proj {name}: kernel output is not finite [{batch}, {cols}]")
         err = (got - want).abs().max().item()
@@ -268,7 +282,7 @@ def phase_proj(torch, fg, shapes):
             plain_ms = device_ms(torch, lambda: fg.proj_reference(h, feat, w2s))
             library_ms = device_ms(torch, lambda: torch.mm(hf, w2f))
             call_ms = host_ms(torch, lambda: fg.proj_launch(h, feat, w2s))
-        bound_ms, bound_by = proj_bound_ms(batch, hidden, dense, cols, w2s.element_size())
+        bound_ms, bound_by, fp32_bound_ms = proj_bound_ms(batch, hidden, dense, cols, w2s.element_size())
         row = {
             "shape": name,
             "B": batch,
@@ -276,6 +290,7 @@ def phase_proj(torch, fg, shapes):
             "D": dense,
             "C": cols,
             "w2s_dtype": str(w_dtype).replace("torch.", ""),
+            "route": route,
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
@@ -283,6 +298,7 @@ def phase_proj(torch, fg, shapes):
             "host_call_ms": call_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "fp32_bound_ms": fp32_bound_ms,
         }
         rows.append(row)
         print("sharded_proj " + json.dumps(row), flush=True)
@@ -347,11 +363,20 @@ def phase_sharded_step(torch, np, fg):
             fg.sharded_recurrent_step(*grad_leaves, mesh=mesh).square().sum().backward()
             torch.cuda.synchronize()
             launches = fg.proj_launch_count
+            tc_launches = fg.proj_tc_launch_count
             # ------------------------------------------------------------------
             if launches != len(cases) + 1:
                 raise AssertionError(f"sharded_proj launched {launches} times for {len(cases) + 1} sharded steps")
+            bf16_steps = sum(c[4] is not None for c in cases.values())
+            if tc_launches != bf16_steps:
+                raise AssertionError(f"sharded_proj took the tensor cores {tc_launches} times for {bf16_steps} bf16 steps")
 
-            report = {"mesh": list(mesh.shape), "backend": dist.get_backend(), "launches": launches}
+            report = {
+                "mesh": list(mesh.shape),
+                "backend": dist.get_backend(),
+                "launches": launches,
+                "tc_launches": tc_launches,
+            }
             with torch.no_grad():
                 for name, (batch, _, _, hidden, w_dtype) in cases.items():
                     got = outs[name]
@@ -625,6 +650,8 @@ def main() -> int:
         "S_mp1_fp32_B16": (16, 512, 512, 1536, torch.float32),
         "XL_mp1_bf16_B16": (16, 4096, 1024, 12288, bf16),
         "L_mp4_bf16_B16": (16, 2048, 768, 1536, bf16),
+        "L_mp4_bf16_B64": (64, 2048, 768, 1536, bf16),
+        "L_mp4_bf16_B256": (256, 2048, 768, 1536, bf16),
         "L_mp4_bf16_B1024": (1024, 2048, 768, 1536, bf16),
         "XL_mp16_bf16_B16": (16, 4096, 1024, 768, bf16),
         "XL_mp16_bf16_B1024": (1024, 4096, 1024, 768, bf16),

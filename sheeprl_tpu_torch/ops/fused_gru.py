@@ -11,10 +11,13 @@ JAX custom VJP does (``pallas_gru.py:215-221``). A model that should run the
 plain step on the card selects the plain ``RecurrentModel`` instead
 (``fused: flax``).
 
-``sharded_proj`` wraps the second kernel of ``csrc/fused_gru.cu``, one model
-rank's slice of the joint projection, in the same way: the kernel on CUDA
-tensors, the plain ``proj_reference`` on CPU tensors only. Its backward is
-the three plain products of the JAX custom VJP (``pallas_gru.py:328-339``).
+``sharded_proj`` wraps the second entry of ``csrc/fused_gru.cu``, one model
+rank's slice of the joint projection, in the same way: a kernel on CUDA
+tensors, the plain ``proj_reference`` on CPU tensors only. The C side plans
+its route (``PROJ_ROUTES``): bf16 weights go to the tensor cores where their
+columns and address allow 16-byte copies, everything else to the CUDA-core
+kernel; neither falls back to the other. Its backward is the three plain
+products of the JAX custom VJP (``pallas_gru.py:328-339``).
 ``sharded_recurrent_step`` runs it SPMD on a (data, model) ``Mesh``.
 """
 
@@ -30,15 +33,18 @@ from sheeprl_tpu_torch.ops import _build
 
 KERNEL = "fused_gru"
 # launches of each CUDA kernel since the last reset (the fused step's, then
-# the sharded projection's); plain CPU calls and backward passes do not count
+# the sharded projection's on any route, then those of its launches that took
+# the tensor cores); plain CPU calls and backward passes do not count
 launch_count = 0
 proj_launch_count = 0
+proj_tc_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count, proj_launch_count
+    global launch_count, proj_launch_count, proj_tc_launch_count
     launch_count = 0
     proj_launch_count = 0
+    proj_tc_launch_count = 0
 
 
 def _layer_norm(v: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -83,8 +89,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_gru_split_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     lib.sharded_proj_forward.restype = i
     lib.sharded_proj_forward.argtypes = [p, p, p, i, p, p] + [i] * 4 + [p]
-    lib.sharded_proj_scratch_floats.restype = i
-    lib.sharded_proj_scratch_floats.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.sharded_proj_plan.restype = i
+    lib.sharded_proj_plan.argtypes = [i] * 5 + [p, i] + [ctypes.POINTER(i)] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_gru_error_string.restype = ctypes.c_char_p
     lib.fused_gru_error_string.argtypes = [i]
 
@@ -264,23 +270,59 @@ def _check_proj(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> Tuple
     return batch, hidden, dense, w2s.shape[1]
 
 
+# the routes of sharded_proj_plan, by its C codes: the CUDA-core kernel, and
+# the tensor-core kernel at 16 and at 64 batch rows a block
+PROJ_ROUTES = ("splitk", "tc16", "tc64")
+
+
+def _plan(lib: ctypes.CDLL, sizes: Tuple[int, int, int, int], w2s: torch.Tensor, sm_count: int, floats):
+    """``sharded_proj_plan`` on the C side for ``sizes`` (B, H, D, C): returns
+    its error code, route code, depth splits and chunk; the scratch floats go
+    to ``floats``."""
+    route, splits, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    bf16 = int(w2s.dtype == torch.bfloat16)
+    outs = (ctypes.byref(route), ctypes.byref(splits), ctypes.byref(chunk), floats)
+    err = lib.sharded_proj_plan(*sizes, bf16, w2s.data_ptr(), sm_count, *outs)
+    return err, route.value, splits.value, chunk.value
+
+
+def proj_plan(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor, sm_count: int = 0) -> Tuple[str, int, int, int]:
+    """The plan ``proj_launch`` follows for these CUDA tensors on a card of
+    ``sm_count`` SMs (their device's when 0): route (``PROJ_ROUTES``), depth
+    splits, depth chunk and floats of scratch."""
+    lib = load_library()
+    floats = ctypes.c_longlong()
+    with torch.cuda.device(h.device):
+        err, route, splits, chunk = _plan(lib, _check_proj(h, feat, w2s), w2s, sm_count, ctypes.byref(floats))
+    _raise_on(lib, err)
+    return PROJ_ROUTES[route], splits, chunk, floats.value
+
+
 def proj_launch(h: torch.Tensor, feat: torch.Tensor, w2s: torch.Tensor) -> torch.Tensor:
     """Run the projection kernel on CUDA tensors (no autograd); counts one
-    launch."""
-    global proj_launch_count
+    launch, and one tensor-core launch where the plan took that route."""
+    global proj_launch_count, proj_tc_launch_count
     batch, hidden, dense, cols = _check_proj(h, feat, w2s)
     if h.device.type != "cuda":
         raise ValueError(f"sharded_proj: the CUDA kernel needs CUDA tensors, got {h.device}")
     bf16 = int(w2s.dtype == torch.bfloat16)
+    plan = []
+
+    def scratch_floats(lib, floats):
+        plan[:] = _plan(lib, (batch, hidden, dense, cols), w2s, 0, floats)
+        return plan[0]
+
     out = _run(
         h.device,
         (batch, cols),
-        lambda lib, floats: lib.sharded_proj_scratch_floats(batch, hidden, dense, cols, floats),
+        scratch_floats,
         lambda lib, out, scratch, stream: lib.sharded_proj_forward(
             h.data_ptr(), feat.data_ptr(), w2s.data_ptr(), bf16, out, scratch, batch, hidden, dense, cols, stream
         ),
     )
     proj_launch_count += 1
+    if PROJ_ROUTES[plan[1]] != "splitk":
+        proj_tc_launch_count += 1
     return out
 
 

@@ -10,7 +10,9 @@ the card and not the JAX package's dependencies:
 
 Bounds: 1e-5 on the forward and 1e-4 on the gradients, all fp32 with sums
 taken in another order (the JAX package's own bounds for its kernel,
-tests/test_ops/test_pallas_gru.py). The parity of the plain versions with
+tests/test_ops/test_pallas_gru.py). The projection's tensor-core route
+(bf16 weights) keeps the forward's 1e-5: it splits the fp32 activations
+into three bf16 planes, exact to fp32 (tests/test_torch_proj_split.py). The parity of the plain versions with
 the JAX package is held on the CPU by tests/test_torch_fused_gru.py and
 tests/test_torch_sharded_gru.py.
 """
@@ -136,3 +138,85 @@ def test_cuda_projection_gradients_match_plain(cuda, w2_dtype):
         assert a.grad.dtype == a.dtype
         tol = GRAD_TOL if a.dtype == torch.float32 else 8e-3  # dW2 stored in bf16: 2 ulps
         torch.testing.assert_close(a.grad.float(), b.grad.float(), atol=GRAD_TOL, rtol=tol)
+
+
+# --------------------------------------------------------------------------- #
+# sharded_proj's tensor-core route (bf16 weights, C % 8 == 0, 16-byte aligned)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch, hidden, dense, cols",
+    [
+        (1, 2048, 792, 48),  # depth 2840, not a multiple of the 32-deep tile
+        (17, 2048, 792, 776),  # ragged batch and columns
+        (1000, 2048, 792, 776),
+        (16, 2048, 768, 1536),  # L / 4-way
+        (64, 2048, 768, 1536),  # the first batch of the 64-row tile
+        (1024, 2048, 768, 1536),  # L / 4-way, imagination batch
+        (1024, 4096, 1024, 768),  # XL / 16-way, imagination batch
+        (16, 4096, 1024, 12288),  # XL / 1-way, a 126 MB slice
+    ],
+)
+def test_cuda_projection_tensor_cores_match_plain(cuda, batch, hidden, dense, cols):
+    h, feat, w2s = _proj_inputs(cuda, batch, torch.bfloat16, hidden, dense, cols)
+    assert tgru.proj_plan(h, feat, w2s)[0] == ("tc64" if batch >= 64 else "tc16")
+    before = (tgru.proj_launch_count, tgru.proj_tc_launch_count)
+    got = tgru.sharded_proj(h, feat, w2s)
+    torch.cuda.synchronize()
+    assert (tgru.proj_launch_count, tgru.proj_tc_launch_count) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (batch, cols) and torch.isfinite(got).all()
+    assert (got - tgru.proj_reference(h, feat, w2s)).abs().max().item() <= FWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden, dense, cols", [(2048, 768, 1536), (4096, 1024, 768)])
+def test_cuda_projection_tensor_cores_deterministic(cuda, hidden, dense, cols):
+    """No atomics: two calls at the imagination batch give the same bits."""
+    h, feat, w2s = _proj_inputs(cuda, 1024, torch.bfloat16, hidden, dense, cols)
+    assert torch.equal(tgru.proj_launch(h, feat, w2s), tgru.proj_launch(h, feat, w2s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "w2_dtype, cols, offset, route",
+    [
+        (torch.bfloat16, 48, 0, "tc16"),
+        (torch.float32, 48, 0, "splitk"),  # fp32 weights keep the CUDA-core kernel
+        (torch.bfloat16, 50, 0, "splitk"),  # C % 8 != 0: no 16-byte copies of a row
+        (torch.bfloat16, 48, 1, "splitk"),  # W2s 2 bytes off a 16-byte boundary
+    ],
+)
+def test_cuda_projection_route(cuda, w2_dtype, cols, offset, route):
+    h, feat, w2s = _proj_inputs(cuda, 16, w2_dtype, hidden=64, dense=32, cols=cols)
+    if offset:
+        buf = torch.empty(w2s.numel() + offset, dtype=w2_dtype, device=cuda)
+        w2s = buf[offset:].view(w2s.shape).copy_(w2s)
+    assert tgru.proj_plan(h, feat, w2s)[0] == route
+    before = (tgru.proj_launch_count, tgru.proj_tc_launch_count)
+    got = tgru.proj_launch(h, feat, w2s)
+    torch.cuda.synchronize()
+    assert (tgru.proj_launch_count, tgru.proj_tc_launch_count) == (before[0] + 1, before[1] + (route != "splitk"))
+    assert (got - tgru.proj_reference(h, feat, w2s)).abs().max().item() <= FWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch, hidden, dense, cols, w2_dtype, want",
+    [
+        (4, 512, 512, 1536, torch.float32, ("splitk", 16, 64)),  # S joint projection, as test_split_plan
+        (16, 2048, 768, 1536, torch.bfloat16, ("tc16", 22, 128)),  # chunks no shorter than the ring
+        (16, 4096, 1024, 12288, torch.bfloat16, ("tc16", 5, 1024)),  # 96 x 5 blocks, 4 an SM
+        (1024, 2048, 768, 1536, torch.bfloat16, ("tc64", 1, 2816)),  # 192 blocks: no split
+        (1024, 4096, 1024, 768, torch.bfloat16, ("tc64", 2, 2560)),  # 96 x 2 blocks, 2 an SM
+    ],
+)
+def test_cuda_projection_plan(cuda, batch, hidden, dense, cols, w2_dtype, want):
+    """The route and depth split csrc/fused_gru.cu plans for a 132-SM card."""
+    h = torch.empty(batch, hidden, device=cuda)
+    feat = torch.empty(batch, dense, device=cuda)
+    w2s = torch.empty(hidden + dense, cols, dtype=w2_dtype, device=cuda)
+    route, splits, chunk, floats = tgru.proj_plan(h, feat, w2s, sm_count=132)
+    assert (route, splits, chunk) == want
+    assert floats == (splits * batch * cols if splits > 1 else 0)
