@@ -10,16 +10,19 @@ which exits non-zero:
 1. Card and build: the card's name and power limit, then every kernel built
    from ``sheeprl_tpu_torch/csrc`` (build seconds and ptxas's report).
 2. Kernel against plain: ``fused_recurrent_step`` against ``reference_step``
-   at the Dreamer-V3 S shapes (B = 1, 4, 16) and at M width, forward and
-   gradients, then the device time of the kernel and of the plain version
-   (CUDA-event time of a replayed CUDA graph) and, apart, their time per call
-   issued from Python.
+   at the Dreamer-V3 S shapes (B = 1, 4, 16 and the imagination batch 1024)
+   and at M width, forward and gradients, then the device time of the kernel
+   and of the plain version (CUDA-event time of a replayed CUDA graph, L2
+   warm), the kernel's L2-cold time (a buffer of twice the L2 written before
+   each call, its own time subtracted), each of its launches' device time
+   per call (torch.profiler over the graph's replays), its launch plan and,
+   apart, the time per call issued from Python.
 3. The slice: the Dreamer-V3 S player (seeded init, 4 PixelCatcher envs)
    and one capped ``evaluate()`` episode, with the kernel launch count held
    to one per step; a torch.profiler window over 8 player steps (device busy
-   time, idle share, top kernels); then the same observations replayed
-   through the fused and the plain (``fused="flax"``) players in
-   mode/greedy, h compared.
+   time, idle share, the fused step's share of it, top kernels); then the
+   same observations replayed through the fused and the plain
+   (``fused="flax"``) players in mode/greedy, h compared.
 4. The model-sharded step (``sharded_recurrent_step``): (a) its projection
    kernel ``sharded_proj`` against its plain version at one rank's shapes
    (S mp=1 fp32 B=4; L/4-way bf16 at B=16, 64, 256 and 1024; XL/16-way bf16
@@ -73,6 +76,10 @@ BF16_TC_FLOP_PER_S = 989e12
 # bf16 passes the tensor-core route makes over each product: the fp32
 # activations split into three bf16 planes
 TC_PLANES = 3
+
+# the device work of one fused_gru step, by profiler name: the two launches
+# of gru_step
+FUSED_GRU_KERNELS = ("gru_step",)
 
 PLAYER_STEPS = 32
 EVAL_CAP = 64
@@ -142,10 +149,9 @@ def host_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, calls: int = 20, replays: int = 50) -> float:
-    """Device time of one ``fn()`` call: ``calls`` calls captured in one CUDA
-    graph, the graph replayed ``replays`` times between CUDA events, so the
-    host is out of the loop. The inputs stay in the 50 MB L2 between calls."""
+def capture(torch, fn, calls: int):
+    """``calls`` calls of ``fn()`` captured in one CUDA graph, after three
+    warm-up calls on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -157,6 +163,12 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 50) -> float:
         for _ in range(calls):
             fn()
     graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(torch, graph, replays: int) -> float:
+    """CUDA-event time of one replay of ``graph``, over ``replays`` replays."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -165,9 +177,64 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 50) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * calls)
+    return start.elapsed_time(end) / replays
+
+
+def device_ms(torch, fn, calls: int = 20, replays: int = 50) -> float:
+    """Device time of one ``fn()`` call: ``calls`` calls captured in one CUDA
+    graph, the graph replayed ``replays`` times between CUDA events, so the
+    host is out of the loop. The inputs stay in the 50 MB L2 between calls."""
+    graph = capture(torch, fn, calls)
+    ms = replay_ms(torch, graph, replays) / calls
     del graph
     return ms
+
+
+def cold_device_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn()`` call that finds its inputs out of L2:
+    before each captured call a buffer of twice the card's L2 is written; a
+    graph of those writes alone is timed and subtracted."""
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    flush = torch.empty(2 * l2 // 4, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.zero_()
+        fn()
+
+    both = capture(torch, cold, calls)
+    alone = capture(torch, flush.zero_, calls)
+    ms = (replay_ms(torch, both, replays) - replay_ms(torch, alone, replays)) / calls
+    del both, alone, flush
+    return ms
+
+
+def launch_breakdown_us(torch, fn, calls: int = 20, replays: int = 10):
+    """Device time of each launch of one ``fn()`` call, from torch.profiler
+    over replays of a captured graph: [[position: kernel name, us per call],
+    ...] in launch order, or None where the profiler saw no device work."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = capture(torch, fn, calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    events = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start
+    )
+    per_call = len(events) // (replays * calls)
+    if not events or per_call * replays * calls != len(events):
+        return None
+    rows = []
+    for i in range(per_call):
+        name = re.sub(r"\(.*", "", events[i].name.replace("(anonymous namespace)::", "").replace("void ", ""))
+        us = sum(e.time_range.elapsed_us() for e in events[i::per_call]) / (replays * calls)
+        rows.append([f"{i}: {name}", us])
+    return rows
 
 
 def phase_kernel(torch, fg, shapes):
@@ -203,6 +270,8 @@ def phase_kernel(torch, fg, shapes):
         with torch.no_grad():
             ms = device_ms(torch, lambda: fg.launch(*args))
             plain_ms = device_ms(torch, lambda: fg.reference_step(*args))
+            cold_ms = cold_device_ms(torch, lambda: fg.launch(*args))
+            launches = launch_breakdown_us(torch, lambda: fg.launch(*args))
             call_ms = host_ms(torch, lambda: fg.launch(*args))
             plain_call_ms = host_ms(torch, lambda: fg.reference_step(*args))
         bound_ms, bound_by = gru_bound_ms(batch, in_dim, dense, hidden)
@@ -215,16 +284,20 @@ def phase_kernel(torch, fg, shapes):
             "max_abs_err": err,
             "grad_max_abs_err": gerr,
             "ms": ms,
+            "l2_cold_ms": cold_ms,
+            "launches_us": launches,
             "plain_ms": plain_ms,
             "host_call_ms": call_ms,
             "plain_host_call_ms": plain_call_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "plan": fg.step_plan(batch, in_dim, dense, hidden),
         }
         rows.append(row)
         print("fused_gru " + json.dumps(row), flush=True)
         print(
-            f"fused_gru {name}: device time (CUDA graph) kernel {1e3 * ms:.1f} us, plain {1e3 * plain_ms:.1f} us,"
+            f"fused_gru {name}: device time (CUDA graph) kernel {1e3 * ms:.1f} us (L2 cold {1e3 * cold_ms:.1f} us),"
+            f" plain {1e3 * plain_ms:.1f} us,"
             f" bound {1e3 * bound_ms:.2f} us ({'memory' if bound_by == 'bytes' else 'fp32 arithmetic'} bounds it);"
             f" per call from the host kernel {1e3 * call_ms:.1f} us, plain {1e3 * plain_call_ms:.1f} us;"
             " no library time: no single PyTorch call computes this step",
@@ -520,7 +593,7 @@ def profile_player(torch, np, player, cfg, envs, steps, generator):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items() if any(n in k for n in ("splitk_matmul", "bias_ln_silu", "ln_gru")))
+    ours = sum(v for k, v in by_name.items() if any(n in k for n in FUSED_GRU_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "steps": steps,
@@ -637,6 +710,7 @@ def main() -> int:
         "S_B4": (4, 1027, 512, 512),
         "S_B16": (16, 1027, 512, 512),
         "M_B4": (4, 1027, 640, 1024),
+        "S_B1024": (1024, 1027, 512, 512),
     }
     max_err, rows = phase_kernel(torch, fg, shapes)
 

@@ -11,30 +11,59 @@
 //
 // Shapes: x[B,X] h[B,H] W1[X,D] b1,g1,be1[D] W2[H+D,3H] g2,be2[3H] -> h'[B,H].
 //
-// What bounds it on an H100: memory. At Dreamer-V3 S (X=1027, D=512, H=512)
-// with B=4 the step must read W1 (2.10 MB) and W2 (6.29 MB) once, about
-// 8.45 MB in all, which takes at least 2.5 us at 3.35 TB/s; its ~17 MFLOP
-// take about 0.25 us at the 67 TFLOP/s fp32 rate. The weights are far larger
-// than one block's 227 KB of shared memory, so unlike the TPU kernel (weights
-// resident in VMEM, one grid step per batch tile) this design streams each
-// weight matrix through many blocks and keeps every weight byte read once:
+// What bounds it on an H100: memory at the acting batch. At Dreamer-V3 S
+// (X=1027, D=512, H=512) with B=4 the step must read W1 (2.10 MB) and W2
+// (6.29 MB) once, about 8.45 MB in all, which takes at least 2.5 us at
+// 3.35 TB/s; its ~17 MFLOP take about 0.25 us at the 67 TFLOP/s fp32 rate
+// (at B=1024 the 4.3 GFLOP take 64 us and bound it instead). The weights are
+// far larger than one block's 227 KB of shared memory, so unlike the TPU
+// kernel (weights resident in VMEM, one grid step per batch tile) this
+// design streams each weight matrix through many blocks and reads every
+// weight byte once. Two launches of gru_step:
 //
-//   1. splitk_matmul: partial1[s, b, :] = x[b, Ks] @ W1[Ks, :]. Each block
-//      owns 128 output columns (one per thread) and 16 batch rows, for one
-//      chunk Ks of the depth. The depth is split so that enough blocks are in
-//      flight to draw on the card's bandwidth (split_plan, below).
-//   2. bias_ln_silu: one block per row sums the split partials in a fixed
-//      order, adds b1, takes a two-pass LayerNorm and SiLU -> feat[B, D].
-//   3. splitk_matmul again, with W2 read as its two row blocks: the depth
-//      index runs over h for k < H and over feat for k >= H.
-//   4. ln_gru: one block per row sums the partials, takes the two-pass
-//      LayerNorm over all 3H columns and applies the gates -> h'[B, H].
+//   A. x @ W1 + b1 and h @ W2[:H], the two products that need nothing from
+//      this step, in one grid (5.25 MB of weights at S), each reduced with
+//      the LayerNorm statistics of its column tiles.
+//   B. a programmatic dependent launch: its blocks start while launch A
+//      runs and load their first weights, then wait for launch A
+//      (griddepcontrol.wait). feat @ W2[H:] (3.15 MB), with
+//      feat = SiLU(LN1(x @ W1 + b1)) computed as each block stages it, added
+//      to h @ W2[:H]; then LN2 over all 3H columns and the gates -> h'[B, H].
 //
-// The LayerNorm over 3H spans every column block of launch 3, so the
-// cross-block reduction is a second pass (launch 4), never atomics: the
-// result is deterministic. No launch has a size limit of its own; any X, D,
-// H and B are taken. Making the step fast (wgmma, TMA, one persistent launch)
-// is later work; this is the simple design that is right first.
+// A block takes one work item (product, row tile of R = 4, 8 or 16 batch
+// rows, 128-column tile, depth chunk). Each thread owns 4 adjacent columns
+// and reads them with one 16-byte load a depth row (masked scalar loads
+// where the columns are not a multiple of 4 or the rows not 16-byte
+// aligned); the 8 warps take interleaved depth rows of each step, a step
+// being 32 / R loads a thread deep, and the next step's loads are in flight
+// while a step is computed. The warps' sums are added in shared memory in
+// warp order. The depth chunks of a tile are the blocks of one thread-block
+// cluster (make_step_plan: up to 8, as many as let all of a launch's blocks
+// fit the card at once, 2 an SM): after the cluster barrier's arrive and
+// wait, rank q sums rows q, q + C, ... of the tile over the ranks' shared
+// memory (distributed shared memory) in rank order, adds b1 or launch A's
+// h @ W2[:H], stores the reduced tile and, per row, the tile's two-pass
+// statistics (the sum, then the second moment about the tile's own mean,
+// each over one warp). No split partial goes through global memory.
+//
+// LayerNorm statistics of a row combine its tiles' pairs in tile order:
+// the mean, then sum_t [M2_t + n_t (mean_t - mean)^2], which is the row's
+// centred second moment. LN1's are taken by every block of launch B for
+// its rows, so launch A has no row work. LN2's need every column tile of
+// launch B: each block bumps its row tile's counter with an acquire-release
+// atomic once its stores are done, and the last to arrive does the row work
+// (LN2 and the gates, every thread of the block on its own columns of all
+// the tile's rows). Launch A zeroes the counters, so a step is two graph
+// nodes. No sum depends on arrival order (ranks and tiles are summed in
+// their own order, counters decide only who works), so two calls give the
+// same bits. No launch has a size limit of its own; any X, D, H and B are
+// taken.
+//
+// What holds it above its bound at the acting batch (chip_smoke.py phase 2
+// and PERF.md): not the bytes but the chain of dependent steps in each
+// launch, each a round trip of L2 latency or a barrier: the weight steps of
+// the deepest chunk (x @ W1: 1027 rows over 8 ranks), the cluster barrier,
+// the LN1 statistics and the counter, and LN2 with the gates on one block.
 //
 // The second entry, sharded_proj_forward, replaces
 // sheeprl_tpu/ops/pallas_gru.py::_proj_kernel, the Pallas TPU body that
@@ -55,8 +84,8 @@
 // At B=1024 (16 sequences x 64 imagination steps) L/4 does 8.9 GFLOP, which
 // take >= 132 us at the 67 TFLOP/s fp32 rate outside the tensor cores.
 //
-// With fp32 weights it is launch 3 above templated on the weight type
-// (splitk_matmul, planned by the same split_plan), then, when the depth is
+// With fp32 weights it is splitk_matmul (below), a split-depth product
+// templated on the weight type and planned by split_plan, then, when the depth is
 // split, a pass that sums the split partials in a fixed order into out
 // (sum_splits): no atomics, deterministic like the step.
 //
@@ -86,6 +115,7 @@
 // passes on the tensor cores, 26.6 GFLOP at L/4, >= 26.9 us at 989 TFLOP/s.
 // wgmma from shared-memory descriptors and TMA-fed tiles are the next step.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -95,10 +125,12 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kCols = 128;  // output columns per block: one per thread
 constexpr int kRows = 16;   // batch rows per block: accumulators per thread
 constexpr int kKTile = 32;  // depth of the activation tile staged in smem
-constexpr int kRowThreads = 256;  // threads of the per-row LayerNorm blocks
+constexpr int kRowThreads = 256;  // threads of a sum_splits block
 
 // A weight read through the read-only cache and upcast to fp32.
 __device__ __forceinline__ float load_weight(const float* p) { return __ldg(p); }
@@ -167,97 +199,477 @@ __global__ void splitk_matmul(const float* __restrict__ a1, int k1,
   }
 }
 
-// Sum of v over the block, the same value returned to every thread, in a
-// fixed order. red holds 33 floats of shared memory.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
+// ---- the fused step (B1): two launches of gru_step ----
+
+constexpr int kStepThreads = 256;                     // 8 warps a block
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepCols = 128;                        // output columns a block: 4 a lane
+constexpr int kStepDepth = 32;                        // depth chunks are whole multiples of this
+constexpr int kStepStaged = 256;                      // activations a block stages per step
+constexpr int kStepBlocksPerSm = 2;                   // as registers allow (launch bounds)
+constexpr int kMaxCluster = 8;   // depth splits of a tile, the blocks of one cluster (portable)
+constexpr int kGateCols = 2;     // columns a thread takes at once in the gates
+constexpr int kGateRows = 4;     // rows a thread takes at once in the gates
+static_assert(kStepBlocksPerSm * sizeof(float) * (kStepWarps * 16 * kStepCols + kStepStaged) <= 227 * 1024,
+              "two blocks of the widest row tile fit an SM's shared memory");
+
+// One product a[rows, depth] @ w[depth, n] of a launch: its tiles, depth
+// chunk and where its sums go. Scratch rows (out) have ld = n rounded up to
+// 4 floats, so every scratch row is 16-byte aligned.
+struct StepProduct {
+  const float* a;
+  int lda;
+  const float* w;
+  int n, depth;
+  int vec;                         // w rows 16-byte aligned: float4 loads, else masked scalars
+  int col_tiles, chunk, blocks;    // blocks = row tiles x col_tiles x the launch's cluster
+  float* out;                      // the reduced sums [rows, ld]
+  int ld;
+  const float* bias;               // added to the reduced sums (b1), or null
+  float2* stats;                   // [rows, col_tiles]: each tile's (sum, centred M2) of a row, or null
+};
+
+// A LayerNorm: the (sum, centred M2) pairs of a row's column tiles, its
+// width, gain, bias and eps.
+struct StepNorm {
+  const float2* stats;
+  int col_tiles, n;
+  const float* g;
+  const float* be;
+  float eps;
+};
+
+// One launch. Stage 0 (launch A): prod[0] = x @ W1 + b1 and prod[1] =
+// h @ W2[:H], each reduced with its tiles' statistics; it also zeroes launch
+// B's row counters. Stage 1 (launch B): prod[0] = feat @ W2[H:] added to
+// launch A's h @ W2[:H], with feat = SiLU(LN1(x @ W1 + b1)) taken as the
+// activations are staged (norm1); then, by the last block to finish a row
+// tile, LN2 over all 3H columns (norm2) and the gates -> h_out.
+struct StepLaunch {
+  StepProduct prod[2];
+  int rows, cluster;
+  unsigned* row_count;             // [row tiles]: blocks of launch B finished
+  int row_tiles;
+  StepNorm norm1, norm2;
+  const float* h;
+  float* h_out;
+  int hidden;
+};
+
+// Four adjacent weights of row w_row from column col: one 16-byte load when
+// the rows are aligned, else four masked scalar loads; zero past n.
+__device__ __forceinline__ float4 load_w4(const float* w_row, int n, int col, int vec) {
+  if (vec) {
+    return col < n ? __ldg(reinterpret_cast<const float4*>(w_row + col)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4 v;
+  v.x = col < n ? __ldg(w_row + col) : 0.f;
+  v.y = col + 1 < n ? __ldg(w_row + col + 1) : 0.f;
+  v.z = col + 2 < n ? __ldg(w_row + col + 2) : 0.f;
+  v.w = col + 3 < n ? __ldg(w_row + col + 3) : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// The two halves of a cluster barrier, by every thread of every block of
+// the cluster: the arrive (releasing this block's shared-memory stores to
+// the cluster, or relaxed), and the wait (acquiring the other blocks').
+__device__ __forceinline__ void cluster_arrive(bool release) {
+  if (release) {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  } else {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  }
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Sum over the warp, the same value in every lane, in a fixed order.
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = (lane < nwarps) ? red[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  const float total = red[32];
-  __syncthreads();  // red may be reused by the next call
-  return total;
+  return v;
 }
 
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
+// Thread 0 bumps *count; every thread learns whether that was the last of
+// `total`. The bump is an acquire-release atomic at device scope: the
+// barrier before it orders every thread's earlier stores before it, and
+// release is cumulative, so the last block sees every block's stores (the
+// pattern of cooperative groups' grid sync); the barrier after it orders
+// the last block's reads after its acquire.
+__device__ __forceinline__ bool last_to_arrive(unsigned* count, int total, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(prev) : "l"(count) : "memory");
+    *flag = prev == (unsigned)(total - 1);
+  }
+  __syncthreads();
+  return *flag;
+}
 
-// Sums the split partials of one row into split 0 (in place), in split order,
-// adding bias when it is given. Returns this thread's share of the row sum.
-__device__ float reduce_splits(float* row_ptr, size_t split_stride, int splits,
-                               int n, const float* __restrict__ bias) {
+// The LayerNorm statistics of rows row0 .. row0 + rows - 1 into mean_s and
+// rstd_s, one warp a row, from their column tiles' (sum, centred M2) pairs
+// combined in tile order: the mean, then the row's centred second moment as
+// sum_t [M2_t + n_t (mean_t - mean)^2], which equals sum_j (v_j - mean)^2.
+// The pairs were written by other blocks: read through L2 (__ldcg), never
+// from a stale L1 line. The caller synchronises the block before use.
+__device__ void row_stats(const StepNorm& N, int row0, int rows, float* mean_s, float* rstd_s) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += kStepWarps) {
+    const float2* st = N.stats + (size_t)(row0 + r) * N.col_tiles;
+    const float2 first = lane < N.col_tiles ? __ldcg(st + lane) : make_float2(0.f, 0.f);
+    float s = first.x;
+    for (int t = lane + 32; t < N.col_tiles; t += 32) s += __ldcg(st + t).x;
+    const float mu = warp_sum(s) / N.n;
+    auto centred = [&](float2 p, int t) {
+      const int nt = min(kStepCols, N.n - t * kStepCols);
+      const float d = p.x / nt - mu;
+      return p.y + nt * d * d;
+    };
+    float q = lane < N.col_tiles ? centred(first, lane) : 0.f;
+    for (int t = lane + 32; t < N.col_tiles; t += 32) q += centred(__ldcg(st + t), t);
+    q = warp_sum(q);
+    if (lane == 0) {
+      mean_s[r] = mu;
+      rstd_s[r] = rsqrtf(q / N.n + N.eps);
+    }
+  }
+}
+
+// What the reduced sums of the 4-column group col of a row add to
+// themselves: b1 in launch A (prod[0]), launch A's h @ W2[:H] in launch B.
+// Loaded before the sums are, as it does not depend on them.
+template <int kStage>
+__device__ __forceinline__ float4 group_addend(const StepProduct& P, int row, int col, bool in) {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!in) return a;
+  if (kStage == 1) return __ldcg(reinterpret_cast<const float4*>(P.out + (size_t)row * P.ld + col));
+  if (P.bias != nullptr) {
+    a.x = __ldg(P.bias + col);
+    a.y = col + 1 < P.n ? __ldg(P.bias + col + 1) : 0.f;
+    a.z = col + 2 < P.n ? __ldg(P.bias + col + 2) : 0.f;
+    a.w = col + 3 < P.n ? __ldg(P.bias + col + 3) : 0.f;
+  }
+  return a;
+}
+
+// The reduced sums v of the 4-column group col of one row of a tile (the
+// addend added), called by every lane of the warp that owns the row: stores
+// the group and, where the product feeds a LayerNorm, the tile's (sum,
+// centred second moment) of the row, each a two-pass sum over the warp.
+__device__ void finish_group(const StepLaunch& L, const StepProduct& P, int ct, int row, int col, float4 v) {
+  if (row >= L.rows) return;  // warp-uniform
+  if (col < P.ld) *reinterpret_cast<float4*>(P.out + (size_t)row * P.ld + col) = v;
+  if (P.stats == nullptr) return;
+  const int nt = min(kStepCols, P.n - ct * kStepCols);
+  const float e[4] = {v.x, v.y, v.z, v.w};
   float s = 0.f;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float v = row_ptr[j];
-    for (int sp = 1; sp < splits; ++sp) v += row_ptr[sp * split_stride + j];
-    if (bias != nullptr) v += bias[j];
-    row_ptr[j] = v;
-    s += v;
-  }
-  return s;
-}
-
-// Two-pass LayerNorm statistics of row_ptr[0:n] (already reduced).
-__device__ void row_stats(const float* row_ptr, int n, float eps, float s,
-                          float* red, float* mean, float* rstd) {
-  const float mu = block_sum(s, red) / n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s += col + i < P.n ? e[i] : 0.f;
+  s = warp_sum(s);
+  const float m = s / nt;
   float q = 0.f;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float dv = row_ptr[j] - mu;
-    q += dv * dv;
-  }
-  *mean = mu;
-  *rstd = rsqrtf(block_sum(q, red) / n + eps);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q += col + i < P.n ? (e[i] - m) * (e[i] - m) : 0.f;
+  q = warp_sum(q);
+  if ((threadIdx.x & 31) == 0) P.stats[(size_t)row * P.col_tiles + ct] = make_float2(s, q);
 }
 
-__global__ void bias_ln_silu(float* partial, int splits, int rows, int d,
-                             const float* __restrict__ b1, const float* __restrict__ g1,
-                             const float* __restrict__ be1, float eps,
-                             float* __restrict__ feat) {
-  __shared__ float red[33];
-  const int row = blockIdx.x;
-  float* pre = partial + (size_t)row * d;
-  const float s = reduce_splits(pre, (size_t)rows * d, splits, d, b1);
-  float mean, rstd;
-  row_stats(pre, d, eps, s, red, &mean, &rstd);
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float v = (pre[j] - mean) * rstd * g1[j] + be1[j];
-    feat[(size_t)row * d + j] = v * sigmoid_f(v);
+// The step's activations from the fast exponential and reciprocal (a few
+// ulps; the step is held to 1e-5): sigmoid, and tanh as 1 - 2 / (e^2v + 1),
+// exact to an absolute 1e-6 and saturating to +-1.
+__device__ __forceinline__ float sigmoid_f(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float tanh_f(float v) { return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f); }
+
+// The row work of launch B for a row tile, by the whole block: LN2 over
+// r | c | u and the gates -> h'. Thread t takes columns j = t, t + 256, ...
+// of every row, kGateCols columns and kGateRows rows at a time, so g2, be2
+// are loaded once a column for all rows; the first batch's loads are issued
+// before the statistics are combined.
+template <int R>
+__device__ void ln2_gates(const StepLaunch& L, const StepProduct& P, int row0, float* __restrict__ mean_s,
+                          float* __restrict__ rstd_s) {
+  const int rows = min(R, L.rows - row0);
+  const int H = L.hidden;
+  const StepNorm& N = L.norm2;
+  float g[kGateCols][3], b[kGateCols][3];
+  float p[kGateRows][kGateCols][3], hv[kGateRows][kGateCols];
+  auto load_cols = [&](int j0) {
+#pragma unroll
+    for (int c = 0; c < kGateCols; ++c) {
+      const int j = min(j0 + kStepThreads * c, H - 1);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        g[c][k] = __ldg(N.g + k * H + j);
+        b[c][k] = __ldg(N.be + k * H + j);
+      }
+    }
+  };
+  auto load_rows = [&](int j0, int r0) {
+#pragma unroll
+    for (int r = 0; r < kGateRows; ++r) {
+      const int row = row0 + min(r0 + r, rows - 1);
+      const float* v = P.out + (size_t)row * P.ld;
+#pragma unroll
+      for (int c = 0; c < kGateCols; ++c) {
+        const int j = min(j0 + kStepThreads * c, H - 1);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) p[r][c][k] = __ldcg(v + k * H + j);
+        hv[r][c] = __ldg(L.h + (size_t)row * H + j);
+      }
+    }
+  };
+  // the batch's statistics are read, and its results computed, before any
+  // is stored: no store to h' can then hold up a load
+  auto apply = [&](int j0, int r0) {
+    float mean[kGateRows], rstd[kGateRows], y[kGateRows][kGateCols];
+#pragma unroll
+    for (int r = 0; r < kGateRows; ++r) {
+      mean[r] = mean_s[min(r0 + r, rows - 1)];
+      rstd[r] = rstd_s[min(r0 + r, rows - 1)];
+    }
+#pragma unroll
+    for (int r = 0; r < kGateRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < kGateCols; ++c) {
+        const float reset = (p[r][c][0] - mean[r]) * rstd[r] * g[c][0] + b[c][0];
+        const float cand = (p[r][c][1] - mean[r]) * rstd[r] * g[c][1] + b[c][1];
+        const float upd = sigmoid_f((p[r][c][2] - mean[r]) * rstd[r] * g[c][2] + b[c][2] - 1.f);
+        const float cv = tanh_f(sigmoid_f(reset) * cand);
+        y[r][c] = upd * cv + (1.f - upd) * hv[r][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kGateRows; ++r) {
+      if (r0 + r >= rows) break;
+      float* out = L.h_out + (size_t)(row0 + r0 + r) * H;
+#pragma unroll
+      for (int c = 0; c < kGateCols; ++c) {
+        if (j0 + kStepThreads * c < H) out[j0 + kStepThreads * c] = y[r][c];
+      }
+    }
+  };
+  const int j_first = threadIdx.x;
+  load_cols(j_first);
+  load_rows(j_first, 0);
+  row_stats(N, row0, rows, mean_s, rstd_s);
+  __syncthreads();
+  for (int j0 = j_first; j0 < H; j0 += kStepThreads * kGateCols) {
+    if (j0 != j_first) load_cols(j0);
+    for (int r0 = 0; r0 < rows; r0 += kGateRows) {
+      if (j0 != j_first || r0 != 0) load_rows(j0, r0);
+      apply(j0, r0);
+    }
   }
 }
 
-__global__ void ln_gru(float* partial, int splits, int rows, int hidden,
-                       const float* __restrict__ g2, const float* __restrict__ be2,
-                       float eps, const float* __restrict__ h,
-                       float* __restrict__ out) {
-  __shared__ float red[33];
-  const int row = blockIdx.x;
-  const int n = 3 * hidden;
-  float* proj = partial + (size_t)row * n;
-  const float s = reduce_splits(proj, (size_t)rows * n, splits, n, nullptr);
-  float mean, rstd;
-  // row_stats synchronises the block, so every thread's reduced columns are
-  // visible below although each thread reads columns other threads wrote
-  row_stats(proj, n, eps, s, red, &mean, &rstd);
-  for (int j = threadIdx.x; j < hidden; j += blockDim.x) {
-    const int jc = hidden + j;
-    const int ju = 2 * hidden + j;
-    const float reset = (proj[j] - mean) * rstd * g2[j] + be2[j];
-    const float cand = (proj[jc] - mean) * rstd * g2[jc] + be2[jc];
-    const float upd = sigmoid_f((proj[ju] - mean) * rstd * g2[ju] + be2[ju] - 1.f);
-    const float c = tanhf(sigmoid_f(reset) * cand);
-    const float hv = h[(size_t)row * hidden + j];
-    out[(size_t)row * hidden + j] = upd * c + (1.f - upd) * hv;
+// One work item (product, row tile, column tile, depth chunk) a block; the
+// depth chunks of a tile are the blocks of one cluster. R is the row tile
+// (4, 8 or 16 batch rows). Dynamic shared memory: the warps' sums
+// red[warp][R][128] (the block's partial tile ends in red[0]), then the
+// staged activations a_s[kDepth][R].
+template <int R, int kStage>
+__global__ void __launch_bounds__(kStepThreads, kStepBlocksPerSm)
+    gru_step(const __grid_constant__ StepLaunch L) {
+  extern __shared__ __align__(16) float step_smem[];
+  float* red = step_smem;
+  float* a_s = step_smem + kStepWarps * R * kStepCols;
+  __shared__ int flag;
+  __shared__ float row_mean[R], row_rstd[R];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  // launch B may start as soon as every block of launch A has (programmatic
+  // dependent launch): its blocks load their first weights while launch A
+  // runs, and wait for launch A's results before they stage feat
+  if (kStage == 0) {
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    if (blockIdx.x == 0) {
+      for (int i = threadIdx.x; i < L.row_tiles; i += kStepThreads) L.row_count[i] = 0;
+    }
   }
+  int item = blockIdx.x;
+  const int pi = item < L.prod[0].blocks ? 0 : 1;
+  const StepProduct& P = L.prod[pi];
+  if (pi == 1) item -= L.prod[0].blocks;
+  const int C = L.cluster;
+  const int split = item % C;  // the block's rank in its cluster
+  const int tile = item / C;
+  const int ct = tile % P.col_tiles;
+  const int rt = tile / P.col_tiles;
+  const int row0 = rt * R;
+  const int col0 = ct * kStepCols;
+  const int k_begin = split * P.chunk;
+  const int k_end = min(k_begin + P.chunk, P.depth);  // empty for a trailing rank of a short product
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col = col0 + 4 * lane;
+
+  // Each lane owns 4 adjacent columns; warp w takes depth rows w, w + 8,
+  // w + 16, ... of each step (8 warps read 8 adjacent weight rows at a time,
+  // 512 bytes a warp). A step is kLoads = 32 / R 16-byte loads a thread
+  // deep (64 depth rows at R = 4, 16 at R = 16), and the next step's loads
+  // are in flight while a step is computed, so weights and accumulators take
+  // the same registers at every R. Thread t stages activation t of the
+  // step's R x kDepth.
+  constexpr int kLoads = 32 / R;
+  constexpr int kDepth = kStepWarps * kLoads;
+  constexpr int kStaged = R * kDepth / kStepThreads;
+  static_assert(R * kDepth == kStepStaged, "a step stages kStepStaged activations");
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+
+  // a step's weights and activations, loaded into registers
+  auto load_weights = [&](int kt, float4(&w)[kLoads]) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int k = kt + u * kStepWarps + warp;
+      w[u] = k < k_end ? load_w4(P.w + (size_t)k * P.n, P.n, col, P.vec) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto load_acts = [&](int kt, float(&av)[kStaged], float(&gv)[kStaged], float(&bv)[kStaged],
+                       bool(&inv)[kStaged]) {
+#pragma unroll
+    for (int i = 0; i < kStaged; ++i) {
+      const int e = threadIdx.x + kStepThreads * i;
+      const int row = row0 + e / kDepth;
+      const int k = kt + e % kDepth;
+      const bool in = row < L.rows && k < k_end;
+      inv[i] = in;
+      // launch B reads x @ W1 + b1 as launch A left it (L2, not L1)
+      av[i] = in ? (kStage == 0 ? __ldg(P.a + (size_t)row * P.lda + k) : __ldcg(P.a + (size_t)row * P.lda + k)) : 0.f;
+      gv[i] = kStage == 1 && in ? __ldg(L.norm1.g + k) : 0.f;
+      bv[i] = kStage == 1 && in ? __ldg(L.norm1.be + k) : 0.f;
+    }
+  };
+  // the registers of a step; the next step's loads are in flight while a
+  // step is computed
+  struct StepRegs {
+    float4 w[kLoads];
+    float a[kStaged], g[kStaged], b[kStaged];
+    bool in[kStaged];
+  };
+  auto load_step = [&](int kt, StepRegs& r) {
+    load_weights(kt, r.w);
+    load_acts(kt, r.a, r.g, r.b, r.in);
+  };
+  StepRegs cur, next;
+
+  // the first step's weights are in flight before anything else
+  if (k_begin < k_end) load_weights(k_begin, cur.w);
+  // launch A complete and its stores visible (a no-op without a
+  // programmatic launch)
+  if (kStage == 1) asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (k_begin < k_end) {
+    load_acts(k_begin, cur.a, cur.g, cur.b, cur.in);
+    if (kStage == 1) {
+      row_stats(L.norm1, row0, min(R, L.rows - row0), row_mean, row_rstd);
+      __syncthreads();
+    }
+  }
+  for (int kt = k_begin; kt < k_end; kt += kDepth) {
+    const bool more = kt + kDepth < k_end;
+    if (more) load_step(kt + kDepth, next);
+#pragma unroll
+    for (int i = 0; i < kStaged; ++i) {
+      const int e = threadIdx.x + kStepThreads * i;
+      const int r = e / kDepth;
+      float a = cur.a[i];
+      if (kStage == 1 && cur.in[i]) {  // feat = SiLU(LN1(x @ W1 + b1))
+        const float y = (a - row_mean[r]) * row_rstd[r] * cur.g[i] + cur.b[i];
+        a = y * sigmoid_f(y);
+      }
+      a_s[(e % kDepth) * R + r] = a;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const float4 wu = cur.w[u];
+      const float4* ap = reinterpret_cast<const float4*>(a_s + (u * kStepWarps + warp) * R);
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        const float4 a4v = ap[q];
+        const float a4[4] = {a4v.x, a4v.y, a4v.z, a4v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* c = acc[4 * q + e];
+          c[0] = fmaf(a4[e], wu.x, c[0]);
+          c[1] = fmaf(a4[e], wu.y, c[1]);
+          c[2] = fmaf(a4[e], wu.z, c[2]);
+          c[3] = fmaf(a4[e], wu.w, c[3]);
+        }
+      }
+    }
+    __syncthreads();
+    if (!more) break;
+    cur = next;
+  }
+
+  // the warps' sums, added in warp order into red[0]: warp w owns rows w,
+  // w + 8, a lane the 4-column group col of its row
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    *reinterpret_cast<float4*>(red + (warp * R + r) * kStepCols + 4 * lane) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  for (int r = warp; r < R; r += kStepWarps) {
+    float4* p = reinterpret_cast<float4*>(red + r * kStepCols + 4 * lane);
+    float4 v = *p;
+#pragma unroll
+    for (int w = 1; w < kStepWarps; ++w) {
+      v = add4(v, *reinterpret_cast<const float4*>(red + (w * R + r) * kStepCols + 4 * lane));
+    }
+    *p = v;
+  }
+
+  // the tile's depth chunks, summed across the cluster through distributed
+  // shared memory in rank order (never in arrival order: two calls give the
+  // same bits); rank q reduces rows q, q + C, ... of the tile, one warp a
+  // row, at most two a warp. Each cluster barrier is split into its arrive
+  // and its wait, with work that does not need it in between: the addends'
+  // loads, then the stores of the reduced tile.
+  constexpr int kRowsPerWarp = 2;
+  static_assert(R <= kRowsPerWarp * kStepWarps, "a warp reduces at most two rows of a tile");
+  cluster_arrive(true);  // this block's partial tile is in red[0]
+  float4 sums[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = split + C * (warp + kStepWarps * i);
+    sums[i] = group_addend<kStage>(P, row0 + r, col, r < R && row0 + r < L.rows && col < P.ld);
+  }
+  cluster_wait();  // every rank's partial tile is in its red[0]
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = split + C * (warp + kStepWarps * i);
+    if (r >= R) break;
+    float4 t[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      t[q] = q < C ? *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, q) + r * kStepCols + 4 * lane)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float4 v = t[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) v = add4(v, t[q]);
+    sums[i] = add4(v, sums[i]);
+  }
+  cluster_arrive(false);  // done reading the other ranks' shared memory
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = split + C * (warp + kStepWarps * i);
+    if (r < R) finish_group(L, P, ct, row0 + r, col, sums[i]);
+  }
+  // launch B: every block releases its stores with its own bump of the row
+  // tile's counter; the last to arrive does the row work
+  const bool last = kStage == 1 && last_to_arrive(L.row_count + rt, P.col_tiles * C, &flag);
+  cluster_wait();  // no block leaves while another reads its shared memory
+  if (last) ln2_gates<R>(L, P, row0, row_mean, row_rstd);
 }
 
 // out[row, col] = sum over s of partial[s, row, col], in split order.
@@ -596,14 +1008,6 @@ int split_plan(int depth, int cols, int rows, int sm_count, int* chunk) {
   return split_tiles(depth, blocks, kBlocksPerSm, 1, sm_count, chunk);
 }
 
-// The launch plan of one step on the current device, and where its three
-// scratch arrays lie in the one scratch buffer: partial1[split1, B, D],
-// feat[B, D], partial2[split2, B, 3H].
-struct Plan {
-  int split1, chunk1, split2, chunk2;
-  size_t feat_offset, partial2_offset, floats;
-};
-
 // SM count of the current device.
 cudaError_t current_sm_count(int* sm_count) {
   int device;
@@ -612,16 +1016,96 @@ cudaError_t current_sm_count(int* sm_count) {
   return cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, device);
 }
 
-cudaError_t make_plan(int batch, int in_dim, int dense, int hidden, Plan* p) {
-  int sm_count;
-  const cudaError_t err = current_sm_count(&sm_count);
+// The plan of one fused step on a card of sm_count SMs: the row tile, each
+// launch's cluster (the depth splits of a tile) and the products' depth
+// chunks, and where the scratch arrays lie in the one scratch buffer
+// (offsets in floats): launch B's row counters, the reduced x @ W1 + b1
+// (launch B takes feat from it as it stages), the reduced projection
+// [B, 3H] (launch A writes h @ W2[:H], launch B adds feat @ W2[H:]), and the
+// (sum, centred second moment) of each row's column tiles of the two
+// LayerNorms.
+struct StepPlan {
+  int rows_per_tile, row_tiles, col_tiles_d, col_tiles_3h;
+  int cluster_a, chunk_x, chunk_h, cluster_b, chunk_f;
+  int blocks_a, blocks_b;
+  int ld_d, ld_3h;
+  size_t counters;  // launch B's row counters, 4 bytes each, at the start of the scratch
+  size_t pre1, pre2, stats_a, stats_b, floats;
+};
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A launch's cluster over `tiles` tiles: the most depth splits (up to
+// kMaxCluster, a power of two) with which all its blocks fit the card at
+// once (kStepBlocksPerSm an SM); 1 where even one block a tile does not.
+int step_cluster(long long tiles, int sm_count) {
+  int c = kMaxCluster;
+  while (c > 1 && tiles * c > (long long)kStepBlocksPerSm * sm_count) c /= 2;
+  return c;
+}
+
+// The depth chunk of one of a cluster's splits: whole 32-deep steps.
+int step_chunk(int depth, int cluster) { return cdiv(cdiv(depth, cluster), kStepDepth) * kStepDepth; }
+
+StepPlan make_step_plan(int batch, int in_dim, int dense, int hidden, int sm_count) {
+  StepPlan p;
+  p.rows_per_tile = batch <= 4 ? 4 : batch <= 32 ? 8 : 16;
+  p.row_tiles = cdiv(batch, p.rows_per_tile);
+  p.col_tiles_d = cdiv(dense, kStepCols);
+  p.col_tiles_3h = cdiv(3 * hidden, kStepCols);
+  p.cluster_a = step_cluster((long long)p.row_tiles * (p.col_tiles_d + p.col_tiles_3h), sm_count);
+  p.cluster_b = step_cluster((long long)p.row_tiles * p.col_tiles_3h, sm_count);
+  p.chunk_x = step_chunk(in_dim, p.cluster_a);
+  p.chunk_h = step_chunk(hidden, p.cluster_a);
+  p.chunk_f = step_chunk(dense, p.cluster_b);
+  p.blocks_a = p.row_tiles * (p.col_tiles_d + p.col_tiles_3h) * p.cluster_a;
+  p.blocks_b = p.row_tiles * p.col_tiles_3h * p.cluster_b;
+  p.ld_d = cdiv(dense, 4) * 4;
+  p.ld_3h = cdiv(3 * hidden, 4) * 4;
+  p.counters = cdiv(p.row_tiles, 4) * 4;
+  p.pre1 = p.counters;
+  p.pre2 = p.pre1 + (size_t)batch * p.ld_d;
+  p.stats_a = p.pre2 + (size_t)batch * p.ld_3h;
+  p.stats_b = p.stats_a + (size_t)2 * batch * p.col_tiles_d;
+  p.floats = p.stats_b + (size_t)2 * batch * p.col_tiles_3h;
+  return p;
+}
+
+// Launches gru_step<R, kStage> with the launch's cluster; launch B is a
+// programmatic dependent launch of launch A: it may begin before launch A
+// ends, and waits for it inside (griddepcontrol.wait).
+template <int R, int kStage>
+cudaError_t launch_step(const StepLaunch& L, int blocks, cudaStream_t stream) {
+  const int smem = (int)(sizeof(float) * (kStepWarps * R * kStepCols + kStepStaged));
+  cudaError_t err = cudaFuncSetAttribute(gru_step<R, kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  p->split1 = split_plan(in_dim, dense, batch, sm_count, &p->chunk1);
-  p->split2 = split_plan(hidden + dense, 3 * hidden, batch, sm_count, &p->chunk2);
-  p->feat_offset = (size_t)p->split1 * batch * dense;
-  p->partial2_offset = p->feat_offset + (size_t)batch * dense;
-  p->floats = p->partial2_offset + (size_t)p->split2 * batch * 3 * hidden;
-  return cudaSuccess;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kStepThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kStage == 1 ? 2 : 1;
+  if ((err = cudaLaunchKernelEx(&cfg, gru_step<R, kStage>, L)) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int kStage>
+cudaError_t launch_stage(const StepLaunch& L, int rows_per_tile, int blocks, cudaStream_t stream) {
+  if (rows_per_tile == 4) return launch_step<4, kStage>(L, blocks, stream);
+  if (rows_per_tile == 8) return launch_step<8, kStage>(L, blocks, stream);
+  return launch_step<16, kStage>(L, blocks, stream);
+}
+
+bool rows_aligned(const float* w, int n) {
+  return n % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
 }
 
 // Routes of the sharded projection: splitk_matmul on the CUDA cores (fp32
@@ -716,25 +1200,38 @@ cudaError_t launch_proj(const float* h, const float* feat, const void* w2s, bool
 
 }  // namespace
 
-// Floats of scratch that fused_gru_forward needs for these sizes on the
-// current device, written to *floats; returns a CUDA error code (0 = success).
-extern "C" int fused_gru_scratch_floats(int batch, int in_dim, int dense, int hidden,
-                                        long long* floats) {
-  Plan p;
-  const cudaError_t err = make_plan(batch, in_dim, dense, hidden, &p);
-  if (err == cudaSuccess) *floats = (long long)p.floats;
-  return (int)err;
+// The plan fused_gru_forward follows for these sizes on a card of sm_count
+// SMs (the current device's when sm_count <= 0), open to tests: plan[0..8]
+// = rows a row tile, row tiles, launch A's cluster and depth chunks of
+// x @ W1 and h @ W2[:H], launch B's cluster and chunk of feat @ W2[H:], the
+// blocks of launch A and of launch B, and the floats of scratch in *floats.
+// Returns a CUDA error code (0 = success).
+extern "C" int fused_gru_step_plan(int batch, int in_dim, int dense, int hidden, int sm_count,
+                                   int* plan, long long* floats) {
+  if (sm_count <= 0) {
+    const cudaError_t err = current_sm_count(&sm_count);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const StepPlan p = make_step_plan(batch, in_dim, dense, hidden, sm_count);
+  const int fields[9] = {p.rows_per_tile, p.row_tiles, p.cluster_a, p.chunk_x, p.chunk_h,
+                         p.cluster_b,     p.chunk_f,   p.blocks_a,  p.blocks_b};
+  for (int i = 0; i < 9; ++i) plan[i] = fields[i];
+  *floats = (long long)p.floats;
+  return 0;
 }
 
-// The depth split of one projection (splits returned, chunk in *chunk), for
-// a given SM count: the plan fused_gru_forward follows, open to tests.
+// The depth split of one splitk_matmul launch (splits returned, chunk in
+// *chunk), for a given SM count: the plan of the sharded projection's
+// CUDA-core route, open to tests.
 extern "C" int fused_gru_split_plan(int depth, int cols, int rows, int sm_count, int* chunk) {
   return split_plan(depth, cols, rows, sm_count, chunk);
 }
 
-// Launches the four kernels of one step on `stream` and returns
-// cudaGetLastError() (0 on success). scratch holds fused_gru_scratch_floats()
-// floats; the caller allocates it and out.
+// One step on `stream`: launches gru_step twice (stage 0: x @ W1 + b1 and
+// h @ W2[:H]; stage 1, a programmatic dependent launch: feat = SiLU(LN1(x @
+// W1 + b1)) as it is staged, feat @ W2[H:], LN2 and the gates) and returns
+// cudaGetLastError() (0 on success). scratch holds the floats
+// fused_gru_step_plan() gives; the caller allocates it and out.
 extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1,
                                  const float* b1, const float* g1, const float* be1,
                                  const float* w2, const float* g2, const float* be2,
@@ -742,31 +1239,42 @@ extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1
                                  int batch, int in_dim, int dense, int hidden,
                                  float eps1, float eps2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Plan p;
-  cudaError_t err = make_plan(batch, in_dim, dense, hidden, &p);
+  int sm_count;
+  cudaError_t err = current_sm_count(&sm_count);
   if (err != cudaSuccess) return (int)err;
-  float* partial1 = scratch;
-  float* feat = scratch + p.feat_offset;
-  float* partial2 = scratch + p.partial2_offset;
-  const int row_tiles = (batch + kRows - 1) / kRows;
+  const StepPlan p = make_step_plan(batch, in_dim, dense, hidden, sm_count);
+  unsigned* row_count = reinterpret_cast<unsigned*>(scratch);
+  float* pre1 = scratch + p.pre1;
+  float* pre2 = scratch + p.pre2;
+  float2* stats1 = reinterpret_cast<float2*>(scratch + p.stats_a);
+  float2* stats2 = reinterpret_cast<float2*>(scratch + p.stats_b);
+  const float* w2f = w2 + (size_t)hidden * 3 * hidden;
+  const int n3 = 3 * hidden;
 
-  dim3 grid1((dense + kCols - 1) / kCols, p.split1, row_tiles);
-  splitk_matmul<float><<<grid1, kCols, 0, stream>>>(x, in_dim, nullptr, 0, w1, dense, batch,
-                                             p.chunk1, partial1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  StepLaunch a = {};
+  a.prod[0] = {x, in_dim, w1, dense, in_dim, rows_aligned(w1, dense), p.col_tiles_d, p.chunk_x,
+               p.row_tiles * p.col_tiles_d * p.cluster_a, pre1, p.ld_d, b1, stats1};
+  a.prod[1] = {h, hidden, w2, n3, hidden, rows_aligned(w2, n3), p.col_tiles_3h, p.chunk_h,
+               p.row_tiles * p.col_tiles_3h * p.cluster_a, pre2, p.ld_3h, nullptr, nullptr};
+  a.rows = batch;
+  a.cluster = p.cluster_a;
+  a.row_count = row_count;
+  a.row_tiles = p.row_tiles;
+  if ((err = launch_stage<0>(a, p.rows_per_tile, p.blocks_a, stream)) != cudaSuccess) return (int)err;
 
-  bias_ln_silu<<<batch, kRowThreads, 0, stream>>>(partial1, p.split1, batch, dense, b1, g1,
-                                                 be1, eps1, feat);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  dim3 grid2((3 * hidden + kCols - 1) / kCols, p.split2, row_tiles);
-  splitk_matmul<float><<<grid2, kCols, 0, stream>>>(h, hidden, feat, dense, w2, 3 * hidden, batch,
-                                             p.chunk2, partial2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  ln_gru<<<batch, kRowThreads, 0, stream>>>(partial2, p.split2, batch, hidden, g2, be2, eps2,
-                                           h, out);
-  return (int)cudaGetLastError();
+  StepLaunch b = {};
+  b.prod[0] = {pre1, p.ld_d, w2f, n3, dense, rows_aligned(w2f, n3), p.col_tiles_3h, p.chunk_f,
+               p.blocks_b, pre2, p.ld_3h, nullptr, stats2};
+  b.rows = batch;
+  b.cluster = p.cluster_b;
+  b.row_count = row_count;
+  b.row_tiles = p.row_tiles;
+  b.norm1 = {stats1, p.col_tiles_d, dense, g1, be1, eps1};
+  b.norm2 = {stats2, p.col_tiles_3h, n3, g2, be2, eps2};
+  b.h = h;
+  b.h_out = out;
+  b.hidden = hidden;
+  return (int)launch_stage<1>(b, p.rows_per_tile, p.blocks_b, stream);
 }
 
 // The plan sharded_proj_forward follows for these sizes and this w2s

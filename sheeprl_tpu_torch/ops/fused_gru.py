@@ -83,8 +83,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_gru_forward.restype = i
     lib.fused_gru_forward.argtypes = [p] * 11 + [i] * 4 + [f, f, p]
-    lib.fused_gru_scratch_floats.restype = i
-    lib.fused_gru_scratch_floats.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_gru_step_plan.restype = i
+    lib.fused_gru_step_plan.argtypes = [i] * 5 + [ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_gru_split_plan.restype = i
     lib.fused_gru_split_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     lib.sharded_proj_forward.restype = i
@@ -158,6 +158,40 @@ def _check(args: List[torch.Tensor]) -> Tuple[int, int, int, int]:
     return batch, in_dim, dense, hidden
 
 
+# the fields of fused_gru_step_plan, in its order
+STEP_PLAN_FIELDS = (
+    "rows_per_tile",
+    "row_tiles",
+    "cluster_a",
+    "chunk_x",
+    "chunk_h",
+    "cluster_b",
+    "chunk_f",
+    "blocks_a",
+    "blocks_b",
+)
+
+
+def step_plan(batch: int, in_dim: int, dense: int, hidden: int, sm_count: int = 0) -> dict:
+    """The plan ``launch`` follows for these sizes on a card of ``sm_count``
+    SMs (the current device's when 0), from the C side: the row tile, each
+    launch's cluster (the depth splits of a tile) and the depth chunk of
+    each product of launch A (``x @ W1``, ``h @ W2[:H]``) and launch B
+    (``feat @ W2[H:]``), each launch's blocks, and the floats of scratch."""
+    lib = load_library()
+    fields = (ctypes.c_int * len(STEP_PLAN_FIELDS))()
+    floats = ctypes.c_longlong()
+    _raise_on(lib, lib.fused_gru_step_plan(batch, in_dim, dense, hidden, sm_count, fields, ctypes.byref(floats)))
+    return {**dict(zip(STEP_PLAN_FIELDS, fields)), "scratch_floats": floats.value}
+
+
+def _step_scratch_floats(lib: ctypes.CDLL, sizes: Tuple[int, int, int, int], floats) -> int:
+    """``fused_gru_step_plan`` on the current device for ``sizes`` (B, X, D,
+    H): the scratch floats go to ``floats``; returns the error code."""
+    fields = (ctypes.c_int * len(STEP_PLAN_FIELDS))()
+    return lib.fused_gru_step_plan(*sizes, 0, fields, floats)
+
+
 def launch(
     x: torch.Tensor,
     h: torch.Tensor,
@@ -171,7 +205,8 @@ def launch(
     eps1: float = 1e-3,
     eps2: float = 1e-5,
 ) -> torch.Tensor:
-    """Run the CUDA kernel on CUDA tensors (no autograd); counts one launch."""
+    """Run the CUDA kernels on CUDA tensors (no autograd): the two launches
+    of ``gru_step``; counts one launch a step."""
     global launch_count
     args = [x, h, w1, b1, g1, be1, w2, g2, be2]
     batch, in_dim, dense, hidden = _check(args)
@@ -180,7 +215,7 @@ def launch(
     out = _run(
         x.device,
         (batch, hidden),
-        lambda lib, floats: lib.fused_gru_scratch_floats(batch, in_dim, dense, hidden, floats),
+        lambda lib, floats: _step_scratch_floats(lib, (batch, in_dim, dense, hidden), floats),
         lambda lib, out, scratch, stream: lib.fused_gru_forward(
             *(t.data_ptr() for t in args), out, scratch, batch, in_dim, dense, hidden, float(eps1), float(eps2), stream
         ),

@@ -69,7 +69,8 @@ def cuda():
     ],
 )
 def test_split_plan(cuda, depth, cols, rows, want):
-    """The depth split that csrc/fused_gru.cu plans for a 132-SM card."""
+    """The depth split that csrc/fused_gru.cu plans for splitk_matmul (the
+    sharded projection's CUDA-core route) on a 132-SM card."""
     chunk = ctypes.c_int()
     splits = tgru.load_library().fused_gru_split_plan(depth, cols, rows, 132, ctypes.byref(chunk))
     assert (splits, chunk.value) == want
@@ -77,7 +78,44 @@ def test_split_plan(cuda, depth, cols, rows, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch, in_dim, dense, hidden", [(1, 1027, 512, 512), (4, 1027, 512, 512), (33, 70, 40, 24)])
+@pytest.mark.parametrize(
+    "batch, want",
+    [
+        # rows a tile, row tiles, launch A's cluster and chunks of x @ W1 and
+        # h @ W2[:H], launch B's cluster and chunk of feat @ W2[H:], blocks
+        (1, (4, 1, 8, 160, 64, 8, 64, 128, 96)),  # 16 tiles x 8 splits, then 12 x 8
+        (4, (4, 1, 8, 160, 64, 8, 64, 128, 96)),  # the S player
+        (16, (8, 2, 8, 160, 64, 8, 64, 256, 192)),  # one observe step of 16 sequences: 2 row tiles
+        (1024, (16, 64, 1, 1056, 512, 1, 512, 1024, 768)),  # imagination: 64 row tiles, no split
+    ],
+)
+def test_step_plan(cuda, batch, want):
+    """The tiles and depth splits of the fused step that csrc/fused_gru.cu
+    plans at Dreamer-V3 S (X=1027, D=512, H=512) for a 132-SM card: the
+    largest cluster of depth splits (up to 8) with which all of a launch's
+    blocks fit two an SM, each split whole 32-deep steps."""
+    plan = tgru.step_plan(batch, 1027, 512, 512, sm_count=132)
+    assert tuple(plan[k] for k in tgru.STEP_PLAN_FIELDS) == want
+    assert plan["blocks_a"] <= 2 * 132 or plan["cluster_a"] == 1
+    assert plan["blocks_b"] <= 2 * 132 or plan["cluster_b"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch, in_dim, dense, hidden",
+    [
+        (1, 1027, 512, 512),
+        (4, 1027, 512, 512),
+        (33, 70, 40, 24),
+        (16, 1027, 512, 512),
+        (1024, 1027, 512, 512),  # S at the imagination batch
+        (4, 1027, 640, 1024),  # M
+        (1, 1027, 42, 25),  # D and 3H not multiples of 4: masked scalar weight loads
+        (17, 1027, 42, 25),  # a ragged row tile
+        (1000, 1027, 42, 25),
+        (5, 37, 42, 25),  # depths shorter than a cluster's 8 splits: ranks with no depth rows
+    ],
+)
 def test_cuda_kernel_matches_plain(cuda, batch, in_dim, dense, hidden):
     args = [torch.tensor(a, device=cuda) for a in _np_args(6, batch, in_dim, dense, hidden)]
     before = tgru.launch_count
@@ -85,6 +123,46 @@ def test_cuda_kernel_matches_plain(cuda, batch, in_dim, dense, hidden):
     torch.cuda.synchronize()
     assert tgru.launch_count == before + 1
     torch.testing.assert_close(got, tgru.reference_step(*args), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_unaligned_weights(cuda):
+    """Weights 4 bytes off a 16-byte boundary take the masked scalar loads."""
+    args = [torch.tensor(a, device=cuda) for a in _np_args(8, 4, 1027, 512, 512)]
+    for i in (2, 6):  # w1, w2
+        buf = torch.empty(args[i].numel() + 1, device=cuda)
+        args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+    got = tgru.launch(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tgru.reference_step(*args), atol=FWD_TOL, rtol=FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [4, 1024])
+def test_cuda_kernel_deterministic(cuda, batch):
+    """No atomics in a sum, only counters: two calls give the same bits."""
+    args = [torch.tensor(a, device=cuda) for a in _np_args(9, batch, 1027, 512, 512)]
+    assert torch.equal(tgru.launch(*args), tgru.launch(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_captures_into_a_graph(cuda):
+    """Both launches, the second a programmatic dependent launch with a
+    cluster, replay from a CUDA graph."""
+    args = [torch.tensor(a, device=cuda) for a in _np_args(10, 4, 1027, 512, 512)]
+    eager = tgru.launch(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tgru.launch(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tgru.launch(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda
