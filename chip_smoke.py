@@ -40,6 +40,20 @@ which exits non-zero:
    on one CUDA rank spawned by ``parallel.launch.run`` (its default device,
    NCCL), against the same h'. (a) holds the kernel at every projection
    shape (b) gives it: S mp=1 fp32 at B=4 and B=16, XL mp=1 bf16 at B=16.
+6. Training at Dreamer-V3 S width (B=16 sequences of T=64, horizon 15, 4
+   PixelCatcher envs, fp32): (a) one batch drawn from the port's replay,
+   filled by PixelCatcher steps, through one ``make_train_step`` with the
+   kernel (``fused: auto``) and one with the plain ``RecurrentModel``
+   (``fused: flax``) from the same seeded weights, with deterministic
+   samplers; the 13 metrics and the world-model gradients held within
+   their printed bounds; (b) ``fused_gru`` launched 64 (scan, B=16) + 16
+   (imagination, B=1024) times a step, and one continuous-action step (the
+   dummy env) whose actor gradient runs back through B1 at B=1024; (c) ms
+   per gradient step, fused and plain in turns, then a torch.profiler
+   window over each (idle share, B1's share and time per call at B=16 and
+   B=1024, device and host time of each RSSM step, top kernels); (d)
+   ``main()`` for a few hundred env steps with the cuts printed, its
+   env-steps/s and gradient steps/s, the kernel's launches counted.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -49,10 +63,12 @@ fp32 like the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # forward tolerance of the kernel against its plain version: both are fp32
 # with sums taken in another order (the JAX package holds its own kernel to
@@ -676,6 +692,401 @@ def phase_slice(torch, np, fg):
     return launches
 
 
+# phase 6: Dreamer-V3 S training at full width (configs/exp/dreamer_v3.yaml:
+# 16 sequences of 64 steps; configs/algo/dreamer_v3.yaml: horizon 15)
+TRAIN_B, TRAIN_T, HORIZON = 16, 64, 15
+# B1 calls a gradient step: one a scan step at B=16, one an imagination step
+# (horizon + 1 of them) at B=16*64=1024; the backward recomputes the plain step
+SCAN_CALLS, IMAGINE_CALLS = TRAIN_T, HORIZON + 1
+# the fused (B1) and plain (fused: flax) train steps on the same weights and
+# batch: each metric within METRIC_BOUND of the plain one relative to
+# max(|plain|, 1), each world-model gradient tensor within GRAD_BOUND of the
+# plain one relative to its largest element. Both hold B1's 1e-6-level
+# differences from the plain step through 64 recurrent steps, their
+# backward and 16 imagination steps at B=1024.
+METRIC_BOUND = 1e-3
+GRAD_BOUND = 1e-3
+TIMED_STEPS, WARMUP_STEPS = 10, 3
+# the short loop: a few hundred env steps of main(), cut from the exp's
+# 5M steps, 1024 learning_starts and 1M-step buffer
+LOOP_CUTS = {"algo.total_steps": 384, "algo.learning_starts": 256, "buffer.size": 4096}
+
+
+# the samplers of phase 6's parity checks; tests/test_torch_cuda.py uses them too
+def smooth_state(logits, generator=None, sample=True):
+    """The RSSM's latent, deterministic: the categorical's probabilities
+    (straight through) for a sample, its one-hot mode otherwise. An argmax
+    in their place could flip on a near tie between fp32 logits that differ
+    by 1e-6, which over 2^19 categoricals a step is likely and is no fault."""
+    from sheeprl_tpu_torch.ops.distributions import OneHotCategorical
+
+    d = OneHotCategorical(logits)
+    z = d.probs if sample else d.mode
+    return z.reshape(*z.shape[:-2], -1)
+
+
+def smooth_actions(actor, state, generator=None, greedy=False):
+    """The actor's action, deterministic: a normal head's location, the
+    discrete heads' probabilities."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import actor_dists
+
+    dists = actor_dists(actor, actor(state))
+    if actor.is_continuous:
+        return dists[0].mean
+    return torch.cat([d.probs for d in dists], -1)
+
+
+def train_cfg(env: str, fused: str = "auto", **cuts):
+    from sheeprl_tpu_torch.configs import compose
+
+    return compose(
+        "S",
+        env=env,
+        overrides={"seed": SEED, "algo.world_model.recurrent_model.fused": fused, **cuts},
+    )
+
+
+def filled_replay(np, cfg, env_steps: int):
+    """The port's sequence replay filled by ``env_steps`` random-action steps
+    of ``cfg``'s envs (terminal steps stored as main() stores them)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import random_actions
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.envs.spaces import action_dims
+
+    n = int(cfg["env"]["num_envs"])
+    keys = list(cfg["algo"]["cnn_keys"]["encoder"]) + list(cfg["algo"]["mlp_keys"]["encoder"])
+    cnn = list(cfg["algo"]["cnn_keys"]["encoder"])
+    envs = [make_env(cfg, SEED + i)() for i in range(n)]
+    space, obs_space = envs[0].action_space, envs[0].observation_space
+    actions_dim, is_continuous = action_dims(space)
+    rb = EnvIndependentReplayBuffer(4 * env_steps, n_envs=n, obs_keys=keys, buffer_cls=SequentialReplayBuffer, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    obs = [e.reset(seed=SEED + i)[0] for i, e in enumerate(envs)]
+    first = np.ones((1, n, 1), np.float32)
+    for _ in range(env_steps):
+        actions, real = random_actions(rng, space, actions_dim, n)
+        step = prepare_obs({k: np.stack([o[k] for o in obs]) for k in keys}, cnn, n)
+        step = {k: v[None] for k, v in step.items()}
+        outs = [e.step(np.asarray(real[i]).reshape(space.shape)) for i, e in enumerate(envs)]
+        step.update(
+            actions=np.asarray(actions, np.float32)[None],
+            rewards=np.array([o[1] for o in outs], np.float32).reshape(1, n, 1),
+            terminated=np.array([o[2] for o in outs], np.float32).reshape(1, n, 1),
+            truncated=np.array([o[3] for o in outs], np.float32).reshape(1, n, 1),
+            is_first=first,
+        )
+        rb.add(step)
+        first = np.array([o[2] or o[3] for o in outs], np.float32).reshape(1, n, 1)
+        obs = [e.reset()[0] if o[2] or o[3] else o[0] for e, o in zip(envs, outs)]
+    for e in envs:
+        e.close()
+    return rb, obs_space, actions_dim, is_continuous
+
+
+def train_models(torch, cfg, obs_space, actions_dim, is_continuous, states=None):
+    """World model, actor, critic, target critic, optimizers and the train
+    step of ``cfg`` on the card: seeded, or ``states``' weights."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_critic
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers, make_train_step
+
+    states = states or {}
+    wm, actor, _ = build_agent(
+        actions_dim, is_continuous, cfg, obs_space, states.get("wm"), states.get("actor"), device="cuda"
+    )
+    critic, target = build_critic(cfg, wm.latent_state_size, states.get("critic"), states.get("target"), "cuda")
+    opts = build_optimizers(cfg, wm, actor, critic)
+    step = make_train_step(wm, actor, critic, target, *opts, cfg, is_continuous)
+    models = {"wm": wm, "actor": actor, "critic": critic, "target": target}
+    return models, step
+
+
+def snapshot(models):
+    return {k: {n: v.detach().clone() for n, v in m.state_dict().items()} for k, m in models.items()}
+
+
+def one_step(torch, fg, step, batch, grads=None):
+    """One gradient step from fresh Moments; returns (metrics, B1 launches)."""
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    fg.reset_launch_count()
+    _, metrics = step(init_moments(torch.device("cuda")), batch, None, grads)
+    torch.cuda.synchronize()
+    return metrics, fg.launch_count
+
+
+@contextlib.contextmanager
+def deterministic():
+    """The smooth samplers in place of the port's, where its modules look
+    them up, for the length of the block."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import agent, dreamer_v3
+
+    with mock.patch.object(agent, "compute_stochastic_state", smooth_state):
+        with mock.patch.object(dreamer_v3, "sample_actor_actions", smooth_actions):
+            yield
+
+
+def phase_train_parity(torch, np, fg):
+    """(a) the fused (B1) and plain train steps on one batch drawn from the
+    port's replay (PixelCatcher), seeded weights, the smooth sampler; (b) B1
+    launches a step, and one continuous-action step (the dummy env) whose
+    actor gradient runs B1's backward at B=1024."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, to_batch
+
+    cfg = train_cfg("pixel_catcher")
+    rb, obs_space, actions_dim, is_continuous = filled_replay(np, cfg, 80)
+    batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
+    if tuple(batch["rgb"].shape) != (TRAIN_T, TRAIN_B, 64, 64, 3):
+        raise AssertionError(f"replay batch is {tuple(batch['rgb'].shape)}")
+    with deterministic():
+        fused, fused_step = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        if not fused["wm"].fused:
+            raise AssertionError("the S world model did not select the fused recurrent kernel")
+        plain_cfg = train_cfg("pixel_catcher", fused="flax")
+        plain, plain_step = train_models(torch, plain_cfg, obs_space, actions_dim, is_continuous, snapshot(fused))
+        g_fused, g_plain = {}, {}
+        m_fused, launches = one_step(torch, fg, fused_step, batch, g_fused)
+        m_plain, plain_launches = one_step(torch, fg, plain_step, batch, g_plain)
+        if launches != SCAN_CALLS + IMAGINE_CALLS or plain_launches != 0:
+            raise AssertionError(
+                f"fused_gru launched {launches} times a fused step (want {SCAN_CALLS} + {IMAGINE_CALLS})"
+                f" and {plain_launches} times a plain one (want 0)"
+            )
+        if not torch.isfinite(m_fused).all():
+            raise AssertionError(f"fused train step metrics are not finite: {m_fused.tolist()}")
+        metric_err = ((m_fused - m_plain).abs() / m_plain.abs().clamp_min(1.0)).max().item()
+        grad_err = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(g_fused["world_model"], g_plain["world_model"])
+        )
+        report = {
+            "B": TRAIN_B,
+            "T": TRAIN_T,
+            "horizon": HORIZON,
+            "fused_gru_launches_per_step": launches,
+            "metrics_fused": dict(zip(METRIC_ORDER, m_fused.tolist())),
+            "metric_max_rel_err": metric_err,
+            "metric_bound": METRIC_BOUND,
+            "world_model_grad_max_rel_err": grad_err,
+            "grad_bound": GRAD_BOUND,
+        }
+        print("train_parity " + json.dumps(report), flush=True)
+        if metric_err > METRIC_BOUND or grad_err > GRAD_BOUND:
+            raise AssertionError(f"fused and plain train steps differ: metrics {metric_err}, gradients {grad_err}")
+
+        # the continuous-action step: the gradient of the policy loss flows
+        # through 16 imagination steps of B1 at B=1024 and their backward
+        ccfg = train_cfg("dummy_continuous")
+        crb, cspace, cdim, ccont = filled_replay(np, ccfg, 70)
+        cbatch = to_batch(crb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
+        cmodels, cstep = train_models(torch, ccfg, cspace, cdim, ccont)
+        cplain, cplain_step = train_models(torch, train_cfg("dummy_continuous", "flax"), cspace, cdim, ccont, snapshot(cmodels))
+        cg, cg_plain = {}, {}
+        cm, claunches = one_step(torch, fg, cstep, cbatch, cg)
+        cm_plain, _ = one_step(torch, fg, cplain_step, cbatch, cg_plain)
+        actor_err = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(cg["actor"], cg_plain["actor"])
+        )
+        actor_norm = float(cm[METRIC_ORDER.index("Grads/actor")])
+        creport = {
+            "actions_dim": list(cdim),
+            "fused_gru_launches_per_step": claunches,
+            "actor_grad_norm": actor_norm,
+            "actor_grad_max_rel_err_vs_plain": actor_err,
+            "metric_max_rel_err": ((cm - cm_plain).abs() / cm_plain.abs().clamp_min(1.0)).max().item(),
+        }
+        print("train_continuous " + json.dumps(creport), flush=True)
+        if claunches != SCAN_CALLS + IMAGINE_CALLS or not torch.isfinite(cm).all() or not actor_norm > 0:
+            raise AssertionError(f"continuous train step: {creport}")
+        if actor_err > GRAD_BOUND:
+            raise AssertionError(f"continuous actor gradients through B1 differ from the plain step's by {actor_err}")
+    del fused, plain, cmodels, cplain
+    return launches, rb, obs_space, actions_dim, is_continuous
+
+
+RANGES = ("scan_step", "imagine_step", "recurrent", "rssm_scan", "grads", "adam_step")
+
+
+def profile_train(torch, fg, step, rb, steps: int, moments, gen):
+    """torch.profiler over ``steps`` gradient steps (the real sampler),
+    with a range around each RSSM step (``dynamic`` in the scan,
+    ``imagination``) and each recurrent-model call inside it: device busy
+    (kernel time), idle share, B1's share, B1's device time per call at
+    B=16 (scan) and B=1024 (imagination), and for each range its host time
+    per call, its kernels' device time per call and the device span it
+    covers; the top kernels."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+    from sheeprl_tpu_torch.ops.optim import Adam
+
+    wm = step.wm
+    rec = wm.recurrent_model
+
+    def ranged(fn, label, by_batch=True):
+        def run(*args, **kwargs):
+            with record_function(f"{label}_B{args[0].shape[0]}" if by_batch else label):
+                return fn(*args, **kwargs)
+
+        return run
+
+    saved = (dreamer_v3.rssm_scan, dreamer_v3._grads, Adam.step)
+    rec.forward = ranged(rec.forward, "recurrent")
+    wm.dynamic = ranged(wm.dynamic, "scan_step")
+    wm.imagination = ranged(wm.imagination, "imagine_step")
+    # the whole observation scan, each backward (world model, actor,
+    # critic) and each optimizer step
+    dreamer_v3.rssm_scan = ranged(dreamer_v3.rssm_scan, "rssm_scan", False)
+    dreamer_v3._grads = ranged(dreamer_v3._grads, "grads", False)
+    Adam.step = ranged(Adam.step, "adam_step", False)
+    batches = [to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda")) for _ in range(steps)]
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                moments, _ = step(moments, b, gen)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        del rec.forward, wm.dynamic, wm.imagination
+        dreamer_v3.rssm_scan, dreamer_v3._grads, Adam.step = saved
+    events = list(prof.events())
+
+    def is_range(e):
+        return e.name.split("_B")[0] in RANGES
+
+    kernels = sorted(
+        (e for e in events if e.device_type == DeviceType.CUDA and not is_range(e)), key=lambda e: e.time_range.start
+    )
+    starts = [e.time_range.start for e in kernels]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    # B1's launches in issue order: per step 2 x 64 at B=16, then 2 x 16 at B=1024
+    b1 = [e for e in kernels if any(n in e.name for n in FUSED_GRU_KERNELS)]
+    per_step = 2 * (SCAN_CALLS + IMAGINE_CALLS)
+    spans = {16: [], 1024: []}
+    if len(b1) == per_step * steps:
+        for i in range(0, len(b1), 2):
+            a, b = b1[i], b1[i + 1]
+            span = max(a.time_range.end, b.time_range.end) - a.time_range.start
+            spans[16 if (i % per_step) < 2 * SCAN_CALLS else 1024].append(span)
+    ranges = {}
+    for label in sorted({e.name for e in events if is_range(e)}):
+        host = [e.time_range.elapsed_us() for e in events if e.name == label and e.device_type == DeviceType.CPU]
+        gpu = [e for e in events if e.name == label and e.device_type == DeviceType.CUDA]
+        inside = 0.0
+        for g in gpu:
+            lo = bisect.bisect_left(starts, g.time_range.start)
+            hi = bisect.bisect_right(starts, g.time_range.end)
+            inside += sum(k.time_range.elapsed_us() for k in kernels[lo:hi])
+        ranges[label] = {
+            "calls": len(host),
+            "host_us_per_call": sum(host) / len(host) if host else None,
+            "kernel_us_per_call": inside / len(gpu) if gpu else None,
+            "device_span_us_per_call": sum(g.time_range.elapsed_us() for g in gpu) / len(gpu) if gpu else None,
+        }
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return moments, {
+        "steps": steps,
+        "wall_ms_per_step_profiled": 1e3 * seconds / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": (1.0 - busy_us / 1e6 / seconds) if busy_us else None,
+        "fused_gru_share_of_device_time": (sum(s for v in spans.values() for s in v) / busy_us) if busy_us else None,
+        "fused_gru_us_per_call_B16": (sum(spans[16]) / len(spans[16])) if spans[16] else None,
+        "fused_gru_us_per_call_B1024": (sum(spans[1024]) / len(spans[1024])) if spans[1024] else None,
+        "ranges": ranges,
+        "top_kernels_us_per_step": [[k, v / steps] for k, v in top],
+    }
+
+
+def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
+    """(c) ms per gradient step, fused and plain in turns (fused, plain,
+    plain, fused), wall clock over TIMED_STEPS steps after WARMUP_STEPS;
+    then a profiler window over each."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    dev = torch.device("cuda")
+    runs = {}
+    for fused in ("auto", "flax"):
+        cfg = train_cfg("pixel_catcher", fused=fused)
+        models, step = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        step.wm = models["wm"]
+        runs[fused] = (models, step)
+    batches = [to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev) for _ in range(TIMED_STEPS)]
+    times = {"auto": [], "flax": []}
+    moments = {k: init_moments(dev) for k in runs}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for fused in ("auto", "flax", "flax", "auto"):
+        _, step = runs[fused]
+        for b in batches[:WARMUP_STEPS]:
+            moments[fused], _ = step(moments[fused], b, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            moments[fused], _ = step(moments[fused], b, gen)
+        torch.cuda.synchronize()
+        times[fused].append(1e3 * (time.perf_counter() - t0) / len(batches))
+    report = {
+        "ms_per_gradient_step_fused": times["auto"],
+        "ms_per_gradient_step_plain": times["flax"],
+        "gradient_steps_per_s_fused": 1e3 / min(times["auto"]),
+    }
+    print("train_timing " + json.dumps(report), flush=True)
+    for fused in ("auto", "flax"):
+        _, step = runs[fused]
+        moments[fused], prof = profile_train(torch, fg, step, rb, 4, moments[fused], gen)
+        print(f"train_profile_{'fused' if fused == 'auto' else 'plain'} " + json.dumps(prof), flush=True)
+    del runs
+    return report
+
+
+def phase_train_loop(torch, np, fg):
+    """(d) main(): a few hundred env steps of the S loop on 4 PixelCatcher
+    envs, through the kernel. Returns (B1 launches, report)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
+
+    cfg = train_cfg("pixel_catcher", **LOOP_CUTS)
+    print("train_loop cuts " + json.dumps(LOOP_CUTS), flush=True)
+    # ---- the main path: counts at 0 just before, read just after ----
+    fg.reset_launch_count()
+    out = train_main(cfg, device="cuda")
+    launches = fg.launch_count
+    # ------------------------------------------------------------------
+    num_envs = cfg["env"]["num_envs"]
+    updates = cfg["algo"]["total_steps"] // num_envs
+    acting = updates - cfg["algo"]["learning_starts"] // num_envs
+    expected = out["gradient_steps"] * (SCAN_CALLS + IMAGINE_CALLS) + acting
+    if launches != expected or out["gradient_steps"] == 0:
+        raise AssertionError(f"main(): fused_gru launched {launches} times, want {expected} ({out['gradient_steps']} steps)")
+    if not all(np.isfinite(v) for v in out["metrics"].values()):
+        raise AssertionError(f"main(): metrics are not finite: {out['metrics']}")
+    report = {
+        "env_steps": out["env_steps"],
+        "gradient_steps": out["gradient_steps"],
+        "seconds": out["seconds"],
+        "train_seconds": out["train_seconds"],
+        "env_steps_per_s": out["env_steps"] / out["seconds"],
+        "gradient_steps_per_s": out["gradient_steps"] / out["seconds"],
+        "gradient_steps_per_train_s": out["gradient_steps"] / out["train_seconds"],
+        "fused_gru_launches": launches,
+        "last_metrics": out["metrics"],
+    }
+    print("train_loop " + json.dumps(report), flush=True)
+    return launches, report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -733,8 +1144,15 @@ def main() -> int:
     proj_err, proj_rows = phase_proj(torch, fg, proj_shapes)
     proj_launches = phase_sharded_step(torch, np, fg)
 
+    # phase 6: training, (a) fused against plain and (b) launches a step,
+    # (c) time a step, (d) the short loop
+    step_launches, rb, obs_space, actions_dim, is_continuous = phase_train_parity(torch, np, fg)
+    timing = phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    loop_launches, loop = phase_train_loop(torch, np, fg)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
+    big_row = next(r for r in rows if r["shape"] == "S_B1024")
     proj_row = next(r for r in proj_rows if r["shape"] == "L_mp4_bf16_B16")
     kernels = [
         {
@@ -742,7 +1160,12 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches,
+            "launches": launches + loop_launches,
+            "launches_by_path": {
+                "player_and_evaluate": launches,
+                "train_loop": loop_launches,
+                "per_gradient_step": step_launches,
+            },
             "max_abs_err": max_err,
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -750,6 +1173,9 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             # no single PyTorch call computes the fused step
             "library_ms": None,
+            "B1024": {k: big_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "ms_per_gradient_step": min(timing["ms_per_gradient_step_fused"]),
+            "train_loop_env_steps_per_s": loop["env_steps_per_s"],
         },
         {
             "name": "sharded_proj",

@@ -1,22 +1,28 @@
-"""Dreamer-V3 agent, acting half (port of
-``sheeprl_tpu/algos/dreamer_v3/agent.py``).
+"""Dreamer-V3 agent (port of ``sheeprl_tpu/algos/dreamer_v3/agent.py``).
 
 Ported here: ``_LNMLP`` (:59-76), ``CNNEncoder`` (:79-105), ``MLPEncoder``
-(:108-122), ``RecurrentModel`` (:191-208), ``FusedRecurrentModel``
-(:253-302), ``_uniform_mix``/``compute_stochastic_state`` (:305-320), the
-acting methods of ``WorldModel`` (:323-515: ``encode``, ``initial_state``,
-``observe_step``), ``Actor`` (:546-583), ``actor_dists`` (:586-603),
-``_actor_unimix`` (:606-611), ``sample_actor_actions`` (:666-687),
-``PlayerDV3`` (:732-848) and ``build_agent`` (:851-996).
+(:108-122), ``CNNDecoder`` (:125-169), ``MLPDecoder`` (:172-188),
+``RecurrentModel`` (:191-208), ``FusedRecurrentModel`` (:253-302),
+``_uniform_mix``/``compute_stochastic_state`` (:305-320), ``WorldModel``
+(:323-515, with the reward and continue heads, ``decode``, ``dynamic`` and
+``imagination``), ``rssm_scan`` (:518-543), ``Actor`` (:546-583),
+``actor_dists`` (:586-603, every head), ``_actor_unimix`` (:606-611),
+``sample_actor_actions`` (:666-687), ``actor_logprob_entropy`` (:690-707),
+``make_critic`` (:710-729), ``PlayerDV3`` (:732-848) and ``build_agent``
+(:851-996; the critic pair in ``build_critic``).
 
 Layouts: images enter NHWC uint8 as in the JAX package. The encoder runs
 its convolutions NCHW, takes each LayerNorm over channels, and flattens in
 NHWC order, so the representation model sees the same feature order as the
-JAX one. The recurrent model keeps its kernels as ``[in, out]`` (flax
-``Dense`` layout) because the fused CUDA step reads them as they are.
+JAX one. The decoder's transposed convolutions are ``nn.ConvTranspose2d``
+(stride 2, ``padding=1``: flax's explicit (2, 2) padding of the dilated
+input); ``convert`` flips flax's kernels to match. The recurrent model keeps
+its kernels as ``[in, out]`` (flax ``Dense`` layout) because the fused CUDA
+step reads them as they are.
 
-Decoders, reward and continue heads, ``dynamic``/``imagination``, the
-critic and the train step come with later slices.
+``rssm_scan`` is a Python loop over ``dynamic``: on the card every step of
+it, and of imagination, is one call of the fused step kernel (B1) when
+``fused`` resolves to it.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from sheeprl_tpu_torch.models.blocks import LayerNorm, LayerNormGRUCell
-from sheeprl_tpu_torch.ops.distributions import Independent, Normal, OneHotCategoricalStraightThrough
+from sheeprl_tpu_torch.ops.distributions import Independent, Normal, OneHotCategoricalStraightThrough, TanhNormal
 from sheeprl_tpu_torch.ops.fused_gru import fused_recurrent_step
 from sheeprl_tpu_torch.ops.math import symlog
 
@@ -74,7 +80,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     trunks and convs, ``uniform_init`` for the heads, lecun normal for the
     GRU projection, zeros for biases and ones for LayerNorm scales."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             scale = getattr(m, "uniform_scale", None)
             if scale is None:
                 variance_scaling_(m.weight, 1.0, "fan_avg", "truncated_normal", generator)
@@ -170,6 +176,76 @@ class MLPEncoder(nn.Module):
 
 
 # --------------------------------------------------------------------------- #
+# decoders
+# --------------------------------------------------------------------------- #
+
+
+class CNNDecoder(nn.Module):
+    """Inverse of :class:`CNNEncoder`: a Linear to a ``seed x seed x (8 *
+    multiplier)`` map, ``stages - 1`` upsampling transposed convolutions with
+    LayerNorm over channels and SiLU, then a plain transposed convolution
+    (with bias) to the output channels. Returns NHWC reconstructions by key."""
+
+    def __init__(
+        self,
+        keys: Sequence[str],
+        output_channels: Sequence[int],
+        channels_multiplier: int,
+        latent_size: int,
+        image_size: int,
+        stages: int = 4,
+        eps: float = 1e-3,
+    ) -> None:
+        super().__init__()
+        self.keys = tuple(keys)
+        self.output_channels = tuple(int(c) for c in output_channels)
+        self.image_size = int(image_size)
+        self.seed_hw = self.image_size // (2**stages)
+        self.seed_ch = (2 ** (stages - 1)) * channels_multiplier
+        self.linear = nn.Linear(latent_size, self.seed_hw * self.seed_hw * self.seed_ch)
+        chans = [self.seed_ch] + [(2 ** (stages - 2 - i)) * channels_multiplier for i in range(stages - 1)]
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(a, b, kernel_size=4, stride=2, padding=1, bias=False)
+            for a, b in zip(chans[:-1], chans[1:])
+        )
+        self.norms = nn.ModuleList(LayerNorm(c, eps=eps) for c in chans[1:])
+        self.out = nn.ConvTranspose2d(chans[-1], sum(self.output_channels), kernel_size=4, stride=2, padding=1)
+        self.out.uniform_scale = 1.0
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        lead = latent.shape[:-1]
+        x = self.linear(latent).reshape(-1, self.seed_hw, self.seed_hw, self.seed_ch).permute(0, 3, 1, 2)
+        for deconv, norm in zip(self.deconvs, self.norms):
+            x = deconv(x)
+            x = F.silu(norm(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        x = self.out(x).permute(0, 2, 3, 1)
+        x = x.reshape(*lead, self.image_size, self.image_size, sum(self.output_channels))
+        return dict(zip(self.keys, torch.split(x, self.output_channels, -1)))
+
+
+class MLPDecoder(nn.Module):
+    """An ``_LNMLP`` trunk and one linear head per key."""
+
+    def __init__(
+        self,
+        keys: Sequence[str],
+        output_dims: Sequence[int],
+        latent_size: int,
+        mlp_layers: int = 4,
+        dense_units: int = 512,
+        eps: float = 1e-3,
+    ) -> None:
+        super().__init__()
+        self.keys = tuple(keys)
+        self.mlp = _LNMLP(latent_size, mlp_layers, dense_units, eps)
+        self.heads = nn.ModuleDict({k: _head(dense_units, int(d), 1.0) for k, d in zip(self.keys, output_dims)})
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.mlp(latent)
+        return {k: self.heads[k](x) for k in self.keys}
+
+
+# --------------------------------------------------------------------------- #
 # recurrent model
 # --------------------------------------------------------------------------- #
 
@@ -252,9 +328,10 @@ def compute_stochastic_state(
 
 
 class WorldModel(nn.Module):
-    """Encoders and the RSSM (recurrent, representation and transition
-    models) with the acting entry points ``encode``, ``initial_state`` and
-    ``observe_step``."""
+    """Encoders, the RSSM (recurrent, representation and transition models),
+    decoders and the reward and continue heads, with the entry points
+    ``encode``, ``decode``, ``reward_logits``, ``continue_logits``,
+    ``initial_state``, ``dynamic``, ``imagination`` and ``observe_step``."""
 
     def __init__(
         self,
@@ -277,6 +354,16 @@ class WorldModel(nn.Module):
         cnn_stages: int = 4,
         learnable_initial_recurrent_state: bool = True,
         fused_recurrent: Any = "auto",
+        cnn_output_channels: Optional[Sequence[int]] = None,
+        mlp_output_dims: Optional[Sequence[int]] = None,
+        decoder_cnn_multiplier: int = 96,
+        decoder_mlp_layers: int = 5,
+        decoder_dense_units: int = 1024,
+        reward_bins: int = 255,
+        reward_layers: int = 5,
+        reward_dense_units: int = 1024,
+        continue_layers: int = 5,
+        continue_dense_units: int = 1024,
     ) -> None:
         super().__init__()
         self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
@@ -304,6 +391,22 @@ class WorldModel(nn.Module):
             _LNMLP(recurrent_state_size, 1, transition_hidden_size),
             _head(transition_hidden_size, self.stoch_state_size, 1.0),
         )
+        latent = self.latent_state_size
+        if self.cnn_keys:
+            out_channels = cnn_output_channels if cnn_output_channels is not None else [3] * len(self.cnn_keys)
+            self.cnn_decoder = CNNDecoder(
+                self.cnn_keys, out_channels, decoder_cnn_multiplier, latent, image_size, cnn_stages
+            )
+        if self.mlp_keys:
+            if mlp_output_dims is None:
+                raise ValueError("mlp_output_dims is required with mlp keys")
+            self.mlp_decoder = MLPDecoder(self.mlp_keys, mlp_output_dims, latent, decoder_mlp_layers, decoder_dense_units)
+        self.reward_model = nn.Sequential(
+            _LNMLP(latent, reward_layers, reward_dense_units), _head(reward_dense_units, reward_bins, 0.0)
+        )
+        self.continue_model = nn.Sequential(
+            _LNMLP(latent, continue_layers, continue_dense_units), _head(continue_dense_units, 1, 1.0)
+        )
         if learnable_initial_recurrent_state:
             self.initial_recurrent_state = nn.Parameter(torch.zeros(recurrent_state_size))
         else:
@@ -321,6 +424,20 @@ class WorldModel(nn.Module):
             feats.append(self.mlp_encoder(obs))
         return torch.cat(feats, -1).float()
 
+    def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_keys:
+            out.update(self.cnn_decoder(latent))
+        if self.mlp_keys:
+            out.update(self.mlp_decoder(latent))
+        return out
+
+    def reward_logits(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.reward_model(latent)
+
+    def continue_logits(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.continue_model(latent)
+
     def initial_state(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(h0 [B, H], z0 [B, S*D]): tanh of the learnt state (or zeros) and
         the mode of the transition model's prior on it."""
@@ -331,6 +448,40 @@ class WorldModel(nn.Module):
         h0 = h0.expand(batch, self.recurrent_state_size)
         logits = _uniform_mix(self.transition_model(h0), self.discrete_size, self.unimix)
         return h0, compute_stochastic_state(logits, sample=False)
+
+    def dynamic(
+        self,
+        z: torch.Tensor,
+        h: torch.Tensor,
+        action: torch.Tensor,
+        embedded: torch.Tensor,
+        is_first: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        initial: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One posterior step from the flat ``z [B, S*D]``: where
+        ``is_first [B, 1]`` is 1 the state restarts from ``initial`` (default
+        ``initial_state``) and the action is zeroed. Returns ``(h', z',
+        posterior_logits, prior_logits)``, the logits ``[B, S, D]``."""
+        action = (1 - is_first) * action
+        h0, z0 = initial if initial is not None else self.initial_state(h.shape[0])
+        h = (1 - is_first) * h + is_first * h0
+        z = (1 - is_first) * z + is_first * z0
+        h = self.recurrent_model(torch.cat([z, action], -1), h)
+        prior_logits = _uniform_mix(self.transition_model(h), self.discrete_size, self.unimix)
+        post_logits = _uniform_mix(
+            self.representation_model(torch.cat([h, embedded], -1)), self.discrete_size, self.unimix
+        )
+        z = compute_stochastic_state(post_logits, generator)
+        return h, z, post_logits, prior_logits
+
+    def imagination(
+        self, z: torch.Tensor, h: torch.Tensor, action: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prior step in latent space; returns ``(z', h')``."""
+        h = self.recurrent_model(torch.cat([z, action], -1), h)
+        prior_logits = _uniform_mix(self.transition_model(h), self.discrete_size, self.unimix)
+        return compute_stochastic_state(prior_logits, generator), h
 
     def observe_step(
         self,
@@ -350,6 +501,33 @@ class WorldModel(nn.Module):
             self.representation_model(torch.cat([h, embedded], -1)), self.discrete_size, self.unimix
         )
         return compute_stochastic_state(post_logits, generator, sample), h
+
+
+def rssm_scan(
+    wm: WorldModel,
+    embedded: torch.Tensor,
+    actions: torch.Tensor,
+    is_first: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RSSM over a time-major sequence (``embedded [T, B, E]``,
+    ``actions [T, B, A]`` already shifted, ``is_first [T, B, 1]``), from zero
+    states, one ``dynamic`` step a timestep. Returns time-major
+    ``(recurrent_states, posteriors, posterior_logits, prior_logits)``."""
+    T, B = embedded.shape[0], embedded.shape[1]
+    dev = embedded.device
+    h = torch.zeros(B, wm.recurrent_state_size, device=dev)
+    z = torch.zeros(B, wm.stoch_state_size, device=dev)
+    # the learnt initial state is the same at every step: computed once
+    initial = wm.initial_state(B)
+    hs, zs, posts, priors = [], [], [], []
+    for t in range(T):
+        h, z, post, prior = wm.dynamic(z, h, actions[t], embedded[t], is_first[t], generator, initial)
+        hs.append(h)
+        zs.append(z)
+        posts.append(post)
+        priors.append(prior)
+    return torch.stack(hs), torch.stack(zs), torch.stack(posts), torch.stack(priors)
 
 
 # --------------------------------------------------------------------------- #
@@ -394,8 +572,6 @@ class Actor(nn.Module):
             raise ValueError(f"unknown actor distribution: {dist}")
         if dist == "discrete" and self.is_continuous:
             raise ValueError("discrete distribution with continuous action space")
-        if dist == "tanh_normal":
-            raise NotImplementedError("the tanh_normal actor distribution is not ported yet")
         if dist == "auto":
             dist = "scaled_normal" if self.is_continuous else "discrete"
         return dist
@@ -418,6 +594,10 @@ def actor_dists(actor: Actor, pre_dist: List[torch.Tensor]) -> list:
     dist_type = actor.resolved_distribution()
     if actor.is_continuous:
         mean, std = pre_dist[0].chunk(2, -1)
+        if dist_type == "tanh_normal":
+            mean = 5 * torch.tanh(mean / 5)
+            std = F.softplus(std + actor.init_std) + actor.min_std
+            return [TanhNormal(mean, std)]
         if dist_type == "normal":
             return [Independent(Normal(mean, std), 1)]
         # scaled_normal (the Dreamer-V3 default)
@@ -431,12 +611,16 @@ def sample_actor_actions(
 ) -> torch.Tensor:
     """Sample (or take the mode of) the actions; returns the concatenated
     action vector. A greedy continuous actor keeps the most likely of 100
-    samples. Continuous actions are scaled into ``[-action_clip,
-    action_clip]`` with the scale held out of the gradient."""
+    samples; ``tanh_normal`` has no greedy rule (the reference's raises on
+    its per-dimension density), and raises. Continuous actions are scaled
+    into ``[-action_clip, action_clip]`` with the scale held out of the
+    gradient."""
     dists = actor_dists(actor, actor(state))
     if actor.is_continuous:
         d = dists[0]
         if greedy:
+            if isinstance(d, TanhNormal):
+                raise NotImplementedError("greedy tanh_normal actions are not defined by the reference")
             cand = d.sample(generator, (100,))  # [100, B, A]
             idx = d.log_prob(cand).argmax(0)  # [B]
             actions = torch.take_along_dim(cand, idx[None, ..., None], dim=0)[0]
@@ -447,6 +631,49 @@ def sample_actor_actions(
             actions = actions * (clip / torch.maximum(clip, actions.abs())).detach()
         return actions
     return torch.cat([d.mode if greedy else d.rsample(generator) for d in dists], -1)
+
+
+def actor_logprob_entropy(
+    actor: Actor, states: torch.Tensor, actions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log pi(a|s) and the entropy for stored (imagined) actions; discrete
+    actions are the concatenated one-hots. ``tanh_normal`` has no entropy
+    (nor has the reference's), and raises ``NotImplementedError``."""
+    dists = actor_dists(actor, actor(states))
+    if actor.is_continuous:
+        d = dists[0]
+        return d.log_prob(actions), d.entropy()
+    parts = torch.split(actions, list(actor.actions_dim), -1)
+    logp = sum(d.log_prob(p) for d, p in zip(dists, parts))
+    ent = sum(d.entropy() for d in dists)
+    return logp, ent
+
+
+# --------------------------------------------------------------------------- #
+# critic
+# --------------------------------------------------------------------------- #
+
+
+class Critic(nn.Module):
+    """Two-hot critic: an ``_LNMLP`` trunk and a zero-initialised head of
+    ``bins`` logits."""
+
+    def __init__(self, latent_state_size: int, bins: int = 255, mlp_layers: int = 5, dense_units: int = 1024) -> None:
+        super().__init__()
+        self.mlp = _LNMLP(latent_state_size, mlp_layers, dense_units)
+        self.head = _head(dense_units, bins, 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.mlp(x))
+
+
+def make_critic(cfg_critic: Dict[str, Any], latent_state_size: int) -> Critic:
+    return Critic(
+        latent_state_size,
+        bins=int(cfg_critic["bins"]),
+        mlp_layers=int(cfg_critic["mlp_layers"]),
+        dense_units=int(cfg_critic["dense_units"]),
+    )
 
 
 # --------------------------------------------------------------------------- #
@@ -532,7 +759,10 @@ def build_agent(
     wm_cfg = algo["world_model"]
     cnn_keys = tuple(algo["cnn_keys"]["encoder"])
     mlp_keys = tuple(algo["mlp_keys"]["encoder"])
+    if tuple(algo["cnn_keys"]["decoder"]) != cnn_keys or tuple(algo["mlp_keys"]["decoder"]) != mlp_keys:
+        raise NotImplementedError("decoder keys other than the encoder's are not ported yet")
     screen = int(cfg["env"]["screen_size"])
+    obs_model = wm_cfg["observation_model"]
     wm = WorldModel(
         cnn_keys=cnn_keys,
         mlp_keys=mlp_keys,
@@ -553,6 +783,16 @@ def build_agent(
         cnn_stages=int(np.log2(screen) - np.log2(4)),
         learnable_initial_recurrent_state=bool(wm_cfg["learnable_initial_recurrent_state"]),
         fused_recurrent=wm_cfg["recurrent_model"].get("fused", "auto"),
+        cnn_output_channels=[_image_channels(tuple(obs_space[k].shape)) for k in cnn_keys],
+        mlp_output_dims=[int(obs_space[k].shape[0]) for k in mlp_keys],
+        decoder_cnn_multiplier=int(obs_model["cnn_channels_multiplier"]),
+        decoder_mlp_layers=int(obs_model["mlp_layers"]),
+        decoder_dense_units=int(obs_model["dense_units"]),
+        reward_bins=int(wm_cfg["reward_model"]["bins"]),
+        reward_layers=int(wm_cfg["reward_model"]["mlp_layers"]),
+        reward_dense_units=int(wm_cfg["reward_model"]["dense_units"]),
+        continue_layers=int(wm_cfg["discount_model"]["mlp_layers"]),
+        continue_dense_units=int(wm_cfg["discount_model"]["dense_units"]),
     )
     actor_cfg = algo["actor"]
     if "minedojo" in str(actor_cfg.get("cls", "")).lower():
@@ -580,3 +820,26 @@ def build_agent(
     actor.to(dev).eval()
     player = PlayerDV3(wm, actor, actions_dim, int(cfg["env"]["num_envs"]), dev)
     return wm, actor, player
+
+
+def build_critic(
+    cfg: Dict[str, Any],
+    latent_state_size: int,
+    critic_state: Optional[Dict[str, torch.Tensor]] = None,
+    target_critic_state: Optional[Dict[str, torch.Tensor]] = None,
+    device: DeviceLike = None,
+) -> Tuple[Critic, Critic]:
+    """Critic and target critic on ``device`` (the CUDA card unless
+    ``device="cpu"``): the given state dicts, or a seeded init from
+    ``cfg["seed"] + 1`` with the target a copy of the critic."""
+    dev = resolve_device(device)
+    critic = make_critic(cfg["algo"]["critic"], latent_state_size)
+    target = make_critic(cfg["algo"]["critic"], latent_state_size)
+    if critic_state is None:
+        init_weights(critic, torch.Generator().manual_seed(int(cfg["seed"]) + 1))
+    else:
+        critic.load_state_dict({k: torch.as_tensor(v) for k, v in critic_state.items()})
+    state = critic.state_dict() if target_critic_state is None else target_critic_state
+    target.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    target.requires_grad_(False)
+    return critic.to(dev), target.to(dev)

@@ -1,22 +1,28 @@
-"""Flax -> port weight conversion for the Dreamer-V3 acting path.
+"""Flax -> port weight conversion for Dreamer-V3.
 
 The JAX package's param trees (``{"params": {...}}``, nested dicts of numpy
 arrays, as its checkpoints hold them) become state dicts of this package's
-``WorldModel`` and ``Actor``. The layout rules:
+``WorldModel``, ``Actor`` and ``Critic``. The same functions carry gradient
+trees across, which share the params' layout. The layout rules:
 
 - a flax ``Dense`` kernel is ``[in, out]`` and becomes ``nn.Linear.weight``
   ``[out, in]``; the recurrent model keeps ``[in, out]``, which the fused
   CUDA step reads as it is;
 - a flax conv kernel is HWIO and becomes OIHW (the encoder convs have no
   bias);
+- a flax ``ConvTranspose`` (``transpose_kernel=False``) correlates the
+  stride-dilated input with its HWIO kernel as stored, where
+  ``nn.ConvTranspose2d`` correlates it with the spatially flipped kernel
+  held as ``[in, out, kH, kW]``: the kernel is flipped in kH and kW and
+  moved to ``[in, out, kH, kW]``;
 - the repo's LayerNorm wrapper nests a flax ``LayerNorm``, so its params sit
   one level down, at ``.../LayerNorm_i/LayerNorm_0/{scale,bias}``;
 - an ``_LNMLP`` is a flat ``Dense_i``/``LayerNorm_i`` list; an
   ``nn.Sequential`` head is ``layers_0`` (the ``_LNMLP``) and ``layers_1``
   (the output ``Dense``).
 
-Leaves that this slice does not use are returned by name in a "not yet
-ported" list; a leaf that is neither converted nor listed there raises.
+Every leaf of a param tree is converted; a leaf with no port counterpart
+raises.
 
 ``shard_recurrent`` cuts the recurrent model's params into one model rank's
 arguments of the model-sharded step (``pallas_gru.py:393-395`` and the
@@ -29,10 +35,6 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-
-# world-model subtrees that later slices port
-NOT_PORTED = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
-
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -81,11 +83,33 @@ class _Converter:
             self.layer_norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
             i += 1
 
+    def conv_transpose(self, src: str, dst: str) -> None:
+        a = self.flat.pop(f"{src}/kernel")
+        self.out[f"{dst}.weight"] = _t(np.flip(a, (0, 1)).transpose(2, 3, 0, 1))
+        if self.has(f"{src}/bias"):
+            self.take(f"{src}/bias", f"{dst}.bias")
 
-def world_model_from_flax(tree: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """``(state_dict, not_ported)`` from a JAX ``WorldModel`` param tree;
-    ``not_ported`` names every leaf of the decoders and the reward and
-    continue heads."""
+    def cnn_decoder(self, src: str, dst: str) -> None:
+        """``CNNDecoder``: ``Dense_0``, then ``ConvTranspose_i`` with
+        ``LayerNorm_i`` but for the last (plain, with bias)."""
+        self.dense(f"{src}Dense_0", f"{dst}linear")
+        n = 0
+        while self.has(f"{src}ConvTranspose_{n}/kernel"):
+            n += 1
+        for i in range(n - 1):
+            self.conv_transpose(f"{src}ConvTranspose_{i}", f"{dst}deconvs.{i}")
+            self.layer_norm(f"{src}LayerNorm_{i}", f"{dst}norms.{i}")
+        self.conv_transpose(f"{src}ConvTranspose_{n - 1}", f"{dst}out")
+
+    def head(self, src: str, dst: str) -> None:
+        """An ``nn.Sequential`` of an ``_LNMLP`` and its output ``Dense``."""
+        self.lnmlp(f"{src}/layers_0", f"{dst}.0")
+        self.dense(f"{src}/layers_1", f"{dst}.1")
+
+
+def world_model_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``WorldModel`` from a JAX ``WorldModel``
+    param tree."""
     c = _Converter(_params(tree))
     i = 0
     while c.has(f"cnn_encoder/Conv_{i}/kernel"):
@@ -99,16 +123,18 @@ def world_model_from_flax(tree: Mapping[str, Any]) -> Tuple[Dict[str, torch.Tens
     c.layer_norm(f"{rec}/LayerNorm_0", "recurrent_model.in_norm")
     c.take(f"{rec}/LayerNormGRUCell_0/Dense_0/kernel", "recurrent_model.gru.kernel")
     c.layer_norm(f"{rec}/LayerNormGRUCell_0/LayerNorm_0", "recurrent_model.gru.norm")
-    for head in ("representation_model", "transition_model"):
-        c.lnmlp(f"{head}/layers_0", f"{head}.0")
-        c.dense(f"{head}/layers_1", f"{head}.1")
+    for head in ("representation_model", "transition_model", "reward_model", "continue_model"):
+        c.head(head, head)
+    if c.has("cnn_decoder/Dense_0/kernel"):
+        c.cnn_decoder("cnn_decoder/", "cnn_decoder.")
+    c.lnmlp("mlp_decoder/_LNMLP_0", "mlp_decoder.mlp")
+    for k in sorted({p.split("/")[1] for p in c.flat if p.startswith("mlp_decoder/head_")}):
+        c.dense(f"mlp_decoder/{k}", f"mlp_decoder.heads.{k[len('head_'):]}")
     if c.has("initial_recurrent_state"):
         c.take("initial_recurrent_state", "initial_recurrent_state")
-    not_ported = sorted(k for k in c.flat if k.split("/")[0] in NOT_PORTED)
-    unknown = sorted(set(c.flat) - set(not_ported))
-    if unknown:
-        raise KeyError(f"world-model leaves with no port counterpart: {unknown}")
-    return c.out, not_ported
+    if c.flat:
+        raise KeyError(f"world-model leaves with no port counterpart: {sorted(c.flat)}")
+    return c.out
 
 
 def actor_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -121,6 +147,27 @@ def actor_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         i += 1
     if c.flat:
         raise KeyError(f"actor leaves with no port counterpart: {sorted(c.flat)}")
+    return c.out
+
+
+def cnn_decoder_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``CNNDecoder`` from a JAX ``CNNDecoder``
+    param tree."""
+    c = _Converter(_params(tree))
+    c.cnn_decoder("", "")
+    if c.flat:
+        raise KeyError(f"decoder leaves with no port counterpart: {sorted(c.flat)}")
+    return c.out
+
+
+def critic_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``Critic`` from a JAX critic param tree
+    (``make_critic``: ``_LNMLP_0`` and the head ``Dense_0``)."""
+    c = _Converter(_params(tree))
+    c.lnmlp("_LNMLP_0", "mlp")
+    c.dense("Dense_0", "head")
+    if c.flat:
+        raise KeyError(f"critic leaves with no port counterpart: {sorted(c.flat)}")
     return c.out
 
 

@@ -1,8 +1,10 @@
 """The configuration values the port reads, as Python (no YAML on the card).
 
 Copied from the JAX package's config tree: ``configs/algo/dreamer_v3.yaml``
-and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``
-and ``configs/env/{default,pixel_catcher,dummy}.yaml``. ``compose`` applies
+and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``,
+``configs/optim/adam.yaml`` (the three optimizers' defaults),
+``configs/buffer/default.yaml`` (``size``, with the exp's override) and
+``configs/env/{default,pixel_catcher,dummy}.yaml``. ``compose`` applies
 the size, then the env, then dotted overrides, and resolves the ``${...}``
 references last, as the JAX composer does. The precision is ``32-true``: the
 port computes in fp32 only (bf16-mixed comes with a later slice).
@@ -16,6 +18,12 @@ from typing import Any, Dict, Mapping, Optional
 
 SIZES = ("XS", "S", "M", "L", "XL")
 
+
+def _adam(lr: float, eps: float) -> Dict[str, Any]:
+    """``configs/optim/adam.yaml`` with the algo's lr and eps."""
+    return {"lr": lr, "eps": eps, "weight_decay": 0, "betas": [0.9, 0.999]}
+
+
 _ROOT: Dict[str, Any] = {
     "seed": 42,
     "dry_run": False,
@@ -27,18 +35,35 @@ _ROOT: Dict[str, Any] = {
         "frame_stack": 1,
         "screen_size": 64,
         "grayscale": False,
+        "clip_rewards": False,
         "max_episode_steps": None,
     },
+    "buffer": {"size": 1000000},
     "algo": {
         "name": "dreamer_v3",
-        "cnn_keys": {"encoder": ["rgb"]},
-        "mlp_keys": {"encoder": []},
+        "total_steps": 5000000,
+        "per_rank_batch_size": 16,
+        "per_rank_sequence_length": 64,
+        "gamma": 0.996996996996997,
+        "lmbda": 0.95,
+        "horizon": 15,
+        "replay_ratio": 1,
+        "learning_starts": 1024,
+        "per_rank_pretrain_steps": 0,
+        "cnn_keys": {"encoder": ["rgb"], "decoder": "${algo.cnn_keys.encoder}"},
+        "mlp_keys": {"encoder": [], "decoder": "${algo.mlp_keys.encoder}"},
         "dense_units": 1024,
         "mlp_layers": 5,
         "unimix": 0.01,
         "world_model": {
             "discrete_size": 32,
             "stochastic_size": 32,
+            "kl_dynamic": 0.5,
+            "kl_representation": 0.1,
+            "kl_free_nats": 1.0,
+            "kl_regularizer": 1.0,
+            "continue_scale_factor": 1.0,
+            "clip_gradients": 1000.0,
             "learnable_initial_recurrent_state": True,
             "encoder": {
                 "cnn_channels_multiplier": 96,
@@ -52,16 +77,37 @@ _ROOT: Dict[str, Any] = {
             },
             "transition_model": {"hidden_size": 1024},
             "representation_model": {"hidden_size": 1024},
+            "observation_model": {
+                "cnn_channels_multiplier": "${algo.world_model.encoder.cnn_channels_multiplier}",
+                "mlp_layers": "${algo.mlp_layers}",
+                "dense_units": "${algo.dense_units}",
+            },
+            "reward_model": {"mlp_layers": "${algo.mlp_layers}", "dense_units": "${algo.dense_units}", "bins": 255},
+            "discount_model": {"learnable": True, "mlp_layers": "${algo.mlp_layers}", "dense_units": "${algo.dense_units}"},
+            "optimizer": _adam(1e-4, 1e-8),
         },
         "actor": {
             "cls": "sheeprl_tpu.algos.dreamer_v3.agent.Actor",
+            "ent_coef": 3e-4,
             "min_std": 0.1,
             "max_std": 1.0,
             "init_std": 2.0,
             "mlp_layers": "${algo.mlp_layers}",
             "dense_units": "${algo.dense_units}",
+            "clip_gradients": 100.0,
             "unimix": "${algo.unimix}",
             "action_clip": 1.0,
+            "moments": {"decay": 0.99, "max": 1.0, "percentile": {"low": 0.05, "high": 0.95}},
+            "optimizer": _adam(8e-5, 1e-5),
+        },
+        "critic": {
+            "mlp_layers": "${algo.mlp_layers}",
+            "dense_units": "${algo.dense_units}",
+            "per_rank_target_network_update_freq": 1,
+            "tau": 0.02,
+            "bins": 255,
+            "clip_gradients": 100.0,
+            "optimizer": _adam(8e-5, 1e-5),
         },
     },
 }

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (sheeprl_tpu_torch/csrc/fused_gru.cu) against
-their plain PyTorch versions on the card.
+their plain PyTorch versions on the card, alone and inside the Dreamer-V3
+train step (fused against plain, launches a step, determinism, the
+continuous actor's gradient through the kernel's backward).
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so with ``--noconftest``
@@ -298,3 +300,177 @@ def test_cuda_projection_plan(cuda, batch, hidden, dense, cols, w2_dtype, want):
     route, splits, chunk, floats = tgru.proj_plan(h, feat, w2s, sm_count=132)
     assert (route, splits, chunk) == want
     assert floats == (splits * batch * cols if splits > 1 else 0)
+
+
+# --------------------------------------------------------------------------- #
+# the Dreamer-V3 train step through fused_gru
+# --------------------------------------------------------------------------- #
+
+# the fused and plain train steps on the same weights and batch: each metric
+# within TRAIN_BOUND of the plain one relative to max(|plain|, 1), each
+# gradient tensor within TRAIN_BOUND relative to its largest element (the
+# kernel's 1e-6-level differences carried through the scan and its backward)
+TRAIN_BOUND = 1e-3
+SMALL_TRAIN = {
+    "algo.dense_units": 64,
+    "algo.mlp_layers": 1,
+    "algo.world_model.encoder.cnn_channels_multiplier": 4,
+    "algo.world_model.recurrent_model.recurrent_state_size": 64,
+    "algo.world_model.transition_model.hidden_size": 32,
+    "algo.world_model.representation_model.hidden_size": 32,
+    "algo.world_model.stochastic_size": 8,
+    "algo.world_model.discrete_size": 8,
+    "env.screen_size": 16,
+}
+
+
+@pytest.fixture()
+def smooth():
+    """Deterministic samplers (probabilities straight through, a normal
+    head's location), so fused and plain steps see the same noise: the ones
+    chip_smoke.py's training phase uses."""
+    import chip_smoke
+
+    with chip_smoke.deterministic():
+        yield
+
+
+def _train(continuous, fused, horizon, states=None):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_critic
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers, make_train_step
+    from sheeprl_tpu_torch.configs import compose
+    from sheeprl_tpu_torch.envs import spaces
+
+    cfg = compose(
+        "XS",
+        env="dummy_continuous" if continuous else "dummy_discrete",
+        overrides={
+            **SMALL_TRAIN,
+            "seed": 3,
+            "algo.horizon": horizon,
+            "algo.mlp_keys.encoder": ["state"],
+            "algo.world_model.recurrent_model.fused": fused,
+        },
+    )
+    space = spaces.Dict(
+        {"rgb": spaces.Box(0, 255, (16, 16, 3), np.uint8), "state": spaces.Box(-20, 20, (5,), np.float32)}
+    )
+    dims = (2,) if continuous else (3,)
+    states = states or {}
+    wm, actor, _ = build_agent(dims, continuous, cfg, space, states.get("wm"), states.get("actor"), device="cuda")
+    critic, target = build_critic(cfg, wm.latent_state_size, states.get("critic"), states.get("target"), "cuda")
+    step = make_train_step(wm, actor, critic, target, *build_optimizers(cfg, wm, actor, critic), cfg, continuous)
+    models = {"wm": wm, "actor": actor, "critic": critic, "target": target}
+    return models, step
+
+
+def _batch(T, B, continuous, seed=0):
+    rng = np.random.default_rng(seed)
+    d = {
+        "rgb": rng.integers(0, 256, (T, B, 16, 16, 3)).astype(np.uint8),
+        "state": rng.standard_normal((T, B, 5)).astype(np.float32),
+        "actions": (
+            rng.uniform(-1, 1, (T, B, 2)) if continuous else np.eye(3)[rng.integers(0, 3, (T, B))]
+        ).astype(np.float32),
+        "rewards": rng.standard_normal((T, B, 1)).astype(np.float32),
+        "terminated": (rng.uniform(size=(T, B, 1)) < 0.05).astype(np.float32),
+        "is_first": (rng.uniform(size=(T, B, 1)) < 0.05).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+
+
+def _step(step, batch, grads=None):
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    tgru.reset_launch_count()
+    moments, metrics = step(init_moments(torch.device("cuda")), batch, None, grads)
+    torch.cuda.synchronize()
+    return metrics, tgru.launch_count, moments
+
+
+def _snapshot(models):
+    return {k: {n: v.detach().clone() for n, v in m.state_dict().items()} for k, m in models.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_train_step_fused_matches_plain(cuda, smooth, continuous):
+    """One gradient step with the kernel against the plain recurrent model
+    (fused: flax) from the same weights; continuous actions carry the actor's
+    gradient through imagination and the kernel's backward."""
+    fused, step = _train(continuous, "auto", 4)
+    plain, plain_step = _train(continuous, "flax", 4, _snapshot(fused))
+    assert fused["wm"].fused and not plain["wm"].fused
+    batch = _batch(8, 4, continuous)
+    g_f, g_p = {}, {}
+    m_f, launches, mo_f = _step(step, batch, g_f)
+    m_p, plain_launches, mo_p = _step(plain_step, batch, g_p)
+    assert (launches, plain_launches) == (8 + 5, 0)
+    assert torch.isfinite(m_f).all()
+    assert ((m_f - m_p).abs() / m_p.abs().clamp_min(1.0)).max() <= TRAIN_BOUND
+    for name in ("world_model", "actor", "critic"):
+        for a, b in zip(g_f[name], g_p[name]):
+            assert (a - b).abs().max() <= TRAIN_BOUND * b.abs().max().clamp_min(1e-30), name
+    for k in ("wm", "actor", "critic"):
+        for (n, a), b in zip(fused[k].state_dict().items(), plain[k].state_dict().values()):
+            assert torch.allclose(a, b, atol=TRAIN_BOUND, rtol=TRAIN_BOUND), f"{k}.{n}"
+    torch.testing.assert_close(mo_f.low, mo_p.low, atol=TRAIN_BOUND, rtol=TRAIN_BOUND)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_the_kernel_once_a_recurrent_step(cuda):
+    """T = 64 scan steps at B = 16 and horizon + 1 = 16 imagination steps at
+    B = 1024: 80 launches a gradient step, none in the backward."""
+    _, step = _train(False, "auto", 15)
+    _, launches, _ = _step(step, _batch(64, 16, False))
+    assert launches == 64 + 16
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_is_deterministic(cuda, monkeypatch):
+    """Two gradient steps from the same state, batch and generator seed give
+    the same bits: metrics and every updated parameter. cuDNN's default
+    weight-gradient algorithms for the convolutions sum in a run-dependent
+    order, so the test asks cuDNN for its deterministic ones."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    first, step = _train(False, "auto", 4)
+    states = _snapshot(first)
+    second, step2 = _train(False, "auto", 4, states)
+    batch = _batch(8, 4, False)
+    gen = [torch.Generator(device="cuda").manual_seed(7) for _ in range(2)]
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    out = [s(init_moments(torch.device("cuda")), batch, g)[1] for s, g in zip((step, step2), gen)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    for k in ("wm", "actor", "critic"):
+        for a, b in zip(first[k].parameters(), second[k].parameters()):
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+def test_cuda_continuous_actor_gradient_runs_the_kernel_backward_at_b1024(cuda, smooth, monkeypatch):
+    """With continuous actions the policy loss is the advantage itself: its
+    gradient reaches the actor through 16 imagination steps of the kernel at
+    B = 16 x 64 = 1024 and their backward (the plain recompute)."""
+    calls = []
+    orig = tgru._FusedStep.backward
+
+    def backward(ctx, grad):
+        calls.append(grad.shape[0])
+        return orig(ctx, grad)
+
+    monkeypatch.setattr(tgru._FusedStep, "backward", staticmethod(backward))
+    fused, step = _train(True, "auto", 15)
+    plain, plain_step = _train(True, "flax", 15, _snapshot(fused))
+    batch = _batch(64, 16, True)
+    g_f, g_p = {}, {}
+    m_f, launches, _ = _step(step, batch, g_f)
+    _step(plain_step, batch, g_p)
+    assert launches == 64 + 16
+    # the last imagination step's successor is not kept: 15 backward calls
+    assert calls.count(1024) == 15 and calls.count(16) == 64
+    assert float(m_f[11]) > 0  # Grads/actor
+    for a, b in zip(g_f["actor"], g_p["actor"]):
+        assert (a - b).abs().max() <= TRAIN_BOUND * b.abs().max().clamp_min(1e-30)

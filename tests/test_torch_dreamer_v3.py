@@ -96,16 +96,16 @@ def jax_world_model(cfg, space, actions_dim, seed=0):
         encoder_cnn_multiplier=wm_cfg["encoder"]["cnn_channels_multiplier"],
         encoder_mlp_layers=wm_cfg["encoder"]["mlp_layers"],
         encoder_dense_units=wm_cfg["encoder"]["dense_units"],
-        decoder_cnn_multiplier=2,
-        decoder_mlp_layers=1,
-        decoder_dense_units=8,
+        decoder_cnn_multiplier=wm_cfg["observation_model"]["cnn_channels_multiplier"],
+        decoder_mlp_layers=wm_cfg["observation_model"]["mlp_layers"],
+        decoder_dense_units=wm_cfg["observation_model"]["dense_units"],
         representation_hidden_size=wm_cfg["representation_model"]["hidden_size"],
         transition_hidden_size=wm_cfg["transition_model"]["hidden_size"],
-        reward_bins=5,
-        reward_layers=1,
-        reward_dense_units=8,
-        continue_layers=1,
-        continue_dense_units=8,
+        reward_bins=wm_cfg["reward_model"]["bins"],
+        reward_layers=wm_cfg["reward_model"]["mlp_layers"],
+        reward_dense_units=wm_cfg["reward_model"]["dense_units"],
+        continue_layers=wm_cfg["discount_model"]["mlp_layers"],
+        continue_dense_units=wm_cfg["discount_model"]["dense_units"],
         cnn_stages=int(np.log2(screen) - 2),
         fused_recurrent="flax",
     )
@@ -150,7 +150,7 @@ def pair(cnn=("rgb",), mlp=(), actions_dim=(3,), is_continuous=False, fused="aut
     space = obs_space(cnn, mlp)
     jwm, jwp = jax_world_model(cfg, space, actions_dim, seed)
     jact, jap = jax_actor(cfg, jwm.latent_state_size, actions_dim, is_continuous, seed)
-    wm_sd, _ = world_model_from_flax(jwp)
+    wm_sd = world_model_from_flax(jwp)
     twm, tact, player = tagent.build_agent(
         actions_dim, is_continuous, cfg, space, wm_sd, actor_from_flax(jap), device="cpu"
     )
@@ -340,9 +340,9 @@ def test_player_sampling_is_seeded():
 def test_converter_lists_unported_leaves_and_rejects_unknown_ones():
     cfg = tiny_cfg()
     _, jwp = jax_world_model(cfg, obs_space(("rgb",), ()), (3,))
-    sd, not_ported = world_model_from_flax(jwp)
-    heads = {k.split("/")[0] for k in not_ported}
-    assert heads == {"cnn_decoder", "reward_model", "continue_model"}
+    # the decoders and the reward and continue heads are ported now
+    sd = world_model_from_flax(jwp)
+    assert {k.split(".")[0] for k in sd} >= {"cnn_decoder", "reward_model", "continue_model"}
     assert "recurrent_model.gru.kernel" in sd and sd["recurrent_model.gru.kernel"].shape == (16 + 16, 48)
     # flax conv HWIO -> torch OIHW; Dense [in, out] -> Linear [out, in]
     hwio = np.asarray(jwp["params"]["cnn_encoder"]["Conv_0"]["kernel"])
@@ -387,7 +387,7 @@ def test_evaluate_runs_on_cpu(env, cnn, mlp):
 
 def test_evaluate_loads_converted_weights():
     cfg, jwm, jwp, jact, jap, *_ = pair()
-    state = {"world_model": world_model_from_flax(jwp)[0], "actor": actor_from_flax(jap)}
+    state = {"world_model": world_model_from_flax(jwp), "actor": actor_from_flax(jap)}
     cfg = dict(cfg, env=dict(cfg["env"], max_episode_steps=5))
     assert evaluate(cfg, state, device="cpu")[1] <= 5
 
