@@ -53,7 +53,22 @@ which exits non-zero:
    window over each (idle share, B1's share and time per call at B=16 and
    B=1024, device and host time of each RSSM step, top kernels); (d)
    ``main()`` for a few hundred env steps with the cuts printed, its
-   env-steps/s and gradient steps/s, the kernel's launches counted.
+   env-steps/s and gradient steps/s, the kernel's launches counted (each
+   gradient step is a replay of the captured step: the wrapper's calls
+   outside capture, plus the 80 calls captured times the replays).
+7. The captured train step (``ops/graph.py``, as ``main`` builds it): (a)
+   three replays against three eager steps from the same weights and
+   batches, discrete (PixelCatcher) and continuous (the dummy env), smooth
+   samplers and cuDNN's deterministic algorithms: metrics, parameters and
+   Moments within ``REPLAY_BOUND``, Adam's count 3, 80 kernel calls
+   captured; (b) with the real samplers, a replay after the generator moved
+   on differs from the first, and re-setting the generator reproduces it;
+   (c) ms per gradient step replayed and eager, with B1 and with the plain
+   recurrent model (CUDA events), and torch.profiler over replays: device
+   busy and idle share, ``gru_step`` kernels a replayed step (2 x 80); (d)
+   ``main()`` with a checkpoint every 64 policy steps and a forced NaN (one
+   rollback to the newest committed checkpoint), then a second ``main()``
+   resuming from it (``checkpoint.resume_from=auto``) to its end.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -67,6 +82,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -788,8 +804,8 @@ def filled_replay(np, cfg, env_steps: int):
 
 
 def train_models(torch, cfg, obs_space, actions_dim, is_continuous, states=None):
-    """World model, actor, critic, target critic, optimizers and the train
-    step of ``cfg`` on the card: seeded, or ``states``' weights."""
+    """World model, actor, critic and target critic, the train step and the
+    optimizers of ``cfg`` on the card: seeded, or ``states``' weights."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_critic
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers, make_train_step
 
@@ -801,7 +817,7 @@ def train_models(torch, cfg, obs_space, actions_dim, is_continuous, states=None)
     opts = build_optimizers(cfg, wm, actor, critic)
     step = make_train_step(wm, actor, critic, target, *opts, cfg, is_continuous)
     models = {"wm": wm, "actor": actor, "critic": critic, "target": target}
-    return models, step
+    return models, step, opts
 
 
 def snapshot(models):
@@ -842,11 +858,11 @@ def phase_train_parity(torch, np, fg):
     if tuple(batch["rgb"].shape) != (TRAIN_T, TRAIN_B, 64, 64, 3):
         raise AssertionError(f"replay batch is {tuple(batch['rgb'].shape)}")
     with deterministic():
-        fused, fused_step = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        fused, fused_step, _ = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
         if not fused["wm"].fused:
             raise AssertionError("the S world model did not select the fused recurrent kernel")
         plain_cfg = train_cfg("pixel_catcher", fused="flax")
-        plain, plain_step = train_models(torch, plain_cfg, obs_space, actions_dim, is_continuous, snapshot(fused))
+        plain, plain_step, _ = train_models(torch, plain_cfg, obs_space, actions_dim, is_continuous, snapshot(fused))
         g_fused, g_plain = {}, {}
         m_fused, launches = one_step(torch, fg, fused_step, batch, g_fused)
         m_plain, plain_launches = one_step(torch, fg, plain_step, batch, g_plain)
@@ -882,8 +898,10 @@ def phase_train_parity(torch, np, fg):
         ccfg = train_cfg("dummy_continuous")
         crb, cspace, cdim, ccont = filled_replay(np, ccfg, 70)
         cbatch = to_batch(crb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
-        cmodels, cstep = train_models(torch, ccfg, cspace, cdim, ccont)
-        cplain, cplain_step = train_models(torch, train_cfg("dummy_continuous", "flax"), cspace, cdim, ccont, snapshot(cmodels))
+        cmodels, cstep, _ = train_models(torch, ccfg, cspace, cdim, ccont)
+        cplain, cplain_step, _ = train_models(
+            torch, train_cfg("dummy_continuous", "flax"), cspace, cdim, ccont, snapshot(cmodels)
+        )
         cg, cg_plain = {}, {}
         cm, claunches = one_step(torch, fg, cstep, cbatch, cg)
         cm_plain, _ = one_step(torch, fg, cplain_step, cbatch, cg_plain)
@@ -1021,7 +1039,7 @@ def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     runs = {}
     for fused in ("auto", "flax"):
         cfg = train_cfg("pixel_catcher", fused=fused)
-        models, step = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        models, step, _ = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
         step.wm = models["wm"]
         runs[fused] = (models, step)
     batches = [to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev) for _ in range(TIMED_STEPS)]
@@ -1052,39 +1070,308 @@ def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     return report
 
 
-def phase_train_loop(torch, np, fg):
+def phase_train_loop(torch, np, fg, tmp):
     """(d) main(): a few hundred env steps of the S loop on 4 PixelCatcher
-    envs, through the kernel. Returns (B1 launches, report)."""
+    envs, each gradient step one replay of the captured step. Its calls of
+    the kernel's wrapper: one a player step, 80 for each of the warm-up steps
+    and 80 recorded into the graph; its launches on the card: those calls
+    but the recorded ones, plus 80 a replay. Returns (launches, report)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
+    from sheeprl_tpu_torch.ops.graph import WARMUP_STEPS
 
-    cfg = train_cfg("pixel_catcher", **LOOP_CUTS)
+    cfg = train_cfg("pixel_catcher", **LOOP_CUTS, log_base_dir=tmp)
     print("train_loop cuts " + json.dumps(LOOP_CUTS), flush=True)
     # ---- the main path: counts at 0 just before, read just after ----
     fg.reset_launch_count()
     out = train_main(cfg, device="cuda")
-    launches = fg.launch_count
+    calls = fg.launch_count
     # ------------------------------------------------------------------
+    per_step = SCAN_CALLS + IMAGINE_CALLS
     num_envs = cfg["env"]["num_envs"]
     updates = cfg["algo"]["total_steps"] // num_envs
     acting = updates - cfg["algo"]["learning_starts"] // num_envs
-    expected = out["gradient_steps"] * (SCAN_CALLS + IMAGINE_CALLS) + acting
-    if launches != expected or out["gradient_steps"] == 0:
-        raise AssertionError(f"main(): fused_gru launched {launches} times, want {expected} ({out['gradient_steps']} steps)")
+    captured = out["captured_launches_per_step"]
+    launches = calls - captured + captured * out["replays"]
+    if (
+        captured != per_step
+        or out["replays"] != out["gradient_steps"]
+        or out["gradient_steps"] == 0
+        or calls != acting + (WARMUP_STEPS + 1) * per_step
+    ):
+        raise AssertionError(
+            f"main(): {calls} wrapper calls (want {acting} + {WARMUP_STEPS + 1} x {per_step}), {captured} "
+            f"captured a step (want {per_step}), {out['replays']} replays for {out['gradient_steps']} steps"
+        )
     if not all(np.isfinite(v) for v in out["metrics"].values()):
         raise AssertionError(f"main(): metrics are not finite: {out['metrics']}")
     report = {
         "env_steps": out["env_steps"],
         "gradient_steps": out["gradient_steps"],
         "seconds": out["seconds"],
-        "train_seconds": out["train_seconds"],
+        "train_seconds_device": out["train_seconds"],
         "env_steps_per_s": out["env_steps"] / out["seconds"],
         "gradient_steps_per_s": out["gradient_steps"] / out["seconds"],
-        "gradient_steps_per_train_s": out["gradient_steps"] / out["train_seconds"],
+        "fused_gru_wrapper_calls": calls,
+        "fused_gru_captured_per_step": captured,
+        "replays": out["replays"],
         "fused_gru_launches": launches,
         "last_metrics": out["metrics"],
     }
     print("train_loop " + json.dumps(report), flush=True)
     return launches, report
+
+
+# phase 7: the captured step. (a) replayed against eager steps from the same
+# weights and batches with cuDNN's deterministic algorithms: each metric
+# within REPLAY_BOUND of the eager one relative to max(|eager|, 1), each
+# parameter tensor relative to its largest element; the same kernels run in
+# both, the graph only takes the host out
+REPLAY_BOUND = 1e-6
+REPLAYED_STEPS = 3
+# (b) two replays from the same state and batch with the generator moved on
+# differ by more than NOISE_MIN in some metric (relative), and re-setting
+# the generator reproduces the first within REPLAY_BOUND
+NOISE_MIN = 1e-4
+REPLAY_TIMED = 8
+# (d) the drill: S on PixelCatcher (4 envs), 320 env steps, training from
+# 256 (64 steps an env: one sequence), a checkpoint every 64 policy steps, a
+# forced NaN at update 72 (one rollback to the checkpoint of policy step
+# 256); then a resume from auto to 608. The buffer is not checkpointed, so
+# the resumed run refills it for learning_starts past its start (update 81
+# + 64) and trains from update 145, where the restored Ratio owes the
+# policy steps since its last call
+DRILL_CUTS = {"algo.total_steps": 320, "algo.learning_starts": 256, "buffer.size": 4096, "checkpoint.every": 64}
+DRILL_FAULT_UPDATE = 72
+DRILL_ROLLBACK_TO = "ckpt_256_0.ckpt"
+DRILL_RESUME_STEPS = 608
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def captured_step(torch, models, step, opts, batch, generator):
+    """The train step as ``main`` captures it, over inputs shaped as
+    ``batch`` (holding it); returns (CapturedStep, its Moments)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_fn
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    moments = init_moments(torch.device("cuda"))
+    inputs = {k: v.clone() for k, v in batch.items()}
+    fn = make_train_fn(step, models["wm"], models["actor"], models["critic"], opts, moments, inputs, generator)
+    return fn, moments
+
+
+def rel_err(torch, got, want):
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
+    """(a) REPLAYED_STEPS replays of the captured step (B1 inside) against
+    as many eager steps, discrete (PixelCatcher) and continuous (the dummy
+    env), with the smooth samplers; (b) fresh noise on each replay from the
+    registered generator, with the real samplers."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    dev = torch.device("cuda")
+    ccfg = train_cfg("dummy_continuous")
+    crb, cspace, cdim, ccont = filled_replay(np, ccfg, 70)
+    cases = {
+        "discrete": (train_cfg("pixel_catcher"), rb, obs_space, actions_dim, is_continuous),
+        "continuous": (ccfg, crb, cspace, cdim, ccont),
+    }
+    report = {"bound": REPLAY_BOUND}
+    with cudnn_deterministic(torch), deterministic():
+        for name, (cfg, crb_, space, dims, cont) in cases.items():
+            graphed, gstep, gopts = train_models(torch, cfg, space, dims, cont)
+            eager, estep, eopts = train_models(torch, cfg, space, dims, cont, snapshot(graphed))
+            batches = [to_batch(crb_.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev) for _ in range(REPLAYED_STEPS)]
+            fn, gmoments = captured_step(torch, graphed, gstep, gopts, batches[0], None)
+            emoments = init_moments(dev)
+            metric_errs = []
+            for b in batches:
+                for k, v in b.items():
+                    fn.inputs[k].copy_(v)
+                got = fn()
+                _, want = estep(emoments, b, None)
+                metric_errs.append(rel_err(torch, got, want))
+            torch.cuda.synchronize()
+            param_err = max(
+                ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for k in ("wm", "actor", "critic")
+                for a, b in zip(graphed[k].parameters(), eager[k].parameters())
+            )
+            moments_err = max(rel_err(torch, gmoments.low, emoments.low), rel_err(torch, gmoments.high, emoments.high))
+            counts = [int(o.count) for o in gopts] + [int(o.count) for o in eopts]
+            report[name] = {
+                "metric_max_rel_err_per_step": metric_errs,
+                "param_max_rel_err": param_err,
+                "moments_max_rel_err": moments_err,
+                "adam_counts": counts,
+                "captured_fused_gru_calls": fn.captured_launches,
+                "replays": fn.replays,
+            }
+            if (
+                max(metric_errs + [param_err, moments_err]) > REPLAY_BOUND
+                or counts != [REPLAYED_STEPS] * 6
+                or fn.captured_launches != SCAN_CALLS + IMAGINE_CALLS
+            ):
+                raise AssertionError(f"replayed against eager ({name}): {report[name]}")
+            del graphed, eager, fn
+
+    # (b) the real samplers: noise from the registered train generator
+    with cudnn_deterministic(torch):
+        cfg = train_cfg("pixel_catcher")
+        models, step, opts = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev)
+        fn, _ = captured_step(torch, models, step, opts, batch, gen)
+        saved = [t.detach().clone() for t in fn.state]
+        gen_state = gen.get_state()
+
+        def restore():
+            with torch.no_grad():
+                for t, v in zip(fn.state, saved):
+                    t.copy_(v)
+
+        first = fn()
+        restore()
+        second = fn()
+        restore()
+        gen.set_state(gen_state)
+        again = fn()
+        torch.cuda.synchronize()
+        noise = {
+            "metric_max_rel_diff_next_draw": rel_err(torch, second, first),
+            "metric_max_rel_err_same_draw": rel_err(torch, again, first),
+            "min_rel_diff": NOISE_MIN,
+        }
+        report["noise"] = noise
+        if noise["metric_max_rel_diff_next_draw"] <= NOISE_MIN or noise["metric_max_rel_err_same_draw"] > REPLAY_BOUND:
+            raise AssertionError(f"replayed noise: {noise}")
+        del models, fn, saved
+    print("replay_parity " + json.dumps(report), flush=True)
+    return report
+
+
+def phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous):
+    """(c) ms per gradient step replayed and eager, B1 (fused: auto) and
+    the plain recurrent model (fused: flax), CUDA events around REPLAY_TIMED
+    steps, in turns fused, plain, plain, fused; then torch.profiler over 4
+    replays of each: device busy time, idle share, B1's gru_step kernels a
+    replayed step (2 launches x 80 calls) and their time, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    dev = torch.device("cuda")
+    batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev)
+    runs = {}
+    for fused in ("auto", "flax"):
+        models, step, opts = train_models(torch, train_cfg("pixel_catcher", fused=fused), obs_space, actions_dim, is_continuous)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        fn, _ = captured_step(torch, models, step, opts, batch, gen)
+        fn()  # capture and one replay
+        runs[fused] = (models, step, fn, gen, init_moments(dev))
+
+    def timed(body):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(REPLAY_TIMED):
+            body()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / REPLAY_TIMED
+
+    times = {f"{k}_{mode}": [] for k in ("fused", "plain") for mode in ("replayed", "eager")}
+    for fused in ("auto", "flax", "flax", "auto"):
+        _, step, fn, gen, moments = runs[fused]
+        key = "fused" if fused == "auto" else "plain"
+        times[f"{key}_replayed"].append(timed(fn))
+        times[f"{key}_eager"].append(timed(lambda: step(moments, batch, gen)))
+    report = {f"ms_per_gradient_step_{k}": v for k, v in times.items()}
+    for fused in ("auto", "flax"):
+        fn = runs[fused][2]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        b1 = [e for e in kernels if any(n in e.name for n in FUSED_GRU_KERNELS)]
+        key = "fused" if fused == "auto" else "plain"
+        by_name = {}
+        for e in kernels:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+        report[f"profile_{key}"] = {
+            "wall_ms_per_replay": 1e3 * seconds / 4,
+            "device_busy_ms_per_replay": busy_us / 1e3 / 4,
+            "device_idle_share": 1.0 - busy_us / 1e6 / seconds if busy_us else None,
+            "gru_step_kernels_per_replay": len(b1) / 4,
+            "gru_step_ms_per_replay": sum(e.time_range.elapsed_us() for e in b1) / 1e3 / 4,
+            "top_kernels_ms_per_replay": [[k, v / 1e3 / 4] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+        }
+    print("replay_timing " + json.dumps(report), flush=True)
+    if report["profile_fused"]["gru_step_kernels_per_replay"] != 2 * (SCAN_CALLS + IMAGINE_CALLS):
+        raise AssertionError(f"a replayed step ran {report['profile_fused']['gru_step_kernels_per_replay']} gru_step kernels")
+    if report["profile_plain"]["gru_step_kernels_per_replay"] != 0:
+        raise AssertionError("the plain step ran B1")
+    del runs
+    return report
+
+
+def phase_drill(torch, np, tmp):
+    """(d) main() with a checkpoint every 64 policy steps and a forced NaN
+    at update DRILL_FAULT_UPDATE (one rollback), then a second main()
+    resuming from the newest committed checkpoint (auto) to
+    DRILL_RESUME_STEPS env steps."""
+    import warnings
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
+
+    fault = {"enabled": True, "faults": [{"kind": "nan", "at_update": DRILL_FAULT_UPDATE}]}
+    common = {**DRILL_CUTS, "log_base_dir": tmp, "run_name": "drill"}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        first = train_main(train_cfg("pixel_catcher", **common, **{"resilience.fault_injection": fault}), device="cuda")
+        resume = {**common, "checkpoint.resume_from": "auto", "algo.total_steps": DRILL_RESUME_STEPS}
+        second = train_main(train_cfg("pixel_catcher", **resume), device="cuda")
+    rolled = [str(w.message) for w in caught if "rolled back" in str(w.message)]
+    report = {
+        "cuts": common,
+        "fault_at_update": DRILL_FAULT_UPDATE,
+        "first": {k: first[k] for k in ("env_steps", "gradient_steps", "rollbacks", "last_checkpoint", "seconds")},
+        "rolled_back": rolled,
+        "second": {k: second[k] for k in ("start_update", "env_steps", "gradient_steps", "rollbacks", "seconds")},
+        "second_metrics": second["metrics"],
+    }
+    print("drill " + json.dumps(report), flush=True)
+    num_envs = 4
+    if (
+        first["rollbacks"] != 1
+        or first["env_steps"] != DRILL_CUTS["algo.total_steps"]
+        or len(rolled) != 1
+        or DRILL_ROLLBACK_TO not in rolled[0]
+        or second["start_update"] != DRILL_CUTS["algo.total_steps"] // num_envs + 1
+        or second["env_steps"] != DRILL_RESUME_STEPS
+        or second["gradient_steps"] == 0
+        or not all(np.isfinite(v) for v in second["metrics"].values())
+    ):
+        raise AssertionError(f"rollback and resume drill: {report}")
+    return report
 
 
 def main() -> int:
@@ -1145,10 +1432,18 @@ def main() -> int:
     proj_launches = phase_sharded_step(torch, np, fg)
 
     # phase 6: training, (a) fused against plain and (b) launches a step,
-    # (c) time a step, (d) the short loop
+    # (c) time an eager step, (d) the short loop (replayed steps)
     step_launches, rb, obs_space, actions_dim, is_continuous = phase_train_parity(torch, np, fg)
     timing = phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
-    loop_launches, loop = phase_train_loop(torch, np, fg)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_launches, loop = phase_train_loop(torch, np, fg, tmp)
+
+    # phase 7: the captured step, (a) replayed against eager, (b) fresh
+    # noise, (c) time a replayed step, (d) rollback and resume on main()
+    phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous)
+    replay = phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_drill(torch, np, tmp)
 
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
@@ -1164,7 +1459,9 @@ def main() -> int:
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
+                "train_loop_replays": loop["replays"],
                 "per_gradient_step": step_launches,
+                "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
             },
             "max_abs_err": max_err,
             "ms": main_row["ms"],
@@ -1174,7 +1471,8 @@ def main() -> int:
             # no single PyTorch call computes the fused step
             "library_ms": None,
             "B1024": {k: big_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "ms_per_gradient_step": min(timing["ms_per_gradient_step_fused"]),
+            "ms_per_gradient_step_eager": min(timing["ms_per_gradient_step_fused"]),
+            "ms_per_gradient_step_replayed": min(replay["ms_per_gradient_step_fused_replayed"]),
             "train_loop_env_steps_per_s": loop["env_steps_per_s"],
         },
         {

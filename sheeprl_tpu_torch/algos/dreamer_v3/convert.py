@@ -22,7 +22,12 @@ trees across, which share the params' layout. The layout rules:
   (the output ``Dense``).
 
 Every leaf of a param tree is converted; a leaf with no port counterpart
-raises.
+raises. ``world_model_to_flax``, ``actor_to_flax`` and ``critic_to_flax``
+go the other way, for checkpoints in the JAX layout: a state dict (or any
+tree keyed as one, such as Adam's moments) becomes the JAX param tree, and
+a key with no flax counterpart raises. ``adam_to_optax`` and
+``adam_from_optax`` carry an optimizer's state across in optax's chain
+nesting.
 
 ``shard_recurrent`` cuts the recurrent model's params into one model rank's
 arguments of the model-sharded step (``pallas_gru.py:393-395`` and the
@@ -31,10 +36,14 @@ arguments of the model-sharded step (``pallas_gru.py:393-395`` and the
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+import re
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.ops.optim import Adam
+from sheeprl_tpu_torch.utils.checkpoint import EmptyState, ScaleByAdamState
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -169,6 +178,172 @@ def critic_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if c.flat:
         raise KeyError(f"critic leaves with no port counterpart: {sorted(c.flat)}")
     return c.out
+
+
+# --------------------------------------------------------------------------- #
+# port -> flax
+# --------------------------------------------------------------------------- #
+
+_LEAF = {"weight": "kernel", "bias": "bias"}
+_LN_LEAF = {"weight": "scale", "bias": "bias"}
+_HEADS = ("representation_model", "transition_model", "reward_model", "continue_model")
+Rule = Tuple[str, str]  # (flax path, layout: copy | dense | conv | deconv)
+
+
+def _lnmlp_path(rest: str, prefix: str) -> Optional[Rule]:
+    """An ``_LNMLP``'s ``linears.i.*`` / ``norms.i.*`` under flax ``prefix``."""
+    m = re.fullmatch(r"linears\.(\d+)\.(weight|bias)", rest)
+    if m:
+        return f"{prefix}/Dense_{m[1]}/{_LEAF[m[2]]}", "dense" if m[2] == "weight" else "copy"
+    m = re.fullmatch(r"norms\.(\d+)\.(weight|bias)", rest)
+    if m:
+        return f"{prefix}/LayerNorm_{m[1]}/LayerNorm_0/{_LN_LEAF[m[2]]}", "copy"
+    return None
+
+
+def _dense_path(leaf: str, prefix: str) -> Rule:
+    return f"{prefix}/{_LEAF[leaf]}", "dense" if leaf == "weight" else "copy"
+
+
+def _world_model_path(name: str, n_deconvs: int) -> Optional[Rule]:
+    if name == "initial_recurrent_state":
+        return name, "copy"
+    m = re.fullmatch(r"cnn_encoder\.convs\.(\d+)\.weight", name)
+    if m:
+        return f"cnn_encoder/Conv_{m[1]}/kernel", "conv"
+    m = re.fullmatch(r"cnn_encoder\.norms\.(\d+)\.(weight|bias)", name)
+    if m:
+        return f"cnn_encoder/LayerNorm_{m[1]}/LayerNorm_0/{_LN_LEAF[m[2]]}", "copy"
+    rec = {
+        "recurrent_model.in_kernel": "recurrent_model/Dense_0/kernel",
+        "recurrent_model.in_bias": "recurrent_model/Dense_0/bias",
+        "recurrent_model.in_norm.weight": "recurrent_model/LayerNorm_0/LayerNorm_0/scale",
+        "recurrent_model.in_norm.bias": "recurrent_model/LayerNorm_0/LayerNorm_0/bias",
+        "recurrent_model.gru.kernel": "recurrent_model/LayerNormGRUCell_0/Dense_0/kernel",
+        "recurrent_model.gru.norm.weight": "recurrent_model/LayerNormGRUCell_0/LayerNorm_0/LayerNorm_0/scale",
+        "recurrent_model.gru.norm.bias": "recurrent_model/LayerNormGRUCell_0/LayerNorm_0/LayerNorm_0/bias",
+    }
+    if name in rec:
+        return rec[name], "copy"
+    for enc in ("mlp_encoder", "mlp_decoder"):
+        if name.startswith(f"{enc}.mlp."):
+            return _lnmlp_path(name[len(enc) + 5 :], f"{enc}/_LNMLP_0")
+    m = re.fullmatch(r"mlp_decoder\.heads\.(.+)\.(weight|bias)", name)
+    if m:
+        return _dense_path(m[2], f"mlp_decoder/head_{m[1]}")
+    for head in _HEADS:
+        if name.startswith(f"{head}.0."):
+            return _lnmlp_path(name[len(head) + 3 :], f"{head}/layers_0")
+        m = re.fullmatch(rf"{head}\.1\.(weight|bias)", name)
+        if m:
+            return _dense_path(m[1], f"{head}/layers_1")
+    m = re.fullmatch(r"cnn_decoder\.linear\.(weight|bias)", name)
+    if m:
+        return _dense_path(m[1], "cnn_decoder/Dense_0")
+    m = re.fullmatch(r"cnn_decoder\.norms\.(\d+)\.(weight|bias)", name)
+    if m:
+        return f"cnn_decoder/LayerNorm_{m[1]}/LayerNorm_0/{_LN_LEAF[m[2]]}", "copy"
+    m = re.fullmatch(r"cnn_decoder\.(deconvs\.(\d+)|out)\.(weight|bias)", name)
+    if m:
+        i = n_deconvs if m[1] == "out" else int(m[2])
+        return f"cnn_decoder/ConvTranspose_{i}/{_LEAF[m[3]]}", "deconv" if m[3] == "weight" else "copy"
+    return None
+
+
+def _to_flax(sd: Mapping[str, Any], path_of: Callable[[str], Optional[Rule]], what: str) -> Dict[str, Any]:
+    """``{"params": nested}`` of numpy fp32 leaves from a port-keyed tree."""
+    tree: Dict[str, Any] = {}
+    for name, v in sd.items():
+        rule = path_of(name)
+        if rule is None:
+            raise KeyError(f"{what} key with no flax counterpart: {name!r}")
+        path, layout = rule
+        a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)).astype(np.float32)
+        if layout == "dense":
+            a = a.T
+        elif layout == "conv":  # OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+        elif layout == "deconv":  # [in, out, kH, kW] -> HWIO, flipped back in kH, kW
+            a = np.flip(a.transpose(2, 3, 0, 1), (0, 1))
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def world_model_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX ``WorldModel`` param tree of a port ``WorldModel`` state
+    dict (or of a tree keyed as one)."""
+    n_deconvs = len([k for k in sd if re.fullmatch(r"cnn_decoder\.deconvs\.\d+\.weight", k)])
+    return _to_flax(sd, lambda n: _world_model_path(n, n_deconvs), "world-model")
+
+
+def actor_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    def path_of(name: str) -> Optional[Rule]:
+        if name.startswith("mlp."):
+            return _lnmlp_path(name[4:], "_LNMLP_0")
+        m = re.fullmatch(r"heads\.(\d+)\.(weight|bias)", name)
+        return _dense_path(m[2], f"head_{m[1]}") if m else None
+
+    return _to_flax(sd, path_of, "actor")
+
+
+def critic_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    def path_of(name: str) -> Optional[Rule]:
+        if name.startswith("mlp."):
+            return _lnmlp_path(name[4:], "_LNMLP_0")
+        m = re.fullmatch(r"head\.(weight|bias)", name)
+        return _dense_path(m[1], "Dense_0") if m else None
+
+    return _to_flax(sd, path_of, "critic")
+
+
+def _adam_nesting(opt: Adam, adam_state: ScaleByAdamState) -> Any:
+    """optax's state nesting of ``sheeprl_tpu/ops/optim.py::adam``: adam is
+    ``chain(scale_by_adam, scale_by_learning_rate)`` (adamw adds
+    ``add_decayed_weights`` between them), behind ``chain(
+    clip_by_global_norm, .)`` when clipping; every state but Adam's is
+    empty."""
+    inner = (adam_state, EmptyState(), EmptyState()) if opt.weight_decay else (adam_state, EmptyState())
+    return (EmptyState(), inner) if opt.max_grad_norm > 0 else inner
+
+
+def _nesting(state: Any) -> Any:
+    """The chain's shape: plain tuples kept, each record by its class name."""
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):
+        return tuple(_nesting(s) for s in state)
+    return type(state).__name__
+
+
+def adam_to_optax(opt: Adam, names: Sequence[str], to_flax: Callable[[Mapping[str, Any]], Any]) -> Any:
+    """``opt``'s state in optax's nesting, ``mu`` and ``nu`` as flax trees
+    (``names`` are the parameters' state-dict keys, in ``opt.params``'
+    order; ``to_flax`` the model's converter)."""
+    state = ScaleByAdamState(
+        count=np.asarray(opt.count.item(), dtype=np.int32),
+        mu=to_flax(dict(zip(names, opt.mu, strict=True))),
+        nu=to_flax(dict(zip(names, opt.nu, strict=True))),
+    )
+    return _adam_nesting(opt, state)
+
+
+@torch.no_grad()
+def adam_from_optax(
+    state: Any, opt: Adam, names: Sequence[str], from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+) -> None:
+    """Load an optax state (the JAX package's or the port's) into ``opt``,
+    in place; raises unless it has ``opt``'s nesting."""
+    want = _adam_nesting(opt, ScaleByAdamState(None, None, None))
+    if _nesting(state) != _nesting(want):
+        raise ValueError(f"optimizer state nesting {_nesting(state)} is not this optimizer's {_nesting(want)}")
+    adam = state[1][0] if opt.max_grad_norm > 0 else state[0]
+    mu, nu = from_flax(adam.mu), from_flax(adam.nu)
+    for i, name in enumerate(names):
+        opt.mu[i].copy_(mu[name])
+        opt.nu[i].copy_(nu[name])
+    opt.count.fill_(int(np.asarray(adam.count)))
 
 
 # the recurrent model's params in the fused step's order (w1, b1, g1, be1,

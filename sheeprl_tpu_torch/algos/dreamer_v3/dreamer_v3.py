@@ -13,17 +13,24 @@ it runs under ``torch.no_grad``; with continuous actions the objective is
 the advantage itself and the gradient flows back through every imagined
 step, the fused RSSM step's backward included.
 
-``main`` is the loop cut to its core: env steps through ``PlayerDV3``
-(random actions before ``learning_starts``), sequence replay, ``Ratio``,
-the train steps and the EMA. Checkpoint and resume, telemetry, fused
-supersteps, the device ring, NaN rollback and multiple processes are not
-ported (ROADMAP queue A).
+``main`` runs the JAX ``main`` on one accelerator as its defaults do (JAX
+:462-540, :584-602, :742-835, :1016-1140): env steps through ``PlayerDV3``
+(random actions before ``learning_starts``), sequence replay fed to the
+train step by a pinned prefetcher, ``Ratio``, one CUDA-graph replay of the
+train step per gradient step (``ops/graph.py``), the EMA between replays,
+metrics kept on the device until log time, a dispatch fence, checkpoints in
+the JAX layout, resume (from a path or ``auto``), NaN rollback, the crash
+guard and the preemption exit. Telemetry, fused supersteps, the device
+ring and multiple processes are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +45,20 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     rssm_scan,
     sample_actor_actions,
 )
+from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
+    actor_from_flax,
+    actor_to_flax,
+    adam_from_optax,
+    adam_to_optax,
+    critic_from_flax,
+    critic_to_flax,
+    world_model_from_flax,
+    world_model_to_flax,
+)
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import env_action, prepare_obs
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
 from sheeprl_tpu_torch.device import DeviceLike, resolve_device
 from sheeprl_tpu_torch.envs.factory import make_env
 from sheeprl_tpu_torch.envs.spaces import Box, action_dims
@@ -52,9 +70,16 @@ from sheeprl_tpu_torch.ops.distributions import (
     SymlogDistribution,
     TwoHotEncodingDistribution,
 )
+from sheeprl_tpu_torch.ops.graph import CapturedStep
 from sheeprl_tpu_torch.ops.math import MomentsState, compute_lambda_values, init_moments, update_moments
 from sheeprl_tpu_torch.ops.optim import Adam, adam
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.parallel.fence import DispatchFence
+from sheeprl_tpu_torch.resilience.autoresume import resolve_auto_resume
+from sheeprl_tpu_torch.resilience.manager import RunResilience
+from sheeprl_tpu_torch.utils.callback import CheckpointCallback
+from sheeprl_tpu_torch.utils.checkpoint import elastic_per_rank_batch_size, load_checkpoint, select_buffer
+from sheeprl_tpu_torch.utils.metric import MetricAggregator
+from sheeprl_tpu_torch.utils.utils import Ratio, get_log_dir, save_configs
 
 METRIC_ORDER = (
     "Loss/world_model_loss",
@@ -95,11 +120,12 @@ def make_train_step(
     """One gradient step over a time-major ``[T, B]`` batch.
 
     Returns ``train_step(moments, data, generator=None, grads_out=None) ->
-    (moments, metrics)``: it updates the three models in place, returns the
-    new ``MomentsState`` and the 13 metrics of ``METRIC_ORDER`` as one
-    device tensor (no host sync). ``data`` holds the obs keys, ``actions``,
-    ``rewards``, ``terminated`` and ``is_first`` as ``[T, B, ...]`` tensors
-    on the models' device; ``grads_out``, a dict, receives each model's
+    (moments, metrics)``: it updates the three models, their optimizers and
+    ``moments`` in place (so a CUDA graph of the step reads and writes the
+    same memory at every replay), returns ``moments`` and the 13 metrics of
+    ``METRIC_ORDER`` as one device tensor (no host sync). ``data`` holds the
+    obs keys, ``actions``, ``rewards``, ``terminated`` and ``is_first`` as
+    ``[T, B, ...]`` tensors on the models' device; ``grads_out``, a dict, receives each model's
     gradients before clipping (``world_model``, ``actor``, ``critic``).
     """
     algo = cfg["algo"]
@@ -191,7 +217,9 @@ def make_train_step(
             continues = torch.cat([true_continue[None], continues[1:]], 0)
             lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, lmbda)
             discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
-        moments, (offset, invscale) = update_moments(moments, lambda_values, **moments_args)
+        new_moments, (offset, invscale) = update_moments(moments, lambda_values, **moments_args)
+        moments.low.copy_(new_moments.low)
+        moments.high.copy_(new_moments.high)
         baseline = values[:-1]
         advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
         logp, entropy = actor_logprob_entropy(actor, trajectories.detach(), imagined_actions.detach())
@@ -240,6 +268,28 @@ def make_train_step(
     return train_step
 
 
+def make_train_fn(
+    train_step: TrainStep,
+    wm: WorldModel,
+    actor: Actor,
+    critic: Critic,
+    opts: Sequence[Adam],
+    moments: MomentsState,
+    inputs: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+) -> CapturedStep:
+    """``train_step`` over the static batch ``inputs`` as a
+    ``CapturedStep`` (JAX ``make_train_fn`` :331-366): replayed from one
+    CUDA graph on the card, eager on the CPU; it updates the three models,
+    their optimizers and ``moments`` in place and draws from ``generator``."""
+    state = [*wm.parameters(), *actor.parameters(), *critic.parameters()]
+    for opt in opts:
+        state += [*opt.mu, *opt.nu, opt.count]
+    return CapturedStep(
+        lambda data: train_step(moments, data, generator)[1], inputs, state + [moments.low, moments.high], generator
+    )
+
+
 @torch.no_grad()
 def ema_(critic: Critic, target_critic: Critic, tau: float) -> None:
     """``target = tau * critic + (1 - tau) * target``, in place."""
@@ -282,19 +332,132 @@ def to_batch(sample: Dict[str, np.ndarray], cnn_keys: Sequence[str], device: tor
     }
 
 
+def batch_inputs(
+    rb: EnvIndependentReplayBuffer, sequence_length: int, batch_size: int, cnn_keys: Sequence[str], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """Static ``[T, B, ...]`` input tensors for the buffer's keys: pixels
+    uint8, everything else fp32."""
+    stored = rb.buffer[0].buffer
+    return {
+        k: torch.zeros(
+            (sequence_length, batch_size, *v.shape[2:]),
+            dtype=torch.uint8 if k in cnn_keys else torch.float32,
+            device=device,
+        )
+        for k, v in stored.items()
+    }
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit seed for one random stream, derived from ``parts``."""
+    digest = hashlib.sha256(repr(tuple(int(p) for p in parts)).encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2**63 - 1)
+
+
+def _names(module: torch.nn.Module) -> List[str]:
+    return [n for n, _ in module.named_parameters()]
+
+
+def checkpoint_state(
+    wm: WorldModel,
+    actor: Actor,
+    critic: Critic,
+    target_critic: Critic,
+    opts: Sequence[Adam],
+    moments: MomentsState,
+) -> Dict[str, Any]:
+    """The models, optimizers and Moments in the JAX checkpoint layout
+    (``ckpt_state_fn``, JAX :742-763): flax-named numpy param trees, each
+    optimizer state in optax's chain nesting, ``moments`` as 0-d arrays."""
+    world_opt, actor_opt, critic_opt = opts
+    return {
+        "world_model": world_model_to_flax(wm.state_dict()),
+        "actor": actor_to_flax(actor.state_dict()),
+        "critic": critic_to_flax(critic.state_dict()),
+        "target_critic": critic_to_flax(target_critic.state_dict()),
+        "world_optimizer": adam_to_optax(world_opt, _names(wm), world_model_to_flax),
+        "actor_optimizer": adam_to_optax(actor_opt, _names(actor), actor_to_flax),
+        "critic_optimizer": adam_to_optax(critic_opt, _names(critic), critic_to_flax),
+        "moments": {k: np.array(getattr(moments, k).item(), dtype=np.float32) for k in ("low", "high")},
+    }
+
+
+@torch.no_grad()
+def load_checkpoint_state(
+    state: Mapping[str, Any],
+    wm: WorldModel,
+    actor: Actor,
+    critic: Critic,
+    target_critic: Critic,
+    opts: Sequence[Adam],
+    moments: MomentsState,
+) -> None:
+    """:func:`checkpoint_state` back into the live modules, optimizers and
+    Moments, in place (a captured train step keeps reading the same
+    tensors). Takes the port's checkpoints and the JAX package's."""
+    wm.load_state_dict(world_model_from_flax(state["world_model"]))
+    actor.load_state_dict(actor_from_flax(state["actor"]))
+    critic.load_state_dict(critic_from_flax(state["critic"]))
+    target_critic.load_state_dict(critic_from_flax(state["target_critic"]))
+    for opt, key, module, convert in zip(
+        opts,
+        ("world_optimizer", "actor_optimizer", "critic_optimizer"),
+        (wm, actor, critic),
+        (world_model_from_flax, actor_from_flax, critic_from_flax),
+    ):
+        adam_from_optax(state[key], opt, _names(module), convert)
+    moments.low.fill_(float(np.asarray(state["moments"]["low"])))
+    moments.high.fill_(float(np.asarray(state["moments"]["high"])))
+
+
+def restore_generator(generator: torch.Generator, saved: Any, seed: int, update: int, *salt: int) -> None:
+    """Set ``generator`` to a state the port saved; a JAX threefry key
+    (anything else) cannot continue in torch, so the stream is seeded from
+    ``(seed, update, *salt)`` instead, with a warning."""
+    arr = np.asarray(saved)
+    if arr.dtype == np.uint8 and arr.shape == tuple(generator.get_state().shape):
+        generator.set_state(torch.from_numpy(arr.copy()))
+        return
+    warnings.warn(
+        f"the checkpoint's RNG key (shape {arr.shape}, {arr.dtype}) is not a torch generator state: "
+        f"seeding the stream from (seed={seed}, update={update}) instead"
+    )
+    generator.manual_seed(stream_seed(seed, update, *salt))
+
+
 def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """Train Dreamer-V3 on ``device`` (the CUDA card unless
-    ``device="cpu"``) for ``algo.total_steps`` env steps: the player acts
-    (uniform random actions up to ``algo.learning_starts``), every step goes
-    into sequence replay, and ``Ratio`` sets the gradient steps of each
-    update. Returns the run's counts, seconds and the last metrics by name."""
+    ``device="cpu"``) for ``algo.total_steps`` env steps, as the JAX
+    ``main`` runs it on one accelerator: the player acts (uniform random
+    actions up to ``algo.learning_starts`` on a fresh run), every step goes
+    into sequence replay, ``Ratio`` sets each update's gradient steps, and
+    each gradient step is one replay of the captured train step (eagerly on
+    the CPU) fed by the pinned prefetcher, with the target-critic EMA
+    between replays. Metric vectors stay on the device until log time.
+    Checkpoints go to ``<log dir>/checkpoint`` on the ``checkpoint.every``
+    cadence and at the end (``save_last``); ``checkpoint.resume_from`` (a
+    path, or ``auto``) resumes from the port's checkpoints or the JAX
+    package's; non-finite metrics roll back to the newest committed
+    checkpoint; SIGTERM writes an emergency checkpoint and exits with
+    ``PREEMPTED_EXIT_CODE``. Returns the run's counts, seconds and metrics."""
     dev = resolve_device(device)
     algo = cfg["algo"]
+    ckpt_cfg = cfg["checkpoint"]
     seed = int(cfg["seed"])
+    resume_from = ckpt_cfg["resume_from"]
+    if resume_from == "auto":
+        resume_from = resolve_auto_resume(cfg)
+    state = load_checkpoint(resume_from) if resume_from else None
     screen = int(cfg["env"]["screen_size"])
     if 2 ** int(np.log2(screen)) != screen:
         raise ValueError(f"The screen size must be a power of 2, got: {screen}")
     num_envs = int(cfg["env"]["num_envs"])
+    log_dir = get_log_dir(cfg)
+    save_configs(cfg, log_dir)
+    callback = CheckpointCallback(
+        keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
+    )
+    resil = RunResilience(cfg, log_dir, callback)
     envs = [make_env(cfg, seed + i)() for i in range(num_envs)]
     action_space = envs[0].action_space
     obs_space = envs[0].observation_space
@@ -306,23 +469,77 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
 
     wm, actor, player = build_agent(actions_dim, is_continuous, cfg, obs_space, device=dev)
     critic, target_critic = build_critic(cfg, wm.latent_state_size, device=dev)
-    world_opt, actor_opt, critic_opt = build_optimizers(cfg, wm, actor, critic)
-    train_step = make_train_step(wm, actor, critic, target_critic, world_opt, actor_opt, critic_opt, cfg, is_continuous)
+    opts = build_optimizers(cfg, wm, actor, critic)
     moments = init_moments(dev)
+    if state is not None:
+        load_checkpoint_state(state, wm, actor, critic, target_critic, opts, moments)
+    train_step = make_train_step(wm, actor, critic, target_critic, *opts, cfg, is_continuous)
 
     dry_run = bool(cfg.get("dry_run", False))
-    buffer_size = int(cfg["buffer"]["size"]) // num_envs if not dry_run else 2
+    buffer_cfg = cfg["buffer"]
+    buffer_size = int(buffer_cfg["size"]) // num_envs if not dry_run else 2
     rb = EnvIndependentReplayBuffer(
         buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed
     )
+    if state is not None and buffer_cfg["checkpoint"]:
+        rb = select_buffer(state["rb"], 0, 1)
+
+    # counters (JAX :584-602)
+    start_step = int(state["update"]) + 1 if state is not None else 1
+    policy_step = int(state["update"]) * num_envs if state is not None else 0
+    last_log = int(state["last_log"]) if state is not None else 0
+    last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
     num_updates = int(algo["total_steps"]) // num_envs if not dry_run else 1
     learning_starts = int(algo["learning_starts"]) // num_envs if not dry_run else 0
     batch_size = int(algo["per_rank_batch_size"])
     sequence_length = int(algo["per_rank_sequence_length"])
-    critic_cfg = algo["critic"]
     ratio = Ratio(float(algo["replay_ratio"]), pretrain_steps=int(algo["per_rank_pretrain_steps"]))
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    if state is not None:
+        batch_size = elastic_per_rank_batch_size(int(state["batch_size"]), 1)
+        if not buffer_cfg["checkpoint"]:
+            learning_starts += start_step
+        ratio.load_state_dict(state["ratio"])
+    critic_cfg = algo["critic"]
+    ema_every = int(critic_cfg["per_rank_target_network_update_freq"])
+
+    # the train stream and the player stream (JAX :722-736)
+    train_gen = torch.Generator(device=dev).manual_seed(seed)
+    player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
+    if state is not None:
+        update0 = int(state["update"])
+        restore_generator(train_gen, state["rng_key"], seed, update0)
+        restore_generator(player_gen, state["player_rng_key"], seed, update0, 1)
     action_rng = np.random.default_rng(seed)
+
+    def ckpt_state_fn(completed_update: int) -> Dict[str, Any]:
+        return {
+            **checkpoint_state(wm, actor, critic, target_critic, opts, moments),
+            "ratio": ratio.state_dict(),
+            "update": completed_update,
+            "batch_size": batch_size,
+            "last_log": last_log,
+            "last_checkpoint": last_checkpoint,
+            "rng_key": train_gen.get_state().numpy(),
+            "player_rng_key": player_gen.get_state().numpy(),
+        }
+
+    def ckpt_path_fn(step: int) -> str:
+        return os.path.join(log_dir, "checkpoint", f"ckpt_{step}_0.ckpt")
+
+    def buffer_to_save() -> Optional[EnvIndependentReplayBuffer]:
+        return rb if buffer_cfg["checkpoint"] else None
+
+    def nan_rollback(at_update: int) -> None:
+        # the train state (params, target, optimizers, Moments, Ratio, the
+        # train stream) back to the newest committed checkpoint, in place;
+        # the replay buffer holds observations only and stays
+        restored = resil.rollback(update=at_update)
+        load_checkpoint_state(restored, wm, actor, critic, target_critic, opts, moments)
+        ratio.load_state_dict(restored["ratio"])
+        if "rng_key" in restored:
+            restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
+        resil.resalt_key(train_gen)
+        pending.clear()  # the poisoned window must not reach the log
 
     step_data: Dict[str, np.ndarray] = {}
     obs = [env.reset(seed=seed + i)[0] for i, env in enumerate(envs)]
@@ -334,83 +551,168 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     step_data.update(rewards=zeros.copy(), truncated=zeros.copy(), terminated=zeros.copy(), is_first=np.ones_like(zeros))
     player.init_states()
 
-    policy_step = 0
+    train_fn: Optional[CapturedStep] = None
+    prefetcher: Optional[BatchPrefetcher] = None
+    fence = DispatchFence(dev, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
+    metric_cfg = cfg["metric"]
+    log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
+    aggregator = MetricAggregator(METRIC_ORDER)
+    pending: List[torch.Tensor] = []  # device metric vectors, fetched at log time
+    logged: List[Tuple[int, Dict[str, float]]] = []
+    windows: List[Tuple[Any, Any]] = []  # each train window's (start, end) events or clock times
     gradient_steps = 0
-    train_seconds = 0.0
     metrics: Optional[torch.Tensor] = None
+    preempted = False
+    update = start_step
+    resil.arm_crash_guard(
+        path_fn=lambda: ckpt_path_fn(policy_step),
+        state_fn=lambda: ckpt_state_fn(update - 1),
+        replay_buffer_fn=buffer_to_save,
+    )
     t_start = time.perf_counter()
-    for update in range(1, num_updates + 1):
-        policy_step += num_envs
-        if update <= learning_starts:
-            actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
-        else:
-            actions = player.get_actions(prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), generator)
-            real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
-        step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
-        rb.add(step_data)
+    try:
+        for update in range(start_step, num_updates + 1):
+            if resil.preempt_requested():
+                fence.drain()
+                last_checkpoint = policy_step
+                resil.emergency_checkpoint(ckpt_path_fn(policy_step), ckpt_state_fn(update - 1), buffer_to_save())
+                preempted = True
+                break
+            policy_step += num_envs
+            if update <= learning_starts and state is None:
+                actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
+            else:
+                actions = player.get_actions(prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen)
+                real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
+            step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
+            rb.add(step_data)
 
-        next_obs, final_obs, rewards, terminated, truncated = [], {}, [], [], []
-        for i, env in enumerate(envs):
-            o, r, term, trunc, _ = env.step(np.asarray(real_actions[i]).reshape(action_space.shape))
-            if term or trunc:
-                final_obs[i] = o
-                o, _ = env.reset()
-            next_obs.append(o)
-            rewards.append(r)
-            terminated.append(term)
-            truncated.append(trunc)
-        stacked = {k: np.stack([o[k] for o in next_obs]) for k in obs_keys}
-        prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
-        for k in obs_keys:
-            step_data[k] = prepared[k][np.newaxis]
-        rewards = np.asarray(rewards, np.float32).reshape(1, num_envs, 1)
-        step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
-        step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
-        step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
-        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+            next_obs, final_obs, rewards, terminated, truncated = [], {}, [], [], []
+            for i, env in enumerate(envs):
+                o, r, term, trunc, _ = env.step(np.asarray(real_actions[i]).reshape(action_space.shape))
+                if term or trunc:
+                    final_obs[i] = o
+                    o, _ = env.reset()
+                next_obs.append(o)
+                rewards.append(r)
+                terminated.append(term)
+                truncated.append(trunc)
+            stacked = {k: np.stack([o[k] for o in next_obs]) for k in obs_keys}
+            prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
+            for k in obs_keys:
+                step_data[k] = prepared[k][np.newaxis]
+            rewards = np.asarray(rewards, np.float32).reshape(1, num_envs, 1)
+            step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
+            step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
+            step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
+            step_data["is_first"] = np.zeros_like(step_data["terminated"])
 
-        dones = sorted(final_obs)
-        if dones:
-            # the terminal transition with the true final obs and a zero
-            # action, then the per-env episode state restarts
-            final = {k: np.stack([final_obs[i][k] for i in dones]) for k in obs_keys}
-            prepared_final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(dones))
-            reset_data = {k: prepared_final[k][np.newaxis] for k in obs_keys}
-            for k in ("terminated", "truncated", "rewards"):
-                reset_data[k] = step_data[k][:, dones]
-            reset_data["actions"] = np.zeros((1, len(dones), int(sum(actions_dim))), np.float32)
-            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones)
-            for k in ("rewards", "terminated", "truncated"):
-                step_data[k][:, dones] = 0.0
-            step_data["is_first"][:, dones] = 1.0
-            player.init_states(dones)
+            dones = sorted(final_obs)
+            if dones:
+                # the terminal transition with the true final obs and a zero
+                # action, then the per-env episode state restarts
+                final = {k: np.stack([final_obs[i][k] for i in dones]) for k in obs_keys}
+                prepared_final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(dones))
+                reset_data = {k: prepared_final[k][np.newaxis] for k in obs_keys}
+                for k in ("terminated", "truncated", "rewards"):
+                    reset_data[k] = step_data[k][:, dones]
+                reset_data["actions"] = np.zeros((1, len(dones), int(sum(actions_dim))), np.float32)
+                reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+                rb.add(reset_data, dones)
+                for k in ("rewards", "terminated", "truncated"):
+                    step_data[k][:, dones] = 0.0
+                step_data["is_first"][:, dones] = 1.0
+                player.init_states(dones)
 
-        if update >= learning_starts:
-            n_steps = ratio(policy_step)
-            if n_steps > 0:
-                t0 = time.perf_counter()
-                for _ in range(n_steps):
-                    sample = rb.sample(batch_size, sequence_length=sequence_length, n_samples=1)
-                    batch = to_batch(sample, cnn_keys, dev)
-                    if gradient_steps % int(critic_cfg["per_rank_target_network_update_freq"]) == 0:
-                        ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
-                    moments, metrics = train_step(moments, batch, generator)
-                    gradient_steps += 1
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                train_seconds += time.perf_counter() - t0
+            # ---------------- training ---------------- #
+            if update >= learning_starts:
+                n_steps = ratio(policy_step)
+                if n_steps > 0:
+                    if train_fn is None:
+                        inputs = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev)
+                        train_fn = make_train_fn(train_step, wm, actor, critic, opts, moments, inputs, train_gen)
+                        prefetcher = BatchPrefetcher(
+                            rb, batch_size, sequence_length, inputs, int(buffer_cfg["prefetch"]), train_fn.done
+                        )
+                    start = _clock(dev)
+                    for _ in prefetcher.sampled_batches(n_steps):
+                        if gradient_steps % ema_every == 0:
+                            ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
+                        metrics = train_fn()
+                        gradient_steps += 1
+                        if log_level > 0:
+                            pending.append(metrics)
+                    windows.append((start, _clock(dev)))
+                    fence.push()
+                    # the window's last metric vector: a NaN in the params
+                    # reaches every later loss (JAX :1047-1055)
+                    if resil.finite_checks and not resil.check_finite(metrics.cpu().numpy(), update):
+                        nan_rollback(update)
+                        continue
+
+            # ---------------- logging ---------------- #
+            if log_level > 0 and (policy_step - last_log >= log_every or update == num_updates):
+                if pending:
+                    for row in torch.stack(pending).cpu().numpy():
+                        for name, value in zip(METRIC_ORDER, row):
+                            aggregator.update(name, value)
+                    pending.clear()
+                logged.append((policy_step, aggregator.compute()))
+                aggregator.reset()
+                last_log = policy_step
+
+            # ---------------- checkpoint ---------------- #
+            if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
+                update == num_updates and ckpt_cfg["save_last"]
+            ):
+                last_checkpoint = policy_step
+                callback.on_checkpoint_coupled(ckpt_path_fn(policy_step), ckpt_state_fn(update), buffer_to_save())
+    except BaseException as err:
+        if isinstance(err, Exception):
+            resil.crash_checkpoint(err)
+        resil.close()
+        for env in envs:
+            env.close()
+        raise
+    fence.drain()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t_start
     for env in envs:
         env.close()
+    resil.close()
+    if preempted:
+        resil.exit_preempted()
     last = {} if metrics is None else dict(zip(METRIC_ORDER, metrics.cpu().tolist()))
     return {
+        "log_dir": log_dir,
+        "start_update": start_step,
         "env_steps": policy_step,
         "gradient_steps": gradient_steps,
         "seconds": seconds,
-        "train_seconds": train_seconds,
+        "train_seconds": sum(_elapsed(a, b) for a, b in windows),
         "metrics": last,
+        "log": logged,
         "moments": (float(moments.low), float(moments.high)),
+        "rollbacks": resil.rollbacks,
+        "last_checkpoint": last_checkpoint,
+        # fused_gru launches of the replayed steps: the captured calls a
+        # replay relaunches, and the replays
+        "captured_launches_per_step": train_fn.captured_launches if train_fn is not None else 0,
+        "replays": train_fn.replays if train_fn is not None else 0,
     }
+
+
+def _clock(dev: torch.device) -> Any:
+    """A point in time: a recorded CUDA event on the card, else the host's
+    clock."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def _elapsed(start: Any, end: Any) -> float:
+    """Seconds between two :func:`_clock` points (the events completed)."""
+    return start.elapsed_time(end) / 1e3 if isinstance(start, torch.cuda.Event) else end - start

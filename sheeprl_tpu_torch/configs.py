@@ -3,10 +3,14 @@
 Copied from the JAX package's config tree: ``configs/algo/dreamer_v3.yaml``
 and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``,
 ``configs/optim/adam.yaml`` (the three optimizers' defaults),
-``configs/buffer/default.yaml`` (``size``, with the exp's override) and
-``configs/env/{default,pixel_catcher,dummy}.yaml``. ``compose`` applies
-the size, then the env, then dotted overrides, and resolves the ``${...}``
-references last, as the JAX composer does. The precision is ``32-true``: the
+``configs/buffer/default.yaml`` (``size``, ``prefetch`` and, from the exp,
+``checkpoint``), ``configs/checkpoint/default.yaml`` (with the exp's
+``every``), the ``resilience`` group and the run naming of
+``configs/config.yaml``, ``configs/metric/default.yaml`` (``log_every``,
+``log_level``) and ``configs/env/{default,pixel_catcher,dummy}.yaml``.
+``compose`` applies the size, then the env, then dotted overrides, and
+resolves the ``${...}`` references last, as the JAX composer does
+(``${now:<strftime format>}`` included). The precision is ``32-true``: the
 port computes in fp32 only (bf16-mixed comes with a later slice).
 """
 
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 import copy
 import re
+import time
 from typing import Any, Dict, Mapping, Optional
 
 SIZES = ("XS", "S", "M", "L", "XL")
@@ -27,6 +32,31 @@ def _adam(lr: float, eps: float) -> Dict[str, Any]:
 _ROOT: Dict[str, Any] = {
     "seed": 42,
     "dry_run": False,
+    "exp_name": "${algo.name}_${env.id}",
+    "run_name": "${now:%Y-%m-%d_%H-%M-%S}_${exp_name}_${seed}",
+    "root_dir": "${algo.name}/${env.id}",
+    "log_base_dir": "logs/runs",
+    # configs/checkpoint/default.yaml, every from configs/exp/dreamer_v3.yaml;
+    # backend orbax is not ported (utils/checkpoint.py raises)
+    "checkpoint": {
+        "every": 100000,
+        "resume_from": None,
+        "save_last": True,
+        "keep_last": 5,
+        "backend": "pickle",
+        "async_save": True,
+    },
+    # configs/config.yaml: resilience
+    "resilience": {
+        "enabled": True,
+        "preemption": True,
+        "crash_checkpoint": True,
+        "check_finite": True,
+        "max_rollbacks": 3,
+        "fault_injection": {"enabled": False, "faults": []},
+    },
+    # configs/metric/default.yaml
+    "metric": {"log_every": 5000, "log_level": 1},
     "fabric": {"precision": "32-true"},
     "distribution": {"type": "auto"},
     "env": {
@@ -38,7 +68,7 @@ _ROOT: Dict[str, Any] = {
         "clip_rewards": False,
         "max_episode_steps": None,
     },
-    "buffer": {"size": 1000000},
+    "buffer": {"size": 1000000, "prefetch": 2, "checkpoint": False},
     "algo": {
         "name": "dreamer_v3",
         "total_steps": 5000000,
@@ -158,13 +188,26 @@ def _get(tree: Mapping[str, Any], dotted: str) -> Any:
     return node
 
 
+_EMBEDDED = re.compile(r"\$\{([^}]+)\}")
+
+
+def _lookup(tree: Dict[str, Any], ref: str) -> Any:
+    if ref.startswith("now:"):
+        return time.strftime(ref[4:])
+    return _resolve(tree, _get(tree, ref))
+
+
 def _resolve(tree: Dict[str, Any], node: Any) -> Any:
     if isinstance(node, dict):
         return {k: _resolve(tree, v) for k, v in node.items()}
     if isinstance(node, list):
         return [_resolve(tree, v) for v in node]
-    m = _REF.match(node) if isinstance(node, str) else None
-    return _resolve(tree, _get(tree, m.group(1))) if m else node
+    if not isinstance(node, str):
+        return node
+    m = _REF.match(node)
+    if m:  # a whole-value reference keeps the referenced value's type
+        return _lookup(tree, m.group(1))
+    return _EMBEDDED.sub(lambda e: str(_lookup(tree, e.group(1))), node)
 
 
 def compose(size: str = "S", env: str = "pixel_catcher", overrides: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:

@@ -32,9 +32,13 @@ import torch.nn.functional as F
 from sheeprl_tpu_torch.ops import _build
 
 KERNEL = "fused_gru"
-# launches of each CUDA kernel since the last reset (the fused step's, then
-# the sharded projection's on any route, then those of its launches that took
-# the tensor cores); plain CPU calls and backward passes do not count
+# calls of each kernel's wrapper that launched it since the last reset (the
+# fused step's, then the sharded projection's on any route, then those of its
+# launches that took the tensor cores); plain CPU calls and backward passes do
+# not count. These are Python calls: a call under CUDA-graph capture records
+# the launch into the graph and counts once, and the graph's replays launch
+# it again without calling the wrapper, so a replayed step's launches are its
+# captured calls times its replays (``ops/graph.py::CapturedStep``)
 launch_count = 0
 proj_launch_count = 0
 proj_tc_launch_count = 0

@@ -40,7 +40,13 @@ class Adam:
     clipping in front when ``max_grad_norm > 0``. ``step(grads)`` updates
     ``params`` in place (no autograd) and returns the gradients' global norm
     before clipping. Multi-tensor (``torch._foreach_*``) ops, each rounding
-    as optax's elementwise expression does."""
+    as optax's elementwise expression does.
+
+    Every piece of state lives on the parameters' device and is updated in
+    place: ``mu``, ``nu`` and ``count`` (optax's ``ScaleByAdamState``, the
+    step count an int32 tensor), so a CUDA graph that captured ``step``
+    reads and writes the same memory at every replay, and the bias
+    corrections ``1 - b**count`` are computed on the device in fp32."""
 
     def __init__(
         self,
@@ -55,7 +61,7 @@ class Adam:
         self.lr, self.eps, self.weight_decay = float(lr), float(eps), float(weight_decay)
         self.b1, self.b2 = (float(b) for b in betas)
         self.max_grad_norm = float(max_grad_norm or 0.0)
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
         self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in self.params]
         self.nu = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in self.params]
 
@@ -65,10 +71,11 @@ class Adam:
         norm = global_norm(grads)
         if self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
-        self.count += 1
-        # optax's bias corrections, 1 - decay**count, in fp32
-        c1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** self.count)
-        c2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** self.count)
+        self.count.add_(1)
+        # optax's bias corrections, 1 - decay**count, in fp32 on the device
+        n = self.count.float()
+        c1 = 1 - torch.full_like(n, self.b1) ** n
+        c2 = 1 - torch.full_like(n, self.b2) ** n
         # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))

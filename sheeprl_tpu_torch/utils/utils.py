@@ -1,9 +1,38 @@
-"""Host utilities (port of ``sheeprl_tpu/utils/utils.py::Ratio``, :118)."""
+"""Host utilities (port of ``sheeprl_tpu/utils/utils.py::Ratio``, :118, and
+of ``sheeprl_tpu/utils/logger.py::run_base_dir``/``get_log_dir``, :120-143,
+with ``save_configs``)."""
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
 from typing import Any, Dict, Mapping, Optional
+
+
+def run_base_dir(cfg: Mapping[str, Any]) -> str:
+    """``<log_base_dir>/<root_dir>/<run_name>``: the parent of the run's
+    ``version_N`` directories."""
+    return os.path.join(cfg.get("log_base_dir") or os.path.join("logs", "runs"), cfg["root_dir"], cfg["run_name"])
+
+
+def get_log_dir(cfg: Mapping[str, Any]) -> str:
+    """A new ``<run base>/version_N`` directory, created."""
+    base = run_base_dir(cfg)
+    version = 0
+    while os.path.isdir(os.path.join(base, f"version_{version}")):
+        version += 1
+    log_dir = os.path.join(base, f"version_{version}")
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir
+
+
+def save_configs(cfg: Mapping[str, Any], log_dir: str) -> None:
+    """The run's config as ``<log_dir>/config.yaml``, written as JSON (a
+    subset of YAML): ``resume_from=auto`` takes only version directories
+    that hold it."""
+    with open(os.path.join(log_dir, "config.yaml"), "w") as f:
+        json.dump(cfg, f, indent=2, sort_keys=True, default=str)
 
 
 class Ratio:

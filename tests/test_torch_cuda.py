@@ -1,7 +1,10 @@
 """The port's CUDA kernels (sheeprl_tpu_torch/csrc/fused_gru.cu) against
 their plain PyTorch versions on the card, alone and inside the Dreamer-V3
 train step (fused against plain, launches a step, determinism, the
-continuous actor's gradient through the kernel's backward).
+continuous actor's gradient through the kernel's backward), and the train
+step captured as a CUDA graph (sheeprl_tpu_torch/ops/graph.py: replays
+against eager steps, fresh noise each replay, a capture refusing a host
+sync, Adam's count on the device).
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so with ``--noconftest``
@@ -359,9 +362,10 @@ def _train(continuous, fused, horizon, states=None):
     states = states or {}
     wm, actor, _ = build_agent(dims, continuous, cfg, space, states.get("wm"), states.get("actor"), device="cuda")
     critic, target = build_critic(cfg, wm.latent_state_size, states.get("critic"), states.get("target"), "cuda")
-    step = make_train_step(wm, actor, critic, target, *build_optimizers(cfg, wm, actor, critic), cfg, continuous)
+    opts = build_optimizers(cfg, wm, actor, critic)
+    step = make_train_step(wm, actor, critic, target, *opts, cfg, continuous)
     models = {"wm": wm, "actor": actor, "critic": critic, "target": target}
-    return models, step
+    return models, step, opts
 
 
 def _batch(T, B, continuous, seed=0):
@@ -398,8 +402,8 @@ def test_cuda_train_step_fused_matches_plain(cuda, smooth, continuous):
     """One gradient step with the kernel against the plain recurrent model
     (fused: flax) from the same weights; continuous actions carry the actor's
     gradient through imagination and the kernel's backward."""
-    fused, step = _train(continuous, "auto", 4)
-    plain, plain_step = _train(continuous, "flax", 4, _snapshot(fused))
+    fused, step, _ = _train(continuous, "auto", 4)
+    plain, plain_step, _ = _train(continuous, "flax", 4, _snapshot(fused))
     assert fused["wm"].fused and not plain["wm"].fused
     batch = _batch(8, 4, continuous)
     g_f, g_p = {}, {}
@@ -421,7 +425,7 @@ def test_cuda_train_step_fused_matches_plain(cuda, smooth, continuous):
 def test_cuda_train_step_launches_the_kernel_once_a_recurrent_step(cuda):
     """T = 64 scan steps at B = 16 and horizon + 1 = 16 imagination steps at
     B = 1024: 80 launches a gradient step, none in the backward."""
-    _, step = _train(False, "auto", 15)
+    _, step, _ = _train(False, "auto", 15)
     _, launches, _ = _step(step, _batch(64, 16, False))
     assert launches == 64 + 16
 
@@ -434,9 +438,9 @@ def test_cuda_train_step_is_deterministic(cuda, monkeypatch):
     order, so the test asks cuDNN for its deterministic ones."""
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
-    first, step = _train(False, "auto", 4)
+    first, step, _ = _train(False, "auto", 4)
     states = _snapshot(first)
-    second, step2 = _train(False, "auto", 4, states)
+    second, step2, _ = _train(False, "auto", 4, states)
     batch = _batch(8, 4, False)
     gen = [torch.Generator(device="cuda").manual_seed(7) for _ in range(2)]
     from sheeprl_tpu_torch.ops.math import init_moments
@@ -462,8 +466,8 @@ def test_cuda_continuous_actor_gradient_runs_the_kernel_backward_at_b1024(cuda, 
         return orig(ctx, grad)
 
     monkeypatch.setattr(tgru._FusedStep, "backward", staticmethod(backward))
-    fused, step = _train(True, "auto", 15)
-    plain, plain_step = _train(True, "flax", 15, _snapshot(fused))
+    fused, step, _ = _train(True, "auto", 15)
+    plain, plain_step, _ = _train(True, "flax", 15, _snapshot(fused))
     batch = _batch(64, 16, True)
     g_f, g_p = {}, {}
     m_f, launches, _ = _step(step, batch, g_f)
@@ -474,3 +478,108 @@ def test_cuda_continuous_actor_gradient_runs_the_kernel_backward_at_b1024(cuda, 
     assert float(m_f[11]) > 0  # Grads/actor
     for a, b in zip(g_f["actor"], g_p["actor"]):
         assert (a - b).abs().max() <= TRAIN_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+# --------------------------------------------------------------------------- #
+# the captured train step (ops/graph.py) and Adam's device state
+# --------------------------------------------------------------------------- #
+
+# replayed against eager steps from the same weights, batches and cuDNN's
+# deterministic algorithms: each metric relative to max(|eager|, 1), each
+# parameter relative to its tensor's largest element (the same kernels run
+# in both; a graph only removes the host)
+REPLAY_BOUND = 1e-6
+
+
+def _captured(models, step, opts, batch, generator=None):
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_fn
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    moments = init_moments(torch.device("cuda"))
+    inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+    fn = make_train_fn(step, models["wm"], models["actor"], models["critic"], opts, moments, inputs, generator)
+    return fn, moments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_replayed_steps_match_eager_steps(cuda, smooth, monkeypatch, continuous):
+    """Three graph replays of the train step (fused kernel inside, its
+    backward and the three Adam updates) against three eager steps on the
+    same weights and batches: metrics, every parameter, Adam's count and
+    the Moments."""
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    graphed, gstep, gopts = _train(continuous, "auto", 4)
+    eager, estep, eopts = _train(continuous, "auto", 4, _snapshot(graphed))
+    batches = [_batch(8, 4, continuous, seed=s) for s in range(3)]
+    fn, gmoments = _captured(graphed, gstep, gopts, batches[0])
+    emoments = init_moments(torch.device("cuda"))
+    for b in batches:
+        for k, v in b.items():
+            fn.inputs[k].copy_(v)
+        got = fn()
+        _, want = estep(emoments, b, None)
+        assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    assert fn.replays == 3 and fn.captured_launches == 8 + 5
+    for k in ("wm", "actor", "critic"):
+        for a, b in zip(graphed[k].parameters(), eager[k].parameters()):
+            assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30), k
+    assert [int(o.count) for o in gopts] == [int(o.count) for o in eopts] == [3, 3, 3]
+    torch.testing.assert_close(gmoments.low, emoments.low, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
+
+
+@pytest.mark.cuda
+def test_cuda_replays_draw_fresh_noise_from_the_registered_generator(cuda):
+    """The train generator is registered with the graph: two replays from
+    the same state draw different noise, and re-setting the generator's
+    state reproduces a replay's draw."""
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.zeros(64, device="cuda")
+    fn = CapturedStep(lambda d: d["x"] + torch.rand(64, device="cuda", generator=gen), {"x": x}, [], gen)
+    saved = gen.get_state()
+    first, second = fn(), fn()
+    assert not torch.equal(first, second)
+    gen.set_state(saved)
+    assert torch.equal(fn(), first)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_refuses_a_host_sync(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing runs the step eagerly instead."""
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+
+    x = torch.ones(8, device="cuda")
+    fn = CapturedStep(lambda d: d["x"] * float(d["x"].sum().item()), {"x": x}, [])
+    with pytest.raises(RuntimeError):
+        fn()
+    assert fn.graph is None and fn.replays == 0
+
+
+@pytest.mark.cuda
+def test_cuda_adam_count_lives_on_the_device(cuda):
+    """Adam's count is an int32 tensor on the card and its bias corrections
+    are computed there: three replays of a captured step advance it to 3 and
+    give the parameters of three eager steps."""
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+    from sheeprl_tpu_torch.ops.optim import Adam
+
+    rng = np.random.default_rng(4)
+    init = [rng.standard_normal(s).astype(np.float32) for s in ((5, 3), (7,))]
+    grads = [torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).cuda() for a in init]
+    params = [[torch.nn.Parameter(torch.from_numpy(a.copy()).cuda()) for a in init] for _ in range(2)]
+    opts = [Adam(p, lr=1e-2, eps=1e-5, max_grad_norm=0.5) for p in params]
+    assert opts[0].count.device.type == "cuda" and opts[0].count.dtype == torch.int32
+    inputs = {f"g{i}": g for i, g in enumerate(grads)}
+    fn = CapturedStep(lambda d: opts[0].step(list(d.values())), inputs, [*params[0], *opts[0].mu, *opts[0].nu, opts[0].count])
+    for _ in range(3):
+        fn()
+        opts[1].step(grads)
+    assert int(opts[0].count) == int(opts[1].count) == 3
+    for a, b in zip(params[0], params[1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

@@ -684,8 +684,8 @@ MAIN_TINY = {"env.num_envs": 2, "buffer.size": 64, "algo.learning_starts": 8, "a
     "env, cnn, mlp",
     [("pixel_catcher", ("rgb",), ()), ("dummy_discrete", (), ("state",)), ("dummy_continuous", ("rgb",), ("state",))],
 )
-def test_main_trains_on_cpu(env, cnn, mlp):
-    cfg = tiny_cfg(cnn, mlp, env=env, **MAIN_TINY)
+def test_main_trains_on_cpu(env, cnn, mlp, tmp_path):
+    cfg = tiny_cfg(cnn, mlp, env=env, **MAIN_TINY, log_base_dir=str(tmp_path))
     fused_gru.reset_launch_count()
     out = tdv3.main(cfg, device="cpu")
     assert fused_gru.launch_count == 0
@@ -697,7 +697,7 @@ def test_main_trains_on_cpu(env, cnn, mlp):
     assert all(np.isfinite(v) for v in out["metrics"].values())
 
 
-def test_main_needs_cuda_without_a_device(monkeypatch):
+def test_main_needs_cuda_without_a_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tdv3.main(tiny_cfg(**MAIN_TINY))
+        tdv3.main(tiny_cfg(**MAIN_TINY, log_base_dir=str(tmp_path)))

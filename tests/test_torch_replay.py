@@ -4,6 +4,7 @@ same stored steps (the buffers draw from the same numpy Generator calls),
 and ``Ratio`` the same gradient steps."""
 
 import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -92,3 +93,61 @@ def test_ratio_matches(ratio, pretrain):
     assert tr.state_dict() == jr.state_dict()
     assert Ratio(3.0).load_state_dict(jr.state_dict()).state_dict() == jr.state_dict()
 
+
+
+def _filled(seed=7, n_steps=30):
+    rb = tb.EnvIndependentReplayBuffer(16, n_envs=3, obs_keys=("rgb",), buffer_cls=tb.SequentialReplayBuffer, seed=seed)
+    for step in _steps(np.random.default_rng(0), n_steps, 3):
+        rb.add(step)
+    return rb
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetched_batches_are_the_buffer_draws_in_order(depth):
+    """The prefetcher's sampler thread draws from the buffer's Generator in
+    the same order as a synchronous loop and as the JAX package's prefetcher:
+    batch i lands in the static inputs as ``sample(...)[0]``, pixels uint8
+    and the rest fp32, across windows."""
+    import torch
+
+    from sheeprl_tpu.data.prefetch import sampled_batches as j_sampled_batches
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import batch_inputs
+    from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
+
+    rb, ref, jref = _filled(), _filled(), jb.EnvIndependentReplayBuffer(
+        16, n_envs=3, obs_keys=("rgb",), buffer_cls=jb.SequentialReplayBuffer, seed=7
+    )
+    for step in _steps(np.random.default_rng(0), 30, 3):
+        jref.add(step)
+    inputs = batch_inputs(rb, 4, 5, ["rgb"], torch.device("cpu"))
+    assert inputs["rgb"].dtype == torch.uint8 and inputs["rewards"].dtype == torch.float32
+    pre = BatchPrefetcher(rb, 5, 4, inputs, depth=depth)
+    fabric = types.SimpleNamespace(num_processes=1, world_size=1)
+    jax_batches = j_sampled_batches(jref, 5, 4, 7, ["rgb"], fabric, prefetch=2)
+    for n in (3, 4):  # two train windows
+        for got in pre.sampled_batches(n):
+            want = ref.sample(5, sequence_length=4, n_samples=1)
+            jwant = next(jax_batches)
+            assert got is inputs
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k].numpy(), v[0].astype(got[k].numpy().dtype), err_msg=k)
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(jwant[k]), err_msg=k)
+
+
+def test_prefetch_sampler_errors_surface_and_the_window_can_end_early():
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import batch_inputs
+    from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
+
+    rb = _filled()
+    inputs = batch_inputs(rb, 4, 5, ["rgb"], torch.device("cpu"))
+    pre = BatchPrefetcher(rb, 5, 40, inputs, depth=2)  # 40 > the 16 stored steps
+    with pytest.raises(RuntimeError, match="prefetch sampler failed"):
+        next(iter(pre.sampled_batches(2)))
+    ok = BatchPrefetcher(rb, 5, 4, inputs, depth=2)
+    for i, _ in enumerate(ok.sampled_batches(5)):
+        if i == 1:
+            break
+    assert sorted(ok._free.queue) == [0, 1]  # every host buffer back with the sampler
+    assert len(list(ok.sampled_batches(3))) == 3
