@@ -69,11 +69,28 @@ which exits non-zero:
    ``main()`` with a checkpoint every 64 policy steps and a forced NaN (one
    rollback to the newest committed checkpoint), then a second ``main()``
    resuming from it (``checkpoint.resume_from=auto``) to its end.
+8. The default precision, ``bf16-mixed`` (fp32 parameters, bf16 compute;
+   phases 3, 6 and 7 pin ``fabric.precision: 32-true``): (a) B1 reading a
+   bf16 x at S B=4, 16 and 1024 against ``reference_step`` on the same x
+   (forward 1e-5, gradients 1e-4, dx in bf16), with its device time beside
+   the fp32-x time and the bound with x at 2 bytes; (b) one eager S step
+   with B1 against the plain recurrent model at bf16 and against the fp32
+   B1 step (metrics and gradients within their printed bounds), 80 B1
+   calls a step, each with a bf16 x; (c) replayed against eager as 7(a);
+   (d) ms per replayed step, B1 and plain, bf16 and fp32, in turns, and a
+   profiler window over each bf16 step (idle share, top kernels, B1's
+   share); (e) ``main()``'s short loop: env-steps/s and gradient steps/s;
+   (f) the S player: ms a step and env-steps/s. Alone on the card:
+   ``python -c 'import chip_smoke as c, numpy as np, torch; from
+   sheeprl_tpu_torch.ops import fused_gru as fg; c.phase_bf16_kernel(torch,
+   fg, c.BF16_KERNEL_SHAPES); rb, s, a, k = c.filled_replay(np,
+   c.train_cfg("pixel_catcher"), 80); c.phase_bf16_train(torch, np, fg, rb,
+   s, a, k)'`` (and ``phase_bf16_timing``, ``phase_bf16_player`` alike).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the plain versions compute in full
-fp32 like the kernels.
+fp32 like the kernels, and the fp32 heads of phase 8 in fp32.
 """
 
 from __future__ import annotations
@@ -116,6 +133,10 @@ FUSED_GRU_KERNELS = ("gru_step",)
 PLAYER_STEPS = 32
 EVAL_CAP = 64
 SEED = 5
+# phases 2-7 pin fp32; phase 8 runs the default, bf16-mixed
+# (configs/fabric/default.yaml:8, kept by exp=dreamer_v3)
+FP32 = "32-true"
+BF16 = "bf16-mixed"
 
 
 def card_line() -> str:
@@ -146,13 +167,13 @@ def gru_args(torch, batch: int, in_dim: int, dense: int, hidden: int, gen):
     ]
 
 
-def gru_bound_ms(batch: int, in_dim: int, dense: int, hidden: int):
-    """Least time of one step on the card: each input read once and the
-    output written once over the HBM rate, against the two products' FLOPs
-    over the fp32 rate. Returns (ms, 'bytes' or 'operations')."""
+def gru_bound_ms(batch: int, in_dim: int, dense: int, hidden: int, x_bytes: int = 4):
+    """Least time of one step on the card: each input read once (x at
+    ``x_bytes`` a value: 4 for fp32, 2 for bf16) and the output written once
+    over the HBM rate, against the two products' FLOPs over the fp32 rate.
+    Returns (ms, 'bytes' or 'operations')."""
     floats = (
-        batch * in_dim
-        + batch * hidden
+        batch * hidden
         + in_dim * dense
         + 3 * dense
         + (hidden + dense) * 3 * hidden
@@ -160,7 +181,7 @@ def gru_bound_ms(batch: int, in_dim: int, dense: int, hidden: int):
         + batch * hidden
     )
     flops = 2 * batch * in_dim * dense + 2 * batch * (hidden + dense) * 3 * hidden
-    t_bytes = 4 * floats / HBM_BYTES_PER_S
+    t_bytes = (4 * floats + x_bytes * batch * in_dim) / HBM_BYTES_PER_S
     t_ops = flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -646,7 +667,9 @@ def phase_slice(torch, np, fg):
     from sheeprl_tpu_torch.envs.factory import make_env
     from sheeprl_tpu_torch.envs.spaces import action_dims
 
-    cfg = compose("S", overrides={"seed": SEED, "env.num_envs": 4, "env.max_episode_steps": EVAL_CAP})
+    cfg = compose(
+        "S", overrides={"seed": SEED, "env.num_envs": 4, "env.max_episode_steps": EVAL_CAP, "fabric.precision": FP32}
+    )
     envs = [make_env(cfg, SEED + i)() for i in range(cfg["env"]["num_envs"])]
     obs_space = envs[0].observation_space
     actions_dim, is_continuous = action_dims(envs[0].action_space)
@@ -684,7 +707,13 @@ def phase_slice(torch, np, fg):
     # ---- fused vs plain on the same observations, mode/greedy ----
     record, h_fused, a_fused, _ = run_player(torch, np, player, cfg, envs, PLAYER_STEPS, None, True, False)
     plain_cfg = compose(
-        "S", overrides={"seed": SEED, "env.num_envs": 4, "algo.world_model.recurrent_model.fused": "flax"}
+        "S",
+        overrides={
+            "seed": SEED,
+            "env.num_envs": 4,
+            "algo.world_model.recurrent_model.fused": "flax",
+            "fabric.precision": FP32,
+        },
     )
     wm_plain, _, player_plain = build_agent(
         actions_dim, is_continuous, plain_cfg, obs_space, wm.state_dict(), actor.state_dict()
@@ -754,13 +783,18 @@ def smooth_actions(actor, state, generator=None, greedy=False):
     return torch.cat([d.probs for d in dists], -1)
 
 
-def train_cfg(env: str, fused: str = "auto", **cuts):
+def train_cfg(env: str, fused: str = "auto", precision: str = FP32, **cuts):
     from sheeprl_tpu_torch.configs import compose
 
     return compose(
         "S",
         env=env,
-        overrides={"seed": SEED, "algo.world_model.recurrent_model.fused": fused, **cuts},
+        overrides={
+            "seed": SEED,
+            "algo.world_model.recurrent_model.fused": fused,
+            "fabric.precision": precision,
+            **cuts,
+        },
     )
 
 
@@ -1070,21 +1104,23 @@ def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     return report
 
 
-def phase_train_loop(torch, np, fg, tmp):
+def phase_train_loop(torch, np, fg, tmp, precision=FP32, label="train_loop"):
     """(d) main(): a few hundred env steps of the S loop on 4 PixelCatcher
-    envs, each gradient step one replay of the captured step. Its calls of
-    the kernel's wrapper: one a player step, 80 for each of the warm-up steps
-    and 80 recorded into the graph; its launches on the card: those calls
-    but the recorded ones, plus 80 a replay. Returns (launches, report)."""
+    envs at ``precision``, each gradient step one replay of the captured
+    step. Its calls of the kernel's wrapper: one a player step, 80 for each
+    of the warm-up steps and 80 recorded into the graph; its launches on the
+    card: those calls but the recorded ones, plus 80 a replay; at bf16-mixed
+    every call reads a bf16 x. Returns (launches, report)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
     from sheeprl_tpu_torch.ops.graph import WARMUP_STEPS
 
-    cfg = train_cfg("pixel_catcher", **LOOP_CUTS, log_base_dir=tmp)
-    print("train_loop cuts " + json.dumps(LOOP_CUTS), flush=True)
+    cfg = train_cfg("pixel_catcher", precision=precision, **LOOP_CUTS, log_base_dir=tmp)
+    print(f"{label} cuts " + json.dumps({**LOOP_CUTS, "fabric.precision": precision}), flush=True)
     # ---- the main path: counts at 0 just before, read just after ----
     fg.reset_launch_count()
     out = train_main(cfg, device="cuda")
     calls = fg.launch_count
+    bf16_calls = fg.bf16_x_launch_count
     # ------------------------------------------------------------------
     per_step = SCAN_CALLS + IMAGINE_CALLS
     num_envs = cfg["env"]["num_envs"]
@@ -1097,10 +1133,12 @@ def phase_train_loop(torch, np, fg, tmp):
         or out["replays"] != out["gradient_steps"]
         or out["gradient_steps"] == 0
         or calls != acting + (WARMUP_STEPS + 1) * per_step
+        or bf16_calls != (calls if precision == BF16 else 0)
     ):
         raise AssertionError(
             f"main(): {calls} wrapper calls (want {acting} + {WARMUP_STEPS + 1} x {per_step}), {captured} "
-            f"captured a step (want {per_step}), {out['replays']} replays for {out['gradient_steps']} steps"
+            f"captured a step (want {per_step}), {out['replays']} replays for {out['gradient_steps']} steps, "
+            f"{bf16_calls} with a bf16 x"
         )
     if not all(np.isfinite(v) for v in out["metrics"].values()):
         raise AssertionError(f"main(): metrics are not finite: {out['metrics']}")
@@ -1111,13 +1149,15 @@ def phase_train_loop(torch, np, fg, tmp):
         "train_seconds_device": out["train_seconds"],
         "env_steps_per_s": out["env_steps"] / out["seconds"],
         "gradient_steps_per_s": out["gradient_steps"] / out["seconds"],
+        "precision": precision,
         "fused_gru_wrapper_calls": calls,
+        "fused_gru_bf16_x_wrapper_calls": bf16_calls,
         "fused_gru_captured_per_step": captured,
         "replays": out["replays"],
         "fused_gru_launches": launches,
         "last_metrics": out["metrics"],
     }
-    print("train_loop " + json.dumps(report), flush=True)
+    print(f"{label} " + json.dumps(report), flush=True)
     return launches, report
 
 
@@ -1172,22 +1212,22 @@ def rel_err(torch, got, want):
     return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
 
 
-def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
-    """(a) REPLAYED_STEPS replays of the captured step (B1 inside) against
-    as many eager steps, discrete (PixelCatcher) and continuous (the dummy
-    env), with the smooth samplers; (b) fresh noise on each replay from the
-    registered generator, with the real samplers."""
+def replay_against_eager(torch, np, rb, obs_space, actions_dim, is_continuous, precision):
+    """REPLAYED_STEPS replays of the captured step (B1 inside) at
+    ``precision`` against as many eager steps, discrete (PixelCatcher) and
+    continuous (the dummy env), with the smooth samplers and cuDNN's
+    deterministic algorithms. Returns the report; raises past REPLAY_BOUND."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
     from sheeprl_tpu_torch.ops.math import init_moments
 
     dev = torch.device("cuda")
-    ccfg = train_cfg("dummy_continuous")
+    ccfg = train_cfg("dummy_continuous", precision=precision)
     crb, cspace, cdim, ccont = filled_replay(np, ccfg, 70)
     cases = {
-        "discrete": (train_cfg("pixel_catcher"), rb, obs_space, actions_dim, is_continuous),
+        "discrete": (train_cfg("pixel_catcher", precision=precision), rb, obs_space, actions_dim, is_continuous),
         "continuous": (ccfg, crb, cspace, cdim, ccont),
     }
-    report = {"bound": REPLAY_BOUND}
+    report = {"bound": REPLAY_BOUND, "precision": precision}
     with cudnn_deterministic(torch), deterministic():
         for name, (cfg, crb_, space, dims, cont) in cases.items():
             graphed, gstep, gopts = train_models(torch, cfg, space, dims, cont)
@@ -1223,8 +1263,20 @@ def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
                 or counts != [REPLAYED_STEPS] * 6
                 or fn.captured_launches != SCAN_CALLS + IMAGINE_CALLS
             ):
-                raise AssertionError(f"replayed against eager ({name}): {report[name]}")
+                raise AssertionError(f"replayed against eager ({name}, {precision}): {report[name]}")
             del graphed, eager, fn
+    return report
+
+
+def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
+    """(a) REPLAYED_STEPS replays of the captured step (B1 inside) against
+    as many eager steps, discrete (PixelCatcher) and continuous (the dummy
+    env), with the smooth samplers; (b) fresh noise on each replay from the
+    registered generator, with the real samplers."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    dev = torch.device("cuda")
+    report = replay_against_eager(torch, np, rb, obs_space, actions_dim, is_continuous, FP32)
 
     # (b) the real samplers: noise from the registered train generator
     with cudnn_deterministic(torch):
@@ -1261,15 +1313,47 @@ def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
     return report
 
 
+def profile_replays(torch, fn, replays: int = 4, top: int = 8):
+    """torch.profiler over ``replays`` replays of the captured step ``fn``:
+    wall and device-busy ms a replay, the device's idle share, B1's
+    gru_step kernels a replay, their ms and share of the busy time, and the
+    top kernels (ms a replay)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(replays):
+            fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    b1 = [e for e in kernels if any(n in e.name for n in FUSED_GRU_KERNELS)]
+    b1_us = sum(e.time_range.elapsed_us() for e in b1)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    return {
+        "wall_ms_per_replay": 1e3 * seconds / replays,
+        "device_busy_ms_per_replay": busy_us / 1e3 / replays,
+        "device_idle_share": 1.0 - busy_us / 1e6 / seconds if busy_us else None,
+        "gru_step_kernels_per_replay": len(b1) / replays,
+        "gru_step_ms_per_replay": b1_us / 1e3 / replays,
+        "gru_step_share_of_device_time": b1_us / busy_us if busy_us else None,
+        "top_kernels_ms_per_replay": [
+            [k, v / 1e3 / replays] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        ],
+    }
+
+
 def phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous):
     """(c) ms per gradient step replayed and eager, B1 (fused: auto) and
     the plain recurrent model (fused: flax), CUDA events around REPLAY_TIMED
     steps, in turns fused, plain, plain, fused; then torch.profiler over 4
     replays of each: device busy time, idle share, B1's gru_step kernels a
     replayed step (2 launches x 80 calls) and their time, the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
     from sheeprl_tpu_torch.ops.math import init_moments
 
@@ -1301,29 +1385,7 @@ def phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous):
         times[f"{key}_eager"].append(timed(lambda: step(moments, batch, gen)))
     report = {f"ms_per_gradient_step_{k}": v for k, v in times.items()}
     for fused in ("auto", "flax"):
-        fn = runs[fused][2]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(4):
-                fn()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        b1 = [e for e in kernels if any(n in e.name for n in FUSED_GRU_KERNELS)]
-        key = "fused" if fused == "auto" else "plain"
-        by_name = {}
-        for e in kernels:
-            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
-        report[f"profile_{key}"] = {
-            "wall_ms_per_replay": 1e3 * seconds / 4,
-            "device_busy_ms_per_replay": busy_us / 1e3 / 4,
-            "device_idle_share": 1.0 - busy_us / 1e6 / seconds if busy_us else None,
-            "gru_step_kernels_per_replay": len(b1) / 4,
-            "gru_step_ms_per_replay": sum(e.time_range.elapsed_us() for e in b1) / 1e3 / 4,
-            "top_kernels_ms_per_replay": [[k, v / 1e3 / 4] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
-        }
+        report[f"profile_{'fused' if fused == 'auto' else 'plain'}"] = profile_replays(torch, runs[fused][2])
     print("replay_timing " + json.dumps(report), flush=True)
     if report["profile_fused"]["gru_step_kernels_per_replay"] != 2 * (SCAN_CALLS + IMAGINE_CALLS):
         raise AssertionError(f"a replayed step ran {report['profile_fused']['gru_step_kernels_per_replay']} gru_step kernels")
@@ -1372,6 +1434,227 @@ def phase_drill(torch, np, tmp):
     ):
         raise AssertionError(f"rollback and resume drill: {report}")
     return report
+
+
+# phase 8: the default precision, bf16-mixed. (a) B1 reading a bf16 x at
+# the S shapes of the player, the scan and imagination, held to
+# reference_step on the same bf16 x at FWD_TOL and GRAD_TOL: both compute in
+# fp32 from the same rounded x
+BF16_KERNEL_SHAPES = {"S_B4": (4, 1027, 512, 512), "S_B16": (16, 1027, 512, 512), "S_B1024": (1024, 1027, 512, 512)}
+BF16_ULP = 2.0**-7
+# (b) the eager bf16 S step with B1 against the plain recurrent model at
+# bf16 (the flax cell rounds h to bf16 at each of the 64 + 16 steps, B1
+# keeps it in fp32) and against the fp32 B1 step, from the same weights and
+# batch with the smooth samplers: each metric relative to max(|ref|, 1),
+# each gradient tensor relative to its largest element. Both comparisons
+# take every bf16 rounding of the step, carried through the scan and
+# imagination, so the bounds are bf16's, not the kernel's. Measured on an
+# H100 (first run): metrics 3.0e-4 against plain and 1.9e-3 against fp32;
+# gradients 2.1e-2 and 3.0e-2 (world model), 6.5e-3 and 5.8e-3 (actor),
+# 3.9e-3 and 4.3e-3 (critic)
+BF16_METRIC_BOUND = 1e-2
+BF16_GRAD_BOUND = 0.1
+
+
+def phase_bf16_kernel(torch, fg, shapes):
+    """(a) B1 with a bf16 x: forward and gradients against reference_step on
+    the same bf16 x, dx in bf16; device time (CUDA graph, L2 warm) beside the
+    step on the fp32 copy of x and the plain version, and the bound with x
+    at 2 bytes. Returns (max_abs_err, rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    worst = 0.0
+    rows = []
+    for name, (batch, in_dim, dense, hidden) in shapes.items():
+        args = gru_args(torch, batch, in_dim, dense, hidden, gen)
+        args[0] = args[0].bfloat16()
+        x32 = args[0].float()
+        before = fg.bf16_x_launch_count
+        with torch.no_grad():
+            got = fg.launch(*args)
+            want = fg.reference_step(*args)
+        torch.cuda.synchronize()
+        if fg.bf16_x_launch_count != before + 1:
+            raise AssertionError(f"{name}: a bf16 x was not counted as a bf16-x launch")
+        if got.shape != (batch, hidden) or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: bf16-x kernel output is not finite [{batch}, {hidden}]")
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, atol=FWD_TOL, rtol=FWD_TOL):
+            raise AssertionError(f"{name}: bf16-x kernel forward differs from reference_step by {err}")
+        worst = max(worst, err)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        cot = torch.randn(batch, hidden, device="cuda", generator=gen)
+        g_kernel = torch.autograd.grad(fg.fused_recurrent_step(*leaves), leaves, cot)
+        ref = [a.clone().requires_grad_(True) for a in args]
+        g_plain = torch.autograd.grad(fg.reference_step(*ref), ref, cot)
+        if g_kernel[0].dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: dx is {g_kernel[0].dtype}, not x's bf16")
+        gerr = max((a.float() - b.float()).abs().max().item() for a, b in zip(g_kernel, g_plain))
+        # dx is an fp32 gradient rounded to bf16: two sums may round a value
+        # to neighbouring bf16 numbers, one ulp (2^-7 relative) apart
+        rtols = [BF16_ULP] + [GRAD_TOL] * 8
+        if not all(torch.allclose(a.float(), b.float(), atol=GRAD_TOL, rtol=r) for a, b, r in zip(g_kernel, g_plain, rtols)):
+            raise AssertionError(f"{name}: bf16-x gradients differ from reference_step by {gerr}")
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: fg.launch(*args))
+            fp32_x_ms = device_ms(torch, lambda: fg.launch(x32, *args[1:]))
+            plain_ms = device_ms(torch, lambda: fg.reference_step(*args))
+        bound_ms, bound_by = gru_bound_ms(batch, in_dim, dense, hidden, x_bytes=2)
+        row = {
+            "shape": name,
+            "B": batch,
+            "x_dtype": "bfloat16",
+            "max_abs_err": err,
+            "grad_max_abs_err": gerr,
+            "ms": ms,
+            "fp32_x_ms": fp32_x_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "fp32_x_bound_ms": gru_bound_ms(batch, in_dim, dense, hidden)[0],
+        }
+        rows.append(row)
+        print("fused_gru_bf16_x " + json.dumps(row), flush=True)
+    return worst, rows
+
+
+def phase_bf16_train(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
+    """(b) one eager S gradient step at bf16-mixed with B1 against the
+    plain recurrent model at bf16-mixed and against the fp32 B1 step, the
+    same weights and batch, the smooth samplers; B1 called 80 times a step,
+    every call with a bf16 x."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, to_batch
+
+    batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
+    per_step = SCAN_CALLS + IMAGINE_CALLS
+    with deterministic():
+        b1, b1_step, _ = train_models(torch, train_cfg("pixel_catcher", precision=BF16), obs_space, actions_dim, is_continuous)
+        if not b1["wm"].fused or b1["wm"].dtype != torch.bfloat16:
+            raise AssertionError("the bf16-mixed S world model is not the bf16 B1 model")
+        states = snapshot(b1)
+        runs = {"b1_bf16": (b1_step, per_step, per_step)}
+        for key, fused, precision, want in (("plain_bf16", "flax", BF16, (0, 0)), ("b1_fp32", "auto", FP32, (per_step, 0))):
+            _, step, _ = train_models(
+                torch, train_cfg("pixel_catcher", fused, precision), obs_space, actions_dim, is_continuous, states
+            )
+            runs[key] = (step, *want)
+        out = {}
+        for key, (step, calls, bf16_calls) in runs.items():
+            grads = {}
+            metrics, launches = one_step(torch, fg, step, batch, grads)
+            if (launches, fg.bf16_x_launch_count) != (calls, bf16_calls) or not torch.isfinite(metrics).all():
+                raise AssertionError(
+                    f"bf16 train step {key}: {launches} B1 calls, {fg.bf16_x_launch_count} with a bf16 x "
+                    f"(want {calls}, {bf16_calls}); metrics {metrics.tolist()}"
+                )
+            out[key] = (metrics, grads)
+    m_b1, g_b1 = out["b1_bf16"]
+    report = {"B": TRAIN_B, "T": TRAIN_T, "horizon": HORIZON, "fused_gru_bf16_x_calls_per_step": per_step}
+    report["metrics_b1_bf16"] = dict(zip(METRIC_ORDER, m_b1.tolist()))
+    for ref in ("plain_bf16", "b1_fp32"):
+        m, g = out[ref]
+        report[f"vs_{ref}"] = {
+            "metric_max_rel_err": ((m_b1 - m).abs() / m.abs().clamp_min(1.0)).max().item(),
+            **{
+                f"{k}_grad_max_rel_err": max(
+                    ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(g_b1[k], g[k])
+                )
+                for k in ("world_model", "actor", "critic")
+            },
+        }
+    report["metric_bound"], report["grad_bound"] = BF16_METRIC_BOUND, BF16_GRAD_BOUND
+    print("bf16_train " + json.dumps(report), flush=True)
+    for ref in ("plain_bf16", "b1_fp32"):
+        errs = report[f"vs_{ref}"]
+        if errs["metric_max_rel_err"] > BF16_METRIC_BOUND or max(
+            v for k, v in errs.items() if k.endswith("grad_max_rel_err")
+        ) > BF16_GRAD_BOUND:
+            raise AssertionError(f"the bf16 B1 step against {ref}: {errs}")
+    return report
+
+
+def step_ms(torch, fn, steps: int = REPLAY_TIMED) -> float:
+    """CUDA-event ms of one call of ``fn`` (a replayed step), over ``steps``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def phase_bf16_timing(torch, rb, obs_space, actions_dim, is_continuous):
+    """(d) ms per replayed S step, B1 and plain, at bf16-mixed and fp32, in
+    turns within this call; then torch.profiler over 4 replays of each
+    bf16 step: idle share, top kernels, B1's share."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
+    variants = {"b1_bf16": ("auto", BF16), "plain_bf16": ("flax", BF16), "b1_fp32": ("auto", FP32), "plain_fp32": ("flax", FP32)}
+    runs = {}
+    for key, (fused, precision) in variants.items():
+        models, step, opts = train_models(
+            torch, train_cfg("pixel_catcher", fused, precision), obs_space, actions_dim, is_continuous
+        )
+        fn, _ = captured_step(torch, models, step, opts, batch, torch.Generator(device="cuda").manual_seed(SEED))
+        fn()  # capture and one replay
+        runs[key] = (models, fn)
+    times = {key: [] for key in variants}
+    for key in ("b1_bf16", "plain_bf16", "b1_fp32", "plain_fp32", "plain_fp32", "b1_fp32", "plain_bf16", "b1_bf16"):
+        times[key].append(step_ms(torch, runs[key][1]))
+    report = {f"ms_per_replayed_step_{k}": v for k, v in times.items()}
+    for key in ("b1_bf16", "plain_bf16"):
+        report[f"profile_{key}"] = profile_replays(torch, runs[key][1], top=10)
+    print("bf16_replay_timing " + json.dumps(report), flush=True)
+    if report["profile_b1_bf16"]["gru_step_kernels_per_replay"] != 2 * (SCAN_CALLS + IMAGINE_CALLS):
+        raise AssertionError(f"a bf16 replayed step ran {report['profile_b1_bf16']['gru_step_kernels_per_replay']} gru_step kernels")
+    if report["profile_plain_bf16"]["gru_step_kernels_per_replay"] != 0:
+        raise AssertionError("the plain bf16 step ran B1")
+    del runs
+    return report
+
+
+def phase_bf16_player(torch, np, fg):
+    """(f) the S player at the default precision (bf16-mixed) on 4
+    PixelCatcher envs: one B1 call a step, each with a bf16 x; ms a step and
+    env-steps/s. Returns (launches, report)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.configs import compose
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.envs.spaces import action_dims
+
+    cfg = compose("S", overrides={"seed": SEED, "env.num_envs": 4})
+    if cfg["fabric"]["precision"] != BF16:
+        raise AssertionError(f"the default precision is {cfg['fabric']['precision']}, not {BF16}")
+    envs = [make_env(cfg, SEED + i)() for i in range(cfg["env"]["num_envs"])]
+    actions_dim, is_continuous = action_dims(envs[0].action_space)
+    wm, _, player = build_agent(actions_dim, is_continuous, cfg, envs[0].observation_space)
+    if not wm.fused or wm.dtype != torch.bfloat16:
+        raise AssertionError("the default S world model is not the bf16 B1 model")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    run_player(torch, np, player, cfg, envs, 2, gen, False, True)  # warm-up
+    # ---- the main path: counts at 0 just before, read just after ----
+    fg.reset_launch_count()
+    _, hs, acts, seconds = run_player(torch, np, player, cfg, envs, PLAYER_STEPS, gen, False, True)
+    launches, bf16_launches = fg.launch_count, fg.bf16_x_launch_count
+    # ------------------------------------------------------------------
+    for env in envs:
+        env.close()
+    if launches != PLAYER_STEPS or bf16_launches != PLAYER_STEPS:
+        raise AssertionError(f"the bf16 player launched B1 {launches} times, {bf16_launches} with a bf16 x, in {PLAYER_STEPS} steps")
+    if not torch.isfinite(hs).all() or hs.dtype != torch.float32 or not np.all(acts.sum(-1) == 1.0):
+        raise AssertionError("the bf16 player's h is not finite fp32 or its actions are not one-hot")
+    report = {
+        "precision": BF16,
+        "player_steps": PLAYER_STEPS,
+        "num_envs": 4,
+        "ms_per_player_step": 1e3 * seconds / PLAYER_STEPS,
+        "env_steps_per_s": 4 * PLAYER_STEPS / seconds,
+        "fused_gru_bf16_x_launches": bf16_launches,
+    }
+    print("bf16_player " + json.dumps(report), flush=True)
+    return launches, report
 
 
 def main() -> int:
@@ -1445,6 +1728,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_drill(torch, np, tmp)
 
+    # phase 8: the default precision, bf16-mixed: (a) B1 with a bf16 x, (b)
+    # the eager step against plain and fp32, (c) replayed against eager, (d)
+    # ms a replayed step with a profile, (e) the short loop, (f) the player
+    bf16_err, bf16_rows = phase_bf16_kernel(torch, fg, BF16_KERNEL_SHAPES)
+    phase_bf16_train(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    print("bf16_replay_parity " + json.dumps(replay_against_eager(torch, np, rb, obs_space, actions_dim, is_continuous, BF16)), flush=True)
+    bf16_timing = phase_bf16_timing(torch, rb, obs_space, actions_dim, is_continuous)
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_loop_launches, bf16_loop = phase_train_loop(torch, np, fg, tmp, BF16, "bf16_train_loop")
+    bf16_player_launches, bf16_player = phase_bf16_player(torch, np, fg)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -1455,11 +1749,16 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches,
+            # every launch of the bf16-mixed paths read a bf16 x (checked there)
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches,
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
                 "train_loop_replays": loop["replays"],
+                "bf16_train_loop": bf16_loop_launches,
+                "bf16_train_loop_replays": bf16_loop["replays"],
+                "bf16_player": bf16_player_launches,
                 "per_gradient_step": step_launches,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
             },
@@ -1474,6 +1773,13 @@ def main() -> int:
             "ms_per_gradient_step_eager": min(timing["ms_per_gradient_step_fused"]),
             "ms_per_gradient_step_replayed": min(replay["ms_per_gradient_step_fused_replayed"]),
             "train_loop_env_steps_per_s": loop["env_steps_per_s"],
+            "bf16_x": {
+                "max_abs_err": bf16_err,
+                **{r["shape"]: {k: r[k] for k in ("ms", "fp32_x_ms", "plain_ms", "bound_ms", "bound_by")} for r in bf16_rows},
+                "ms_per_replayed_step": min(bf16_timing["ms_per_replayed_step_b1_bf16"]),
+                "train_loop_env_steps_per_s": bf16_loop["env_steps_per_s"],
+                "player_env_steps_per_s": bf16_player["env_steps_per_s"],
+            },
         },
         {
             "name": "sharded_proj",

@@ -23,6 +23,16 @@ step reads them as they are.
 ``rssm_scan`` is a Python loop over ``dynamic``: on the card every step of
 it, and of imagination, is one call of the fused step kernel (B1) when
 ``fused`` resolves to it.
+
+Precision: every module takes the compute dtype of ``fabric.precision``
+(``device.Precision``) and casts where the JAX module does: trunks compute
+in it, LayerNorms in fp32 cast back, the heads of the representation,
+transition, reward and continue models, the actor and the critic in fp32,
+the decoders' outputs and ``encode``'s features are fp32, and the entry
+points cast latents to the compute dtype. Parameters stay fp32. At
+``bf16-mixed`` the fused step takes bf16 ``x`` and fp32 ``h`` and computes
+in fp32 (as JAX ``fused=pallas``), where the plain ``RecurrentModel``
+rounds its state to bf16 inside the step (as the flax cell).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
-from sheeprl_tpu_torch.models.blocks import LayerNorm, LayerNormGRUCell
+from sheeprl_tpu_torch.models.blocks import ConvTranspose2d, Conv2d, Dense, LayerNorm, LayerNormGRUCell
 from sheeprl_tpu_torch.ops.distributions import Independent, Normal, OneHotCategoricalStraightThrough, TanhNormal
 from sheeprl_tpu_torch.ops.fused_gru import fused_recurrent_step
 from sheeprl_tpu_torch.ops.math import symlog
@@ -68,9 +78,10 @@ def variance_scaling_(
             nn.init.uniform_(w, -lim, lim, generator=generator)
 
 
-def _head(in_features: int, out_features: int, uniform_scale: float) -> nn.Linear:
-    """A Linear initialised by ``uniform_init(uniform_scale)``, not Hafner's."""
-    layer = nn.Linear(in_features, out_features)
+def _head(in_features: int, out_features: int, uniform_scale: float, dtype: torch.dtype = torch.float32) -> Dense:
+    """A Dense computing in ``dtype`` (fp32 unless given), initialised by
+    ``uniform_init(uniform_scale)``, not Hafner's."""
+    layer = Dense(in_features, out_features, compute_dtype=dtype)
     layer.uniform_scale = uniform_scale
     return layer
 
@@ -108,12 +119,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class _LNMLP(nn.Module):
-    """Linear -> LayerNorm(eps) -> SiLU, repeated (the Dreamer-V3 block)."""
+    """Dense -> LayerNorm(eps) -> SiLU, repeated (the Dreamer-V3 block), the
+    products in ``dtype``."""
 
-    def __init__(self, in_features: int, layers: int, units: int, eps: float = 1e-3) -> None:
+    def __init__(
+        self, in_features: int, layers: int, units: int, eps: float = 1e-3, dtype: torch.dtype = torch.float32
+    ) -> None:
         super().__init__()
         dims = [in_features] + [units] * layers
-        self.linears = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.linears = nn.ModuleList(Dense(a, b, compute_dtype=dtype) for a, b in zip(dims[:-1], dims[1:]))
         self.norms = nn.ModuleList(LayerNorm(units, eps=eps) for _ in range(layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,16 +139,25 @@ class _LNMLP(nn.Module):
 class CNNEncoder(nn.Module):
     """4-stage stride-2 conv encoder: kernel 4, channels ``[1,2,4,8] *
     multiplier``, no conv bias, LayerNorm over channels + SiLU. Takes NHWC
-    uint8 images and returns features flattened in NHWC order."""
+    uint8 images and returns features flattened in NHWC order, in ``dtype``
+    (pixels normalised in it, as the JAX encoder)."""
 
     def __init__(
-        self, keys: Sequence[str], in_channels: int, channels_multiplier: int, stages: int = 4, eps: float = 1e-3
+        self,
+        keys: Sequence[str],
+        in_channels: int,
+        channels_multiplier: int,
+        stages: int = 4,
+        eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
+        self.dtype = dtype
         chans = [in_channels] + [(2**i) * channels_multiplier for i in range(stages)]
         self.convs = nn.ModuleList(
-            nn.Conv2d(a, b, kernel_size=4, stride=2, padding=1, bias=False) for a, b in zip(chans[:-1], chans[1:])
+            Conv2d(a, b, kernel_size=4, stride=2, padding=1, bias=False, compute_dtype=dtype)
+            for a, b in zip(chans[:-1], chans[1:])
         )
         self.norms = nn.ModuleList(LayerNorm(c, eps=eps) for c in chans[1:])
 
@@ -143,7 +166,7 @@ class CNNEncoder(nn.Module):
         return self.convs[-1].out_channels * side * side
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = torch.cat([obs[k].float() / 255.0 - 0.5 for k in self.keys], -1)  # NHWC
+        x = torch.cat([obs[k].to(self.dtype) / 255.0 - 0.5 for k in self.keys], -1)  # NHWC
         lead = x.shape[:-3]
         x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)  # NCHW
         for conv, norm in zip(self.convs, self.norms):
@@ -153,7 +176,7 @@ class CNNEncoder(nn.Module):
 
 
 class MLPEncoder(nn.Module):
-    """symlog -> N x (Linear + LayerNorm + SiLU)."""
+    """symlog (fp32) -> N x (Dense + LayerNorm + SiLU) in ``dtype``."""
 
     def __init__(
         self,
@@ -163,16 +186,18 @@ class MLPEncoder(nn.Module):
         dense_units: int = 512,
         symlog_inputs: bool = True,
         eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
         self.symlog_inputs = symlog_inputs
-        self.mlp = _LNMLP(in_features, mlp_layers, dense_units, eps)
+        self.dtype = dtype
+        self.mlp = _LNMLP(in_features, mlp_layers, dense_units, eps, dtype)
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         parts = [obs[k].float() for k in self.keys]
         x = torch.cat([symlog(p) if self.symlog_inputs else p for p in parts], -1)
-        return self.mlp(x)
+        return self.mlp(x.to(self.dtype))
 
 
 # --------------------------------------------------------------------------- #
@@ -184,7 +209,8 @@ class CNNDecoder(nn.Module):
     """Inverse of :class:`CNNEncoder`: a Linear to a ``seed x seed x (8 *
     multiplier)`` map, ``stages - 1`` upsampling transposed convolutions with
     LayerNorm over channels and SiLU, then a plain transposed convolution
-    (with bias) to the output channels. Returns NHWC reconstructions by key."""
+    (with bias) to the output channels, all in ``dtype``. Returns fp32 NHWC
+    reconstructions by key."""
 
     def __init__(
         self,
@@ -195,6 +221,7 @@ class CNNDecoder(nn.Module):
         image_size: int,
         stages: int = 4,
         eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
@@ -202,14 +229,16 @@ class CNNDecoder(nn.Module):
         self.image_size = int(image_size)
         self.seed_hw = self.image_size // (2**stages)
         self.seed_ch = (2 ** (stages - 1)) * channels_multiplier
-        self.linear = nn.Linear(latent_size, self.seed_hw * self.seed_hw * self.seed_ch)
+        self.linear = Dense(latent_size, self.seed_hw * self.seed_hw * self.seed_ch, compute_dtype=dtype)
         chans = [self.seed_ch] + [(2 ** (stages - 2 - i)) * channels_multiplier for i in range(stages - 1)]
         self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(a, b, kernel_size=4, stride=2, padding=1, bias=False)
+            ConvTranspose2d(a, b, kernel_size=4, stride=2, padding=1, bias=False, compute_dtype=dtype)
             for a, b in zip(chans[:-1], chans[1:])
         )
         self.norms = nn.ModuleList(LayerNorm(c, eps=eps) for c in chans[1:])
-        self.out = nn.ConvTranspose2d(chans[-1], sum(self.output_channels), kernel_size=4, stride=2, padding=1)
+        self.out = ConvTranspose2d(
+            chans[-1], sum(self.output_channels), kernel_size=4, stride=2, padding=1, compute_dtype=dtype
+        )
         self.out.uniform_scale = 1.0
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -219,12 +248,13 @@ class CNNDecoder(nn.Module):
             x = deconv(x)
             x = F.silu(norm(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
         x = self.out(x).permute(0, 2, 3, 1)
-        x = x.reshape(*lead, self.image_size, self.image_size, sum(self.output_channels))
+        x = x.reshape(*lead, self.image_size, self.image_size, sum(self.output_channels)).float()
         return dict(zip(self.keys, torch.split(x, self.output_channels, -1)))
 
 
 class MLPDecoder(nn.Module):
-    """An ``_LNMLP`` trunk and one linear head per key."""
+    """An ``_LNMLP`` trunk and one linear head per key, all in ``dtype``;
+    the heads' outputs cast to fp32."""
 
     def __init__(
         self,
@@ -234,15 +264,17 @@ class MLPDecoder(nn.Module):
         mlp_layers: int = 4,
         dense_units: int = 512,
         eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.keys = tuple(keys)
-        self.mlp = _LNMLP(latent_size, mlp_layers, dense_units, eps)
-        self.heads = nn.ModuleDict({k: _head(dense_units, int(d), 1.0) for k, d in zip(self.keys, output_dims)})
+        self.dtype = dtype
+        self.mlp = _LNMLP(latent_size, mlp_layers, dense_units, eps, dtype)
+        self.heads = nn.ModuleDict({k: _head(dense_units, int(d), 1.0, dtype) for k, d in zip(self.keys, output_dims)})
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.mlp(latent)
-        return {k: self.heads[k](x) for k in self.keys}
+        x = self.mlp(latent.to(self.dtype))
+        return {k: self.heads[k](x).float() for k in self.keys}
 
 
 # --------------------------------------------------------------------------- #
@@ -252,30 +284,42 @@ class MLPDecoder(nn.Module):
 
 class RecurrentModel(nn.Module):
     """Dense + LayerNorm + SiLU, then the LayerNorm-GRU cell: the RSSM step
-    in plain PyTorch."""
+    in plain PyTorch, computing in ``dtype`` with ``h`` cast to it and the
+    new state cast back to fp32 (JAX ``RecurrentModel``)."""
 
-    def __init__(self, input_size: int, recurrent_state_size: int, dense_units: int, eps: float = 1e-3) -> None:
+    def __init__(
+        self,
+        input_size: int,
+        recurrent_state_size: int,
+        dense_units: int,
+        eps: float = 1e-3,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
         super().__init__()
+        self.dtype = dtype
         self.in_kernel = nn.Parameter(torch.empty(input_size, dense_units))  # [in, out]
         self.in_bias = nn.Parameter(torch.zeros(dense_units))
         self.in_norm = LayerNorm(dense_units, eps=eps)
-        self.gru = LayerNormGRUCell(dense_units, recurrent_state_size, bias=False)
+        self.gru = LayerNormGRUCell(dense_units, recurrent_state_size, bias=False, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        feat = F.silu(self.in_norm(x @ self.in_kernel + self.in_bias))
-        return self.gru(h, feat)
+        dt = self.dtype
+        feat = F.silu(self.in_norm(x.to(dt) @ self.in_kernel.to(dt) + self.in_bias.to(dt)))
+        return self.gru(h.to(dt), feat).float()
 
 
 class FusedRecurrentModel(RecurrentModel):
     """:class:`RecurrentModel` whose whole step runs as the fused CUDA kernel
     (``ops.fused_gru.fused_recurrent_step``). The parameters are the same, so
-    state dicts interchange between the two."""
+    state dicts interchange between the two. ``x`` goes to the kernel in the
+    type it comes in (fp32, or bf16 under ``bf16-mixed``), ``h`` in fp32;
+    the kernel computes in fp32 whatever ``dtype`` is."""
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         hid = self.gru.hidden_size
         out = fused_recurrent_step(
-            x.reshape(-1, x.shape[-1]).float().contiguous(),
+            x.reshape(-1, x.shape[-1]).contiguous(),
             h.reshape(-1, hid).float().contiguous(),
             self.in_kernel,
             self.in_bias,
@@ -331,7 +375,8 @@ class WorldModel(nn.Module):
     """Encoders, the RSSM (recurrent, representation and transition models),
     decoders and the reward and continue heads, with the entry points
     ``encode``, ``decode``, ``reward_logits``, ``continue_logits``,
-    ``initial_state``, ``dynamic``, ``imagination`` and ``observe_step``."""
+    ``initial_state``, ``dynamic``, ``imagination`` and ``observe_step``,
+    computing in ``dtype`` at the JAX ``WorldModel``'s cast points."""
 
     def __init__(
         self,
@@ -364,8 +409,10 @@ class WorldModel(nn.Module):
         reward_dense_units: int = 1024,
         continue_layers: int = 5,
         continue_dense_units: int = 1024,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
+        self.dtype = dtype
         self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
         self.discrete_size = discrete_size
         self.unimix = unimix
@@ -374,38 +421,44 @@ class WorldModel(nn.Module):
         self.latent_state_size = self.stoch_state_size + recurrent_state_size
         embed = 0
         if self.cnn_keys:
-            self.cnn_encoder = CNNEncoder(self.cnn_keys, cnn_in_channels, encoder_cnn_multiplier, cnn_stages)
+            self.cnn_encoder = CNNEncoder(
+                self.cnn_keys, cnn_in_channels, encoder_cnn_multiplier, cnn_stages, dtype=dtype
+            )
             embed += self.cnn_encoder.output_dim(image_size)
         if self.mlp_keys:
-            self.mlp_encoder = MLPEncoder(self.mlp_keys, mlp_in_features, encoder_mlp_layers, encoder_dense_units)
+            self.mlp_encoder = MLPEncoder(
+                self.mlp_keys, mlp_in_features, encoder_mlp_layers, encoder_dense_units, dtype=dtype
+            )
             embed += encoder_dense_units
         rec_cls = FusedRecurrentModel if resolve_backend(fused_recurrent) else RecurrentModel
         self.recurrent_model = rec_cls(
-            self.stoch_state_size + int(sum(actions_dim)), recurrent_state_size, recurrent_dense_units
+            self.stoch_state_size + int(sum(actions_dim)), recurrent_state_size, recurrent_dense_units, dtype=dtype
         )
         self.representation_model = nn.Sequential(
-            _LNMLP(recurrent_state_size + embed, 1, representation_hidden_size),
+            _LNMLP(recurrent_state_size + embed, 1, representation_hidden_size, dtype=dtype),
             _head(representation_hidden_size, self.stoch_state_size, 1.0),
         )
         self.transition_model = nn.Sequential(
-            _LNMLP(recurrent_state_size, 1, transition_hidden_size),
+            _LNMLP(recurrent_state_size, 1, transition_hidden_size, dtype=dtype),
             _head(transition_hidden_size, self.stoch_state_size, 1.0),
         )
         latent = self.latent_state_size
         if self.cnn_keys:
             out_channels = cnn_output_channels if cnn_output_channels is not None else [3] * len(self.cnn_keys)
             self.cnn_decoder = CNNDecoder(
-                self.cnn_keys, out_channels, decoder_cnn_multiplier, latent, image_size, cnn_stages
+                self.cnn_keys, out_channels, decoder_cnn_multiplier, latent, image_size, cnn_stages, dtype=dtype
             )
         if self.mlp_keys:
             if mlp_output_dims is None:
                 raise ValueError("mlp_output_dims is required with mlp keys")
-            self.mlp_decoder = MLPDecoder(self.mlp_keys, mlp_output_dims, latent, decoder_mlp_layers, decoder_dense_units)
+            self.mlp_decoder = MLPDecoder(
+                self.mlp_keys, mlp_output_dims, latent, decoder_mlp_layers, decoder_dense_units, dtype=dtype
+            )
         self.reward_model = nn.Sequential(
-            _LNMLP(latent, reward_layers, reward_dense_units), _head(reward_dense_units, reward_bins, 0.0)
+            _LNMLP(latent, reward_layers, reward_dense_units, dtype=dtype), _head(reward_dense_units, reward_bins, 0.0)
         )
         self.continue_model = nn.Sequential(
-            _LNMLP(latent, continue_layers, continue_dense_units), _head(continue_dense_units, 1, 1.0)
+            _LNMLP(latent, continue_layers, continue_dense_units, dtype=dtype), _head(continue_dense_units, 1, 1.0)
         )
         if learnable_initial_recurrent_state:
             self.initial_recurrent_state = nn.Parameter(torch.zeros(recurrent_state_size))
@@ -427,16 +480,16 @@ class WorldModel(nn.Module):
     def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         if self.cnn_keys:
-            out.update(self.cnn_decoder(latent))
+            out.update(self.cnn_decoder(latent.to(self.dtype)))
         if self.mlp_keys:
-            out.update(self.mlp_decoder(latent))
+            out.update(self.mlp_decoder(latent.to(self.dtype)))
         return out
 
     def reward_logits(self, latent: torch.Tensor) -> torch.Tensor:
-        return self.reward_model(latent)
+        return self.reward_model(latent.to(self.dtype))
 
     def continue_logits(self, latent: torch.Tensor) -> torch.Tensor:
-        return self.continue_model(latent)
+        return self.continue_model(latent.to(self.dtype))
 
     def initial_state(self, batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(h0 [B, H], z0 [B, S*D]): tanh of the learnt state (or zeros) and
@@ -446,7 +499,7 @@ class WorldModel(nn.Module):
         else:
             h0 = torch.zeros(self.recurrent_state_size, device=self.transition_model[1].weight.device)
         h0 = h0.expand(batch, self.recurrent_state_size)
-        logits = _uniform_mix(self.transition_model(h0), self.discrete_size, self.unimix)
+        logits = _uniform_mix(self.transition_model(h0.to(self.dtype)), self.discrete_size, self.unimix)
         return h0, compute_stochastic_state(logits, sample=False)
 
     def dynamic(
@@ -467,10 +520,10 @@ class WorldModel(nn.Module):
         h0, z0 = initial if initial is not None else self.initial_state(h.shape[0])
         h = (1 - is_first) * h + is_first * h0
         z = (1 - is_first) * z + is_first * z0
-        h = self.recurrent_model(torch.cat([z, action], -1), h)
-        prior_logits = _uniform_mix(self.transition_model(h), self.discrete_size, self.unimix)
+        h = self.recurrent_model(torch.cat([z, action], -1).to(self.dtype), h)
+        prior_logits = _uniform_mix(self.transition_model(h.to(self.dtype)), self.discrete_size, self.unimix)
         post_logits = _uniform_mix(
-            self.representation_model(torch.cat([h, embedded], -1)), self.discrete_size, self.unimix
+            self.representation_model(torch.cat([h, embedded], -1).to(self.dtype)), self.discrete_size, self.unimix
         )
         z = compute_stochastic_state(post_logits, generator)
         return h, z, post_logits, prior_logits
@@ -479,8 +532,8 @@ class WorldModel(nn.Module):
         self, z: torch.Tensor, h: torch.Tensor, action: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One prior step in latent space; returns ``(z', h')``."""
-        h = self.recurrent_model(torch.cat([z, action], -1), h)
-        prior_logits = _uniform_mix(self.transition_model(h), self.discrete_size, self.unimix)
+        h = self.recurrent_model(torch.cat([z, action], -1).to(self.dtype), h)
+        prior_logits = _uniform_mix(self.transition_model(h.to(self.dtype)), self.discrete_size, self.unimix)
         return compute_stochastic_state(prior_logits, generator), h
 
     def observe_step(
@@ -496,9 +549,9 @@ class WorldModel(nn.Module):
         is_first gating (the player resets its own states). ``sample=False``
         takes the posterior's mode instead of a straight-through sample."""
         embedded = self.encode(obs)
-        h = self.recurrent_model(torch.cat([z, action], -1), h)
+        h = self.recurrent_model(torch.cat([z, action], -1).to(self.dtype), h)
         post_logits = _uniform_mix(
-            self.representation_model(torch.cat([h, embedded], -1)), self.discrete_size, self.unimix
+            self.representation_model(torch.cat([h, embedded], -1).to(self.dtype)), self.discrete_size, self.unimix
         )
         return compute_stochastic_state(post_logits, generator, sample), h
 
@@ -537,9 +590,9 @@ def rssm_scan(
 
 class Actor(nn.Module):
     """Dreamer-V3 actor: an ``_LNMLP`` trunk and one head per discrete action
-    dim (or one ``2 * sum(actions_dim)`` head when continuous). ``forward``
-    returns the raw head outputs; :func:`actor_dists` builds the
-    distributions."""
+    dim (or one ``2 * sum(actions_dim)`` head when continuous), the trunk in
+    ``dtype`` and the heads in fp32. ``forward`` returns the raw head
+    outputs; :func:`actor_dists` builds the distributions."""
 
     def __init__(
         self,
@@ -554,15 +607,17 @@ class Actor(nn.Module):
         mlp_layers: int = 5,
         unimix: float = 0.01,
         action_clip: float = 1.0,
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
+        self.dtype = dtype
         self.actions_dim = tuple(int(a) for a in actions_dim)
         self.is_continuous = bool(is_continuous)
         self.distribution = distribution
         self.init_std, self.min_std, self.max_std = init_std, min_std, max_std
         self.unimix, self.action_clip = unimix, action_clip
         self.resolved_distribution()  # validate early
-        self.mlp = _LNMLP(latent_state_size, mlp_layers, dense_units)
+        self.mlp = _LNMLP(latent_state_size, mlp_layers, dense_units, dtype=dtype)
         outs = [sum(self.actions_dim) * 2] if self.is_continuous else list(self.actions_dim)
         self.heads = nn.ModuleList(_head(dense_units, d, 1.0) for d in outs)
 
@@ -577,7 +632,7 @@ class Actor(nn.Module):
         return dist
 
     def forward(self, state: torch.Tensor) -> List[torch.Tensor]:
-        x = self.mlp(state)
+        x = self.mlp(state.to(self.dtype))
         return [head(x) for head in self.heads]
 
 
@@ -655,24 +710,33 @@ def actor_logprob_entropy(
 
 
 class Critic(nn.Module):
-    """Two-hot critic: an ``_LNMLP`` trunk and a zero-initialised head of
-    ``bins`` logits."""
+    """Two-hot critic: an ``_LNMLP`` trunk in ``dtype`` and a
+    zero-initialised fp32 head of ``bins`` logits."""
 
-    def __init__(self, latent_state_size: int, bins: int = 255, mlp_layers: int = 5, dense_units: int = 1024) -> None:
+    def __init__(
+        self,
+        latent_state_size: int,
+        bins: int = 255,
+        mlp_layers: int = 5,
+        dense_units: int = 1024,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
         super().__init__()
-        self.mlp = _LNMLP(latent_state_size, mlp_layers, dense_units)
+        self.dtype = dtype
+        self.mlp = _LNMLP(latent_state_size, mlp_layers, dense_units, dtype=dtype)
         self.head = _head(dense_units, bins, 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.mlp(x))
+        return self.head(self.mlp(x.to(self.dtype)))
 
 
-def make_critic(cfg_critic: Dict[str, Any], latent_state_size: int) -> Critic:
+def make_critic(cfg_critic: Dict[str, Any], latent_state_size: int, dtype: torch.dtype = torch.float32) -> Critic:
     return Critic(
         latent_state_size,
         bins=int(cfg_critic["bins"]),
         mlp_layers=int(cfg_critic["mlp_layers"]),
         dense_units=int(cfg_critic["dense_units"]),
+        dtype=dtype,
     )
 
 
@@ -752,9 +816,10 @@ def build_agent(
 ) -> Tuple[WorldModel, Actor, PlayerDV3]:
     """World model, actor and player on ``device`` (the CUDA card unless
     ``device="cpu"``). Weights are the given state dicts (see ``convert``),
-    or a seeded init from ``cfg["seed"]``."""
+    or a seeded init from ``cfg["seed"]``. The modules compute at
+    ``cfg["fabric"]["precision"]``."""
     dev = resolve_device(device)
-    compute_dtype(cfg["fabric"]["precision"])
+    dtype = compute_dtype(cfg["fabric"]["precision"])
     algo = cfg["algo"]
     wm_cfg = algo["world_model"]
     cnn_keys = tuple(algo["cnn_keys"]["encoder"])
@@ -793,6 +858,7 @@ def build_agent(
         reward_dense_units=int(wm_cfg["reward_model"]["dense_units"]),
         continue_layers=int(wm_cfg["discount_model"]["mlp_layers"]),
         continue_dense_units=int(wm_cfg["discount_model"]["dense_units"]),
+        dtype=dtype,
     )
     actor_cfg = algo["actor"]
     if "minedojo" in str(actor_cfg.get("cls", "")).lower():
@@ -809,6 +875,7 @@ def build_agent(
         mlp_layers=int(actor_cfg["mlp_layers"]),
         unimix=float(algo["unimix"]),
         action_clip=float(actor_cfg["action_clip"]),
+        dtype=dtype,
     )
     generator = torch.Generator().manual_seed(int(cfg["seed"]))
     for module, state in ((wm, world_model_state), (actor, actor_state)):
@@ -831,10 +898,12 @@ def build_critic(
 ) -> Tuple[Critic, Critic]:
     """Critic and target critic on ``device`` (the CUDA card unless
     ``device="cpu"``): the given state dicts, or a seeded init from
-    ``cfg["seed"] + 1`` with the target a copy of the critic."""
+    ``cfg["seed"] + 1`` with the target a copy of the critic; both compute
+    at ``cfg["fabric"]["precision"]``."""
     dev = resolve_device(device)
-    critic = make_critic(cfg["algo"]["critic"], latent_state_size)
-    target = make_critic(cfg["algo"]["critic"], latent_state_size)
+    dtype = compute_dtype(cfg["fabric"]["precision"])
+    critic = make_critic(cfg["algo"]["critic"], latent_state_size, dtype)
+    target = make_critic(cfg["algo"]["critic"], latent_state_size, dtype)
     if critic_state is None:
         init_weights(critic, torch.Generator().manual_seed(int(cfg["seed"]) + 1))
     else:

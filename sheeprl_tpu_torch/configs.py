@@ -10,8 +10,9 @@ and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``
 ``log_level``) and ``configs/env/{default,pixel_catcher,dummy}.yaml``.
 ``compose`` applies the size, then the env, then dotted overrides, and
 resolves the ``${...}`` references last, as the JAX composer does
-(``${now:<strftime format>}`` included). The precision is ``32-true``: the
-port computes in fp32 only (bf16-mixed comes with a later slice).
+(``${now:<strftime format>}`` included). The precision is ``bf16-mixed``,
+as ``configs/fabric/default.yaml:8`` composes it (fp32 parameters, bf16
+compute; ``device.Precision``); ``32-true`` computes in fp32.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ _ROOT: Dict[str, Any] = {
     },
     # configs/metric/default.yaml
     "metric": {"log_every": 5000, "log_level": 1},
-    "fabric": {"precision": "32-true"},
+    # configs/fabric/default.yaml:8 (exp=dreamer_v3 keeps it)
+    "fabric": {"precision": "bf16-mixed"},
     "distribution": {"type": "auto"},
     "env": {
         "id": "pixel_catcher",

@@ -1,5 +1,6 @@
-// Fused RSSM recurrent step for Hopper (sm_90a), all in fp32, and the
-// projection of its model-sharded variant (fp32 or bf16 weights).
+// Fused RSSM recurrent step for Hopper (sm_90a), computing in fp32 from an
+// fp32 or bf16 x, and the projection of its model-sharded variant (fp32 or
+// bf16 weights).
 //
 // Replaces sheeprl_tpu/ops/pallas_gru.py::_kernel, the Pallas TPU body that
 // _make_fused_step._forward launches through pl.pallas_call:
@@ -10,6 +11,9 @@
 //   h' = u * tanh(sigmoid(r) * c) + (1 - u) * h
 //
 // Shapes: x[B,X] h[B,H] W1[X,D] b1,g1,be1[D] W2[H+D,3H] g2,be2[3H] -> h'[B,H].
+// x is fp32 or, under bf16-mixed, bf16: launch A reads it in its own type and
+// upcasts it as it stages it (the TPU body's x_ref[:].astype(f32)), so no
+// cast runs before the kernel; everything after the staging is fp32.
 //
 // What bounds it on an H100: memory at the acting batch. At Dreamer-V3 S
 // (X=1027, D=512, H=512) with B=4 the step must read W1 (2.10 MB) and W2
@@ -227,6 +231,7 @@ struct StepProduct {
   int ld;
   const float* bias;               // added to the reduced sums (b1), or null
   float2* stats;                   // [rows, col_tiles]: each tile's (sum, centred M2) of a row, or null
+  const __nv_bfloat16* a16;        // launch A's bf16 x, read in place of a and upcast, or null
 };
 
 // A LayerNorm: the (sum, centred M2) pairs of a row's column tiles, its
@@ -255,6 +260,13 @@ struct StepLaunch {
   float* h_out;
   int hidden;
 };
+
+// Activation (row, k) of a launch A product: the bf16 x upcast to fp32, or
+// the fp32 a (x or h), through the read-only cache.
+__device__ __forceinline__ float load_act_a(const StepProduct& P, int row, int k) {
+  const size_t i = (size_t)row * P.lda + k;
+  return P.a16 != nullptr ? load_weight(P.a16 + i) : __ldg(P.a + i);
+}
 
 // Four adjacent weights of row w_row from column col: one 16-byte load when
 // the rows are aligned, else four masked scalar loads; zero past n.
@@ -541,8 +553,9 @@ __global__ void __launch_bounds__(kStepThreads, kStepBlocksPerSm)
       const int k = kt + e % kDepth;
       const bool in = row < L.rows && k < k_end;
       inv[i] = in;
-      // launch B reads x @ W1 + b1 as launch A left it (L2, not L1)
-      av[i] = in ? (kStage == 0 ? __ldg(P.a + (size_t)row * P.lda + k) : __ldcg(P.a + (size_t)row * P.lda + k)) : 0.f;
+      // launch A reads x (fp32 or bf16) or h; launch B reads x @ W1 + b1 as
+      // launch A left it (L2, not L1)
+      av[i] = in ? (kStage == 0 ? load_act_a(P, row, k) : __ldcg(P.a + (size_t)row * P.lda + k)) : 0.f;
       gv[i] = kStage == 1 && in ? __ldg(L.norm1.g + k) : 0.f;
       bv[i] = kStage == 1 && in ? __ldg(L.norm1.be + k) : 0.f;
     }
@@ -1230,13 +1243,14 @@ extern "C" int fused_gru_split_plan(int depth, int cols, int rows, int sm_count,
 // One step on `stream`: launches gru_step twice (stage 0: x @ W1 + b1 and
 // h @ W2[:H]; stage 1, a programmatic dependent launch: feat = SiLU(LN1(x @
 // W1 + b1)) as it is staged, feat @ W2[H:], LN2 and the gates) and returns
-// cudaGetLastError() (0 on success). scratch holds the floats
+// cudaGetLastError() (0 on success). x is fp32 (x_bf16 = 0) or bf16
+// (x_bf16 = 1); every other input is fp32. scratch holds the floats
 // fused_gru_step_plan() gives; the caller allocates it and out.
-extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1,
+extern "C" int fused_gru_forward(const void* x, const float* h, const float* w1,
                                  const float* b1, const float* g1, const float* be1,
                                  const float* w2, const float* g2, const float* be2,
                                  float* out, float* scratch,
-                                 int batch, int in_dim, int dense, int hidden,
+                                 int batch, int in_dim, int dense, int hidden, int x_bf16,
                                  float eps1, float eps2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int sm_count;
@@ -1252,8 +1266,10 @@ extern "C" int fused_gru_forward(const float* x, const float* h, const float* w1
   const int n3 = 3 * hidden;
 
   StepLaunch a = {};
-  a.prod[0] = {x, in_dim, w1, dense, in_dim, rows_aligned(w1, dense), p.col_tiles_d, p.chunk_x,
-               p.row_tiles * p.col_tiles_d * p.cluster_a, pre1, p.ld_d, b1, stats1};
+  a.prod[0] = {x_bf16 ? nullptr : static_cast<const float*>(x), in_dim, w1, dense, in_dim,
+               rows_aligned(w1, dense), p.col_tiles_d, p.chunk_x,
+               p.row_tiles * p.col_tiles_d * p.cluster_a, pre1, p.ld_d, b1, stats1,
+               x_bf16 ? static_cast<const __nv_bfloat16*>(x) : nullptr};
   a.prod[1] = {h, hidden, w2, n3, hidden, rows_aligned(w2, n3), p.col_tiles_3h, p.chunk_h,
                p.row_tiles * p.col_tiles_3h * p.cluster_a, pre2, p.ld_3h, nullptr, nullptr};
   a.rows = batch;

@@ -1,21 +1,25 @@
 """Device and precision policy of the port (counterpart of the device side
-of ``sheeprl_tpu/parallel/fabric.py``).
+of ``sheeprl_tpu/parallel/fabric.py`` and of its ``Precision``, :40-80).
 
 An entry point takes ``device=None``, which means the CUDA card. Without a
 card it raises: the plain PyTorch path runs only when the caller asks for
-the CPU by name, as the tests do. The port computes in fp32 (``32-true``);
-bf16-mixed autocast is a later slice.
+the CPU by name, as the tests do. The precision is ``fp32`` or
+``bf16-mixed`` (fp32 parameters and optimizer state, bf16 compute, the
+default of ``configs/fabric/default.yaml``); ``bf16-true`` is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
-SUPPORTED_PRECISION = ("32-true", "32")
+PRECISIONS = ("fp32", "bf16-mixed", "bf16-true")
+# the lightning-style spellings the configs use (fabric.py:40-42)
+PRECISION_ALIASES = {"32-true": "fp32", "32": "fp32", "bf16": "bf16-mixed"}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -31,10 +35,35 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Numeric policy: ``fp32`` computes in float32; ``bf16-mixed`` keeps
+    parameters and optimizer state in float32 and computes in bfloat16 at
+    the cast points of the JAX modules (flax ``dtype=bf16``,
+    ``param_dtype=fp32``)."""
+
+    name: str = "fp32"
+
+    def __post_init__(self) -> None:
+        name = PRECISION_ALIASES.get(str(self.name), str(self.name))
+        if name not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.name!r}; choose from {PRECISIONS} (aliases: {PRECISION_ALIASES})")
+        if name == "bf16-true":
+            raise NotImplementedError(
+                "precision 'bf16-true' (bf16 parameters) is not ported yet: it is queued in ROADMAP.md; "
+                "use 'bf16-mixed' or '32-true'"
+            )
+        object.__setattr__(self, "name", name)
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return torch.float32
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.name == "bf16-mixed" else torch.float32
+
+
 def compute_dtype(precision: str = "32-true") -> torch.dtype:
     """The dtype a ``fabric.precision`` string computes in."""
-    if str(precision) not in SUPPORTED_PRECISION:
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported yet; the port computes in fp32 ({SUPPORTED_PRECISION[0]})"
-        )
-    return torch.float32
+    return Precision(precision).compute_dtype

@@ -6,8 +6,13 @@
 ``fused_recurrent_step`` is the wrapper of the hand-written CUDA kernel in
 ``csrc/fused_gru.cu``. On CUDA tensors it launches the kernel (or raises),
 never the plain ``reference_step``; it computes ``reference_step`` only for
-CPU tensors. The backward pass recomputes through ``reference_step``, as the
-JAX custom VJP does (``pallas_gru.py:215-221``). A model that should run the
+CPU tensors. ``x`` may be fp32 or bf16 (``bf16-mixed`` hands the step bf16
+activations, as the JAX ``FusedRecurrentModel`` does); the kernel reads a
+bf16 ``x`` as it is and upcasts it as it stages it, as the TPU body does
+(``pallas_gru.py:84``), so no cast runs before it. Every other input, and
+the result, is fp32. The backward pass recomputes through
+``reference_step``, as the JAX custom VJP does (``pallas_gru.py:215-221``),
+and returns ``dx`` in ``x``'s type. A model that should run the
 plain step on the card selects the plain ``RecurrentModel`` instead
 (``fused: flax``).
 
@@ -33,20 +38,22 @@ from sheeprl_tpu_torch.ops import _build
 
 KERNEL = "fused_gru"
 # calls of each kernel's wrapper that launched it since the last reset (the
-# fused step's, then the sharded projection's on any route, then those of its
-# launches that took the tensor cores); plain CPU calls and backward passes do
-# not count. These are Python calls: a call under CUDA-graph capture records
+# fused step's, those of them with a bf16 x, then the sharded projection's on
+# any route, then those of its launches that took the tensor cores); plain CPU
+# calls and backward passes do not count. These are Python calls: a call under CUDA-graph capture records
 # the launch into the graph and counts once, and the graph's replays launch
 # it again without calling the wrapper, so a replayed step's launches are its
 # captured calls times its replays (``ops/graph.py::CapturedStep``)
 launch_count = 0
+bf16_x_launch_count = 0
 proj_launch_count = 0
 proj_tc_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count, proj_launch_count, proj_tc_launch_count
+    global launch_count, bf16_x_launch_count, proj_launch_count, proj_tc_launch_count
     launch_count = 0
+    bf16_x_launch_count = 0
     proj_launch_count = 0
     proj_tc_launch_count = 0
 
@@ -72,7 +79,8 @@ def reference_step(
     eps2: float = 1e-5,
 ) -> torch.Tensor:
     """Plain PyTorch version of the step (``pallas_gru.py:51-80``): the
-    kernel's reference and its backward's recompute target. All fp32."""
+    kernel's reference and its backward's recompute target. All fp32 (a
+    bf16 ``x`` is upcast first)."""
     x = x.float()
     h = h.float()
     feat = F.silu(_layer_norm(x @ w1 + b1, g1, be1, eps1))
@@ -86,7 +94,7 @@ def reference_step(
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_gru_forward.restype = i
-    lib.fused_gru_forward.argtypes = [p] * 11 + [i] * 4 + [f, f, p]
+    lib.fused_gru_forward.argtypes = [p] * 11 + [i] * 5 + [f, f, p]
     lib.fused_gru_step_plan.restype = i
     lib.fused_gru_step_plan.argtypes = [i] * 5 + [ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_gru_split_plan.restype = i
@@ -131,6 +139,10 @@ def _run(
     return out
 
 
+# the types the kernel reads x in; every other input is fp32
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(args: List[torch.Tensor]) -> Tuple[int, int, int, int]:
     x, h, w1, b1, g1, be1, w2, g2, be2 = args
     names = ("x", "h", "w1", "b1", "g1", "be1", "w2", "g2", "be2")
@@ -138,7 +150,9 @@ def _check(args: List[torch.Tensor]) -> Tuple[int, int, int, int]:
     for n, t in zip(names, args):
         if t.device != dev:
             raise ValueError(f"fused_recurrent_step: {n} is on {t.device}, x on {dev}")
-        if t.dtype != torch.float32:
+        if n == "x" and t.dtype not in X_DTYPES:
+            raise TypeError(f"fused_recurrent_step: x must be float32 or bfloat16, got {t.dtype}")
+        if n != "x" and t.dtype != torch.float32:
             raise TypeError(f"fused_recurrent_step: {n} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"fused_recurrent_step: {n} must be contiguous")
@@ -210,27 +224,41 @@ def launch(
     eps2: float = 1e-5,
 ) -> torch.Tensor:
     """Run the CUDA kernels on CUDA tensors (no autograd): the two launches
-    of ``gru_step``; counts one launch a step."""
-    global launch_count
+    of ``gru_step``, reading ``x`` in its type (fp32 or bf16); counts one
+    launch a step, and one bf16-``x`` launch where ``x`` is bf16."""
+    global launch_count, bf16_x_launch_count
     args = [x, h, w1, b1, g1, be1, w2, g2, be2]
     batch, in_dim, dense, hidden = _check(args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_recurrent_step: the CUDA kernel needs CUDA tensors, got {x.device}")
+    x_bf16 = int(x.dtype == torch.bfloat16)
     out = _run(
         x.device,
         (batch, hidden),
         lambda lib, floats: _step_scratch_floats(lib, (batch, in_dim, dense, hidden), floats),
         lambda lib, out, scratch, stream: lib.fused_gru_forward(
-            *(t.data_ptr() for t in args), out, scratch, batch, in_dim, dense, hidden, float(eps1), float(eps2), stream
+            *(t.data_ptr() for t in args),
+            out,
+            scratch,
+            batch,
+            in_dim,
+            dense,
+            hidden,
+            x_bf16,
+            float(eps1),
+            float(eps2),
+            stream,
         ),
     )
     launch_count += 1
+    bf16_x_launch_count += x_bf16
     return out
 
 
 class _FusedStep(torch.autograd.Function):
     """Forward by the kernel (plain version on CPU tensors); backward by
-    recompute through ``reference_step``, saving only the inputs."""
+    recompute through ``reference_step``, saving only the inputs (``dx``
+    comes back in ``x``'s type, as the JAX VJP's)."""
 
     @staticmethod
     def forward(ctx, eps1, eps2, *args):
@@ -268,7 +296,8 @@ def fused_recurrent_step(
     """Fused Dense->LN->SiLU->LayerNorm-GRU step (``pallas_gru.py:224-249``).
 
     Shapes: ``x [B, X]``, ``h [B, H]``, ``w1 [X, D]``, ``b1/g1/be1 [D]``,
-    ``w2 [H+D, 3H]``, ``g2/be2 [3H]`` -> new ``h [B, H]`` (fp32).
+    ``w2 [H+D, 3H]``, ``g2/be2 [3H]`` -> new ``h [B, H]`` (fp32). ``x`` is
+    fp32 or bf16, every other input fp32.
     """
     return _FusedStep.apply(float(eps1), float(eps2), x, h, w1, b1, g1, be1, w2, g2, be2)
 

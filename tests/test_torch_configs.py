@@ -52,7 +52,7 @@ def _get(tree, dotted):
 @pytest.mark.parametrize("env", ["pixel_catcher", "dummy_discrete"])
 def test_presets_equal_the_composed_jax_config(size, env):
     jax_env = "dummy" if env.startswith("dummy") else env
-    overrides = ["exp=dreamer_v3", f"algo=dreamer_v3_{size}", f"env={jax_env}", "fabric.precision=32-true"]
+    overrides = ["exp=dreamer_v3", f"algo=dreamer_v3_{size}", f"env={jax_env}"]
     if env.startswith("dummy"):
         overrides.append(f"env.id={env}")
     want = jax_compose("config", overrides)

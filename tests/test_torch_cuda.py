@@ -17,9 +17,14 @@ Bounds: 1e-5 on the forward and 1e-4 on the gradients, all fp32 with sums
 taken in another order (the JAX package's own bounds for its kernel,
 tests/test_ops/test_pallas_gru.py). The projection's tensor-core route
 (bf16 weights) keeps the forward's 1e-5: it splits the fp32 activations
-into three bf16 planes, exact to fp32 (tests/test_torch_proj_split.py). The parity of the plain versions with
-the JAX package is held on the CPU by tests/test_torch_fused_gru.py and
-tests/test_torch_sharded_gru.py.
+into three bf16 planes, exact to fp32 (tests/test_torch_proj_split.py). The fused step also takes a
+bf16 ``x`` (``bf16-mixed``), read and upcast inside the kernel: it keeps
+the same bounds against ``reference_step`` on the same bf16 ``x``. The
+train-step tests run at ``32-true`` unless they say otherwise; the
+bf16-mixed step is held replayed against eager at the same 1e-6. The parity
+of the plain versions with the JAX package is held on the CPU by
+tests/test_torch_fused_gru.py, tests/test_torch_sharded_gru.py and
+tests/test_torch_precision.py.
 """
 
 import ctypes
@@ -181,6 +186,55 @@ def test_cuda_kernel_gradients_match_plain(cuda):
         torch.testing.assert_close(a.grad, b.grad, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "batch, in_dim, dense, hidden",
+    [
+        (4, 1027, 512, 512),  # the S player at bf16-mixed
+        (16, 1027, 512, 512),  # the scan
+        (1024, 1027, 512, 512),  # imagination
+        (17, 1027, 42, 25),  # a ragged row tile, masked weight loads
+        (5, 37, 42, 25),  # ranks with no depth rows
+    ],
+)
+def test_cuda_kernel_takes_bf16_x(cuda, batch, in_dim, dense, hidden):
+    """A bf16 x is read and upcast inside launch A (no cast launch before
+    it): the forward against reference_step on the same bf16 x, the
+    gradients against autograd through it, dx in bf16."""
+    args = [torch.tensor(a, device=cuda) for a in _np_args(11, batch, in_dim, dense, hidden)]
+    x32 = args[0]
+    args[0] = x32.bfloat16()
+    before, before_bf16 = tgru.launch_count, tgru.bf16_x_launch_count
+    got = tgru.launch(*args)
+    torch.cuda.synchronize()
+    assert (tgru.launch_count, tgru.bf16_x_launch_count) == (before + 1, before_bf16 + 1)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, tgru.reference_step(*args), atol=FWD_TOL, rtol=FWD_TOL)
+    assert not torch.equal(got, tgru.launch(x32, *args[1:]))  # the step sees the rounded x
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = [a.clone().requires_grad_(True) for a in args]
+    tgru.fused_recurrent_step(*leaves).square().sum().backward()
+    tgru.reference_step(*ref).square().sum().backward()
+    assert leaves[0].grad.dtype == torch.bfloat16
+    # dx is an fp32 gradient rounded to bf16: the two sums may round a
+    # value to neighbouring bf16 numbers, one ulp (2^-7 relative) apart
+    torch.testing.assert_close(leaves[0].grad.float(), ref[0].grad.float(), atol=GRAD_TOL, rtol=2**-7)
+    for a, b in zip(leaves[1:], ref[1:]):
+        torch.testing.assert_close(a.grad, b.grad, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index, dtype", [(1, torch.bfloat16), (0, torch.float16), (2, torch.bfloat16), (6, torch.bfloat16)])
+def test_cuda_kernel_takes_only_x_in_bf16(cuda, index, dtype):
+    """h, the weights and the norms stay fp32; x is fp32 or bf16."""
+    args = [torch.tensor(a, device=cuda) for a in _np_args(12, 4, 1027, 512, 512)]
+    args[index] = args[index].to(dtype)
+    with pytest.raises(TypeError):
+        tgru.launch(*args)
+    with pytest.raises(TypeError):
+        tgru.fused_recurrent_step(*args)
+
+
 # --------------------------------------------------------------------------- #
 # sharded_proj: one rank's projection of the model-sharded step
 # --------------------------------------------------------------------------- #
@@ -338,7 +392,7 @@ def smooth():
         yield
 
 
-def _train(continuous, fused, horizon, states=None):
+def _train(continuous, fused, horizon, states=None, precision="32-true"):
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_critic
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers, make_train_step
     from sheeprl_tpu_torch.configs import compose
@@ -349,6 +403,7 @@ def _train(continuous, fused, horizon, states=None):
         env="dummy_continuous" if continuous else "dummy_discrete",
         overrides={
             **SMALL_TRAIN,
+            "fabric.precision": precision,
             "seed": 3,
             "algo.horizon": horizon,
             "algo.mlp_keys.encoder": ["state"],
@@ -528,6 +583,40 @@ def test_cuda_replayed_steps_match_eager_steps(cuda, smooth, monkeypatch, contin
         for a, b in zip(graphed[k].parameters(), eager[k].parameters()):
             assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30), k
     assert [int(o.count) for o in gopts] == [int(o.count) for o in eopts] == [3, 3, 3]
+    torch.testing.assert_close(gmoments.low, emoments.low, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_bf16_mixed_replayed_steps_match_eager_steps(cuda, smooth, monkeypatch, continuous):
+    """The train step at bf16-mixed, the fused step reading a bf16 x inside
+    it: three graph replays against three eager steps at the same bound as
+    fp32 (the same kernels run in both)."""
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    graphed, gstep, gopts = _train(continuous, "auto", 4, precision="bf16-mixed")
+    eager, estep, eopts = _train(continuous, "auto", 4, _snapshot(graphed), precision="bf16-mixed")
+    assert graphed["wm"].dtype == torch.bfloat16
+    batches = [_batch(8, 4, continuous, seed=s) for s in range(3)]
+    fn, gmoments = _captured(graphed, gstep, gopts, batches[0])
+    emoments = init_moments(torch.device("cuda"))
+    tgru.reset_launch_count()
+    for b in batches:
+        for k, v in b.items():
+            fn.inputs[k].copy_(v)
+        got = fn()
+        _, want = estep(emoments, b, None)
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    assert fn.captured_launches == 8 + 5
+    # every wrapper call (warm-up, capture, the eager steps) read a bf16 x
+    assert tgru.bf16_x_launch_count == tgru.launch_count > 0
+    for k in ("wm", "actor", "critic"):
+        for a, b in zip(graphed[k].parameters(), eager[k].parameters()):
+            assert a.dtype == torch.float32
+            assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30), k
     torch.testing.assert_close(gmoments.low, emoments.low, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
 
 

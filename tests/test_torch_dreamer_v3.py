@@ -57,6 +57,8 @@ def tiny_cfg(cnn=("rgb",), mlp=(), env="pixel_catcher", fused="auto", **extra):
         env=env,
         overrides={
             **TINY,
+            # the JAX modules here are built at fp32, as the JAX tests pin fabric=cpu
+            "fabric.precision": "32-true",
             "algo.cnn_keys.encoder": list(cnn),
             "algo.mlp_keys.encoder": list(mlp),
             "algo.world_model.recurrent_model.fused": fused,
