@@ -86,6 +86,31 @@ which exits non-zero:
    fg, c.BF16_KERNEL_SHAPES); rb, s, a, k = c.filled_replay(np,
    c.train_cfg("pixel_catcher"), 80); c.phase_bf16_train(torch, np, fg, rb,
    s, a, k)'`` (and ``phase_bf16_timing``, ``phase_bf16_player`` alike).
+9. Replay where the JAX package keeps it, at bf16-mixed: (a) the ring
+   (``data/device_buffer.py``): ``buffer.device=auto`` picks it at the
+   Atari-100k shape (buffer.size 100000, 1 env, 64x64x3), its bytes within
+   1% of the estimate; a ring and a host buffer fed the same steps gather
+   the same windows bit for bit; 10^4 in-graph draws start only where the
+   host allows, each env's share within 3 sigma of uniform; (b) a superstep
+   of K = 4 steps over pregathered batches (``ops/superstep.py``) against
+   four replays of the per-step graph with the host EMA: metrics,
+   parameters, target critic, Adam state and Moments within
+   ``REPLAY_BOUND`` (bit for bit reported), 4 x 160 ``gru_step`` kernels a
+   superstep replay in the profiler; (c) ms per gradient step (in turns),
+   the device's idle share, host-to-device bytes and peak memory of four
+   replay paths: host buffer and ring, K = 0 and K = 4 (and the K = 1
+   ring's peak memory); (d) ``main()`` at 8(e)'s cuts with buffer.size
+   100000: the memmapped host buffer, the ring per step, the ring with
+   K = 4 (env-steps/s, gradient steps/s, the kernel's launches), then the
+   drill: the ring checkpointed with ``buffer.checkpoint``, its contents
+   restored into a memmapped host buffer and back, and ``main()`` resumed
+   on the host buffer and from there on the ring. Alone on the card:
+   ``python -c 'import chip_smoke as c, numpy as np, torch, tempfile; from
+   sheeprl_tpu_torch.ops import fused_gru as fg; c.phase_ring(torch, np);
+   rb, s, a, k = c.filled_replay(np, c.train_cfg("pixel_catcher"), 80);
+   c.phase_superstep_parity(torch, np, rb, s, a, k);
+   c.phase_replay_paths(torch, np, rb, s, a, k); d = tempfile.mkdtemp();
+   c.phase_ring_loops(torch, np, fg, d); c.phase_ring_drill(torch, np, d)'``.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -137,6 +162,20 @@ SEED = 5
 # (configs/fabric/default.yaml:8, kept by exp=dreamer_v3)
 FP32 = "32-true"
 BF16 = "bf16-mixed"
+
+
+def clocks_line() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now, as
+    ``nvidia-smi`` reads them: beside a timing, they tell a slower card
+    state from a slower program."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def card_line() -> str:
@@ -798,9 +837,11 @@ def train_cfg(env: str, fused: str = "auto", precision: str = FP32, **cuts):
     )
 
 
-def filled_replay(np, cfg, env_steps: int):
-    """The port's sequence replay filled by ``env_steps`` random-action steps
-    of ``cfg``'s envs (terminal steps stored as main() stores them)."""
+def filled_replay(np, cfg, env_steps: int, capacity=None, ring=None):
+    """The port's host sequence replay (``capacity`` steps an env, default
+    ``4 * env_steps``) filled by ``env_steps`` random-action steps of
+    ``cfg``'s envs; ``ring``, a device ring of the same capacity, gets the
+    same adds."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import random_actions
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
@@ -813,7 +854,9 @@ def filled_replay(np, cfg, env_steps: int):
     envs = [make_env(cfg, SEED + i)() for i in range(n)]
     space, obs_space = envs[0].action_space, envs[0].observation_space
     actions_dim, is_continuous = action_dims(space)
-    rb = EnvIndependentReplayBuffer(4 * env_steps, n_envs=n, obs_keys=keys, buffer_cls=SequentialReplayBuffer, seed=SEED)
+    rb = EnvIndependentReplayBuffer(
+        capacity or 4 * env_steps, n_envs=n, obs_keys=keys, buffer_cls=SequentialReplayBuffer, seed=SEED
+    )
     rng = np.random.default_rng(SEED)
     obs = [e.reset(seed=SEED + i)[0] for i, e in enumerate(envs)]
     first = np.ones((1, n, 1), np.float32)
@@ -830,6 +873,8 @@ def filled_replay(np, cfg, env_steps: int):
             is_first=first,
         )
         rb.add(step)
+        if ring is not None:
+            ring.add(step)
         first = np.array([o[2] or o[3] for o in outs], np.float32).reshape(1, n, 1)
         obs = [e.reset()[0] if o[2] or o[3] else o[0] for e, o in zip(envs, outs)]
     for e in envs:
@@ -1657,6 +1702,534 @@ def phase_bf16_player(torch, np, fg):
     return launches, report
 
 
+# phase 9: replay where the JAX package keeps it, at S width and the default
+# bf16-mixed. (a) the Atari-100k exps (configs/exp/dreamer_v3_100k_*.yaml:
+# buffer.size 100000, 1 env, 64x64x3 pixels) are where buffer.device=auto
+# puts the ring on the card; its bytes within RING_BYTES_TOL of the
+# estimate; a ring and a host buffer fed the same steps (RING_CAPACITY an
+# env: 80 steps wrap it) gather the same windows bit for bit; RING_DRAWS
+# in-graph draws start only where the host allows, each env's share within
+# 3 sigma of uniform
+ATARI_100K = {"buffer.size": 100000, "env.num_envs": 1}
+RING_BYTES_TOL = 0.01
+RING_CAPACITY = 72
+RING_GATHERS = 8
+RING_DRAWS = 10000
+# (b) a superstep of SUPERSTEP_K steps over pregathered batches against as
+# many replays of the per-step graph with the host EMA between them, at
+# bf16-mixed with cuDNN's deterministic algorithms and the real samplers:
+# bit for bit is expected (the same kernels in the same order, the train
+# generator advanced alike); REPLAY_BOUND is the bound otherwise
+SUPERSTEP_K = 4
+# (c) the four replay paths, each timed over PATH_WINDOWS windows of
+# PATH_STEPS gradient steps, in turns, on buffers of the loop's size
+# (buffer.size 100000 over 4 envs, PixelCatcher frames repeated)
+PATH_STEPS = 2 * SUPERSTEP_K
+PATH_WINDOWS = 2
+PATHS = ("host_k0", "ring_k0", "ring_k4", "host_k4")
+# (d) main(): phase 8(e)'s loop with buffer.size 100000 (auto picks the
+# ring), three ways, run in turns (each twice, the order reversed the
+# second time); then the drill: the ring checkpointed with the buffer
+# (buffer.checkpoint) at 288 env steps, resumed into the memmapped host
+# buffer to 320, and from that into the ring with supersteps to 352
+RING_LOOP_CUTS = {**LOOP_CUTS, "buffer.size": 100000}
+RING_LOOPS = {
+    "host_k0": {"buffer.device": False},
+    "ring_k0": {},
+    "ring_k4": {"algo.fused_gradient_steps": SUPERSTEP_K},
+}
+RING_DRILL_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096, "buffer.checkpoint": True}
+RING_DRILL_RESUMES = (320, 352)
+
+
+def phase_ring(torch, np):
+    """(a) the placement, the ring's bytes, its gather against the host
+    buffer's, and the in-graph draw."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+    from sheeprl_tpu_torch.data.device_buffer import (
+        DeviceReplayBuffer,
+        draw_from_mask,
+        estimate_ring_bytes,
+        make_sequential_replay,
+        resolve_device_buffer,
+        sequence_start_mask,
+    )
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.envs.spaces import action_dims
+
+    dev = torch.device("cuda")
+    cfg = train_cfg("pixel_catcher", precision=BF16, **ATARI_100K)
+    env = make_env(cfg, SEED)()
+    obs_space, (actions_dim, _) = env.observation_space, action_dims(env.action_space)
+    size = cfg["buffer"]["size"]
+    estimate = estimate_ring_bytes(obs_space, actions_dim, size, 1)
+    picked = resolve_device_buffer(cfg, dev, obs_space, actions_dim, size, 1)
+    ring = make_sequential_replay(cfg, dev, obs_space, actions_dim, size, 1, ["rgb"], None, SEED)
+    obs = prepare_obs({"rgb": env.reset(seed=SEED)[0]["rgb"][None]}, cnn_keys=["rgb"], num_envs=1)
+    zeros = np.zeros((1, 1, 1), np.float32)
+    ring.add(
+        {
+            "rgb": obs["rgb"][None],
+            "actions": np.zeros((1, 1, sum(actions_dim)), np.float32),
+            **{k: zeros for k in ("rewards", "terminated", "truncated", "is_first")},
+        }
+    )
+    env.close()
+    report = {
+        "atari_100k": {
+            "buffer_size": size,
+            "num_envs": 1,
+            "buffer_device": cfg["buffer"]["device"],
+            "device_max_bytes": cfg["buffer"]["device_max_bytes"],
+            "picked_ring": picked and isinstance(ring, DeviceReplayBuffer),
+            "estimate_bytes": estimate,
+            "ring_bytes": ring.ring_bytes(),
+            "rel_diff": abs(ring.ring_bytes() - estimate) / estimate,
+        }
+    }
+    del ring
+    torch.cuda.empty_cache()
+
+    ring = DeviceReplayBuffer(RING_CAPACITY, n_envs=4, obs_keys=["rgb"], device=dev, seed=SEED)
+    rb, *_ = filled_replay(np, train_cfg("pixel_catcher", precision=BF16), 80, capacity=RING_CAPACITY, ring=ring)
+    mismatched = []
+    for _ in range(RING_GATHERS):
+        env_idx, starts = ring.draw_indices(TRAIN_B, TRAIN_T)
+        for k, v in ring.gather(env_idx, starts, TRAIN_T).items():
+            rows = (starts[:, None] + np.arange(TRAIN_T)) % RING_CAPACITY
+            want = np.stack([np.asarray(rb.buffer[e].buffer[k])[r, 0] for e, r in zip(env_idx, rows)], axis=1)
+            got = v.cpu().numpy()
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                mismatched.append(k)
+    bufs, pos, full = ring.superstep_inputs(TRAIN_T)
+    mask = sequence_start_mask(pos, full, RING_CAPACITY, TRAIN_T).cpu().numpy()
+    valid = [ring._valid_starts(e, TRAIN_T) for e in range(4)]
+    mask_ok = all(np.array_equal(np.nonzero(mask[e])[0], valid[e]) for e in range(4))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    env_idx, starts = (t.cpu().numpy() for t in draw_from_mask(gen, torch.from_numpy(mask).to(dev), RING_DRAWS))
+    straddling = int(sum(s not in set(valid[e].tolist()) for e, s in zip(env_idx, starts)))
+    counts = np.bincount(env_idx, minlength=4)
+    sigma = (RING_DRAWS * 0.25 * 0.75) ** 0.5
+    report["same_steps"] = {
+        "capacity": RING_CAPACITY,
+        "env_steps": 80,
+        "cursors_ring": ring._pos.tolist(),
+        "cursors_host": [b._pos for b in rb.buffer],
+        "gathers": RING_GATHERS,
+        "mismatched_keys": mismatched,
+        "mask_equals_host_valid_starts": mask_ok,
+        "draws": RING_DRAWS,
+        "straddling_draws": straddling,
+        "env_counts": counts.tolist(),
+        "worst_env_share_sigmas": float(np.abs(counts - RING_DRAWS / 4).max() / sigma),
+    }
+    print("ring " + json.dumps(report), flush=True)
+    if (
+        not report["atari_100k"]["picked_ring"]
+        or report["atari_100k"]["rel_diff"] > RING_BYTES_TOL
+        or mismatched
+        or not mask_ok
+        or straddling
+        or report["same_steps"]["worst_env_share_sigmas"] > 3
+        or report["same_steps"]["cursors_ring"] != report["same_steps"]["cursors_host"]
+    ):
+        raise AssertionError(f"the device ring: {report}")
+    return report
+
+
+def model_state(models, opts, moments):
+    """Every tensor a gradient step updates, by name."""
+    out = {f"{k}.{n}": v for k, m in models.items() for n, v in m.state_dict().items()}
+    for i, o in enumerate(opts):
+        out.update({f"opt{i}.mu{j}": t for j, t in enumerate(o.mu)})
+        out.update({f"opt{i}.nu{j}": t for j, t in enumerate(o.nu)})
+        out[f"opt{i}.count"] = o.count
+    out["moments.low"], out["moments.high"] = moments.low, moments.high
+    return out
+
+
+def phase_superstep_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
+    """(b) SUPERSTEP_K steps in one superstep graph against as many replays
+    of the per-step graph plus the host EMA, from the same weights, batches
+    and train generator; then the gru_step kernels of one superstep replay
+    in the profiler."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import ema_, make_fused_train_fn, to_batch
+    from sheeprl_tpu_torch.ops.math import init_moments
+    from sheeprl_tpu_torch.ops.superstep import pregathered
+
+    dev = torch.device("cuda")
+    cfg = train_cfg("pixel_catcher", precision=BF16)
+    freq = int(cfg["algo"]["critic"]["per_rank_target_network_update_freq"])
+    tau = float(cfg["algo"]["critic"]["tau"])
+    with cudnn_deterministic(torch):
+        single, sstep, sopts = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        fused, fstep, fopts = train_models(torch, cfg, obs_space, actions_dim, is_continuous, snapshot(single))
+        batches = [to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev) for _ in range(SUPERSTEP_K)]
+        sgen = torch.Generator(device="cuda").manual_seed(SEED)
+        fgen = torch.Generator(device="cuda").manual_seed(SEED)
+        fn, smoments = captured_step(torch, single, sstep, sopts, batches[0], sgen)
+        want = []
+        for i, b in enumerate(batches):
+            if i % freq == 0:
+                ema_(single["critic"], single["target"], 1.0 if i == 0 else tau)
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            want.append(fn())
+        fmoments = init_moments(dev)
+        stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        sfn = make_fused_train_fn(
+            fstep, fused["wm"], fused["actor"], fused["critic"], fused["target"], fopts, fmoments, cfg,
+            pregathered, SUPERSTEP_K, stack, (fgen,),
+        )
+        sfn.inputs["counter"].fill_(0)
+        got, finite = sfn()
+        torch.cuda.synchronize()
+        want = torch.stack(want)
+        s_state, f_state = model_state(single, sopts, smoments), model_state(fused, fopts, fmoments)
+        unequal = [k for k in s_state if not torch.equal(s_state[k], f_state[k])]
+        state_err = max(
+            ((f_state[k].double() - s_state[k].double()).abs().max() / s_state[k].double().abs().max().clamp_min(1e-30)).item()
+            for k in s_state
+        )
+        report = {
+            "K": SUPERSTEP_K,
+            "precision": BF16,
+            "metrics_bitwise": torch.equal(got, want),
+            "metric_max_rel_err": rel_err(torch, got, want),
+            "state_tensors": len(s_state),
+            "state_tensors_unequal": unequal[:8],
+            "state_max_rel_err": state_err,
+            "train_generators_equal": torch.equal(sgen.get_state(), fgen.get_state()),
+            "finite": finite.tolist(),
+            "bound": REPLAY_BOUND,
+            "captured_fused_gru_calls": sfn.captured_launches,
+        }
+        del single, fused, fn
+        report["profile"] = profile_replays(torch, sfn, replays=2)
+    print("superstep_parity " + json.dumps(report), flush=True)
+    per_replay = SUPERSTEP_K * 2 * (SCAN_CALLS + IMAGINE_CALLS)
+    if (
+        report["metric_max_rel_err"] > REPLAY_BOUND
+        or state_err > REPLAY_BOUND
+        or not report["train_generators_equal"]
+        or not all(report["finite"])
+        or sfn.captured_launches != SUPERSTEP_K * (SCAN_CALLS + IMAGINE_CALLS)
+        or report["profile"]["gru_step_kernels_per_replay"] != per_replay
+    ):
+        raise AssertionError(f"a superstep against single replays: {report}")
+    del sfn
+    return report
+
+
+def loop_sized_buffers(torch, np, rb):
+    """A host buffer and a ring of the loop's size (buffer.size 100000 over
+    4 envs), full, holding ``rb``'s PixelCatcher steps repeated."""
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
+
+    per_env = RING_LOOP_CUTS["buffer.size"] // 4
+    host = EnvIndependentReplayBuffer(per_env, n_envs=4, obs_keys=["rgb"], buffer_cls=SequentialReplayBuffer, seed=SEED)
+    for e, sub in enumerate(rb.buffer):
+        host.add({k: np.resize(np.asarray(v)[: sub._pos], (per_env, *v.shape[1:])) for k, v in sub.buffer.items()}, [e])
+    return host, DeviceReplayBuffer.from_host_buffer(host, device="cuda", seed=SEED)
+
+
+def profile_window(torch, window):
+    """torch.profiler over one ``window()``, after one unrecorded warm-up
+    window (the profiler's first records of a session can be lost): wall
+    and device-busy ms, the idle share, and the host-to-device bytes its
+    copies moved (from the trace's memcpy records; None where the trace
+    carries no byte counts)."""
+    import os
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = {}
+
+    def ready(prof):
+        # the recorded window's events, read before the profiler clears them
+        seen["busy_us"] = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                seen["copies"] = [e for e in json.load(f).get("traceEvents", []) if "HtoD" in str(e.get("name", ""))]
+
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready
+    ) as prof:
+        window()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        prof.step()
+    # nothing recorded (the handler never ran) reads as not measured
+    busy_us, copies = seen.get("busy_us", 0), seen.get("copies", [])
+    h2d = None
+    if copies and all("bytes" in e.get("args", {}) for e in copies):
+        h2d = sum(int(e["args"]["bytes"]) for e in copies)
+    return {
+        "wall_ms": 1e3 * seconds,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / seconds if busy_us else None,
+        "h2d_copies": len(copies),
+        "h2d_bytes": h2d,
+    }
+
+
+def replay_path(torch, np, name, cfg, host, ring, obs_space, actions_dim, is_continuous):
+    """One of the four replay paths as ``main`` runs it, on seeded S models:
+    returns ``(window, keep)``; ``window(n)`` trains n gradient steps (a
+    multiple of K for the fused paths), ``keep`` holds what must live."""
+    import itertools
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
+        batch_inputs,
+        ema_,
+        make_fused_train_fn,
+        make_train_fn,
+        stream_seed,
+    )
+    from sheeprl_tpu_torch.data.device_buffer import draw_sequence_batch
+    from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
+    from sheeprl_tpu_torch.ops.math import init_moments
+    from sheeprl_tpu_torch.ops.superstep import SAMPLE_KEY_SALT, pregathered
+
+    dev = torch.device("cuda")
+    freq = int(cfg["algo"]["critic"]["per_rank_target_network_update_freq"])
+    tau = float(cfg["algo"]["critic"]["tau"])
+    models, step, opts = train_models(torch, cfg, obs_space, actions_dim, is_continuous)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    moments = init_moments(dev)
+    done = [0]
+    use_ring = name.startswith("ring")
+    k = int(name.rsplit("_k", 1)[1])
+    if k == 0:
+        inputs = batch_inputs(ring if use_ring else host, TRAIN_T, TRAIN_B, ["rgb"], dev)
+        fn = make_train_fn(step, models["wm"], models["actor"], models["critic"], opts, moments, inputs, gen)
+        prefetcher = None if use_ring else BatchPrefetcher(host, TRAIN_B, TRAIN_T, inputs, int(cfg["buffer"]["prefetch"]), fn.done)
+
+        def window(n):
+            if use_ring:
+                batches = ring.sample_batches(TRAIN_B, TRAIN_T, n, out=fn.inputs)
+            else:
+                batches = prefetcher.sampled_batches(n)
+            for _ in batches:
+                if done[0] % freq == 0:
+                    ema_(models["critic"], models["target"], 1.0 if done[0] == 0 else tau)
+                fn()
+                done[0] += 1
+
+        return window, (models, fn, prefetcher)
+    feed = None
+    if use_ring:
+        bufs, pos, full = ring.superstep_inputs(TRAIN_T)
+        sample_gen = torch.Generator(device="cuda").manual_seed(stream_seed(SEED, SAMPLE_KEY_SALT))
+        fn = make_fused_train_fn(
+            step, models["wm"], models["actor"], models["critic"], models["target"], opts, moments, cfg,
+            lambda ctx, i: draw_sequence_batch(bufs, pos, full, sample_gen, TRAIN_B, TRAIN_T), k, None, (gen, sample_gen),
+        )
+    else:
+        stack = batch_inputs(host, TRAIN_T, TRAIN_B, ["rgb"], dev, stack=k)
+        fn = make_fused_train_fn(
+            step, models["wm"], models["actor"], models["critic"], models["target"], opts, moments, cfg,
+            pregathered, k, stack, (gen,),
+        )
+        feed = BatchPrefetcher(host, TRAIN_B, TRAIN_T, stack, int(cfg["buffer"]["prefetch"]), fn.done, n_samples=k)
+
+    def window(n):
+        for _ in itertools.repeat(None, n // k) if use_ring else feed.sampled_batches(n // k):
+            if use_ring:
+                ring.superstep_inputs(TRAIN_T)
+            fn.inputs["counter"].fill_(done[0])
+            fn()
+            done[0] += k
+
+    return window, (models, fn, feed)
+
+
+def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
+    """(c) ms per gradient step, the device's idle share, host-to-device
+    bytes per gradient step and peak memory of the four replay paths: the
+    host buffer (pinned prefetch) and the ring (a gather on the card), each
+    per step (K = 0, the EMA between replays) and in supersteps of K = 4
+    (the ring drawing in the graph, the host buffer's batches copied as a
+    stack); the K = 1 ring superstep's peak memory beside K = 4's."""
+    start = time.perf_counter()
+    cfg = train_cfg("pixel_catcher", precision=BF16)
+    host, ring = loop_sized_buffers(torch, np, rb)
+    report = {"buffer_size": RING_LOOP_CUTS["buffer.size"], "num_envs": 4, "ring_bytes": ring.ring_bytes(), "paths": {}}
+    args = (cfg, host, ring, obs_space, actions_dim, is_continuous)
+    runs = {}
+    for name in ("ring_k1",) + PATHS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        window, keep = replay_path(torch, np, name, *args)
+        window(PATH_STEPS)  # the capture, then a window
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        report["paths"][name] = {"peak_allocated_bytes": peak, "peak_added_bytes": peak - base}
+        if name == "ring_k1":
+            del window, keep
+            torch.cuda.empty_cache()
+        else:
+            runs[name] = (window, keep)
+    report["build_seconds"] = time.perf_counter() - start
+    times = {name: [] for name in PATHS}
+    report["clocks"] = []
+    for name in PATHS + PATHS[::-1]:
+        window = runs[name][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PATH_WINDOWS):
+            window(PATH_STEPS)
+        torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - t0) / (PATH_WINDOWS * PATH_STEPS))
+        report["clocks"].append(f"{name}: {clocks_line()}")
+    report["timed_seconds"] = time.perf_counter() - start
+    for name in PATHS:
+        prof = profile_window(torch, lambda: runs[name][0](PATH_STEPS))
+        report["paths"][name].update(
+            ms_per_gradient_step=times[name],
+            device_idle_share=prof["device_idle_share"],
+            device_busy_ms_per_gradient_step=prof["device_busy_ms"] / PATH_STEPS,
+            h2d_bytes_per_gradient_step=None if prof["h2d_bytes"] is None else prof["h2d_bytes"] / PATH_STEPS,
+            h2d_copies_per_gradient_step=prof["h2d_copies"] / PATH_STEPS,
+        )
+    report["seconds"] = time.perf_counter() - start
+    print("replay_paths " + json.dumps(report), flush=True)
+    del runs, host, ring
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_ring_loops(torch, np, fg, tmp):
+    """(d) main() at phase 8(e)'s cuts with buffer.size 100000: the host
+    buffer (memmapped) per step, the ring per step, the ring in supersteps
+    of K = 4, each twice in turns. Returns ({way: the kernel's launches in
+    its two runs, each counted from 0 just before it}, report)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
+
+    launches, report = {}, {"cuts": RING_LOOP_CUTS, **{name: [] for name in RING_LOOPS}}
+    want_buffer = {"host_k0": "memmap", "ring_k0": "device", "ring_k4": "device"}
+    for turn, name in enumerate(list(RING_LOOPS) + list(RING_LOOPS)[::-1]):
+        extra = RING_LOOPS[name]
+        cfg = train_cfg("pixel_catcher", precision=BF16, **RING_LOOP_CUTS, **extra, log_base_dir=tmp, run_name=f"{name}_{turn}")
+        # ---- the main path: counts at 0 just before, read just after ----
+        fg.reset_launch_count()
+        out = train_main(cfg, device="cuda")
+        calls, bf16_calls = fg.launch_count, fg.bf16_x_launch_count
+        # ------------------------------------------------------------------
+        captured = sum(g["captured_launches"] for g in out["graphs"])
+        count = calls - captured + sum(g["captured_launches"] * g["replays"] for g in out["graphs"])
+        launches[name] = launches.get(name, 0) + count
+        run = {
+            "replay_buffer": out["replay_buffer"],
+            "env_steps": out["env_steps"],
+            "gradient_steps": out["gradient_steps"],
+            "seconds": out["seconds"],
+            "env_steps_per_s": out["env_steps"] / out["seconds"],
+            "gradient_steps_per_s": out["gradient_steps"] / out["seconds"],
+            "train_seconds_device": out["train_seconds"],
+            # the windows after the first two (which capture the graphs),
+            # G = 4 steps each
+            "steady_ms_per_gradient_step": 1e3 * float(np.median(out["train_window_seconds"][2:])) / 4,
+            "graphs": out["graphs"],
+            "fused_gru_launches": count,
+            "clocks_after": clocks_line(),
+        }
+        report[name].append(run)
+        if (
+            out["replay_buffer"] != want_buffer[name]
+            or out["captured_launches_per_step"] != SCAN_CALLS + IMAGINE_CALLS
+            or sum(g["steps"] * g["replays"] for g in out["graphs"]) != out["gradient_steps"]
+            or out["gradient_steps"] == 0
+            or bf16_calls != calls
+            or not all(np.isfinite(v) for v in out["metrics"].values())
+        ):
+            raise AssertionError(f"main() {name}: {run}, {bf16_calls} of {calls} wrapper calls with a bf16 x")
+    print("ring_loops " + json.dumps(report), flush=True)
+    return launches, report
+
+
+def phase_ring_drill(torch, np, tmp):
+    """(d) the drill: main() on the ring with the buffer checkpointed, the
+    checkpoint's ring restored into a memmapped host buffer and back into a
+    ring (each equal to the saved contents and cursors), then main()
+    resumed from it on the memmapped host buffer, and from that run's
+    checkpoint on the ring with supersteps; the counters continue."""
+    import os
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer, adapt_restored_buffer
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    common = {**RING_DRILL_CUTS, "log_base_dir": tmp, "run_name": "ring_drill"}
+    first = train_main(train_cfg("pixel_catcher", precision=BF16, **common, **{"buffer.device": True}), device="cuda")
+    steps = RING_DRILL_CUTS["algo.total_steps"]
+    ckpt = os.path.join(first["log_dir"], "checkpoint", f"ckpt_{steps}_0.ckpt")
+    saved = load_checkpoint(ckpt)["rb"]
+    want = saved.host_arrays()
+    host = adapt_restored_buffer(load_checkpoint(ckpt)["rb"], False, memmap=True, memmap_dir=os.path.join(tmp, "drill_memmap"))
+    host_equal = all(host.is_memmap) and all(
+        sub._pos == saved._pos[e]
+        and sub.full == saved._full[e]
+        and all(np.array_equal(np.asarray(sub.buffer[k])[:, 0], want[k][e]) for k in want)
+        for e, sub in enumerate(host.buffer)
+    )
+    ring = adapt_restored_buffer(host, True, seed=SEED, device="cuda")
+    back = ring.host_arrays()
+    ring_equal = (
+        isinstance(ring, DeviceReplayBuffer)
+        and np.array_equal(ring._pos, saved._pos)
+        and np.array_equal(ring._full, saved._full)
+        and all(np.array_equal(back[k], want[k]) for k in want)
+    )
+    del host, ring
+    resume_host = {**common, "buffer.device": False, "checkpoint.resume_from": ckpt, "algo.total_steps": RING_DRILL_RESUMES[0]}
+    second = train_main(train_cfg("pixel_catcher", precision=BF16, **resume_host), device="cuda")
+    ckpt2 = os.path.join(second["log_dir"], "checkpoint", f"ckpt_{RING_DRILL_RESUMES[0]}_0.ckpt")
+    resume_ring = {
+        **common,
+        "buffer.device": True,
+        "algo.fused_gradient_steps": SUPERSTEP_K,
+        "checkpoint.resume_from": ckpt2,
+        "algo.total_steps": RING_DRILL_RESUMES[1],
+    }
+    third = train_main(train_cfg("pixel_catcher", precision=BF16, **resume_ring), device="cuda")
+    keys = ("replay_buffer", "start_update", "env_steps", "gradient_steps", "seconds")
+    report = {
+        "cuts": common,
+        "restored_host_equals_saved_ring": host_equal,
+        "restored_ring_equals_saved_ring": ring_equal,
+        "first": {k: first[k] for k in keys},
+        "second": {k: second[k] for k in keys},
+        "third": {k: third[k] for k in keys},
+    }
+    print("ring_drill " + json.dumps(report), flush=True)
+    num_envs = 4
+    resumes = (steps,) + RING_DRILL_RESUMES
+    for run, kind, (before, after) in zip((second, third), ("memmap", "device"), zip(resumes, resumes[1:])):
+        # the buffer came back, so training resumes at once: Ratio owes one
+        # step a policy step since its last call
+        if (
+            run["replay_buffer"] != kind
+            or run["start_update"] != before // num_envs + 1
+            or run["env_steps"] != after
+            or run["gradient_steps"] != after - before
+        ):
+            raise AssertionError(f"the ring drill's resume: {report}")
+    if first["replay_buffer"] != "device" or not host_equal or not ring_equal:
+        raise AssertionError(f"the ring drill: {report}")
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1739,6 +2312,18 @@ def main() -> int:
         bf16_loop_launches, bf16_loop = phase_train_loop(torch, np, fg, tmp, BF16, "bf16_train_loop")
     bf16_player_launches, bf16_player = phase_bf16_player(torch, np, fg)
 
+    # phase 9: replay where the JAX package keeps it (bf16-mixed): (a) the
+    # ring on the card, (b) a superstep against single replays, (c) the four
+    # replay paths timed, (d) main() three ways and the drill across modes
+    t9 = time.perf_counter()
+    phase_ring(torch, np)
+    superstep = phase_superstep_parity(torch, np, rb, obs_space, actions_dim, is_continuous)
+    paths = phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous)
+    with tempfile.TemporaryDirectory() as tmp:
+        ring_loop_launches, ring_loops = phase_ring_loops(torch, np, fg, tmp)
+        phase_ring_drill(torch, np, tmp)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -1749,9 +2334,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()),
             # every launch of the bf16-mixed paths read a bf16 x (checked there)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches,
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()),
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -1759,7 +2344,9 @@ def main() -> int:
                 "bf16_train_loop": bf16_loop_launches,
                 "bf16_train_loop_replays": bf16_loop["replays"],
                 "bf16_player": bf16_player_launches,
+                "bf16_ring_train_loops": ring_loop_launches,
                 "per_gradient_step": step_launches,
+                "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
             },
             "max_abs_err": max_err,
@@ -1779,6 +2366,8 @@ def main() -> int:
                 "ms_per_replayed_step": min(bf16_timing["ms_per_replayed_step_b1_bf16"]),
                 "train_loop_env_steps_per_s": bf16_loop["env_steps_per_s"],
                 "player_env_steps_per_s": bf16_player["env_steps_per_s"],
+                "ms_per_gradient_step_by_replay_path": {k: min(v["ms_per_gradient_step"]) for k, v in paths["paths"].items() if k in PATHS},
+                "ring_train_loop_env_steps_per_s": {k: [r["env_steps_per_s"] for r in ring_loops[k]] for k in RING_LOOPS},
             },
         },
         {

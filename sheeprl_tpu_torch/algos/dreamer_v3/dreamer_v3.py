@@ -14,19 +14,27 @@ the advantage itself and the gradient flows back through every imagined
 step, the fused RSSM step's backward included.
 
 ``main`` runs the JAX ``main`` on one accelerator as its defaults do (JAX
-:462-540, :584-602, :742-835, :1016-1140): env steps through ``PlayerDV3``
-(random actions before ``learning_starts``), sequence replay fed to the
-train step by a pinned prefetcher, ``Ratio``, one CUDA-graph replay of the
-train step per gradient step (``ops/graph.py``), the EMA between replays,
+:462-540, :547-602, :742-835, :938-1140): env steps through ``PlayerDV3``
+(random actions before ``learning_starts``), sequence replay where
+``buffer.device`` puts it (the device ring, ``data/device_buffer.py``, or
+the host buffer, memmapped with ``buffer.memmap``), ``Ratio``, and the train
+window: with ``algo.fused_gradient_steps`` K = 0 one CUDA-graph replay of
+the train step per gradient step (``ops/graph.py``), its batch gathered on
+the card from the ring or copied by a pinned prefetcher from the host
+buffer, the EMA between replays; with K > 0, ``ceil(G / K)`` replays of a
+superstep graph of K steps (``ops/superstep.py``) that refreshes the target,
+draws from the ring (or reads a stack drawn on the host) and trains. Then
 metrics kept on the device until log time, a dispatch fence, checkpoints in
-the JAX layout, resume (from a path or ``auto``), NaN rollback, the crash
-guard and the preemption exit. Telemetry, fused supersteps, the device
-ring and multiple processes are not ported (ROADMAP queue A).
+the JAX layout (the replay buffer too with ``buffer.checkpoint``), resume
+(from a path or ``auto``, a checkpoint of either buffer mode into either),
+NaN rollback, the crash guard and the preemption exit. Telemetry and
+multiple processes are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 import time
 import warnings
@@ -57,7 +65,12 @@ from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import env_action, prepare_obs
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.device_buffer import (
+    DeviceReplayBuffer,
+    adapt_restored_buffer,
+    draw_sequence_batch,
+    make_sequential_replay,
+)
 from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
 from sheeprl_tpu_torch.device import DeviceLike, resolve_device
 from sheeprl_tpu_torch.envs.factory import make_env
@@ -70,9 +83,10 @@ from sheeprl_tpu_torch.ops.distributions import (
     SymlogDistribution,
     TwoHotEncodingDistribution,
 )
-from sheeprl_tpu_torch.ops.graph import CapturedStep
+from sheeprl_tpu_torch.ops.graph import WARMUP_STEPS, CapturedStep
 from sheeprl_tpu_torch.ops.math import MomentsState, compute_lambda_values, init_moments, update_moments
 from sheeprl_tpu_torch.ops.optim import Adam, adam
+from sheeprl_tpu_torch.ops.superstep import SAMPLE_KEY_SALT, make_superstep_fn, periodic_target_ema, pregathered
 from sheeprl_tpu_torch.parallel.fence import DispatchFence
 from sheeprl_tpu_torch.resilience.autoresume import resolve_auto_resume
 from sheeprl_tpu_torch.resilience.manager import RunResilience
@@ -290,6 +304,54 @@ def make_train_fn(
     )
 
 
+def make_fused_train_fn(
+    train_step: TrainStep,
+    wm: WorldModel,
+    actor: Actor,
+    critic: Critic,
+    target_critic: Critic,
+    opts: Sequence[Adam],
+    moments: MomentsState,
+    cfg: Dict[str, Any],
+    gather: Callable[[Any, int], Dict[str, torch.Tensor]],
+    num_steps: int,
+    stack: Optional[Dict[str, torch.Tensor]],
+    generators: Sequence[torch.Generator],
+) -> CapturedStep:
+    """``num_steps`` gradient steps, each the target refresh, ``gather``'s
+    batch and ``train_step``, as one ``CapturedStep`` (JAX
+    ``make_fused_train_fn`` :368-460). Its inputs are ``counter`` (the
+    run's gradient steps before the call, which the caller sets) and the
+    ``[K, T, B, ...]`` ``stack`` that ``gather`` reads when the batches are
+    drawn on the host (``None`` when ``gather`` draws from the ring). A call
+    returns ``(metrics [K, 13], finite [K])``; the first of ``generators``
+    is the train stream."""
+    critic_cfg = cfg["algo"]["critic"]
+    freq = max(1, int(critic_cfg["per_rank_target_network_update_freq"]))
+    tau = float(critic_cfg["tau"])
+    source, target = list(critic.parameters()), list(target_critic.parameters())
+    params = [*wm.parameters(), *actor.parameters(), *source, *target]
+    superstep = make_superstep_fn(
+        lambda batch: train_step(moments, batch, generators[0])[1],
+        gather,
+        num_steps,
+        pre_step=lambda counter: periodic_target_ema(counter, source, target, freq, tau),
+        params=params,
+    )
+    state = list(params)
+    for opt in opts:
+        state += [*opt.mu, *opt.nu, opt.count]
+    inputs = {"counter": torch.zeros((), dtype=torch.int64, device=moments.low.device), **(stack or {})}
+    return CapturedStep(
+        lambda d: superstep(d["counter"], {k: v for k, v in d.items() if k != "counter"}),
+        inputs,
+        state + [moments.low, moments.high],
+        generators,
+        # a call is num_steps steps: fewer calls warm the step up
+        warmup=-(-WARMUP_STEPS // num_steps),
+    )
+
+
 @torch.no_grad()
 def ema_(critic: Critic, target_critic: Critic, tau: float) -> None:
     """``target = tau * critic + (1 - tau) * target``, in place."""
@@ -333,17 +395,20 @@ def to_batch(sample: Dict[str, np.ndarray], cnn_keys: Sequence[str], device: tor
 
 
 def batch_inputs(
-    rb: EnvIndependentReplayBuffer, sequence_length: int, batch_size: int, cnn_keys: Sequence[str], device: torch.device
+    rb: Any,
+    sequence_length: int,
+    batch_size: int,
+    cnn_keys: Sequence[str],
+    device: torch.device,
+    stack: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Static ``[T, B, ...]`` input tensors for the buffer's keys: pixels
-    uint8, everything else fp32."""
-    stored = rb.buffer[0].buffer
+    """Static ``[T, B, ...]`` input tensors (``[stack, T, B, ...]`` with
+    ``stack``) for the keys of ``rb``, a host buffer or the device ring:
+    pixels uint8, everything else fp32."""
+    stored = rb.bufs if isinstance(rb, DeviceReplayBuffer) else rb.buffer[0].buffer
+    lead = (sequence_length, batch_size) if stack is None else (stack, sequence_length, batch_size)
     return {
-        k: torch.zeros(
-            (sequence_length, batch_size, *v.shape[2:]),
-            dtype=torch.uint8 if k in cnn_keys else torch.float32,
-            device=device,
-        )
+        k: torch.zeros((*lead, *v.shape[2:]), dtype=torch.uint8 if k in cnn_keys else torch.float32, device=device)
         for k, v in stored.items()
     }
 
@@ -430,10 +495,12 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     ``device="cpu"``) for ``algo.total_steps`` env steps, as the JAX
     ``main`` runs it on one accelerator: the player acts (uniform random
     actions up to ``algo.learning_starts`` on a fresh run), every step goes
-    into sequence replay, ``Ratio`` sets each update's gradient steps, and
+    into sequence replay (the device ring or the host buffer, by
+    ``buffer.device``), ``Ratio`` sets each update's gradient steps, and
     each gradient step is one replay of the captured train step (eagerly on
-    the CPU) fed by the pinned prefetcher, with the target-critic EMA
-    between replays. Metric vectors stay on the device until log time.
+    the CPU) with the target-critic EMA between replays, or, with
+    ``algo.fused_gradient_steps`` K > 0, each K steps one replay of a
+    captured superstep. Metric vectors stay on the device until log time.
     Checkpoints go to ``<log dir>/checkpoint`` on the ``checkpoint.every``
     cadence and at the end (``save_last``); ``checkpoint.resume_from`` (a
     path, or ``auto``) resumes from the port's checkpoints or the JAX
@@ -478,11 +545,19 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     dry_run = bool(cfg.get("dry_run", False))
     buffer_cfg = cfg["buffer"]
     buffer_size = int(buffer_cfg["size"]) // num_envs if not dry_run else 2
-    rb = EnvIndependentReplayBuffer(
-        buffer_size, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer, seed=seed
-    )
+    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0")
+    rb = make_sequential_replay(cfg, dev, obs_space, actions_dim, buffer_size, num_envs, obs_keys, memmap_dir, seed)
+    use_device_rb = isinstance(rb, DeviceReplayBuffer)
     if state is not None and buffer_cfg["checkpoint"]:
-        rb = select_buffer(state["rb"], 0, 1)
+        # a checkpoint of either buffer mode resumes into this run's mode
+        rb = adapt_restored_buffer(
+            select_buffer(state["rb"], 0, 1),
+            use_device_rb,
+            seed=seed,
+            memmap=bool(buffer_cfg["memmap"]),
+            memmap_dir=memmap_dir,
+            device=dev,
+        )
 
     # counters (JAX :584-602)
     start_step = int(state["update"]) + 1 if state is not None else 1
@@ -501,14 +576,19 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         ratio.load_state_dict(state["ratio"])
     critic_cfg = algo["critic"]
     ema_every = int(critic_cfg["per_rank_target_network_update_freq"])
+    fused_k = int(algo.get("fused_gradient_steps", 0) or 0)
 
-    # the train stream and the player stream (JAX :722-736)
+    # the train stream, the player stream (JAX :722-736) and the stream of
+    # the in-graph replay draw of a fused superstep
     train_gen = torch.Generator(device=dev).manual_seed(seed)
     player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
+    sample_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, SAMPLE_KEY_SALT))
     if state is not None:
         update0 = int(state["update"])
         restore_generator(train_gen, state["rng_key"], seed, update0)
         restore_generator(player_gen, state["player_rng_key"], seed, update0, 1)
+        if "sample_rng_key" in state:
+            restore_generator(sample_gen, state["sample_rng_key"], seed, update0, SAMPLE_KEY_SALT)
     action_rng = np.random.default_rng(seed)
 
     def ckpt_state_fn(completed_update: int) -> Dict[str, Any]:
@@ -521,12 +601,13 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
             "last_checkpoint": last_checkpoint,
             "rng_key": train_gen.get_state().numpy(),
             "player_rng_key": player_gen.get_state().numpy(),
+            "sample_rng_key": sample_gen.get_state().numpy(),
         }
 
     def ckpt_path_fn(step: int) -> str:
         return os.path.join(log_dir, "checkpoint", f"ckpt_{step}_0.ckpt")
 
-    def buffer_to_save() -> Optional[EnvIndependentReplayBuffer]:
+    def buffer_to_save() -> Any:
         return rb if buffer_cfg["checkpoint"] else None
 
     def nan_rollback(at_update: int) -> None:
@@ -538,7 +619,10 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         ratio.load_state_dict(restored["ratio"])
         if "rng_key" in restored:
             restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
+        if "sample_rng_key" in restored:
+            restore_generator(sample_gen, restored["sample_rng_key"], seed, int(restored["update"]), SAMPLE_KEY_SALT)
         resil.resalt_key(train_gen)
+        resil.resalt_key(sample_gen)
         pending.clear()  # the poisoned window must not reach the log
 
     step_data: Dict[str, np.ndarray] = {}
@@ -553,6 +637,55 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
 
     train_fn: Optional[CapturedStep] = None
     prefetcher: Optional[BatchPrefetcher] = None
+    # one superstep graph per distinct chunk length, and for the host buffer
+    # the prefetcher of its [n, T, B, ...] stacks
+    fused_fns: Dict[int, CapturedStep] = {}
+    fused_feeds: Dict[int, BatchPrefetcher] = {}
+
+    def get_fused_fn(n: int) -> CapturedStep:
+        fn = fused_fns.get(n)
+        if fn is None:
+            if use_device_rb:
+                # the ring's static tensors: the graph reads them in place
+                bufs, pos, full = rb.superstep_inputs(sequence_length)
+                gather = lambda ctx, i: draw_sequence_batch(bufs, pos, full, sample_gen, batch_size, sequence_length)  # noqa: E731
+                stack, gens = None, (train_gen, sample_gen)
+            else:
+                gather, gens = pregathered, (train_gen,)
+                stack = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev, stack=n)
+            fn = fused_fns[n] = make_fused_train_fn(
+                train_step, wm, actor, critic, target_critic, opts, moments, cfg, gather, n, stack, gens
+            )
+            if stack is not None:
+                # the stacks drawn by the buffer's own generator, as the
+                # per-step path draws its batches
+                depth = int(buffer_cfg["prefetch"])
+                fused_feeds[n] = BatchPrefetcher(rb, batch_size, sequence_length, stack, depth, fn.done, n_samples=n)
+        return fn
+
+    def superstep_window(n_steps: int) -> List[torch.Tensor]:
+        """The train window as ceil(n_steps / K) superstep replays, K steps
+        each and the remainder last (JAX :938-1000); returns their [chunk]
+        finite vectors."""
+        nonlocal gradient_steps, metrics
+        finite = []
+        for n, count in ((fused_k, n_steps // fused_k), (n_steps % fused_k, int(n_steps % fused_k > 0))):
+            if count == 0:
+                continue
+            fn = get_fused_fn(n)
+            feeds = itertools.repeat(None, count) if use_device_rb else fused_feeds[n].sampled_batches(count)
+            for _ in feeds:
+                if use_device_rb:
+                    rb.superstep_inputs(sequence_length)
+                fn.inputs["counter"].fill_(gradient_steps)
+                block, chunk_finite = fn()
+                gradient_steps += n
+                finite.append(chunk_finite)
+                metrics = block[-1]
+                if log_level > 0:
+                    pending.append(block)
+        return finite
+
     fence = DispatchFence(dev, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
     metric_cfg = cfg["metric"]
     log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
@@ -627,15 +760,32 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
             # ---------------- training ---------------- #
             if update >= learning_starts:
                 n_steps = ratio(policy_step)
-                if n_steps > 0:
+                if n_steps > 0 and fused_k > 0:
+                    start = _clock(dev)
+                    finite = superstep_window(n_steps)
+                    windows.append((start, _clock(dev)))
+                    fence.push()
+                    # one fetch a window: the finite vectors the supersteps
+                    # computed in their graphs
+                    if resil.finite_checks and not resil.window_ok(bool(torch.cat(finite).all()), update):
+                        nan_rollback(update)
+                        continue
+                elif n_steps > 0:
                     if train_fn is None:
                         inputs = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev)
                         train_fn = make_train_fn(train_step, wm, actor, critic, opts, moments, inputs, train_gen)
-                        prefetcher = BatchPrefetcher(
-                            rb, batch_size, sequence_length, inputs, int(buffer_cfg["prefetch"]), train_fn.done
-                        )
+                        if not use_device_rb:
+                            prefetcher = BatchPrefetcher(
+                                rb, batch_size, sequence_length, inputs, int(buffer_cfg["prefetch"]), train_fn.done
+                            )
                     start = _clock(dev)
-                    for _ in prefetcher.sampled_batches(n_steps):
+                    if use_device_rb:
+                        # each batch gathered on the card into the step's inputs,
+                        # after the replay before it on the same stream
+                        batches = rb.sample_batches(batch_size, sequence_length, n_steps, out=train_fn.inputs)
+                    else:
+                        batches = prefetcher.sampled_batches(n_steps)
+                    for _ in batches:
                         if gradient_steps % ema_every == 0:
                             ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
                         metrics = train_fn()
@@ -653,7 +803,9 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
             # ---------------- logging ---------------- #
             if log_level > 0 and (policy_step - last_log >= log_every or update == num_updates):
                 if pending:
-                    for row in torch.stack(pending).cpu().numpy():
+                    # per-step vectors and superstep blocks, in one copy
+                    rows = torch.cat([m.reshape(-1, len(METRIC_ORDER)) for m in pending])
+                    for row in rows.cpu().numpy():
                         for name, value in zip(METRIC_ORDER, row):
                             aggregator.update(name, value)
                     pending.clear()
@@ -684,13 +836,18 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     if preempted:
         resil.exit_preempted()
     last = {} if metrics is None else dict(zip(METRIC_ORDER, metrics.cpu().tolist()))
+    # (steps a replay, captured graph) of the run: the per-step graph, or
+    # the superstep graphs by chunk length
+    graphs = sorted(fused_fns.items()) if fused_k > 0 else ([(1, train_fn)] if train_fn is not None else [])
+    window_seconds = [_elapsed(a, b) for a, b in windows]
     return {
         "log_dir": log_dir,
         "start_update": start_step,
         "env_steps": policy_step,
         "gradient_steps": gradient_steps,
         "seconds": seconds,
-        "train_seconds": sum(_elapsed(a, b) for a, b in windows),
+        "train_seconds": sum(window_seconds),
+        "train_window_seconds": window_seconds,
         "metrics": last,
         "log": logged,
         "moments": (float(moments.low), float(moments.high)),
@@ -698,8 +855,10 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         "last_checkpoint": last_checkpoint,
         # fused_gru launches of the replayed steps: the captured calls a
         # replay relaunches, and the replays
-        "captured_launches_per_step": train_fn.captured_launches if train_fn is not None else 0,
-        "replays": train_fn.replays if train_fn is not None else 0,
+        "captured_launches_per_step": graphs[0][1].captured_launches // graphs[0][0] if graphs else 0,
+        "replays": sum(fn.replays for _, fn in graphs),
+        "graphs": [{"steps": n, "captured_launches": fn.captured_launches, "replays": fn.replays} for n, fn in graphs],
+        "replay_buffer": "device" if use_device_rb else ("memmap" if all(rb.is_memmap) else "host"),
     }
 
 

@@ -3,7 +3,8 @@
 Copied from the JAX package's config tree: ``configs/algo/dreamer_v3.yaml``
 and its ``dreamer_v3_{XS,S,M,L,XL}.yaml`` sizes, ``configs/exp/dreamer_v3.yaml``,
 ``configs/optim/adam.yaml`` (the three optimizers' defaults),
-``configs/buffer/default.yaml`` (``size``, ``prefetch`` and, from the exp,
+``configs/buffer/default.yaml`` (``size``, ``memmap``, ``validate_args``,
+``prefetch``, ``device``, ``device_max_bytes`` and, from the exp,
 ``checkpoint``), ``configs/checkpoint/default.yaml`` (with the exp's
 ``every``), the ``resilience`` group and the run naming of
 ``configs/config.yaml``, ``configs/metric/default.yaml`` (``log_every``,
@@ -70,7 +71,16 @@ _ROOT: Dict[str, Any] = {
         "clip_rewards": False,
         "max_episode_steps": None,
     },
-    "buffer": {"size": 1000000, "prefetch": 2, "checkpoint": False},
+    # configs/buffer/default.yaml, size and checkpoint from the exp
+    "buffer": {
+        "size": 1000000,
+        "memmap": True,
+        "validate_args": False,
+        "prefetch": 2,
+        "device": "auto",
+        "device_max_bytes": 8_000_000_000,
+        "checkpoint": False,
+    },
     "algo": {
         "name": "dreamer_v3",
         "total_steps": 5000000,
@@ -82,6 +92,7 @@ _ROOT: Dict[str, Any] = {
         "replay_ratio": 1,
         "learning_starts": 1024,
         "per_rank_pretrain_steps": 0,
+        "fused_gradient_steps": 0,
         "cnn_keys": {"encoder": ["rgb"], "decoder": "${algo.cnn_keys.encoder}"},
         "mlp_keys": {"encoder": [], "decoder": "${algo.mlp_keys.encoder}"},
         "dense_units": 1024,

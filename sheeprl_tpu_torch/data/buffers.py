@@ -1,21 +1,39 @@
 """Host replay buffers in numpy (port of ``sheeprl_tpu/data/buffers.py``:
 ``ReplayBuffer`` :79, ``SequentialReplayBuffer`` :308-395 and
-``EnvIndependentReplayBuffer`` :397-529), without memmap.
+``EnvIndependentReplayBuffer`` :397-529).
 
-Storage is a dict of ``[buffer_size, n_envs, ...]`` arrays. Sampling draws
-from the same ``numpy.random.Generator`` calls in the same order as the JAX
-package's buffers, so one seed gives the same windows in both; the gather
-is numpy fancy indexing where the JAX package calls its C++ gather
-(``sheeprl_tpu.native``). ``add`` takes ``[seq_len, n_envs, ...]``;
+Storage is a dict of ``[buffer_size, n_envs, ...]`` arrays, in RAM or, with
+``memmap=True``, in files under ``memmap_dir`` (``data/memmap.py``; one
+directory per env for the env-independent buffer, as in the JAX package).
+A buffer pickles its arrays' contents: a checkpoint of a memmapped buffer
+holds the data, not the names of files that the run owning them unlinks
+when it ends (the JAX package pickles the file references).
+
+Sampling draws from the same ``numpy.random.Generator`` calls in the same
+order as the JAX package's buffers, so one seed gives the same windows in
+both; the gather is numpy fancy indexing where the JAX package calls its
+C++ gather (``sheeprl_tpu.native``). ``add`` takes ``[seq_len, n_envs, ...]``;
 ``ReplayBuffer.sample`` returns ``[n_samples, batch_size, ...]`` and the
 sequential buffers ``[n_samples, seq_len, batch_size, ...]``.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
+
+from sheeprl_tpu_torch.data.memmap import ALLOWED_MODES, MemmapArray
+
+
+def _memmap_dir(memmap_dir: str | os.PathLike | None, memmap_mode: str) -> Path:
+    if memmap_mode not in ALLOWED_MODES:
+        raise ValueError(f"Accepted values for memmap_mode are {ALLOWED_MODES}, got {memmap_mode!r}")
+    if memmap_dir is None:
+        raise ValueError("The buffer is memory-mapped but 'memmap_dir' is None. Set it to a known directory.")
+    return Path(memmap_dir)
 
 
 def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
@@ -23,7 +41,7 @@ def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
         raise ValueError(f"'data' must be a dictionary of numpy arrays, got {type(data)}")
     shape0 = key0 = None
     for k, v in data.items():
-        if not isinstance(v, np.ndarray):
+        if not isinstance(v, (np.ndarray, MemmapArray)):
             raise ValueError(f"'data' must contain numpy arrays; key {k!r} has type {type(v)}")
         if v.ndim < 2:
             raise RuntimeError(f"'data' arrays must be [sequence_length, n_envs, ...]; shape of {k!r} is {v.shape}")
@@ -39,22 +57,35 @@ class ReplayBuffer:
     batch_axis: int = 1
 
     def __init__(
-        self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",), seed: Optional[int] = None
+        self,
+        buffer_size: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: str | os.PathLike | None = None,
+        memmap_mode: str = "r+",
+        seed: Optional[int] = None,
     ) -> None:
         if buffer_size <= 0:
             raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        if memmap:
+            memmap_dir = _memmap_dir(memmap_dir, memmap_mode)
+            memmap_dir.mkdir(parents=True, exist_ok=True)
         self._buffer_size = buffer_size
         self._n_envs = n_envs
         self._obs_keys = tuple(obs_keys)
-        self._buf: Dict[str, np.ndarray] = {}
+        self._memmap = bool(memmap)
+        self._memmap_dir = memmap_dir
+        self._memmap_mode = memmap_mode
+        self._buf: Dict[str, Any] = {}
         self._pos = 0
         self._full = False
         self._rng = np.random.default_rng(seed)
 
     @property
-    def buffer(self) -> Dict[str, np.ndarray]:
+    def buffer(self) -> Dict[str, Any]:
         return self._buf
 
     @property
@@ -73,8 +104,62 @@ class ReplayBuffer:
     def empty(self) -> bool:
         return len(self._buf) == 0
 
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
     def __len__(self) -> int:
         return self._buffer_size
+
+    def _allocate(self, key: str, trailing_shape: Sequence[int], dtype: np.dtype) -> Any:
+        shape = (self._buffer_size, self._n_envs, *trailing_shape)
+        if self._memmap:
+            return MemmapArray(shape, dtype, self._memmap_mode, Path(self._memmap_dir) / f"{key}.memmap")
+        return np.empty(shape, dtype=dtype)
+
+    def __getitem__(self, key: str) -> Any:
+        if not isinstance(key, str):
+            raise TypeError("'key' must be a string")
+        if self.empty:
+            raise RuntimeError("The buffer has not been initialized. Try to add some data first.")
+        return self._buf.get(key)
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        """Replace one key's whole ``[buffer_size, n_envs, ...]`` array (a
+        copy; in the buffer's memmap file when it is memmapped)."""
+        if not isinstance(value, (np.ndarray, MemmapArray)):
+            raise ValueError(f"the value must be a np.ndarray or MemmapArray, got {type(value)}")
+        if self.empty:
+            raise RuntimeError("The buffer has not been initialized. Try to add some data first.")
+        if tuple(value.shape[:2]) != (self._buffer_size, self._n_envs):
+            raise RuntimeError(
+                f"'value' must be [buffer_size, n_envs, ...]; got shape {value.shape} with "
+                f"buffer_size={self._buffer_size}, n_envs={self._n_envs}"
+            )
+        if self._memmap:
+            filename = value.filename if isinstance(value, MemmapArray) else Path(self._memmap_dir) / f"{key}.memmap"
+            old = self._buf.get(key)
+            if isinstance(old, MemmapArray) and Path(old.filename) == Path(filename).resolve():
+                # the displaced array must not unlink the file its successor adopts
+                old.has_ownership = False
+            self._buf[key] = MemmapArray.from_array(value, mode=self._memmap_mode, filename=filename)
+        else:
+            self._buf[key] = np.copy(np.asarray(value))
+
+    def to_memmap(self, memmap_dir: str | os.PathLike, memmap_mode: str = "r+") -> None:
+        """Move the arrays into memmap files under ``memmap_dir``, in place."""
+        self._memmap_dir = _memmap_dir(memmap_dir, memmap_mode)
+        self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._memmap, self._memmap_mode = True, memmap_mode
+        for k, v in list(self._buf.items()):
+            self._buf[k] = MemmapArray.from_array(np.asarray(v), mode=memmap_mode, filename=self._memmap_dir / f"{k}.memmap")
+
+    def __getstate__(self) -> Dict[str, Any]:
+        state = self.__dict__.copy()
+        state["_buf"] = {k: np.array(v) for k, v in self._buf.items()}
+        state["_memmap"] = False
+        state["_memmap_dir"] = None
+        return state
 
     def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
         """Append ``[seq_len, n_envs, ...]`` data at the cursor, wrapping over
@@ -91,8 +176,7 @@ class ReplayBuffer:
         idxes = (start + np.arange(effective_len)) % self._buffer_size
         for k, v in data.items():
             if k not in self._buf:
-                v = np.asarray(v)
-                self._buf[k] = np.empty((self._buffer_size, self._n_envs, *v.shape[2:]), dtype=v.dtype)
+                self._buf[k] = self._allocate(k, v.shape[2:], np.asarray(v).dtype)
             self._buf[k][idxes] = v[-effective_len:]
         if self._pos + data_len >= self._buffer_size:
             self._full = True
@@ -126,6 +210,7 @@ class ReplayBuffer:
         env_idxes = self._rng.integers(0, self._n_envs, size=(len(batch_idxes),), dtype=np.intp)
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
+            v = np.asarray(v)
             out[k] = v[batch_idxes, env_idxes]
             if sample_next_obs and k in self._obs_keys:
                 out[f"next_{k}"] = v[(batch_idxes + 1) % self._buffer_size, env_idxes]
@@ -184,6 +269,7 @@ class SequentialReplayBuffer(ReplayBuffer):
 
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
+            v = np.asarray(v)
             out[k] = gather(idxes, v)
             if sample_next_obs and k in self._obs_keys:
                 out[f"next_{k}"] = gather((idxes + 1) % self._buffer_size, v)
@@ -200,6 +286,9 @@ class EnvIndependentReplayBuffer:
         buffer_size: int,
         n_envs: int = 1,
         obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: str | os.PathLike | None = None,
+        memmap_mode: str = "r+",
         buffer_cls: Type[ReplayBuffer] = ReplayBuffer,
         seed: Optional[int] = None,
     ) -> None:
@@ -207,8 +296,18 @@ class EnvIndependentReplayBuffer:
             raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        if memmap:
+            memmap_dir = _memmap_dir(memmap_dir, memmap_mode)
         self._buf: List[ReplayBuffer] = [
-            buffer_cls(buffer_size=buffer_size, n_envs=1, obs_keys=obs_keys, seed=None if seed is None else seed + i)
+            buffer_cls(
+                buffer_size=buffer_size,
+                n_envs=1,
+                obs_keys=obs_keys,
+                memmap=memmap,
+                memmap_dir=memmap_dir / f"env_{i}" if memmap else None,
+                memmap_mode=memmap_mode,
+                seed=None if seed is None else seed + i,
+            )
             for i in range(n_envs)
         ]
         self._buffer_size = buffer_size
@@ -235,6 +334,16 @@ class EnvIndependentReplayBuffer:
     @property
     def empty(self) -> Sequence[bool]:
         return tuple(b.empty for b in self._buf)
+
+    @property
+    def is_memmap(self) -> Sequence[bool]:
+        return tuple(b.is_memmap for b in self._buf)
+
+    def to_memmap(self, memmap_dir: str | os.PathLike, memmap_mode: str = "r+") -> None:
+        """Move every env's arrays into memmap files under
+        ``memmap_dir/env_<i>``, in place."""
+        for i, b in enumerate(self._buf):
+            b.to_memmap(_memmap_dir(memmap_dir, memmap_mode) / f"env_{i}", memmap_mode)
 
     def __len__(self) -> int:
         return self._buffer_size

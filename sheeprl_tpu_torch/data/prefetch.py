@@ -11,6 +11,10 @@ the sampler only once its copy has completed (the main thread polls the
 events; the sampler thread makes no CUDA call, so it never disturbs a graph
 capture). Pixels stay uint8 across the bus; everything else goes fp32.
 
+With ``n_samples`` > 1 each item is a stack of that many batches, the
+``[K, T, B, ...]`` inputs of a fused superstep over the host buffer, drawn
+in one ``sample`` call as the JAX package's pregathered stack is.
+
 On the CPU there is no stream and no pinned memory: the same loop samples
 on the thread and copies synchronously.
 """
@@ -27,8 +31,9 @@ import torch
 
 
 class BatchPrefetcher:
-    """Feeds ``[T, B, ...]`` sequence batches of ``rb`` into ``inputs``
-    (the step's static input tensors, keyed as the buffer's sample)."""
+    """Feeds ``[T, B, ...]`` sequence batches of ``rb`` (``[n_samples, T, B,
+    ...]`` stacks with ``n_samples`` > 1) into ``inputs`` (the step's static
+    input tensors, keyed as the buffer's sample)."""
 
     def __init__(
         self,
@@ -38,10 +43,12 @@ class BatchPrefetcher:
         inputs: Dict[str, torch.Tensor],
         depth: int = 2,
         after: Optional["torch.cuda.Event"] = None,
+        n_samples: int = 1,
     ) -> None:
         self.rb = rb
         self.batch_size = batch_size
         self.sequence_length = sequence_length
+        self.n_samples = n_samples
         self.inputs = inputs
         self.after = after
         self.device = next(iter(inputs.values())).device
@@ -59,9 +66,9 @@ class BatchPrefetcher:
             self._free.put(i)
 
     def _fill(self, idx: int) -> None:
-        sample = self.rb.sample(self.batch_size, sequence_length=self.sequence_length, n_samples=1)
+        sample = self.rb.sample(self.batch_size, sequence_length=self.sequence_length, n_samples=self.n_samples)
         for k, dst in self._host[idx].items():
-            np.copyto(dst, sample[k][0], casting="unsafe")
+            np.copyto(dst, sample[k].reshape(dst.shape), casting="unsafe")
 
     def _worker(self, n: int, ready: "queue.Queue[Optional[int]]", stop: threading.Event, err: list) -> None:
         try:

@@ -14,9 +14,14 @@ host issues one launch where the eager step issues thousands.
 What the graph reads and writes must stay where it was captured: the step
 updates the parameters, Adam's ``mu``, ``nu`` and ``count`` and the
 Moments in place, and the caller copies each batch into ``inputs``. The
-step's noise comes from ``generator``, registered with the graph, so every
-replay draws fresh samples from the generator's current state (which a
+step's noise comes from ``generators``, registered with the graph, so every
+replay draws fresh samples from each generator's current state (which a
 checkpoint saves and a rollback re-seeds between replays).
+
+One capture may hold several gradient steps: a fused superstep
+(``ops/superstep.py``) is a callable that runs K steps and returns their
+stacked outputs, captured and replayed here the same way. Its warm-up runs
+the whole callable, so fewer calls warm it up (``warmup``).
 
 On the CPU the same callable runs the step eagerly; that is what the tests
 run. There is no fallback on the card: a failed capture or replay raises.
@@ -24,7 +29,7 @@ run. There is no fallback on the card: a failed capture or replay raises.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -35,25 +40,34 @@ from sheeprl_tpu_torch.ops import fused_gru
 WARMUP_STEPS = 2
 
 
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
 class CapturedStep:
-    """``step(inputs) -> metrics`` on ``inputs``, replayed from one CUDA
-    graph on the card and run eagerly on the CPU. ``state`` lists every
-    tensor the step updates in place (restored after the warm-up)."""
+    """``step(inputs) -> outputs`` on ``inputs``, replayed from one CUDA
+    graph on the card and run eagerly on the CPU. ``outputs`` is a tensor
+    or a tuple of tensors. ``state`` lists every tensor the step updates in
+    place (restored after the warm-up); ``generators`` (one or several) are
+    registered with the graph; ``warmup`` calls run before the capture."""
 
     def __init__(
         self,
-        step: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+        step: Callable[[Dict[str, torch.Tensor]], Outputs],
         inputs: Dict[str, torch.Tensor],
         state: Sequence[torch.Tensor],
-        generator: Optional[torch.Generator] = None,
+        generators: Union[None, torch.Generator, Sequence[torch.Generator]] = None,
+        warmup: int = WARMUP_STEPS,
     ) -> None:
         self.step = step
         self.inputs = inputs
         self.state = list(state)
-        self.generator = generator
+        if generators is None:
+            generators = ()
+        self.generators = (generators,) if isinstance(generators, torch.Generator) else tuple(generators)
+        self.warmup = int(warmup)
         self.device = next(iter(inputs.values())).device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self._out: Optional[torch.Tensor] = None
+        self._out: Optional[Outputs] = None
         # recorded after each replay: a copy into ``inputs`` waits for it
         self.done = torch.cuda.Event() if self.device.type == "cuda" else None
         self.replays = 0
@@ -67,32 +81,32 @@ class CapturedStep:
             t.copy_(s)
 
     def capture(self) -> None:
-        """Warm up, restore the state, capture one step."""
+        """Warm up, restore the state and the generators, capture one call."""
         dev = self.device
         saved = [t.detach().clone() for t in self.state]
-        gen_state = self.generator.get_state() if self.generator is not None else None
+        gen_states = [g.get_state() for g in self.generators]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
+            for _ in range(self.warmup):
                 self.step(self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(saved)
-        if self.generator is not None:
-            self.generator.set_state(gen_state)
+        for g, state in zip(self.generators, gen_states):
+            g.set_state(state)
         del saved
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for g in self.generators:
+            graph.register_generator_state(g)
         before = fused_gru.launch_count
         with torch.cuda.graph(graph):
             self._out = self.step(self.inputs)
         self.captured_launches = fused_gru.launch_count - before
         self.graph = graph
 
-    def __call__(self) -> torch.Tensor:
-        """One gradient step on ``inputs``; returns its metrics (a tensor
-        of its own: the graph's output is copied out)."""
+    def __call__(self) -> Outputs:
+        """One call of the step on ``inputs``; returns its outputs (tensors
+        of their own: the graph's outputs are copied out)."""
         if self.device.type != "cuda":
             return self.step(self.inputs)
         if self.graph is None:
@@ -100,4 +114,6 @@ class CapturedStep:
         self.graph.replay()
         self.replays += 1
         self.done.record(torch.cuda.current_stream(self.device))
+        if isinstance(self._out, tuple):
+            return tuple(t.clone() for t in self._out)
         return self._out.clone()

@@ -31,10 +31,14 @@ def all_finite(tree: Any) -> torch.Tensor:
     """A 0-d bool tensor: every floating tensor leaf of ``tree`` is finite.
     Integer and bool leaves are ignored; a tree with no floating leaf is
     finite."""
-    checks = [torch.isfinite(t).all() for t in _leaves(tree) if isinstance(t, torch.Tensor) and t.is_floating_point()]
-    if not checks:
+    tensors = [t.detach() for t in _leaves(tree) if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    if not tensors:
         return torch.tensor(True)
-    return torch.stack(checks).all()
+    # 0 * x is 0 where x is finite and NaN where it is not, and a norm of
+    # zeros is 0 where a NaN makes it NaN: a few multi-tensor launches for
+    # any number of tensors, and no overflow from large finite values
+    norms = torch._foreach_norm(torch._foreach_mul(tensors, 0.0))
+    return torch.isfinite(torch.stack([n.float() for n in norms])).all()
 
 
 def host_all_finite(tree: Any) -> bool:

@@ -11,7 +11,9 @@ dropped). ``emergency=True`` (preemption, crash) saves synchronously.
 
 A replay buffer that rides the checkpoint is made self-consistent without
 the env state: each env's last stored step is flagged truncated for the save
-and restored right after.
+and restored right after (on the card, in place, for the device ring, JAX
+``utils/callback.py:241-263``). A buffer pickles as host arrays: the ring
+copies its storage off the card, a memmapped host buffer its files' contents.
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ from __future__ import annotations
 import copy
 import os
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
 from sheeprl_tpu_torch.resilience.async_writer import get_async_writer
 from sheeprl_tpu_torch.resilience.manifest import (
     build_manifest,
@@ -92,11 +95,13 @@ class CheckpointCallback:
         self._prune(os.path.dirname(ckpt_path))
 
     @staticmethod
-    def _ckpt_rb(rb: Any) -> Optional[List[np.ndarray]]:
+    def _ckpt_rb(rb: Any) -> Any:
         """Flag each env's last stored step truncated; returns the flags it
         overwrote."""
         if rb is None:
             return None
+        if isinstance(rb, DeviceReplayBuffer):
+            return rb.flag_last_truncated()
         if not isinstance(rb, EnvIndependentReplayBuffer):
             raise TypeError(f"checkpointing a {type(rb).__name__} is not ported")
         saved = []
@@ -107,9 +112,12 @@ class CheckpointCallback:
         return saved
 
     @staticmethod
-    def _experiment_consistent_rb(rb: Any, saved: Optional[List[np.ndarray]]) -> None:
+    def _experiment_consistent_rb(rb: Any, saved: Any) -> None:
         """Undo :meth:`_ckpt_rb`."""
         if rb is None:
+            return
+        if isinstance(rb, DeviceReplayBuffer):
+            rb.restore_last_truncated(saved)
             return
         for b, s in zip(rb.buffer, saved):
             b.buffer["truncated"][(b._pos - 1) % b.buffer_size] = s

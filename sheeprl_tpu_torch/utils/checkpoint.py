@@ -17,7 +17,8 @@ unpickling them by default would import optax and, with it, JAX. Here:
 - optax's state classes become the stand-in records below, which keep their
   fields (``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``);
 - flax's ``FrozenDict`` becomes ``dict``;
-- the port's own stand-ins and replay buffers are allowed;
+- the port's own stand-ins and replay buffers (the host buffers and the
+  device ring, both pickled as host arrays) are allowed;
 - the JAX package's replay buffers raise ``NotImplementedError``;
 - any other class raises ``pickle.UnpicklingError`` with its dotted name.
 """
@@ -71,6 +72,7 @@ _BUILTINS = frozenset(
 _PORT_CLASSES = {
     "sheeprl_tpu_torch.utils.checkpoint": frozenset(OPTAX_STAND_INS),
     "sheeprl_tpu_torch.data.buffers": frozenset(("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer")),
+    "sheeprl_tpu_torch.data.device_buffer": frozenset(("DeviceReplayBuffer",)),
 }
 
 

@@ -7,7 +7,8 @@ import pytest
 from sheeprl_tpu.config import compose as jax_compose
 from sheeprl_tpu_torch.configs import SIZES, compose
 
-# every key the port reads (agent.build_agent, envs.factory, utils.test)
+# every key the port reads (agent.build_agent, envs.factory, utils.test,
+# the replay placement and the train window of dreamer_v3.main)
 PORT_KEYS = [
     "seed",
     "dry_run",
@@ -39,6 +40,13 @@ PORT_KEYS = [
     "algo.actor.dense_units",
     "algo.actor.mlp_layers",
     "algo.actor.action_clip",
+    # the replay and train-window keys (data/device_buffer.py, ops/superstep.py)
+    "buffer.memmap",
+    "buffer.validate_args",
+    "buffer.prefetch",
+    "buffer.device",
+    "buffer.device_max_bytes",
+    "algo.fused_gradient_steps",
 ]
 
 

@@ -672,3 +672,184 @@ def test_cuda_adam_count_lives_on_the_device(cuda):
     assert int(opts[0].count) == int(opts[1].count) == 3
     for a, b in zip(params[0], params[1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+# --------------------------------------------------------------------------- #
+# the device ring (data/device_buffer.py) and fused supersteps (ops/superstep.py)
+# --------------------------------------------------------------------------- #
+
+
+def _ring_steps(rng, n):
+    return {
+        "rgb": rng.integers(0, 256, (1, n, 16, 16, 3), dtype=np.uint8),
+        "state": rng.standard_normal((1, n, 5)).astype(np.float32),
+        "actions": np.eye(3, dtype=np.float32)[rng.integers(0, 3, (1, n))],
+        "rewards": rng.standard_normal((1, n, 1)).astype(np.float32),
+        "terminated": np.zeros((1, n, 1), np.float32),
+        "truncated": np.zeros((1, n, 1), np.float32),
+        "is_first": np.zeros((1, n, 1), np.float32),
+    }
+
+
+def _fed_ring_and_host(capacity=12, n_envs=3, steps=17):
+    """A ring on the card and a host buffer fed the same steps, with a
+    lone-env add every third step."""
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
+
+    ring = DeviceReplayBuffer(capacity, n_envs=n_envs, obs_keys=("rgb", "state"), device="cuda", seed=2)
+    host = EnvIndependentReplayBuffer(
+        capacity, n_envs=n_envs, obs_keys=("rgb", "state"), buffer_cls=SequentialReplayBuffer, seed=2
+    )
+    rng = np.random.default_rng(0)
+    for i in range(steps):
+        data = _ring_steps(rng, n_envs)
+        ring.add(data)
+        host.add(data)
+        if i % 3 == 1:
+            extra = _ring_steps(rng, 1)
+            ring.add(extra, [i % n_envs])
+            host.add(extra, [i % n_envs])
+    return ring, host
+
+
+@pytest.mark.cuda
+def test_cuda_ring_gather_matches_the_host_buffer(cuda):
+    """Windows drawn on the host and gathered on the card equal the host
+    buffer's numpy gather of the same steps, bit for bit, into fresh tensors
+    and into static inputs."""
+    ring, host = _fed_ring_and_host()
+    assert ring._pos.tolist() == [b._pos for b in host.buffer]
+    T, B = 4, 8
+    out = {k: torch.empty((T, B, *v.shape[2:]), dtype=v.dtype, device="cuda") for k, v in ring.bufs.items()}
+    for into in (None, out):
+        env_idx, starts = ring.draw_indices(B, T)
+        got = ring.gather(env_idx, starts, T, into)
+        rows = (starts[:, None] + np.arange(T)) % ring.buffer_size
+        for k, v in got.items():
+            assert v.device.type == "cuda"
+            want = np.stack([np.asarray(host.buffer[e].buffer[k])[r, 0] for e, r in zip(env_idx, rows)], axis=1)
+            np.testing.assert_array_equal(v.cpu().numpy(), want.astype(v.cpu().numpy().dtype), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_draw_in_a_graph(cuda):
+    """The in-graph draw captured with its generator registered: each replay
+    draws fresh windows, every one a start the host allows, and re-setting
+    the generator reproduces a replay."""
+    from sheeprl_tpu_torch.data.device_buffer import draw_from_mask, sequence_start_mask
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+
+    ring, _ = _fed_ring_and_host()
+    _, pos, full = ring.superstep_inputs(4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def draw(d):
+        return draw_from_mask(gen, sequence_start_mask(d["pos"], d["full"], ring.buffer_size, 4), 256)
+
+    fn = CapturedStep(draw, {"pos": pos, "full": full}, [], gen)
+    saved = gen.get_state()
+    first, second = fn(), fn()
+    assert not torch.equal(first[1], second[1])
+    for env_idx, starts in (first, second):
+        for e, s in zip(env_idx.tolist(), starts.tolist()):
+            assert s in set(ring._valid_starts(e, 4).tolist())
+    gen.set_state(saved)
+    assert all(torch.equal(a, b) for a, b in zip(fn(), first))
+
+
+@pytest.mark.cuda
+def test_cuda_auto_picks_the_ring_on_the_card(cuda):
+    """buffer.device=auto at the Atari-100k shape (configs/exp/dreamer_v3_100k_*.yaml:
+    buffer.size 100000, 1 env, 64x64x3): the ring, on the card, its bytes
+    within 1% of the estimate; false keeps the host buffer."""
+    from sheeprl_tpu_torch.configs import compose
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer, estimate_ring_bytes, make_sequential_replay
+    from sheeprl_tpu_torch.envs import spaces
+
+    cfg = compose("S", overrides={"buffer.size": 100000, "env.num_envs": 1})
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8)})
+    ring = make_sequential_replay(cfg, "cuda", space, (9,), 100000, 1, ["rgb"], None, 0)
+    assert isinstance(ring, DeviceReplayBuffer) and ring.device.type == "cuda"
+    step = {"rgb": np.zeros((1, 1, 64, 64, 3), np.uint8), "actions": np.zeros((1, 1, 9), np.float32)}
+    step.update({k: np.zeros((1, 1, 1), np.float32) for k in ("rewards", "terminated", "truncated", "is_first")})
+    ring.add(step)
+    est = estimate_ring_bytes(space, (9,), 100000, 1)
+    assert abs(ring.ring_bytes() - est) <= 0.01 * est
+    del ring
+    off = compose("S", overrides={"buffer.size": 100000, "env.num_envs": 1, "buffer.device": False, "buffer.memmap": False})
+    assert isinstance(make_sequential_replay(off, "cuda", space, (9,), 100000, 1, ["rgb"], None, 0), EnvIndependentReplayBuffer)
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_matches_two_replays(cuda, monkeypatch):
+    """A K = 2 superstep graph over two pregathered batches against two
+    replays of the per-step graph with the host EMA between them, from the
+    same weights and train generator (the real samplers): metrics,
+    parameters, target critic and Adam's state within REPLAY_BOUND."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import ema_, make_fused_train_fn
+    from sheeprl_tpu_torch.ops.math import init_moments
+    from sheeprl_tpu_torch.ops.superstep import pregathered
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    single, sstep, sopts = _train(False, "auto", 4)
+    fused, fstep, fopts = _train(False, "auto", 4, _snapshot(single))
+    batches = [_batch(8, 4, False, seed=s) for s in range(2)]
+    sgen, fgen = (torch.Generator(device="cuda").manual_seed(9) for _ in range(2))
+    fn, smoments = _captured(single, sstep, sopts, batches[0], sgen)
+    want = []
+    for i, b in enumerate(batches):
+        ema_(single["critic"], single["target"], 1.0 if i == 0 else 0.02)
+        for k, v in b.items():
+            fn.inputs[k].copy_(v)
+        want.append(fn())
+    fmoments = init_moments(torch.device("cuda"))
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    cfg = {"algo": {"critic": {"per_rank_target_network_update_freq": 1, "tau": 0.02}}}
+    sfn = make_fused_train_fn(
+        fstep, fused["wm"], fused["actor"], fused["critic"], fused["target"], fopts, fmoments, cfg, pregathered, 2, stack, (fgen,)
+    )
+    got, finite = sfn()
+    assert finite.tolist() == [True, True] and sfn.captured_launches == 2 * (8 + 5)
+    want = torch.stack(want)
+    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    for k in ("wm", "actor", "critic", "target"):
+        for a, b in zip(fused[k].parameters(), single[k].parameters()):
+            assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30), k
+    for fo, so in zip(fopts, sopts):
+        assert int(fo.count) == int(so.count) == 2
+        for a, b in zip([*fo.mu, *fo.nu], [*so.mu, *so.nu]):
+            assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)
+    torch.testing.assert_close(fmoments.high, smoments.high, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
+    assert torch.equal(fgen.get_state(), sgen.get_state())
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_draws_from_the_ring(cuda):
+    """A K = 2 superstep drawing its batches from the ring in the graph (two
+    generators registered): finite metrics, the sample stream advanced, and
+    the ring untouched."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_fused_train_fn
+    from sheeprl_tpu_torch.data.device_buffer import draw_sequence_batch
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    ring, _ = _fed_ring_and_host()
+    before = ring.host_arrays()
+    models, step, opts = _train(False, "auto", 4)
+    bufs, pos, full = ring.superstep_inputs(8)
+    gen, sample_gen = (torch.Generator(device="cuda").manual_seed(s) for s in (1, 2))
+    cfg = {"algo": {"critic": {"per_rank_target_network_update_freq": 1, "tau": 0.02}}}
+    fn = make_fused_train_fn(
+        step, models["wm"], models["actor"], models["critic"], models["target"], opts, init_moments(torch.device("cuda")),
+        cfg, lambda ctx, i: draw_sequence_batch(bufs, pos, full, sample_gen, 4, 8), 2, None, (gen, sample_gen),
+    )
+    drawn = sample_gen.get_state()
+    for counter in (0, 2):
+        fn.inputs["counter"].fill_(counter)
+        metrics, finite = fn()
+        assert torch.isfinite(metrics).all() and finite.all()
+    assert fn.replays == 2 and not torch.equal(sample_gen.get_state(), drawn)
+    after = ring.host_arrays()
+    assert all(np.array_equal(before[k], after[k]) for k in before)

@@ -151,3 +151,24 @@ def test_prefetch_sampler_errors_surface_and_the_window_can_end_early():
             break
     assert sorted(ok._free.queue) == [0, 1]  # every host buffer back with the sampler
     assert len(list(ok.sampled_batches(3))) == 3
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetched_stacks_are_the_buffer_draws_in_order(depth):
+    """With ``n_samples`` (a fused superstep's ``[K, T, B, ...]`` inputs on
+    the host buffer) each item is one ``sample(n_samples=K)`` draw, in the
+    buffer's order, as the JAX package's pregathered stack."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import batch_inputs
+    from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
+
+    rb, ref = _filled(), _filled()
+    stack = batch_inputs(rb, 4, 5, ["rgb"], torch.device("cpu"), stack=3)
+    assert stack["rgb"].shape == (3, 4, 5, 4, 4, 3)
+    pre = BatchPrefetcher(rb, 5, 4, stack, depth=depth, n_samples=3)
+    for n in (2, 1):  # two train windows
+        for got in pre.sampled_batches(n):
+            want = ref.sample(5, sequence_length=4, n_samples=3)
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k].numpy(), v.astype(got[k].numpy().dtype), err_msg=k)
