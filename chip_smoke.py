@@ -111,6 +111,28 @@ which exits non-zero:
    c.phase_superstep_parity(torch, np, rb, s, a, k);
    c.phase_replay_paths(torch, np, rb, s, a, k); d = tempfile.mkdtemp();
    c.phase_ring_loops(torch, np, fg, d); c.phase_ring_drill(torch, np, d)'``.
+10. The entry point, ``python -m sheeprl_tpu_torch``, at 8(e)'s cuts
+   (``CLI_CUTS``: S width, bf16-mixed, the ring, a log window every 64 env
+   steps, a checkpoint every 128 with the ring in it), each command in a
+   temporary cwd with its logs and run registry under a temporary
+   directory: (a) ``exp=dreamer_v3 env=pixel_catcher
+   metric.telemetry.enabled=True`` in a subprocess (exit 0, ``config.yaml``,
+   an event file the port's reader decodes with every train metric and
+   ``Time/sps_*`` at each window after learning starts and rewards where
+   episodes ended, all finite, heartbeats naming the card with a device
+   memory peak and 0 < MFU <= 1, one ``completed`` record), then the same
+   argv in this process through ``cli.run`` for the kernel's launches; (b)
+   ``python -m sheeprl_tpu_torch.cli_eval`` on (a)'s last checkpoint, one
+   episode capped at ``EVAL_CAP`` steps, and its eval record; (c) the CLI
+   resuming (a)'s mid-run checkpoint with ``fabric.precision=32-true`` on
+   the command line: the stored config with that override, trained to the
+   end; (d) env-steps/s of the in-process run with telemetry on and off
+   beside 8(e)'s loop, FLOPs a gradient step and the heartbeat's MFU, with
+   the card's name and power limit. Alone on the card: ``python -c 'import
+   chip_smoke as c, numpy as np, torch, tempfile; from sheeprl_tpu_torch.ops
+   import fused_gru as fg; fg.load_library(); n, r = c.phase_train_loop(torch,
+   np, fg, tempfile.mkdtemp(), c.BF16, "bf16_train_loop");
+   c.phase_cli(torch, np, fg, tempfile.mkdtemp(), r)'``.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -1359,21 +1381,34 @@ def phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous):
 
 
 def profile_replays(torch, fn, replays: int = 4, top: int = 8):
-    """torch.profiler over ``replays`` replays of the captured step ``fn``:
-    wall and device-busy ms a replay, the device's idle share, B1's
-    gru_step kernels a replay, their ms and share of the busy time, and the
-    top kernels (ms a replay)."""
+    """torch.profiler over ``replays`` replays of the captured step ``fn``,
+    after one unrecorded warm-up replay (the profiler's first records of a
+    session can be lost, as in ``profile_window``): wall and device-busy ms
+    a replay, the device's idle share, B1's gru_step kernels a replay, their
+    ms and share of the busy time, and the top kernels (ms a replay)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = {}
+
+    def ready(prof):
+        # the recorded replays' events, read before the profiler clears them
+        seen["kernels"] = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(
+        activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(replays):
             fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        prof.step()
+    kernels = seen.get("kernels", [])
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     b1 = [e for e in kernels if any(n in e.name for n in FUSED_GRU_KERNELS)]
     b1_us = sum(e.time_range.elapsed_us() for e in b1)
@@ -2230,6 +2265,233 @@ def phase_ring_drill(torch, np, tmp):
     return report
 
 
+# phase 10: the entry point on the card. The CLI runs 8(e)'s loop (S width,
+# bf16-mixed, the ring) with telemetry, a log window every 64 env steps
+# (three of them after learning starts) and a checkpoint every 128 with the
+# ring in it, so the resume from the mid-run one trains on to the end
+CLI_CUTS = {**LOOP_CUTS, "metric.log_every": 64, "checkpoint.every": 128, "buffer.checkpoint": True}
+CLI_RESUME_FROM = "ckpt_256_0.ckpt"
+CLI_TIMEOUT = 300
+
+
+def cli_argv(tmp: str, run_name: str, telemetry: bool = True, **extra) -> list:
+    """The CLI's arguments: exp=dreamer_v3 on PixelCatcher with the cuts,
+    logs and the run registry under ``tmp``."""
+    args = {
+        "seed": SEED,
+        **CLI_CUTS,
+        "metric.telemetry.enabled": telemetry,
+        "log_base_dir": f"{tmp}/logs",
+        "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl",
+        "run_name": run_name,
+        **extra,
+    }
+    return ["exp=dreamer_v3", "env=pixel_catcher"] + [f"{k}={v}" for k, v in args.items()]
+
+
+def run_module(module: str, argv: list, tmp: str) -> tuple:
+    """``python -m module argv`` in a temporary cwd with the repository on
+    ``PYTHONPATH`` and the run registry under ``tmp``; raises on a non-zero
+    exit. Returns (stdout, seconds)."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo, SHEEPRL_TPU_RUNS_JSONL=f"{tmp}/RUNS.jsonl")
+    cwd = tempfile.mkdtemp(dir=tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *argv], cwd=cwd, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return proc.stdout, seconds
+
+
+def cli_in_process(torch, fg, argv: list) -> tuple:
+    """``cli.run(argv)`` in this process, its printing kept apart; returns
+    (main's report, wrapper calls, seconds)."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    out = {}
+    real_main = dv3.main
+
+    def keep(fabric, cfg):
+        out.update(real_main(fabric, cfg))
+
+    buf = io.StringIO()
+    # ---- the main path: counts at 0 just before, read just after ----
+    fg.reset_launch_count()
+    t0 = time.perf_counter()
+    with mock.patch.object(dv3, "main", keep), contextlib.redirect_stdout(buf):
+        cli.run(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls = fg.launch_count
+    # ------------------------------------------------------------------
+    return out, calls, seconds
+
+
+def run_dir(tmp: str, run_name: str) -> str:
+    return f"{tmp}/logs/dreamer_v3/pixel_catcher/{run_name}"
+
+
+def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
+    """(a) ``python -m sheeprl_tpu_torch exp=dreamer_v3 env=pixel_catcher``
+    with telemetry: exit 0, ``config.yaml``, an event file the port's reader
+    decodes with every train metric and ``Time/sps_*`` at each log window
+    after learning starts (rewards where episodes ended), all finite,
+    heartbeats naming the card with a device memory peak and 0 < MFU <= 1,
+    one ``completed`` run record; then the same argv in this process through
+    ``cli.run`` for the kernel's launches. (b) ``cli_eval`` on (a)'s last
+    checkpoint: one capped episode on the card and an eval record. (c) the
+    CLI resuming (a)'s mid-run checkpoint with ``fabric.precision=32-true``
+    on the command line: the stored config with that override, trained to
+    the end. (d) env-steps/s of the in-process CLI run against 8(e)'s loop,
+    telemetry on and off, FLOPs a gradient step and the heartbeat's MFU.
+    Returns (launches, report)."""
+    import glob
+    import os
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER
+    from sheeprl_tpu_torch.config import load_config_file
+    from sheeprl_tpu_torch.obs.registry import read_run_records
+    from sheeprl_tpu_torch.ops.graph import WARMUP_STEPS
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    t10 = time.perf_counter()
+    card = card_line()
+    runs = f"{tmp}/RUNS.jsonl"
+    # (a) the CLI in a subprocess
+    _, a_seconds = run_module("sheeprl_tpu_torch", cli_argv(tmp, "cli_a"), tmp)
+    base = run_dir(tmp, "cli_a")
+    version = f"{base}/version_0"
+    stored = load_config_file(f"{version}/config.yaml")
+    if stored["fabric"]["precision"] != BF16 or any(stored.get_nested(k) != v for k, v in CLI_CUTS.items()):
+        raise AssertionError(f"cli (a): the stored config is not the run's: {stored['fabric']} {stored['algo']}")
+    events = glob.glob(f"{version}/events.out.tfevents.*")
+    if len(events) != 1:
+        raise AssertionError(f"cli (a): want one event file, found {events}")
+    by_step = {}
+    for step, tag, value in read_scalars(events[0]):
+        by_step.setdefault(step, {})[tag] = value
+    learning_starts = CLI_CUTS["algo.learning_starts"]
+    train_windows = [s for s in sorted(by_step) if s >= learning_starts]
+    want = set(METRIC_ORDER) | {"Time/sps_train", "Time/sps_env_interaction"}
+    for step in sorted(by_step):
+        tags = by_step[step]
+        missing = (want if step in train_windows else {"Time/sps_env_interaction"}) - set(tags)
+        if missing or not all(np.isfinite(v) for v in tags.values()):
+            raise AssertionError(f"cli (a): event file at step {step}: missing {sorted(missing)} or non-finite {tags}")
+    rewards = [s for s in by_step if "Rewards/rew_avg" in by_step[s] and "Game/ep_len_avg" in by_step[s]]
+    if len(train_windows) < 2 or not rewards:
+        raise AssertionError(f"cli (a): log windows {sorted(by_step)}, reward windows {rewards}")
+    beats = [json.loads(line) for line in open(f"{base}/telemetry.jsonl")]
+    beats = [e for e in beats if e["event"] == "heartbeat"]
+    kind = torch.cuda.get_device_name(0)
+    mfus = [b["mfu"] for b in beats if "mfu" in b]
+    if (
+        len(beats) != len(by_step)
+        or any(b["device_kind"] != kind or not b["hbm_peak_bytes"] > 0 for b in beats)
+        or not mfus
+        or not all(0 < m <= 1 for m in mfus)
+    ):
+        raise AssertionError(f"cli (a): heartbeats {beats}")
+    records = read_run_records(runs)
+    if [(r["kind"], r["outcome"], r["run_name"]) for r in records] != [("train", "completed", "cli_a")]:
+        raise AssertionError(f"cli (a): run records {records}")
+    last_ckpt = f"ckpt_{CLI_CUTS['algo.total_steps']}_0.ckpt"
+    ckpts = sorted(os.listdir(f"{version}/checkpoint"))
+    if CLI_RESUME_FROM not in ckpts or last_ckpt not in ckpts:
+        raise AssertionError(f"cli (a): checkpoints {ckpts}")
+    print(
+        "cli_train " + json.dumps({
+            "seconds_with_startup": a_seconds, "log_steps": sorted(by_step), "train_log_steps": train_windows,
+            "heartbeats": len(beats), "mfu": mfus, "flops_per_train_step": beats[-1].get("flops_per_train_step"),
+            "hbm_peak_bytes": beats[-1]["hbm_peak_bytes"], "device_kind": kind, "record": records[0]["outcome"],
+            "checkpoints": ckpts, "last_metrics": {k: by_step[max(by_step)][k] for k in METRIC_ORDER},
+        }),
+        flush=True,
+    )
+    # the same argv in this process: the kernel's launches on the main path
+    out, calls, on_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_b"))
+    per_step = SCAN_CALLS + IMAGINE_CALLS
+    acting = (CLI_CUTS["algo.total_steps"] - learning_starts) // 4
+    captured = out["captured_launches_per_step"]
+    launches = calls - captured + captured * out["replays"]
+    if captured != per_step or out["replays"] != out["gradient_steps"] or calls != acting + (WARMUP_STEPS + 1) * per_step:
+        raise AssertionError(
+            f"cli in process: {calls} wrapper calls (want {acting} + {WARMUP_STEPS + 1} x {per_step}), "
+            f"{captured} captured a step, {out['replays']} replays for {out['gradient_steps']} steps"
+        )
+    record_b = read_run_records(runs)[-1]
+    # (b) cli_eval on (a)'s last checkpoint, one episode capped at EVAL_CAP
+    eval_out, b_seconds = run_module(
+        "sheeprl_tpu_torch.cli_eval",
+        [f"checkpoint_path={version}/checkpoint/{last_ckpt}", f"env.max_episode_steps={EVAL_CAP}"],
+        tmp,
+    )
+    record = read_run_records(runs)[-1]
+    if "Test - Reward:" not in eval_out or (record["kind"], record["outcome"]) != ("eval", "completed"):
+        raise AssertionError(f"cli_eval: {eval_out[-2000:]} {record}")
+    reward = float(eval_out.split("Test - Reward:")[-1].split()[0])
+    # (c) resume (a)'s mid-run checkpoint at fp32 from the command line
+    _, c_seconds = run_module(
+        "sheeprl_tpu_torch",
+        [
+            "exp=dreamer_v3",
+            "env=pixel_catcher",
+            f"checkpoint.resume_from={version}/checkpoint/{CLI_RESUME_FROM}",
+            f"fabric.precision={FP32}",
+            "metric.telemetry.enabled=True",
+            f"metric.telemetry.runs_jsonl={runs}",
+            "run_name=cli_c",
+        ],
+        tmp,
+    )
+    resumed = load_config_file(f"{run_dir(tmp, 'cli_c')}/version_0/config.yaml")
+    record_c = read_run_records(runs)[-1]
+    resumed_ckpts = sorted(os.listdir(f"{run_dir(tmp, 'cli_c')}/version_0/checkpoint"))
+    if (
+        resumed["fabric"]["precision"] != FP32
+        or resumed["algo"]["total_steps"] != CLI_CUTS["algo.total_steps"]
+        or (record_c["kind"], record_c["outcome"]) != ("train", "completed")
+        or not record_c["train_gradient_steps"] > 0
+        or last_ckpt not in resumed_ckpts
+    ):
+        raise AssertionError(f"cli resume: {resumed['fabric']} {record_c} {resumed_ckpts}")
+    # (d) the same in-process run with telemetry off
+    off, _, off_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_d", telemetry=False))
+    report = {
+        "card": card,
+        "cuts": CLI_CUTS,
+        "env_steps_per_s": {
+            "cli_telemetry_on": out["env_steps"] / out["seconds"],
+            "cli_telemetry_off": off["env_steps"] / off["seconds"],
+            "phase_8e_loop": loop_report["env_steps_per_s"],
+        },
+        "loop_seconds": {"cli_telemetry_on": out["seconds"], "cli_telemetry_off": off["seconds"], "phase_8e_loop": loop_report["seconds"]},
+        "cli_run_seconds_in_process": {"telemetry_on": on_seconds, "telemetry_off": off_seconds},
+        "subprocess_seconds": {"train": a_seconds, "eval": b_seconds, "resume": c_seconds},
+        "flops_per_gradient_step": record_b.get("flops_per_train_step"),
+        "mfu_last_heartbeat": record_b.get("mfu"),
+        "mfu_subprocess_heartbeats": mfus,
+        "sps_train_registry": record_b.get("sps_train"),
+        "fused_gru_wrapper_calls": calls,
+        "fused_gru_launches": launches,
+        "replays": out["replays"],
+        "eval_reward": reward,
+        "resume_gradient_steps": record_c["train_gradient_steps"],
+        "resume_precision": resumed["fabric"]["precision"],
+    }
+    print(f"phase 10 on {card}: cli " + json.dumps(report), flush=True)
+    print(f"phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    return launches, report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2324,6 +2586,11 @@ def main() -> int:
         phase_ring_drill(torch, np, tmp)
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
+    # phase 10: the entry point, (a) train through the CLI, (b) cli_eval,
+    # (c) resume with a precision override, (d) times
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli = phase_cli(torch, np, fg, tmp, bf16_loop)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -2334,9 +2601,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()),
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches,
             # every launch of the bf16-mixed paths read a bf16 x (checked there)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()),
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches,
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -2345,6 +2612,8 @@ def main() -> int:
                 "bf16_train_loop_replays": bf16_loop["replays"],
                 "bf16_player": bf16_player_launches,
                 "bf16_ring_train_loops": ring_loop_launches,
+                "cli_train_loop": cli_launches,
+                "cli_train_loop_replays": cli["replays"],
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -2368,6 +2637,8 @@ def main() -> int:
                 "player_env_steps_per_s": bf16_player["env_steps_per_s"],
                 "ms_per_gradient_step_by_replay_path": {k: min(v["ms_per_gradient_step"]) for k, v in paths["paths"].items() if k in PATHS},
                 "ring_train_loop_env_steps_per_s": {k: [r["env_steps_per_s"] for r in ring_loops[k]] for k in RING_LOOPS},
+                "cli_env_steps_per_s": cli["env_steps_per_s"],
+                "cli_mfu": cli["mfu_last_heartbeat"],
             },
         },
         {

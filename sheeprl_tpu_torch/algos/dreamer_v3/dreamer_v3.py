@@ -27,8 +27,14 @@ draws from the ring (or reads a stack drawn on the host) and trains. Then
 metrics kept on the device until log time, a dispatch fence, checkpoints in
 the JAX layout (the replay buffer too with ``buffer.checkpoint``), resume
 (from a path or ``auto``, a checkpoint of either buffer mode into either),
-NaN rollback, the crash guard and the preemption exit. Telemetry and
-multiple processes are not ported (ROADMAP queue A).
+NaN rollback, the crash guard and the preemption exit. ``main`` logs as the
+JAX ``main`` does: the aggregated metrics through the run's logger
+(``utils/logger.py``), the ``Time/env_interaction_time`` and
+``Time/train_time`` spans (the train span closes after the card finished,
+through the dispatch fence), and, with ``metric.telemetry.enabled``, the
+telemetry hooks (``obs/``): the step, each train window's launches, the
+FLOPs of one gradient step for MFU and a heartbeat a log window. Multiple
+processes are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
     world_model_to_flax,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import env_action, prepare_obs
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, env_action, prepare_obs
 from sheeprl_tpu_torch.data.device_buffer import (
     DeviceReplayBuffer,
     adapt_restored_buffer,
@@ -72,7 +78,7 @@ from sheeprl_tpu_torch.data.device_buffer import (
     make_sequential_replay,
 )
 from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
-from sheeprl_tpu_torch.device import DeviceLike, resolve_device
+from sheeprl_tpu_torch.device import DeviceLike
 from sheeprl_tpu_torch.envs.factory import make_env
 from sheeprl_tpu_torch.envs.spaces import Box, action_dims
 from sheeprl_tpu_torch.ops.distributions import (
@@ -87,13 +93,26 @@ from sheeprl_tpu_torch.ops.graph import WARMUP_STEPS, CapturedStep
 from sheeprl_tpu_torch.ops.math import MomentsState, compute_lambda_values, init_moments, update_moments
 from sheeprl_tpu_torch.ops.optim import Adam, adam
 from sheeprl_tpu_torch.ops.superstep import SAMPLE_KEY_SALT, make_superstep_fn, periodic_target_ema, pregathered
+from sheeprl_tpu_torch.obs.heartbeat import log_sps_and_heartbeat
+from sheeprl_tpu_torch.obs.telemetry import (
+    get_telemetry,
+    telemetry_advance,
+    telemetry_mark_warm,
+    telemetry_register_flops,
+    telemetry_run_metrics,
+    telemetry_train_window,
+)
+from sheeprl_tpu_torch.parallel.fabric import Fabric
 from sheeprl_tpu_torch.parallel.fence import DispatchFence
 from sheeprl_tpu_torch.resilience.autoresume import resolve_auto_resume
 from sheeprl_tpu_torch.resilience.manager import RunResilience
 from sheeprl_tpu_torch.utils.callback import CheckpointCallback
 from sheeprl_tpu_torch.utils.checkpoint import elastic_per_rank_batch_size, load_checkpoint, select_buffer
-from sheeprl_tpu_torch.utils.metric import MetricAggregator
-from sheeprl_tpu_torch.utils.utils import Ratio, get_log_dir, save_configs
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.metric import build_aggregator
+from sheeprl_tpu_torch.utils.registry import register_algorithm
+from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
 
 METRIC_ORDER = (
     "Loss/world_model_loss",
@@ -490,9 +509,12 @@ def restore_generator(generator: torch.Generator, saved: Any, seed: int, update:
     generator.manual_seed(stream_seed(seed, update, *salt))
 
 
-def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
-    """Train Dreamer-V3 on ``device`` (the CUDA card unless
-    ``device="cpu"``) for ``algo.total_steps`` env steps, as the JAX
+@register_algorithm()
+def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None) -> Dict[str, Any]:
+    """Train Dreamer-V3, called as the CLI calls it, ``main(fabric, cfg)``,
+    on the Fabric's device, or as ``main(cfg, device=...)`` on ``device``
+    (the CUDA card unless ``device="cpu"``), for ``algo.total_steps`` env
+    steps, as the JAX
     ``main`` runs it on one accelerator: the player acts (uniform random
     actions up to ``algo.learning_starts`` on a fresh run), every step goes
     into sequence replay (the device ring or the host buffer, by
@@ -507,9 +529,14 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     package's; non-finite metrics roll back to the newest committed
     checkpoint; SIGTERM writes an emergency checkpoint and exits with
     ``PREEMPTED_EXIT_CODE``. Returns the run's counts, seconds and metrics."""
-    dev = resolve_device(device)
+    ckpt_cfg = (cfg if isinstance(fabric, Fabric) else fabric)["checkpoint"]
+    if not isinstance(fabric, Fabric):
+        callback = CheckpointCallback(
+            keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
+        )
+        fabric, cfg = Fabric.for_device(device, fabric["fabric"]["precision"], [callback]), fabric
+    dev = fabric.device
     algo = cfg["algo"]
-    ckpt_cfg = cfg["checkpoint"]
     seed = int(cfg["seed"])
     resume_from = ckpt_cfg["resume_from"]
     if resume_from == "auto":
@@ -520,10 +547,13 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         raise ValueError(f"The screen size must be a power of 2, got: {screen}")
     num_envs = int(cfg["env"]["num_envs"])
     log_dir = get_log_dir(cfg)
+    logger = fabric.logger = get_logger(cfg, log_dir)
+    logger.log_hyperparams(cfg)
+    print(f"Log dir: {log_dir}")
     save_configs(cfg, log_dir)
-    callback = CheckpointCallback(
-        keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
-    )
+    callback = next((cb for cb in fabric.callbacks if isinstance(cb, CheckpointCallback)), None)
+    if callback is None:
+        raise ValueError("fabric.callbacks holds no CheckpointCallback: the run could not save its checkpoints")
     resil = RunResilience(cfg, log_dir, callback)
     envs = [make_env(cfg, seed + i)() for i in range(num_envs)]
     action_space = envs[0].action_space
@@ -656,6 +686,10 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
             fn = fused_fns[n] = make_fused_train_fn(
                 train_step, wm, actor, critic, target_critic, opts, moments, cfg, gather, n, stack, gens
             )
+            fn.count_flops = count_flops
+            if len(fused_fns) == 1:
+                # a replay runs n gradient steps
+                telemetry_register_flops(lambda: fn.flops, scale=1.0 / n)
             if stack is not None:
                 # the stacks drawn by the buffer's own generator, as the
                 # per-step path draws its batches
@@ -689,7 +723,14 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     fence = DispatchFence(dev, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
     metric_cfg = cfg["metric"]
     log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
-    aggregator = MetricAggregator(METRIC_ORDER)
+    aggregator = build_aggregator(cfg, AGGREGATOR_KEYS)
+    action_repeat = int(cfg["env"].get("action_repeat", 1) or 1)
+    # each env's running episode return and length (the JAX envs'
+    # RecordEpisodeStatistics), logged when an episode ends
+    ep_return = np.zeros(num_envs)
+    ep_length = np.zeros(num_envs, np.int64)
+    count_flops = get_telemetry() is not None
+    train_windows = last_train = last_grad_steps = 0
     pending: List[torch.Tensor] = []  # device metric vectors, fetched at log time
     logged: List[Tuple[int, Dict[str, float]]] = []
     windows: List[Tuple[Any, Any]] = []  # each train window's (start, end) events or clock times
@@ -705,6 +746,7 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     t_start = time.perf_counter()
     try:
         for update in range(start_step, num_updates + 1):
+            telemetry_advance(policy_step)
             if resil.preempt_requested():
                 fence.drain()
                 last_checkpoint = policy_step
@@ -712,24 +754,33 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
                 preempted = True
                 break
             policy_step += num_envs
-            if update <= learning_starts and state is None:
-                actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
-            else:
-                actions = player.get_actions(prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen)
-                real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
-            step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
-            rb.add(step_data)
+            with timer("Time/env_interaction_time"):
+                if update <= learning_starts and state is None:
+                    actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
+                else:
+                    actions = player.get_actions(prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen)
+                    real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
+                step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
+                rb.add(step_data)
 
-            next_obs, final_obs, rewards, terminated, truncated = [], {}, [], [], []
-            for i, env in enumerate(envs):
-                o, r, term, trunc, _ = env.step(np.asarray(real_actions[i]).reshape(action_space.shape))
-                if term or trunc:
-                    final_obs[i] = o
-                    o, _ = env.reset()
-                next_obs.append(o)
-                rewards.append(r)
-                terminated.append(term)
-                truncated.append(trunc)
+                next_obs, final_obs, rewards, terminated, truncated = [], {}, [], [], []
+                for i, env in enumerate(envs):
+                    o, r, term, trunc, _ = env.step(np.asarray(real_actions[i]).reshape(action_space.shape))
+                    if term or trunc:
+                        final_obs[i] = o
+                        o, _ = env.reset()
+                    next_obs.append(o)
+                    rewards.append(r)
+                    terminated.append(term)
+                    truncated.append(trunc)
+            ep_return += np.asarray(rewards, np.float64)
+            ep_length += 1
+            if log_level > 0:
+                for i in sorted(final_obs):
+                    aggregator.update("Rewards/rew_avg", ep_return[i])
+                    aggregator.update("Game/ep_len_avg", ep_length[i])
+            for i in final_obs:
+                ep_return[i], ep_length[i] = 0.0, 0
             stacked = {k: np.stack([o[k] for o in next_obs]) for k in obs_keys}
             prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
             for k in obs_keys:
@@ -761,10 +812,19 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
             if update >= learning_starts:
                 n_steps = ratio(policy_step)
                 if n_steps > 0 and fused_k > 0:
-                    start = _clock(dev)
-                    finite = superstep_window(n_steps)
-                    windows.append((start, _clock(dev)))
-                    fence.push()
+                    with timer("Time/train_time"):
+                        start = _clock(dev)
+                        replays_before = sum(fn.replays for fn in fused_fns.values())
+                        finite = superstep_window(n_steps)
+                        windows.append((start, _clock(dev)))
+                        fence.push()
+                        if not timer.disabled:
+                            # the span ends when the card has finished the window
+                            fence.drain()
+                    train_windows += 1
+                    telemetry_train_window(sum(fn.replays for fn in fused_fns.values()) - replays_before, n_steps)
+                    # the first window captured the step: a later capture is a recompile
+                    telemetry_mark_warm()
                     # one fetch a window: the finite vectors the supersteps
                     # computed in their graphs
                     if resil.finite_checks and not resil.window_ok(bool(torch.cat(finite).all()), update):
@@ -774,26 +834,39 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
                     if train_fn is None:
                         inputs = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev)
                         train_fn = make_train_fn(train_step, wm, actor, critic, opts, moments, inputs, train_gen)
+                        train_fn.count_flops = count_flops
                         if not use_device_rb:
                             prefetcher = BatchPrefetcher(
                                 rb, batch_size, sequence_length, inputs, int(buffer_cfg["prefetch"]), train_fn.done
                             )
-                    start = _clock(dev)
-                    if use_device_rb:
-                        # each batch gathered on the card into the step's inputs,
-                        # after the replay before it on the same stream
-                        batches = rb.sample_batches(batch_size, sequence_length, n_steps, out=train_fn.inputs)
-                    else:
-                        batches = prefetcher.sampled_batches(n_steps)
-                    for _ in batches:
-                        if gradient_steps % ema_every == 0:
-                            ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
-                        metrics = train_fn()
-                        gradient_steps += 1
-                        if log_level > 0:
-                            pending.append(metrics)
-                    windows.append((start, _clock(dev)))
-                    fence.push()
+                    with timer("Time/train_time"):
+                        start = _clock(dev)
+                        if use_device_rb:
+                            # each batch gathered on the card into the step's inputs,
+                            # after the replay before it on the same stream
+                            batches = rb.sample_batches(batch_size, sequence_length, n_steps, out=train_fn.inputs)
+                        else:
+                            batches = prefetcher.sampled_batches(n_steps)
+                        emas = 0
+                        for _ in batches:
+                            if gradient_steps % ema_every == 0:
+                                ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
+                                emas += 1
+                            metrics = train_fn()
+                            gradient_steps += 1
+                            if gradient_steps == 1:
+                                telemetry_register_flops(lambda: train_fn.flops)
+                            if log_level > 0:
+                                pending.append(metrics)
+                        windows.append((start, _clock(dev)))
+                        fence.push()
+                        if not timer.disabled:
+                            # the span ends when the card has finished the window
+                            fence.drain()
+                    train_windows += 1
+                    # a replay a step, the ring's gather a step, the target refreshes
+                    telemetry_train_window(n_steps * (2 if use_device_rb else 1) + emas, n_steps)
+                    telemetry_mark_warm()
                     # the window's last metric vector: a NaN in the params
                     # reaches every later loss (JAX :1047-1055)
                     if resil.finite_checks and not resil.check_finite(metrics.cpu().numpy(), update):
@@ -809,9 +882,23 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
                         for name, value in zip(METRIC_ORDER, row):
                             aggregator.update(name, value)
                     pending.clear()
-                logged.append((policy_step, aggregator.compute()))
+                metrics_dict = aggregator.compute()
+                logger.log_metrics(metrics_dict, policy_step)
+                telemetry_run_metrics(metrics_dict)
+                logged.append((policy_step, metrics_dict))
                 aggregator.reset()
+                if policy_step > 0:
+                    logger.log_metrics({"Params/replay_ratio": gradient_steps / policy_step}, policy_step)
+                log_sps_and_heartbeat(
+                    logger,
+                    policy_step=policy_step,
+                    env_steps=(policy_step - last_log) * action_repeat,
+                    train_steps=train_windows - last_train,
+                    train_invocations=gradient_steps - last_grad_steps,
+                )
                 last_log = policy_step
+                last_train = train_windows
+                last_grad_steps = gradient_steps
 
             # ---------------- checkpoint ---------------- #
             if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
@@ -823,6 +910,7 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         if isinstance(err, Exception):
             resil.crash_checkpoint(err)
         resil.close()
+        logger.finalize()
         for env in envs:
             env.close()
         raise
@@ -832,6 +920,7 @@ def main(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     seconds = time.perf_counter() - t_start
     for env in envs:
         env.close()
+    logger.finalize()
     resil.close()
     if preempted:
         resil.exit_preempted()

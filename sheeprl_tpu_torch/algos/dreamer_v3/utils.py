@@ -1,6 +1,5 @@
-"""Dreamer-V3 helpers of the acting path (port of
-``sheeprl_tpu/algos/dreamer_v3/utils.py``: ``prepare_obs`` :36-58 and
-``test`` :61-103)."""
+"""Dreamer-V3 helpers (port of ``sheeprl_tpu/algos/dreamer_v3/utils.py``:
+``AGGREGATOR_KEYS`` :18-34, ``prepare_obs`` :36-58 and ``test`` :61-103)."""
 
 from __future__ import annotations
 
@@ -10,6 +9,26 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.envs.factory import make_env
+
+# the metrics the loop produces: the CLI keeps only these of the composed
+# aggregator, and ``main`` adds a mean for each one it lacks
+AGGREGATOR_KEYS = {
+    "Rewards/rew_avg",
+    "Game/ep_len_avg",
+    "Loss/world_model_loss",
+    "Loss/value_loss",
+    "Loss/policy_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "State/post_entropy",
+    "State/prior_entropy",
+    "Grads/world_model",
+    "Grads/actor",
+    "Grads/critic",
+}
 
 
 def prepare_obs(obs: Dict[str, np.ndarray], cnn_keys: Sequence[str] = (), num_envs: int = 1) -> Dict[str, np.ndarray]:
@@ -42,9 +61,10 @@ def env_action(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: b
     return real[0] if len(real) == 1 else real
 
 
-def test(player: Any, cfg: Dict[str, Any], greedy: bool = True) -> Tuple[float, int]:
+def test(player: Any, cfg: Dict[str, Any], greedy: bool = True, logger: Any = None) -> Tuple[float, int]:
     """One frozen-policy episode on a fresh env; returns its reward sum and
-    its number of steps."""
+    its number of steps, and logs the sum as ``Test/cumulative_reward``
+    through ``logger`` when ``metric.log_level`` > 0."""
     env = make_env(cfg, cfg["seed"])()
     done = False
     cumulative_rew = 0.0
@@ -63,6 +83,8 @@ def test(player: Any, cfg: Dict[str, Any], greedy: bool = True) -> Tuple[float, 
         cumulative_rew += float(reward)
         steps += 1
     print(f"Test - Reward: {cumulative_rew}")
+    if logger is not None and int(cfg["metric"]["log_level"]) > 0:
+        logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
     player.num_envs = saved_num_envs
     env.close()
     return cumulative_rew, steps

@@ -1,0 +1,64 @@
+"""Run telemetry (port of ``sheeprl_tpu/obs``: the parts the Dreamer-V3 main,
+``resilience/``, ``utils/callback.py`` and the CLI reach).
+
+- :class:`~sheeprl_tpu_torch.obs.span.span`: one section name in the
+  wall-clock timer registry, the ``torch.profiler`` trace and the
+  ``telemetry.jsonl`` stream;
+- :class:`~sheeprl_tpu_torch.obs.telemetry.RunTelemetry`: the per-run sink,
+  with the CUDA-graph capture counter, the device memory poll and the
+  heartbeat (SPS, duty cycle, MFU);
+- :mod:`~sheeprl_tpu_torch.obs.registry`: the one-line run record in
+  ``RUNS.jsonl``.
+
+Everything is inert unless ``metric.telemetry.enabled=True``. The trace
+plane (``obs/trace.py``), the triggered profiler and the actor-learner,
+rollout, serve and net records are not ported (ROADMAP.md).
+"""
+
+from sheeprl_tpu_torch.obs.heartbeat import log_sps_and_heartbeat
+from sheeprl_tpu_torch.obs.registry import append_run_record, build_run_record, read_run_records, register_run
+from sheeprl_tpu_torch.obs.span import TimerError, span
+from sheeprl_tpu_torch.obs.telemetry import (
+    RunTelemetry,
+    configure_telemetry,
+    get_telemetry,
+    shutdown_telemetry,
+    telemetry_advance,
+    telemetry_ckpt_commit,
+    telemetry_ckpt_skipped,
+    telemetry_crash_checkpoint,
+    telemetry_dump_flight_record,
+    telemetry_mark_warm,
+    telemetry_nan_rollback,
+    telemetry_preemption,
+    telemetry_register_flops,
+    telemetry_resume_fallback,
+    telemetry_run_metrics,
+    telemetry_train_window,
+)
+
+__all__ = [
+    "RunTelemetry",
+    "TimerError",
+    "append_run_record",
+    "build_run_record",
+    "configure_telemetry",
+    "get_telemetry",
+    "log_sps_and_heartbeat",
+    "read_run_records",
+    "register_run",
+    "shutdown_telemetry",
+    "span",
+    "telemetry_advance",
+    "telemetry_ckpt_commit",
+    "telemetry_ckpt_skipped",
+    "telemetry_crash_checkpoint",
+    "telemetry_dump_flight_record",
+    "telemetry_mark_warm",
+    "telemetry_nan_rollback",
+    "telemetry_preemption",
+    "telemetry_register_flops",
+    "telemetry_resume_fallback",
+    "telemetry_run_metrics",
+    "telemetry_train_window",
+]

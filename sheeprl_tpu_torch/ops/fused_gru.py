@@ -29,7 +29,7 @@ products of the JAX custom VJP (``pallas_gru.py:328-339``).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +48,16 @@ launch_count = 0
 bf16_x_launch_count = 0
 proj_launch_count = 0
 proj_tc_launch_count = 0
+# set by ``obs/flops.py::count_flops`` while it counts a step: the kernel's
+# products are invisible to ``FlopCounterMode`` (a ctypes launch), so each
+# launch reports its own count here
+flop_hook: Optional[Callable[[float], None]] = None
+
+
+def step_flops(batch: int, in_dim: int, dense: int, hidden: int) -> int:
+    """The products of one step: ``x @ W1`` and ``[h, feat] @ W2``,
+    ``2 B (X D + (H + D) 3H)``."""
+    return 2 * batch * (in_dim * dense + (hidden + dense) * 3 * hidden)
 
 
 def reset_launch_count() -> None:
@@ -252,6 +262,8 @@ def launch(
     )
     launch_count += 1
     bf16_x_launch_count += x_bf16
+    if flop_hook is not None:
+        flop_hook(step_flops(batch, in_dim, dense, hidden))
     return out
 
 

@@ -38,6 +38,9 @@ from sheeprl_tpu_torch.ops import fused_gru
 # warm-up steps before capture: lazy initialisation (cuBLAS and cuDNN
 # handles, the kernel library, autograd's streams) must not happen inside it
 WARMUP_STEPS = 2
+# graphs captured in this process: capture is the port's compile step, and
+# run telemetry counts it (``obs/telemetry.py::CaptureWatchdog``)
+capture_count = 0
 
 
 Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -74,6 +77,18 @@ class CapturedStep:
         # fused_gru kernel calls recorded into the graph: each replay
         # launches them again without calling the wrapper
         self.captured_launches = 0
+        # with ``count_flops`` set before the first call, that call's first
+        # eager run (a warm-up on the card) is counted into ``flops``
+        self.count_flops = False
+        self.flops: Optional[float] = None
+
+    def _eager(self) -> Outputs:
+        if self.count_flops and self.flops is None:
+            from sheeprl_tpu_torch.obs.flops import count_flops
+
+            out, self.flops = count_flops(self.step, self.inputs)
+            return out
+        return self.step(self.inputs)
 
     @torch.no_grad()
     def _restore(self, saved: Sequence[torch.Tensor]) -> None:
@@ -89,7 +104,7 @@ class CapturedStep:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(self.warmup):
-                self.step(self.inputs)
+                self._eager()
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(saved)
         for g, state in zip(self.generators, gen_states):
@@ -103,12 +118,14 @@ class CapturedStep:
             self._out = self.step(self.inputs)
         self.captured_launches = fused_gru.launch_count - before
         self.graph = graph
+        global capture_count
+        capture_count += 1
 
     def __call__(self) -> Outputs:
         """One call of the step on ``inputs``; returns its outputs (tensors
         of their own: the graph's outputs are copied out)."""
         if self.device.type != "cuda":
-            return self.step(self.inputs)
+            return self._eager()
         if self.graph is None:
             self.capture()
         self.graph.replay()

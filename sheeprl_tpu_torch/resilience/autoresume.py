@@ -1,6 +1,6 @@
 """``checkpoint.resume_from=auto`` (port of
 ``sheeprl_tpu/resilience/autoresume.py`` with ``discovery.newest_valid``,
-without telemetry events).
+with its ``resume_fallback`` telemetry events).
 
 ``auto`` scans the run's base directory (``<log_base_dir>/<root_dir>/
 <run_name>``, every ``version_N`` under it), deletes torn writes, and walks
@@ -19,9 +19,10 @@ import os
 import warnings
 from typing import Any, List, Mapping, Optional
 
+from sheeprl_tpu_torch.obs.telemetry import telemetry_resume_fallback
 from sheeprl_tpu_torch.resilience.manifest import CommittedCheckpoint, committed_checkpoints, gc_torn
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
-from sheeprl_tpu_torch.utils.utils import run_base_dir
+from sheeprl_tpu_torch.utils.logger import run_base_dir
 
 
 def scan_run_checkpoints(run_root: str) -> List[CommittedCheckpoint]:
@@ -65,6 +66,7 @@ def resolve_auto_resume(cfg: Mapping[str, Any]) -> Optional[str]:
         reason = _config_gate(cand) or _load_gate(cand)
         if reason is None:
             return cand.path
+        telemetry_resume_fallback(cand.path, reason, step=cand.step)
         warnings.warn(
             f"auto-resume: skipping checkpoint {cand.path!r} (step {cand.step}): {reason} — "
             "falling back to the next-newest"

@@ -1,8 +1,7 @@
 """The run's resilience facade (port of
-``sheeprl_tpu/resilience/manager.py::RunResilience`` on one process).
-
-Telemetry calls (preemption, crash-checkpoint and rollback events) are left
-out: telemetry is a later slice of the port. What the train loop calls:
+``sheeprl_tpu/resilience/manager.py::RunResilience`` on one process), with
+its telemetry events (``preempt``, ``crash_checkpoint``, ``nan_rollback``).
+What the train loop calls:
 
 - ``preempt_requested()`` at the top of each update; on ``True`` the loop
   saves through ``emergency_checkpoint`` and leaves, and the run ends with
@@ -33,6 +32,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
+from sheeprl_tpu_torch.obs.telemetry import telemetry_crash_checkpoint, telemetry_nan_rollback, telemetry_preemption
 from sheeprl_tpu_torch.resilience.async_writer import drain_async_checkpoints
 from sheeprl_tpu_torch.resilience.manifest import committed_checkpoints
 from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE, PreemptionWatcher
@@ -68,6 +68,7 @@ class RunResilience:
         hit = self.watcher is not None and self.watcher.requested
         if hit and not self._preempt_reported:
             self._preempt_reported = True
+            telemetry_preemption(self.watcher.signum)
             warnings.warn("preemption signal received — draining in-flight saves and writing an emergency checkpoint")
         return hit
 
@@ -113,6 +114,7 @@ class RunResilience:
         except Exception as save_err:  # never mask the crash
             warnings.warn(f"crash guard: emergency checkpoint failed ({save_err!r})")
             return None
+        telemetry_crash_checkpoint(path, repr(err))
         warnings.warn(
             f"unhandled {type(err).__name__} in the train loop — wrote emergency checkpoint {path!r}; "
             "rerun with checkpoint.resume_from=auto to continue from this boundary"
@@ -137,7 +139,7 @@ class RunResilience:
             return False
         return bool(finite)
 
-    def rollback(self, *, update: int) -> Dict[str, Any]:
+    def rollback(self, *, update: int, reason: str = "non_finite_metrics") -> Dict[str, Any]:
         """The newest committed checkpoint's state; raises when the budget
         is spent or there is nothing to roll back to."""
         if self.rollbacks >= self.max_rollbacks:
@@ -161,9 +163,11 @@ class RunResilience:
             )
         state = load_checkpoint(path)
         self.rollbacks += 1
+        remaining = self.max_rollbacks - self.rollbacks
+        telemetry_nan_rollback(path, reason, remaining, update=update)
         warnings.warn(
             f"non-finite training metrics at update {update}: rolled back to {path!r} "
-            f"({self.max_rollbacks - self.rollbacks} rollback(s) left)"
+            f"({remaining} rollback(s) left)"
         )
         return state
 

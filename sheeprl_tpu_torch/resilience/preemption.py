@@ -22,6 +22,7 @@ _SIGNALS = (signal.SIGTERM, signal.SIGINT)
 class PreemptionWatcher:
     def __init__(self) -> None:
         self._requested = False
+        self.signum = 0
         self._old_handlers: dict = {}
         self.installed = False
 
@@ -51,6 +52,7 @@ class PreemptionWatcher:
             self.uninstall()
             raise KeyboardInterrupt
         self._requested = True
+        self.signum = int(signum)
 
     @property
     def requested(self) -> bool:

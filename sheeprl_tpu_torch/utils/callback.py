@@ -1,6 +1,7 @@
 """The checkpoint callback (port of ``sheeprl_tpu/utils/callback.py``: the
 pickle path of ``CheckpointCallback.on_checkpoint_coupled`` on one process,
-without telemetry spans).
+with its ``ckpt/snapshot`` span and ``ckpt_committed``/``ckpt_skipped``
+telemetry events).
 
 Every save commits a manifest as its last write and then prunes to the
 ``keep_last`` newest committed checkpoints. With ``async_save`` the loop
@@ -27,6 +28,8 @@ import numpy as np
 
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
+from sheeprl_tpu_torch.obs.span import span
+from sheeprl_tpu_torch.obs.telemetry import telemetry_ckpt_commit, telemetry_ckpt_skipped
 from sheeprl_tpu_torch.resilience.async_writer import get_async_writer
 from sheeprl_tpu_torch.resilience.manifest import (
     build_manifest,
@@ -70,16 +73,19 @@ class CheckpointCallback:
             writer = get_async_writer()
             if writer.busy:
                 writer.record_skip()
+                telemetry_ckpt_skipped(ckpt_path, step)
                 return
-            flags = self._ckpt_rb(replay_buffer)
-            host_state = _snapshot_tree(state)
-            if replay_buffer is not None:
-                host_state["rb"] = copy.deepcopy(replay_buffer)
-                self._experiment_consistent_rb(replay_buffer, flags)
+            with span("ckpt/snapshot"):
+                flags = self._ckpt_rb(replay_buffer)
+                host_state = _snapshot_tree(state)
+                if replay_buffer is not None:
+                    host_state["rb"] = copy.deepcopy(replay_buffer)
+                    self._experiment_consistent_rb(replay_buffer, flags)
             manifest = build_manifest(step=step, backend=self.backend, world_size=1, state=host_state, extra=extra)
 
             def write() -> None:
                 save_checkpoint(ckpt_path, host_state, backend=self.backend, manifest=manifest)
+                telemetry_ckpt_commit(ckpt_path, step, self.backend, emergency)
                 self._prune(os.path.dirname(ckpt_path))
 
             writer.submit(write, path=ckpt_path)
@@ -92,6 +98,7 @@ class CheckpointCallback:
             save_checkpoint(ckpt_path, state, backend=self.backend, manifest=manifest)
         finally:
             self._experiment_consistent_rb(replay_buffer, flags)
+        telemetry_ckpt_commit(ckpt_path, step, self.backend, emergency)
         self._prune(os.path.dirname(ckpt_path))
 
     @staticmethod

@@ -1,0 +1,190 @@
+"""The port's entry points: the registry's contract and errors against the
+JAX registry's, ``python -m sheeprl_tpu_torch`` and ``cli_eval`` end to end on
+the CPU (``fabric=cpu``) in a child process with JAX, PyYAML, gymnasium and
+tensorboard blocked, the refusals (no CPU fallback, devices, serve), and
+``resume_from_checkpoint`` on a JAX run's ``yaml.safe_dump`` config."""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import yaml
+
+from sheeprl_tpu.config import compose as jax_compose
+from sheeprl_tpu.utils import registry as jax_registry
+from sheeprl_tpu_torch import cli
+from sheeprl_tpu_torch.config import compose
+from sheeprl_tpu_torch.parallel.fabric import Fabric, fabric_from_config
+from sheeprl_tpu_torch.utils import registry
+from sheeprl_tpu_torch.utils.callback import CheckpointCallback
+from sheeprl_tpu_torch.utils.logger import read_scalars
+from sheeprl_tpu_torch.utils.utils import dotdict
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ["jax", "jaxlib", "flax", "optax", "gymnasium", "yaml", "tensorboard", "sheeprl_tpu"]
+# __graft_entry__.py::_tiny_dv3_cfg with the sequence length 1 a dry run samples
+TINY = [
+    "exp=dreamer_v3",
+    "env=dummy",
+    "env.id=dummy_discrete",
+    "fabric=cpu",
+    "dry_run=True",
+    "env.capture_video=False",
+    "buffer.memmap=False",
+    "algo.per_rank_batch_size=1",
+    "algo.per_rank_sequence_length=1",
+    "buffer.size=8",
+    "algo.learning_starts=0",
+    "algo.horizon=4",
+    "algo.dense_units=8",
+    "algo.mlp_layers=1",
+    "algo.world_model.encoder.cnn_channels_multiplier=2",
+    "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.transition_model.hidden_size=8",
+    "algo.world_model.discrete_size=4",
+    "algo.world_model.stochastic_size=4",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[state]",
+    "env.num_envs=2",
+    "env.screen_size=16",
+]
+
+
+def _run_blocked(module, argv, cwd, runs):
+    code = (
+        "import runpy, sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = [{module!r}] + {list(argv)!r}\n"
+        f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), SHEEPRL_TPU_RUNS_JSONL=str(runs))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return proc.stdout
+
+
+def test_cli_trains_and_evaluates_on_the_cpu_with_jax_and_friends_blocked(tmp_path):
+    runs = tmp_path / "RUNS.jsonl"
+    _run_blocked("sheeprl_tpu_torch", TINY + ["metric.telemetry.enabled=True", "run_name=tiny"], tmp_path, runs)
+    base = tmp_path / "logs" / "runs" / "dreamer_v3" / "dummy_discrete" / "tiny"
+    version = base / "version_0"
+    stored = json.loads((version / "config.yaml").read_text())
+    assert stored["fabric"]["accelerator"] == "cpu" and stored["algo"]["dense_units"] == 8
+    (ckpt,) = glob.glob(str(version / "checkpoint" / "*.ckpt"))
+    (events,) = glob.glob(str(version / "events.out.tfevents.*"))
+    tags = {tag for _, tag, _ in read_scalars(events)}
+    assert {"Loss/world_model_loss", "Time/sps_train", "Time/sps_env_interaction"} <= tags
+    stream = [json.loads(line) for line in (base / "telemetry.jsonl").read_text().splitlines()]
+    beats = [e for e in stream if e["event"] == "heartbeat"]
+    assert len(beats) == 1 and beats[0]["device_kind"] == "cpu" and beats[0]["flops_per_train_step"] > 0
+    assert stream[-1]["event"] == "run_end" and stream[-1]["ckpt_commits"] == 1
+    (record,) = [json.loads(line) for line in runs.read_text().splitlines()]
+    assert (record["kind"], record["outcome"], record["algo"]) == ("train", "completed", "dreamer_v3")
+    assert record["train_gradient_steps"] == 1 and record["telemetry_jsonl"].endswith("telemetry.jsonl")
+    # cli_eval on that checkpoint: one episode, an eval record
+    out = _run_blocked("sheeprl_tpu_torch.cli_eval", [f"checkpoint_path={ckpt}"], tmp_path, runs)
+    assert "Test - Reward:" in out
+    records = [json.loads(line) for line in runs.read_text().splitlines()]
+    assert [(r["kind"], r["outcome"]) for r in records] == [("train", "completed"), ("eval", "completed")]
+    assert records[-1]["checkpoint"] == ckpt
+
+
+def test_without_a_card_the_default_accelerator_raises(tmp_path):
+    """``fabric.accelerator=auto`` (the default) means the CUDA card: no
+    CPU fallback."""
+    argv = [a for a in TINY if a != "fabric=cpu"] + [f"log_base_dir={tmp_path}"]
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        cli.run(argv)
+    for accelerator in ("auto", "gpu", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            Fabric(accelerator=accelerator)
+    with pytest.raises(ValueError, match="accelerator"):
+        Fabric(accelerator="tpu")
+
+
+@pytest.mark.parametrize(
+    "kwargs", [{"devices": 2}, {"num_nodes": 2}, {"mesh_axes": ["data", "model"]}, {"aot_cache_dir": "x"}]
+)
+def test_fabric_refuses_what_one_device_cannot_do(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Fabric(accelerator="cpu", **kwargs)
+
+
+def test_the_fabric_node_builds_the_ports_fabric():
+    cfg = compose("config", ["exp=dreamer_v3", "env=pixel_catcher", "fabric=cpu", "run_name=x"])
+    fabric = fabric_from_config(cfg.fabric)
+    assert fabric.device.type == "cpu" and fabric.precision.name == "fp32"
+    (callback,) = fabric.callbacks
+    assert isinstance(callback, CheckpointCallback) and callback.keep_last == 5 and callback.async_save
+
+
+def test_serve_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.run(["serve", "checkpoint_path=x"])
+
+
+def test_profiler_is_refused(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.run(TINY + ["metric.profiler.enabled=True", f"log_base_dir={tmp_path}"])
+
+
+def test_an_unregistered_algorithm_is_refused_with_the_registrys_error():
+    cfg = dotdict(compose("config", TINY + ["algo.name=nope"]))
+    with pytest.raises(ValueError, match="unknown algorithm 'nope'; registered algorithms: .*dreamer_v3"):
+        cli.check_configs(cfg)
+    with pytest.raises(ValueError, match="no registered evaluation for 'nope'"):
+        cli.eval_algorithm(cfg)
+
+
+@pytest.mark.parametrize("jax_run", [True, False])
+def test_resume_takes_the_stored_config_and_the_fabric_overrides(tmp_path, jax_run):
+    stored = jax_compose("config", ["exp=dreamer_v3", "env=pixel_catcher", "run_name=old", "seed=9"]).to_dict()
+    ckpt_dir = tmp_path / "version_0" / "checkpoint"
+    ckpt_dir.mkdir(parents=True)
+    text = yaml.safe_dump(stored) if jax_run else json.dumps(stored)
+    (tmp_path / "version_0" / "config.yaml").write_text(text)
+    overrides = ["exp=dreamer_v3", "env=pixel_catcher", "fabric.precision=32-true", "run_name=new"]
+    overrides.append(f"checkpoint.resume_from={ckpt_dir / 'ckpt_8_0.ckpt'}")
+    cfg = dotdict(compose("config", overrides))
+    merged = cli.resume_from_checkpoint(cfg, cli_overrides=overrides)
+    assert merged.seed == 9 and merged.run_name == "new"
+    assert merged.fabric.precision == "32-true" and merged.fabric.accelerator == stored["fabric"]["accelerator"]
+    assert merged.checkpoint.resume_from == str(ckpt_dir / "ckpt_8_0.ckpt")
+    other = dotdict(compose("config", ["exp=dreamer_v3", "env=dummy", "run_name=new", f"checkpoint.resume_from={ckpt_dir / 'c'}"]))
+    with pytest.raises(ValueError, match="different environment"):
+        cli.resume_from_checkpoint(other)
+
+
+def test_registry_contract_matches_the_jax_registry(monkeypatch):
+    cli._register_algorithms()
+    assert registry.find_algorithm("dreamer_v3") == {
+        "module": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+        "name": "dreamer_v3",
+        "entrypoint": "main",
+        "decoupled": False,
+    }
+    assert registry.find_evaluation("dreamer_v3")["entrypoint"] == "evaluate"
+    for reg in (registry, jax_registry):
+        monkeypatch.setattr(reg, "algorithm_registry", {})
+        monkeypatch.setattr(reg, "evaluation_registry", {})
+
+        def main(fabric, cfg):
+            pass
+
+        main.__module__ = "pkg.algos.toy.toy"
+        reg.register_algorithm()(main)
+        assert reg.find_algorithm("toy")["entrypoint"] == "main"
+        with pytest.raises(ValueError, match="already registered"):
+            reg.register_algorithm()(main)
+        with pytest.raises(ValueError, match="unknown algorithm"):
+            reg.register_evaluation(algorithms="nope")(main)
+        with pytest.raises(ValueError, match="unknown algorithm 'nope'"):
+            reg.find_algorithm("nope")
+        with pytest.raises(ValueError, match="no registered evaluation"):
+            reg.find_evaluation("toy")
