@@ -133,6 +133,27 @@ which exits non-zero:
    import fused_gru as fg; fg.load_library(); n, r = c.phase_train_loop(torch,
    np, fg, tempfile.mkdtemp(), c.BF16, "bf16_train_loop");
    c.phase_cli(torch, np, fg, tempfile.mkdtemp(), r)'``.
+11. The env pipeline (``envs/``), in this process: (a) ``find_spec`` of
+   gymnasium and cv2 printed; the PixelPendulum and PixelPointmass specs
+   over 256 envs on the card against the same specs on the CPU,
+   teacher-forced from the CPU states for 50 steps (states, rewards and
+   flags within 1e-6, frames equal but for mask-edge pixels, counted), and
+   ``ImageTransform`` 128 -> 64 with grayscale against plain numpy, bit for
+   bit; host ms per vector-env step, ``sync`` and ``async`` at 4 envs; (b)
+   ``exp=dreamer_v3 env=pixel_pendulum env.action_repeat=2
+   env.backend=async`` at 8(e)'s cuts through ``cli.run``, then the same on
+   ``sync``: env-steps/s (the heartbeat's env steps 2 x policy steps), the
+   spans' seconds, gradient steps/s, B1
+   launches all with a bf16 x, the test episode's reward (100 steps), and
+   ``config.yaml`` holding no float without a ``.``; (c) ``env=pixel_pointmass
+   env.wrapper.size=128 env.grayscale=True env.backend=sync`` with an env
+   that raises once (``FlakyPixelEnv``) on the ring: the encoder reads
+   [1, 64, 64], one restart, ``amend_last`` rewrites that env's last step
+   to truncated 1, terminated 0, is_first 0 and the next step reads
+   is_first 1. Alone on the card: ``python -c 'import chip_smoke as c,
+   numpy as np, torch, tempfile; from sheeprl_tpu_torch.ops import fused_gru
+   as fg; fg.load_library(); c.phase_env_pipeline(torch, np, fg,
+   tempfile.mkdtemp())'``.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -1174,7 +1195,8 @@ def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
 def phase_train_loop(torch, np, fg, tmp, precision=FP32, label="train_loop"):
     """(d) main(): a few hundred env steps of the S loop on 4 PixelCatcher
     envs at ``precision``, each gradient step one replay of the captured
-    step. Its calls of the kernel's wrapper: one a player step, 80 for each
+    step, then the test episode (``algo.run_test``). Its calls of the
+    kernel's wrapper: one a player step (the test episode's too), 80 for each
     of the warm-up steps and 80 recorded into the graph; its launches on the
     card: those calls but the recorded ones, plus 80 a replay; at bf16-mixed
     every call reads a bf16 x. Returns (launches, report)."""
@@ -1192,13 +1214,15 @@ def phase_train_loop(torch, np, fg, tmp, precision=FP32, label="train_loop"):
     per_step = SCAN_CALLS + IMAGINE_CALLS
     num_envs = cfg["env"]["num_envs"]
     updates = cfg["algo"]["total_steps"] // num_envs
-    acting = updates - cfg["algo"]["learning_starts"] // num_envs
+    # the player's steps after learning starts, and the test episode's
+    acting = updates - cfg["algo"]["learning_starts"] // num_envs + out["test_steps"]
     captured = out["captured_launches_per_step"]
     launches = calls - captured + captured * out["replays"]
     if (
         captured != per_step
         or out["replays"] != out["gradient_steps"]
         or out["gradient_steps"] == 0
+        or out["test_steps"] == 0
         or calls != acting + (WARMUP_STEPS + 1) * per_step
         or bf16_calls != (calls if precision == BF16 else 0)
     ):
@@ -1222,6 +1246,8 @@ def phase_train_loop(torch, np, fg, tmp, precision=FP32, label="train_loop"):
         "fused_gru_captured_per_step": captured,
         "replays": out["replays"],
         "fused_gru_launches": launches,
+        "test_steps": out["test_steps"],
+        "test_cumulative_reward": out["test_cumulative_reward"],
         "last_metrics": out["metrics"],
     }
     print(f"{label} " + json.dumps(report), flush=True)
@@ -2147,13 +2173,14 @@ def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
 def phase_ring_loops(torch, np, fg, tmp):
     """(d) main() at phase 8(e)'s cuts with buffer.size 100000: the host
     buffer (memmapped) per step, the ring per step, the ring in supersteps
-    of K = 4, each twice in turns. Returns ({way: the kernel's launches in
-    its two runs, each counted from 0 just before it}, report)."""
+    of K = 4, each once (twice in turns until phase 11 needed the time).
+    Returns ({way: the kernel's launches in its run, counted from 0 just
+    before it}, report)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main as train_main
 
     launches, report = {}, {"cuts": RING_LOOP_CUTS, **{name: [] for name in RING_LOOPS}}
     want_buffer = {"host_k0": "memmap", "ring_k0": "device", "ring_k4": "device"}
-    for turn, name in enumerate(list(RING_LOOPS) + list(RING_LOOPS)[::-1]):
+    for turn, name in enumerate(RING_LOOPS):
         extra = RING_LOOPS[name]
         cfg = train_cfg("pixel_catcher", precision=BF16, **RING_LOOP_CUTS, **extra, log_base_dir=tmp, run_name=f"{name}_{turn}")
         # ---- the main path: counts at 0 just before, read just after ----
@@ -2378,6 +2405,10 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
     by_step = {}
     for step, tag, value in read_scalars(events[0]):
         by_step.setdefault(step, {})[tag] = value
+    # the test episode after training logs its reward alone at step 0
+    test_tags = by_step.pop(0, {})
+    if set(test_tags) != {"Test/cumulative_reward"} or not np.isfinite(test_tags["Test/cumulative_reward"]):
+        raise AssertionError(f"cli (a): the test episode's reward at step 0: {test_tags}")
     learning_starts = CLI_CUTS["algo.learning_starts"]
     train_windows = [s for s in sorted(by_step) if s >= learning_starts]
     want = set(METRIC_ORDER) | {"Time/sps_train", "Time/sps_env_interaction"}
@@ -2413,13 +2444,14 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
             "heartbeats": len(beats), "mfu": mfus, "flops_per_train_step": beats[-1].get("flops_per_train_step"),
             "hbm_peak_bytes": beats[-1]["hbm_peak_bytes"], "device_kind": kind, "record": records[0]["outcome"],
             "checkpoints": ckpts, "last_metrics": {k: by_step[max(by_step)][k] for k in METRIC_ORDER},
+            "test_cumulative_reward": test_tags["Test/cumulative_reward"],
         }),
         flush=True,
     )
     # the same argv in this process: the kernel's launches on the main path
     out, calls, on_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_b"))
     per_step = SCAN_CALLS + IMAGINE_CALLS
-    acting = (CLI_CUTS["algo.total_steps"] - learning_starts) // 4
+    acting = (CLI_CUTS["algo.total_steps"] - learning_starts) // 4 + out["test_steps"]
     captured = out["captured_launches_per_step"]
     launches = calls - captured + captured * out["replays"]
     if captured != per_step or out["replays"] != out["gradient_steps"] or calls != acting + (WARMUP_STEPS + 1) * per_step:
@@ -2490,6 +2522,354 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
     print(f"phase 10 on {card}: cli " + json.dumps(report), flush=True)
     print(f"phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
     return launches, report
+
+
+# phase 11: the env pipeline on the card. (a) the pixel specs on the card
+# against the same specs on the CPU, teacher-forced (both step the CPU
+# state) for SPEC_STEPS steps over SPEC_ENVS envs: states within SPEC_TOL
+# (absolute, and relative above 1), rewards and flags alike, frames equal
+# but for pixels within EDGE_TOL of a mask edge (CUDA contracts the float32
+# sums to FMAs, the CPU does not), at most EDGE_SHARE of them; then
+# ImageTransform at 128 -> 64 with grayscale against a plain numpy
+# reference, bit for bit. (b) Dreamer-V3 S on PixelPendulum through the
+# CLI, action repeat 2 on the async backend, at 8(e)'s cuts. (c)
+# PixelPointmass rendered at 128, resized to 64 and grayed, an env that
+# raises once (RestartOnException, its pause patched to 0), on the ring
+SPEC_ENVS = 256
+SPEC_STEPS = 50
+SPEC_TOL = 1e-6
+EDGE_TOL = 1e-5
+EDGE_SHARE = 1e-3
+PENDULUM_ARGS = {"env.action_repeat": 2, "env.backend": "async", **LOOP_CUTS}
+# learning starts once each env holds a 64-step sequence: 256 over 4 envs
+RESTART_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096, "buffer.device": True}
+RESTART_AT_STEP = 20
+VECTOR_STEPS = 200
+BACKEND_ORDER = ("async", "sync")
+
+
+class FlakyPixelEnv:
+    """A PixelPointmass env of the port whose ``RESTART_AT_STEP``-th step
+    raises, once per process (the env ``_target_`` of phase 11(c))."""
+
+    crashes = 0
+
+    def __new__(cls, **kwargs):
+        from sheeprl_tpu_torch.envs.jittable_pixels import JittablePixelEnv
+
+        class Flaky(JittablePixelEnv):
+            steps = 0
+
+            def step(self, action):
+                self.steps += 1
+                if self.steps == RESTART_AT_STEP and FlakyPixelEnv.crashes == 0:
+                    FlakyPixelEnv.crashes += 1
+                    raise RuntimeError("injected env crash")
+                return super().step(action)
+
+        return Flaky(**kwargs)
+
+
+def edge_gap(np, env_id: str, y, size: int):
+    """float64 ``|d^2 - r^2|`` of every pixel to its nearest mask edge in the
+    frame of state ``y`` (the masks of ``envs/jittable_pixels.py``)."""
+    px = (np.arange(size) + 0.5) / size
+    xx, yy = np.meshgrid(px, px, indexing="xy")
+    if env_id.startswith("PixelPointmass"):
+        gaps = [np.abs((xx - cx) ** 2 + (yy - cy) ** 2 - r**2) for cx, cy, r in ((0.5, 0.5, 4 / 64), (y[0], y[1], 5 / 64))]
+    else:
+        dx, dy = 0.35 * np.sin(float(y[0])), -0.35 * np.cos(float(y[0]))
+        tt = np.clip(((xx - 0.5) * dx + (yy - 0.5) * dy) / (dx * dx + dy * dy + 1e-12), 0, 1)
+        gaps = [
+            np.abs((xx - 0.5 - tt * dx) ** 2 + (yy - 0.5 - tt * dy) ** 2 - (1.6 / 64) ** 2),
+            np.abs((xx - 0.5) ** 2 + (yy - 0.5) ** 2 - (2.5 / 64) ** 2),
+        ]
+    return np.min(gaps, axis=0)
+
+
+def phase_env_specs(torch, np):
+    """(a) No gymnasium, no cv2; the pixel specs on the card against the CPU;
+    ImageTransform against numpy. Returns the report."""
+    import importlib.util
+
+    from sheeprl_tpu_torch.envs.jittable_pixels import _compiled
+    from sheeprl_tpu_torch.envs.wrappers import ImageTransform
+
+    found = {name: importlib.util.find_spec(name) is not None for name in ("gymnasium", "cv2")}
+    print("phase 11 (a) find_spec " + json.dumps(found), flush=True)
+    report = {"find_spec": found, "specs": {}}
+    rng = np.random.default_rng(SEED)
+    for env_id in ("PixelPendulum-v0", "PixelPointmass-v0"):
+        spec = _compiled(env_id, 64)
+        state = spec.init(torch.Generator().manual_seed(SEED), SPEC_ENVS)
+        worst, differing, t0 = 0.0, 0, time.perf_counter()
+        for _ in range(SPEC_STEPS):
+            action = torch.from_numpy(rng.uniform(-1.5, 1.5, (SPEC_ENVS, spec.action_dim)).astype(np.float32))
+            cuda_state, cuda_out = spec.step({k: v.cuda() for k, v in state.items()}, action.cuda())
+            next_state, out = spec.step(state, action)
+            got, want = cuda_state["y"].cpu(), next_state["y"]
+            err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+            worst = max(worst, err)
+            if (
+                err > SPEC_TOL
+                or not torch.equal(cuda_state["t"].cpu(), next_state["t"])
+                or not torch.allclose(cuda_out.reward.cpu(), out.reward, atol=SPEC_TOL, rtol=SPEC_TOL)
+                or not torch.equal(cuda_out.terminated.cpu(), out.terminated)
+                or not torch.equal(cuda_out.truncated.cpu(), out.truncated)
+            ):
+                raise AssertionError(f"{env_id}: the card's step differs from the CPU's (state error {err})")
+            diff = (cuda_out.obs.cpu() != out.obs).any(-1).numpy()
+            ys = next_state["y"].numpy()
+            for b in np.nonzero(diff.any(axis=(1, 2)))[0]:
+                if not np.all(edge_gap(np, env_id, ys[b], 64)[diff[b]] <= EDGE_TOL):
+                    raise AssertionError(f"{env_id}: frame {b} differs off a mask edge")
+            differing += int(diff.sum())
+            state = next_state
+        share = differing / (SPEC_STEPS * SPEC_ENVS * 64 * 64)
+        if share > EDGE_SHARE:
+            raise AssertionError(f"{env_id}: {differing} pixels differ ({share:.2e} of them)")
+        report["specs"][env_id] = {
+            "envs": SPEC_ENVS, "steps": SPEC_STEPS, "max_state_err": worst, "differing_pixels": differing,
+            "differing_share": share, "seconds": time.perf_counter() - t0,
+        }
+    # ImageTransform 128 -> 64, grayscale: cv2's 2x2 mean (round half up) and
+    # its 15-bit RGB2GRAY, written out here in plain numpy
+    spec = _compiled("PixelPendulum-v0", 128)
+    frames = spec.observation(spec.init(torch.Generator().manual_seed(SEED), 64)).numpy()
+    frames = (frames.astype(np.int64) + rng.integers(0, 40, frames.shape)).clip(0, 255).astype(np.uint8)
+    transform = ImageTransform.__new__(ImageTransform)
+    transform._screen_size, transform._grayscale = 64, True
+    got = np.stack([transform._transform(f) for f in frames])
+    mean = (frames.reshape(64, 64, 2, 64, 2, 3).astype(np.int64).sum(axis=(2, 4)) + 2) >> 2
+    want = ((mean[..., 0] * 9798 + mean[..., 1] * 19235 + mean[..., 2] * 3735 + (1 << 14)) >> 15).astype(np.uint8)[..., None]
+    if got.shape != (64, 64, 64, 1) or not np.array_equal(got, want):
+        raise AssertionError(f"ImageTransform 128 -> 64 gray: shape {got.shape}, {int((got != want).sum())} values differ")
+    report["image_transform"] = {"frames": 64, "from": 128, "to": 64, "grayscale": True, "bit_equal": True}
+    print("phase 11 (a) specs " + json.dumps(report), flush=True)
+    return report
+
+
+def vector_ms(np, cfg, backend: str) -> float:
+    """Host ms per ``step`` of ``cfg``'s vector env on ``backend`` (4 envs,
+    random actions, after a warm-up)."""
+    from sheeprl_tpu_torch.envs.factory import build_vector_env
+
+    cfg["env"]["backend"] = backend
+    envs = build_vector_env(cfg, 0, None, restart_on_exception=True)
+    try:
+        space = envs.single_action_space
+        rng = np.random.default_rng(SEED)
+        shape = (envs.num_envs, *space.shape)
+        draw = (lambda: rng.integers(0, space.n, envs.num_envs)) if not space.shape else (lambda: rng.uniform(-1, 1, shape).astype(np.float32))
+        envs.reset(seed=SEED)
+        for _ in range(20):
+            envs.step(draw())
+        actions = [draw() for _ in range(VECTOR_STEPS)]
+        t0 = time.perf_counter()
+        for a in actions:
+            envs.step(a)
+        return 1e3 * (time.perf_counter() - t0) / VECTOR_STEPS
+    finally:
+        envs.close()
+
+
+def cli_run_capturing(torch, fg, argv: list, patches=()) -> tuple:
+    """``cli.run(argv)`` in this process with ``patches`` (``(target, name,
+    value)``) applied, its printing kept apart; returns (main's report,
+    heartbeat windows, the replay buffer, the world model, wrapper calls,
+    bf16-x calls)."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.obs.span import span
+
+    out, beats, buffers, models = {}, [], [], []
+    real_main, real_beat, real_make, real_build = dv3.main, dv3.log_sps_and_heartbeat, dv3.make_sequential_replay, dv3.build_agent
+
+    def keep(fabric, cfg):
+        out.update(real_main(fabric, cfg))
+
+    def beat(logger, **kw):
+        # the window's span seconds, read before the heartbeat resets them
+        window = {} if span.disabled else {k: v for k, v in span.compute().items() if v == v}
+        beats.append({**kw, "timer_window": window})
+        real_beat(logger, **kw)
+
+    def make(*a, **kw):
+        buffers.append(real_make(*a, **kw))
+        return buffers[-1]
+
+    def build(*a, **kw):
+        models.append(real_build(*a, **kw))
+        return models[-1]
+
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        for target, name, value in (
+            (dv3, "main", keep), (dv3, "log_sps_and_heartbeat", beat), (dv3, "make_sequential_replay", make),
+            (dv3, "build_agent", build), *patches,
+        ):
+            stack.enter_context(mock.patch.object(target, name, value))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        # ---- the main path: counts at 0 just before, read just after ----
+        fg.reset_launch_count()
+        cli.run(argv)
+        torch.cuda.synchronize()
+        calls, bf16_calls = fg.launch_count, fg.bf16_x_launch_count
+        # ------------------------------------------------------------------
+    return out, beats, buffers[0], models[0][0], calls, bf16_calls
+
+
+def main_path_launches(out: dict, calls: int) -> int:
+    """B1 launches of a main() run: the wrapper's calls outside capture plus
+    the captured calls times their replays."""
+    captured = sum(g["captured_launches"] for g in out["graphs"])
+    return calls - captured + sum(g["captured_launches"] * g["replays"] for g in out["graphs"])
+
+
+def phase_env_pipeline(torch, np, fg, tmp: str):
+    """(a) the specs and ImageTransform; (b) Dreamer-V3 S on PixelPendulum
+    through the CLI with action repeat 2 on the async backend; (c) the
+    grayscale/resize path and the restart drill on the ring; host ms per
+    vector-env step, sync and async. Returns ({path: B1 launches}, report)."""
+    import re
+
+    from sheeprl_tpu_torch.configs import compose
+    from sheeprl_tpu_torch.envs.wrappers import RestartOnException
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    import importlib
+
+    # the env target below is imported by name: this module as ``chip_smoke``
+    flaky = importlib.import_module("chip_smoke").FlakyPixelEnv
+    t11 = time.perf_counter()
+    report = {"card": card_line(), "specs": phase_env_specs(torch, np)}
+    # host ms per vector-env step at 4 envs, sync and async in turns
+    vector = {}
+    for env in ("pixel_pendulum", "pixel_catcher"):
+        for backend in ("sync", "async", "async", "sync"):
+            vector.setdefault(env, {}).setdefault(backend, []).append(vector_ms(np, compose("S", env=env, overrides={"seed": SEED}), backend))
+    report["host_ms_per_vector_step"] = vector
+    print("phase 11 vector_envs " + json.dumps(vector), flush=True)
+
+    # (b) PixelPendulum, action repeat 2, async, through the CLI; then the
+    # same on the sync backend, for the env's share of the loop
+    runs = {}
+    for backend in BACKEND_ORDER:
+        args = {"seed": SEED, **PENDULUM_ARGS, "env.backend": backend, "metric.log_every": 64, "log_base_dir": f"{tmp}/logs",
+                "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl", "run_name": f"pendulum_{backend}"}
+        argv = ["exp=dreamer_v3", "env=pixel_pendulum"] + [f"{k}={v}" for k, v in args.items()]
+        out, beats, _, _, calls, bf16_calls = cli_run_capturing(torch, fg, argv)
+        launches = main_path_launches(out, calls)
+        version = f"{tmp}/logs/dreamer_v3/PixelPendulum-v0/pendulum_{backend}/version_0"
+        text = open(f"{version}/config.yaml").read()
+        bare = re.findall(r"[:\[,]\s*(-?\d+[eE][-+]?\d+)", text)
+        tags = {tag for _, tag, _ in read_scalars(glob_one(f"{version}/events.out.tfevents.*"))}
+        beat_env_steps = sum(b["env_steps"] for b in beats)
+        policy_steps = out["env_steps"]
+        spans = {}
+        for b in beats:
+            for k, v in b["timer_window"].items():
+                spans[k] = spans.get(k, 0.0) + v
+        run = {
+            "argv": argv[1:],
+            "policy_steps": policy_steps,
+            "env_steps": beat_env_steps,
+            "seconds": out["seconds"],
+            "env_steps_per_s": beat_env_steps / out["seconds"],
+            "policy_steps_per_s": policy_steps / out["seconds"],
+            "gradient_steps": out["gradient_steps"],
+            "gradient_steps_per_s": out["gradient_steps"] / out["seconds"],
+            "span_seconds": spans,
+            "train_seconds_device": out["train_seconds"],
+            "fused_gru_wrapper_calls": calls,
+            "fused_gru_bf16_x_calls": bf16_calls,
+            "fused_gru_launches": launches,
+            "test_cumulative_reward": out["test_cumulative_reward"],
+            "test_steps": out["test_steps"],
+            "config_floats_without_a_dot": bare,
+            "config_floats": len(re.findall(r"-?\d+\.\d+[eE][-+]\d+", text)),
+        }
+        runs[backend] = run
+        print(f"phase 11 (b) pendulum {backend} " + json.dumps(run), flush=True)
+        if (
+            beat_env_steps != 2 * policy_steps
+            or policy_steps != LOOP_CUTS["algo.total_steps"]
+            or out["gradient_steps"] == 0
+            or bf16_calls != calls
+            or out["test_steps"] != 100
+            or not np.isfinite(out["test_cumulative_reward"])
+            or "Test/cumulative_reward" not in tags
+            or bare
+            or not all(np.isfinite(v) for v in out["metrics"].values())
+        ):
+            raise AssertionError(f"phase 11 (b) {backend}: {run}")
+    report["pendulum"] = runs["async"]
+    report["pendulum_sync"] = runs["sync"]
+    launches_b = runs["async"]["fused_gru_launches"] + runs["sync"]["fused_gru_launches"]
+
+    # (c) PixelPointmass at 128, resized to 64 and grayed, one env crash, the ring
+    flaky.crashes = 0
+    args = {"seed": SEED, **RESTART_CUTS, "env.wrapper.size": 128, "env.grayscale": True, "env.backend": "sync",
+            "env.wrapper._target_": "chip_smoke.FlakyPixelEnv", "log_base_dir": f"{tmp}/logs",
+            "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl", "run_name": "restart"}
+    argv = ["exp=dreamer_v3", "env=pixel_pointmass"] + [f"{k}={v}" for k, v in args.items()]
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
+
+    amends = []
+    real_amend = DeviceReplayBuffer.amend_last
+
+    def amend(self, env_idx, **flags):
+        amends.append((env_idx, int((self._pos[env_idx] - 1) % self._buffer_size), flags))
+        real_amend(self, env_idx, **flags)
+
+    patches = ((RestartOnException, "sleep", staticmethod(lambda seconds: None)), (DeviceReplayBuffer, "amend_last", amend))
+    out, _, rb, wm, calls, bf16_calls = cli_run_capturing(torch, fg, argv, patches)
+    launches_c = main_path_launches(out, calls)
+    conv = next(m for m in wm.modules() if isinstance(m, torch.nn.Conv2d))
+    encoder_input = [conv.in_channels, *rb._pixels["rgb"].shape[-3:-1]] if hasattr(rb, "_pixels") else None
+    restart = {
+        "argv": argv[1:],
+        "replay_buffer": out["replay_buffer"],
+        "crashes": flaky.crashes,
+        "amend_last_calls": [(e, slot, f) for e, slot, f in amends],
+        "encoder_input_chw": encoder_input,
+        "gradient_steps": out["gradient_steps"],
+        "fused_gru_launches": launches_c,
+        "fused_gru_bf16_x_calls": bf16_calls,
+        "seconds": out["seconds"],
+    }
+    if len(amends) == 1:
+        env_idx, slot, _ = amends[0]
+        row = lambda k, i: float(rb._bufs[k][env_idx, i % rb.buffer_size].reshape(-1)[0])  # noqa: E731
+        restart["amended_row"] = {k: row(k, slot) for k in ("terminated", "truncated", "is_first")}
+        restart["next_row_is_first"] = row("is_first", slot + 1)
+    report["restart"] = restart
+    print("phase 11 (c) restart " + json.dumps(restart), flush=True)
+    if (
+        flaky.crashes != 1
+        or len(amends) != 1
+        or out["replay_buffer"] != "device"
+        or encoder_input != [1, 64, 64]
+        or restart["amended_row"] != {"terminated": 0.0, "truncated": 1.0, "is_first": 0.0}
+        or restart["next_row_is_first"] != 1.0
+        or out["gradient_steps"] == 0
+        or bf16_calls != calls
+    ):
+        raise AssertionError(f"phase 11 (c): {restart}")
+    report["seconds"] = time.perf_counter() - t11
+    print(f"phase 11 took {report['seconds']:.1f} s", flush=True)
+    return {"pendulum_cli_async_and_sync": launches_b, "pointmass_restart_cli": launches_c}, report
+
+
+def glob_one(pattern: str) -> str:
+    import glob
+
+    found = glob.glob(pattern)
+    if len(found) != 1:
+        raise AssertionError(f"want one file at {pattern}, found {found}")
+    return found[0]
 
 
 def main() -> int:
@@ -2591,6 +2971,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli = phase_cli(torch, np, fg, tmp, bf16_loop)
 
+    # phase 11: the env pipeline, (a) the pixel specs on the card and
+    # ImageTransform, (b) PixelPendulum through the CLI (action repeat 2,
+    # async), (c) the grayscale/resize path and the restart drill on the ring
+    with tempfile.TemporaryDirectory() as tmp:
+        env_launches, env_report = phase_env_pipeline(torch, np, fg, tmp)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -2601,9 +2987,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()),
             # every launch of the bf16-mixed paths read a bf16 x (checked there)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches,
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()),
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -2614,6 +3000,7 @@ def main() -> int:
                 "bf16_ring_train_loops": ring_loop_launches,
                 "cli_train_loop": cli_launches,
                 "cli_train_loop_replays": cli["replays"],
+                "env_pipeline_cli_loops": env_launches,
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -2639,6 +3026,8 @@ def main() -> int:
                 "ring_train_loop_env_steps_per_s": {k: [r["env_steps_per_s"] for r in ring_loops[k]] for k in RING_LOOPS},
                 "cli_env_steps_per_s": cli["env_steps_per_s"],
                 "cli_mfu": cli["mfu_last_heartbeat"],
+                "pixel_pendulum_async_env_steps_per_s": env_report["pendulum"]["env_steps_per_s"],
+                "host_ms_per_vector_step": env_report["host_ms_per_vector_step"],
             },
         },
         {

@@ -15,7 +15,9 @@ the config engine and its copy of the config tree (``config/``,
 ``configs/``), the registry, a one-device ``Fabric``, the logger,
 telemetry and the run registry (``utils/``, ``obs/``), the player and the
 training loop (``algos.dreamer_v3``) with replay, checkpoints and
-resilience, and the RSSM step as the CUDA kernel ``csrc/fused_gru.cu``;
+resilience, the env pipeline without gymnasium (``envs``: wrappers,
+``make_env``, the sync and async vector envs, the jittable and pixel
+envs), and the RSSM step as the CUDA kernel ``csrc/fused_gru.cu``;
 and the model-sharded RSSM step (``ops.fused_gru.sharded_recurrent_step``)
 on a (data, model) ``torch.distributed`` mesh (``parallel``), with its
 projection as the second kernel of that source.

@@ -70,7 +70,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
     world_model_to_flax,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, env_action, prepare_obs
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS, env_action, prepare_obs, test
 from sheeprl_tpu_torch.data.device_buffer import (
     DeviceReplayBuffer,
     adapt_restored_buffer,
@@ -79,7 +79,7 @@ from sheeprl_tpu_torch.data.device_buffer import (
 )
 from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
 from sheeprl_tpu_torch.device import DeviceLike
-from sheeprl_tpu_torch.envs.factory import make_env
+from sheeprl_tpu_torch.envs.factory import build_vector_env
 from sheeprl_tpu_torch.envs.spaces import Box, action_dims
 from sheeprl_tpu_torch.ops.distributions import (
     Bernoulli,
@@ -104,7 +104,7 @@ from sheeprl_tpu_torch.obs.telemetry import (
 )
 from sheeprl_tpu_torch.parallel.fabric import Fabric
 from sheeprl_tpu_torch.parallel.fence import DispatchFence
-from sheeprl_tpu_torch.resilience.autoresume import resolve_auto_resume
+from sheeprl_tpu_torch.resilience.autoresume import emit_pending_resilience_events, resolve_auto_resume
 from sheeprl_tpu_torch.resilience.manager import RunResilience
 from sheeprl_tpu_torch.utils.callback import CheckpointCallback
 from sheeprl_tpu_torch.utils.checkpoint import elastic_per_rank_batch_size, load_checkpoint, select_buffer
@@ -515,8 +515,11 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     on the Fabric's device, or as ``main(cfg, device=...)`` on ``device``
     (the CUDA card unless ``device="cpu"``), for ``algo.total_steps`` env
     steps, as the JAX
-    ``main`` runs it on one accelerator: the player acts (uniform random
-    actions up to ``algo.learning_starts`` on a fresh run), every step goes
+    ``main`` runs it on one accelerator: the player acts on the vector env
+    of ``build_vector_env`` (``env.backend``, each env restarted on an
+    exception, the last stored step of a restarted env amended to a
+    truncation), with uniform random actions up to ``algo.learning_starts``
+    on a fresh run; every step goes
     into sequence replay (the device ring or the host buffer, by
     ``buffer.device``), ``Ratio`` sets each update's gradient steps, and
     each gradient step is one replay of the captured train step (eagerly on
@@ -528,7 +531,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     path, or ``auto``) resumes from the port's checkpoints or the JAX
     package's; non-finite metrics roll back to the newest committed
     checkpoint; SIGTERM writes an emergency checkpoint and exits with
-    ``PREEMPTED_EXIT_CODE``. Returns the run's counts, seconds and metrics."""
+    ``PREEMPTED_EXIT_CODE``. With ``algo.run_test``, one test episode follows
+    training. Returns the run's counts, seconds and metrics."""
     ckpt_cfg = (cfg if isinstance(fabric, Fabric) else fabric)["checkpoint"]
     if not isinstance(fabric, Fabric):
         callback = CheckpointCallback(
@@ -541,7 +545,10 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     resume_from = ckpt_cfg["resume_from"]
     if resume_from == "auto":
         resume_from = resolve_auto_resume(cfg)
+        emit_pending_resilience_events()
     state = load_checkpoint(resume_from) if resume_from else None
+    # these arguments cannot be changed (JAX :466-467)
+    cfg["env"]["frame_stack"] = 1
     screen = int(cfg["env"]["screen_size"])
     if 2 ** int(np.log2(screen)) != screen:
         raise ValueError(f"The screen size must be a power of 2, got: {screen}")
@@ -555,9 +562,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     if callback is None:
         raise ValueError("fabric.callbacks holds no CheckpointCallback: the run could not save its checkpoints")
     resil = RunResilience(cfg, log_dir, callback)
-    envs = [make_env(cfg, seed + i)() for i in range(num_envs)]
-    action_space = envs[0].action_space
-    obs_space = envs[0].observation_space
+    envs = build_vector_env(cfg, 0, log_dir, "train", restart_on_exception=True)
+    action_space = envs.single_action_space
+    obs_space = envs.single_observation_space
     actions_dim, is_continuous = action_dims(action_space)
     cnn_keys = list(algo["cnn_keys"]["encoder"])
     mlp_keys = list(algo["mlp_keys"]["encoder"])
@@ -656,8 +663,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         pending.clear()  # the poisoned window must not reach the log
 
     step_data: Dict[str, np.ndarray] = {}
-    obs = [env.reset(seed=seed + i)[0] for i, env in enumerate(envs)]
-    stacked = {k: np.stack([o[k] for o in obs]) for k in obs_keys}
+    obs, _ = envs.reset(seed=seed)
+    stacked = {k: obs[k] for k in obs_keys}
     prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
     for k in obs_keys:
         step_data[k] = prepared[k][np.newaxis]
@@ -725,10 +732,6 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
     aggregator = build_aggregator(cfg, AGGREGATOR_KEYS)
     action_repeat = int(cfg["env"].get("action_repeat", 1) or 1)
-    # each env's running episode return and length (the JAX envs'
-    # RecordEpisodeStatistics), logged when an episode ends
-    ep_return = np.zeros(num_envs)
-    ep_length = np.zeros(num_envs, np.int64)
     count_flops = get_telemetry() is not None
     train_windows = last_train = last_grad_steps = 0
     pending: List[torch.Tensor] = []  # device metric vectors, fetched at log time
@@ -763,25 +766,35 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                 step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
                 rb.add(step_data)
 
-                next_obs, final_obs, rewards, terminated, truncated = [], {}, [], [], []
-                for i, env in enumerate(envs):
-                    o, r, term, trunc, _ = env.step(np.asarray(real_actions[i]).reshape(action_space.shape))
-                    if term or trunc:
-                        final_obs[i] = o
-                        o, _ = env.reset()
-                    next_obs.append(o)
-                    rewards.append(r)
-                    terminated.append(term)
-                    truncated.append(trunc)
-            ep_return += np.asarray(rewards, np.float64)
-            ep_length += 1
-            if log_level > 0:
-                for i in sorted(final_obs):
-                    aggregator.update("Rewards/rew_avg", ep_return[i])
-                    aggregator.update("Game/ep_len_avg", ep_length[i])
-            for i in final_obs:
-                ep_return[i], ep_length[i] = 0.0, 0
-            stacked = {k: np.stack([o[k] for o in next_obs]) for k in obs_keys}
+                next_obs, rewards, terminated, truncated, infos = envs.step(
+                    np.asarray(real_actions).reshape(num_envs, *action_space.shape)
+                )
+                dones = np.logical_or(terminated, truncated)
+
+            step_data["is_first"] = np.zeros((1, num_envs, 1), np.float32)
+            if "restart_on_exception" in infos:
+                for i, roe in enumerate(np.asarray(infos["restart_on_exception"]).reshape(-1)):
+                    if roe and not dones[i]:
+                        # the last stored step becomes a truncation and the
+                        # episode restarts (JAX :869-882)
+                        if use_device_rb:
+                            rb.amend_last(i, terminated=0.0, truncated=1.0, is_first=0.0)
+                        else:
+                            sub = rb.buffer[i]
+                            last_idx = (sub._pos - 1) % sub.buffer_size
+                            sub["terminated"][last_idx] = 0.0
+                            sub["truncated"][last_idx] = 1.0
+                            sub["is_first"][last_idx] = 0.0
+                        step_data["is_first"][0, i] = 1.0
+
+            if log_level > 0 and "final_info" in infos:
+                ep = infos["final_info"].get("episode")
+                if ep is not None:
+                    for i in np.nonzero(ep.get("_r", []))[0]:
+                        aggregator.update("Rewards/rew_avg", float(ep["r"][i]))
+                        aggregator.update("Game/ep_len_avg", float(ep["l"][i]))
+
+            stacked = {k: next_obs[k] for k in obs_keys}
             prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
             for k in obs_keys:
                 step_data[k] = prepared[k][np.newaxis]
@@ -789,24 +802,24 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
             step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
             step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
-            step_data["is_first"] = np.zeros_like(step_data["terminated"])
 
-            dones = sorted(final_obs)
-            if dones:
-                # the terminal transition with the true final obs and a zero
-                # action, then the per-env episode state restarts
-                final = {k: np.stack([final_obs[i][k] for i in dones]) for k in obs_keys}
-                prepared_final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(dones))
+            dones_idxes = dones.nonzero()[0].tolist()
+            if dones_idxes:
+                # the terminal transition with the true final obs (SAME_STEP
+                # autoreset keeps it in infos) and a zero action, then the
+                # per-env episode state restarts
+                final = {k: np.stack([infos["final_obs"][i][k] for i in dones_idxes]) for k in obs_keys}
+                prepared_final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(dones_idxes))
                 reset_data = {k: prepared_final[k][np.newaxis] for k in obs_keys}
                 for k in ("terminated", "truncated", "rewards"):
-                    reset_data[k] = step_data[k][:, dones]
-                reset_data["actions"] = np.zeros((1, len(dones), int(sum(actions_dim))), np.float32)
+                    reset_data[k] = step_data[k][:, dones_idxes]
+                reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(actions_dim))), np.float32)
                 reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-                rb.add(reset_data, dones)
+                rb.add(reset_data, dones_idxes)
                 for k in ("rewards", "terminated", "truncated"):
-                    step_data[k][:, dones] = 0.0
-                step_data["is_first"][:, dones] = 1.0
-                player.init_states(dones)
+                    step_data[k][:, dones_idxes] = 0.0
+                step_data["is_first"][:, dones_idxes] = 1.0
+                player.init_states(dones_idxes)
 
             # ---------------- training ---------------- #
             if update >= learning_starts:
@@ -911,15 +924,16 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             resil.crash_checkpoint(err)
         resil.close()
         logger.finalize()
-        for env in envs:
-            env.close()
+        envs.close()
         raise
     fence.drain()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t_start
-    for env in envs:
-        env.close()
+    envs.close()
+    test_reward, test_steps = None, 0
+    if algo.get("run_test", False) and not preempted:
+        test_reward, test_steps = test(player, cfg, log_dir, greedy=False, logger=logger)
     logger.finalize()
     resil.close()
     if preempted:
@@ -948,6 +962,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         "replays": sum(fn.replays for _, fn in graphs),
         "graphs": [{"steps": n, "captured_launches": fn.captured_launches, "replays": fn.replays} for n, fn in graphs],
         "replay_buffer": "device" if use_device_rb else ("memmap" if all(rb.is_memmap) else "host"),
+        # the episode played after training (algo.run_test), on the player
+        "test_cumulative_reward": test_reward,
+        "test_steps": test_steps,
     }
 
 

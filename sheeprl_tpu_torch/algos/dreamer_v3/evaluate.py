@@ -30,15 +30,16 @@ def evaluate(
     on ``device`` (the CUDA card unless ``device="cpu"``), without a
     logger. Returns the episode's reward sum and its number of
     steps."""
-    logger = None
+    logger = log_dir = None
     if isinstance(fabric, Fabric):
-        logger = fabric.logger = get_logger(cfg, get_log_dir(cfg))
+        log_dir = get_log_dir(cfg)
+        logger = fabric.logger = get_logger(cfg, log_dir)
         device = fabric.device
         # a checkpoint holds the JAX layout (the port's and the JAX package's)
         state = {"world_model": world_model_from_flax(state["world_model"]), "actor": actor_from_flax(state["actor"])}
     else:
         fabric, cfg, state = None, fabric, cfg
-    env = make_env(cfg, cfg["seed"])()
+    env = make_env(cfg, cfg["seed"], 0, log_dir, "test")()
     observation_space = env.observation_space
     actions_dim, is_continuous = action_dims(env.action_space)
     env.close()
@@ -52,7 +53,7 @@ def evaluate(
         state.get("actor"),
         device=device,
     )
-    result = test(player, cfg, logger=logger)
+    result = test(player, cfg, log_dir, logger=logger)
     if logger is not None:
         logger.finalize()
     return result

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,11 +61,19 @@ def env_action(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: b
     return real[0] if len(real) == 1 else real
 
 
-def test(player: Any, cfg: Dict[str, Any], greedy: bool = True, logger: Any = None) -> Tuple[float, int]:
-    """One frozen-policy episode on a fresh env; returns its reward sum and
-    its number of steps, and logs the sum as ``Test/cumulative_reward``
+def test(
+    player: Any,
+    cfg: Dict[str, Any],
+    log_dir: Optional[str] = None,
+    test_name: str = "",
+    greedy: bool = True,
+    logger: Any = None,
+) -> Tuple[float, int]:
+    """One frozen-policy episode on a fresh env, built by ``make_env`` as
+    for training (JAX ``utils.py:61-103``); returns its reward sum and its
+    number of steps, and logs the sum as ``Test/cumulative_reward``
     through ``logger`` when ``metric.log_level`` > 0."""
-    env = make_env(cfg, cfg["seed"])()
+    env = make_env(cfg, cfg["seed"], 0, log_dir, "test" + (f"_{test_name}" if test_name else ""))()
     done = False
     cumulative_rew = 0.0
     steps = 0

@@ -96,6 +96,7 @@ def run_algorithm(cfg: dotdict) -> None:
     from sheeprl_tpu_torch.parallel.fabric import fabric_from_config
     from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE
     from sheeprl_tpu_torch.resilience.async_writer import drain_async_checkpoints
+    from sheeprl_tpu_torch.resilience.autoresume import emit_pending_resilience_events
     from sheeprl_tpu_torch.utils.logger import run_base_dir
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
     from sheeprl_tpu_torch.utils.timer import timer
@@ -117,6 +118,8 @@ def run_algorithm(cfg: dotdict) -> None:
         metrics.pop(k)
 
     configure_telemetry(cfg, log_dir=run_base_dir(cfg), device=fabric.device)
+    # auto-resume resolution ran before telemetry existed: flush its events
+    emit_pending_resilience_events()
     outcome, error = "completed", None
     try:
         entrypoint(fabric, cfg)

@@ -22,6 +22,8 @@ SIZES = ("XS", "S", "M", "L", "XL")
 # preset name -> (env group, env.id): the envs the port's factory builds
 ENVS: Dict[str, tuple] = {
     "pixel_catcher": ("pixel_catcher", "pixel_catcher"),
+    "pixel_pendulum": ("pixel_pendulum", "PixelPendulum-v0"),
+    "pixel_pointmass": ("pixel_pointmass", "PixelPointmass-v0"),
     "dummy_discrete": ("dummy", "dummy_discrete"),
     "dummy_continuous": ("dummy", "dummy_continuous"),
 }

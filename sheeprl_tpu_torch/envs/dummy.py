@@ -10,9 +10,10 @@ from typing import Dict, Tuple
 import numpy as np
 
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.wrappers import Env
 
 
-class BaseDummyEnv:
+class BaseDummyEnv(Env):
     def __init__(
         self, image_size: Tuple[int, int, int] = (64, 64, 3), n_steps: int = 128, vector_shape: Tuple[int, ...] = (10,)
     ) -> None:

@@ -15,9 +15,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.wrappers import Env
 
 
-class PixelCatcher:
+class PixelCatcher(Env):
     def __init__(
         self,
         id: str = "pixel_catcher",

@@ -10,6 +10,11 @@ loads. A candidate that fails one is skipped with a warning; with none left
 the run starts afresh (``None``). The JAX package's third gate, whether the
 stored global batch splits over the resuming mesh, has nothing to check on
 one process and one card: ``main`` takes the whole batch.
+
+Resolution runs in ``cli.run`` before telemetry exists, so the
+``resume_fallback`` and ``auto_resume`` events are queued here and flushed
+by ``cli.run_algorithm`` right after ``configure_telemetry``
+(:func:`emit_pending_resilience_events`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,12 +22,35 @@ from __future__ import annotations
 import glob
 import os
 import warnings
-from typing import Any, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
-from sheeprl_tpu_torch.obs.telemetry import telemetry_resume_fallback
+from sheeprl_tpu_torch.obs.telemetry import get_telemetry
 from sheeprl_tpu_torch.resilience.manifest import CommittedCheckpoint, committed_checkpoints, gc_torn
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 from sheeprl_tpu_torch.utils.logger import run_base_dir
+
+
+_pending_events: List[Tuple[str, Dict[str, Any]]] = []
+
+
+def queue_resilience_event(kind: str, **fields: Any) -> None:
+    """Stash an event for emission once telemetry is configured."""
+    _pending_events.append((kind, fields))
+
+
+def emit_pending_resilience_events() -> None:
+    """Flush the events queued before ``configure_telemetry`` ran; drops
+    them when telemetry is off."""
+    tel = get_telemetry()
+    events, _pending_events[:] = list(_pending_events), []
+    if tel is None:
+        return
+    for kind, fields in events:
+        if kind == "resume_fallback":
+            tel.record_resume_fallback(fields.pop("path", ""), fields.pop("error", ""), **fields)
+        else:
+            tel.emit(kind, **fields)
+    tel.writer.flush()
 
 
 def scan_run_checkpoints(run_root: str) -> List[CommittedCheckpoint]:
@@ -65,8 +93,9 @@ def resolve_auto_resume(cfg: Mapping[str, Any]) -> Optional[str]:
     for cand in candidates:
         reason = _config_gate(cand) or _load_gate(cand)
         if reason is None:
+            queue_resilience_event("auto_resume", path=cand.path, ckpt_step=cand.step, candidates=len(candidates))
             return cand.path
-        telemetry_resume_fallback(cand.path, reason, step=cand.step)
+        queue_resilience_event("resume_fallback", path=cand.path, error=reason, ckpt_step=cand.step)
         warnings.warn(
             f"auto-resume: skipping checkpoint {cand.path!r} (step {cand.step}): {reason} — "
             "falling back to the next-newest"

@@ -93,14 +93,50 @@ def del_nested(d: dict, dotted: str) -> None:
     del node[parts[-1]]
 
 
+def _float_text(x: float) -> str:
+    """``x`` as JSON that YAML 1.1 (PyYAML) also reads as a float: always a
+    ``.``, and a sign on any exponent (``1e-05`` -> ``1.0e-05``)."""
+    if x != x or x in (float("inf"), float("-inf")):
+        raise ValueError(f"config.yaml cannot hold the non-finite float {x!r}")
+    text = repr(float(x))
+    mantissa, e, exponent = text.partition("e")
+    if "." not in mantissa:
+        mantissa += ".0"
+    if e and exponent[0] not in "+-":
+        exponent = "+" + exponent
+    return mantissa + e + exponent
+
+
+def _config_text(value: Any, indent: str = "") -> str:
+    """``value`` as indented JSON, floats through :func:`_float_text` and
+    anything JSON has no type for as its ``str``."""
+    inner = indent + "  "
+    if isinstance(value, Mapping):
+        if not value:
+            return "{}"
+        items = (f"{inner}{json.dumps(str(k))}: {_config_text(v, inner)}" for k, v in value.items())
+        return "{\n" + ",\n".join(items) + "\n" + indent + "}"
+    if isinstance(value, (list, tuple)):
+        if not value:
+            return "[]"
+        return "[\n" + ",\n".join(inner + _config_text(v, inner) for v in value) + "\n" + indent + "]"
+    if isinstance(value, float):
+        return _float_text(value)
+    if value is None or isinstance(value, (bool, int, str)):
+        return json.dumps(value)
+    return json.dumps(str(value))
+
+
 def save_configs(cfg: Mapping[str, Any], log_dir: str) -> None:
     """The run's config as ``<log_dir>/config.yaml``, written as JSON (a
-    subset of YAML that ``config.load_config_file`` and PyYAML both read):
+    subset of YAML) whose floats carry a ``.`` and a signed exponent, so
+    that ``config.load_config_file`` and PyYAML's ``safe_load`` (the JAX
+    package's resume and ``cli_eval``) read back the same values and types:
     ``resume_from=auto``, ``checkpoint.resume_from`` and ``cli_eval`` read
-    it back."""
+    it."""
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "config.yaml"), "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
+        f.write(_config_text(cfg) + "\n")
 
 
 def print_config(

@@ -20,6 +20,11 @@ tests/test_ops/test_pallas_gru.py); ``DEC_TOL`` 5e-5 on the CNN decoder's
 output (its transposed-conv + LayerNorm stages, as the encoder's 5e-5).
 """
 
+import glob
+import itertools
+import json
+import os
+import re
 import types
 
 import flax.linen as nn
@@ -29,10 +34,12 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 
 from sheeprl_tpu.algos.dreamer_v3 import agent as jagent
 from sheeprl_tpu.algos.dreamer_v3 import dreamer_v3 as jdv3
 from sheeprl_tpu.algos.dreamer_v3.loss import reconstruction_loss as j_reconstruction_loss
+from sheeprl_tpu.data import device_buffer as jdb
 from sheeprl_tpu.ops import distributions as jd
 from sheeprl_tpu.ops import math as jm
 from sheeprl_tpu.ops.optim import adam as j_adam
@@ -47,11 +54,18 @@ from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.configs import compose
+from sheeprl_tpu_torch.data import device_buffer as tdb
+from sheeprl_tpu_torch.envs import factory as tfactory
+from sheeprl_tpu_torch.envs import jittable_pixels as tjp
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs import wrappers as tw
 from sheeprl_tpu_torch.ops import distributions as td
 from sheeprl_tpu_torch.ops import fused_gru
 from sheeprl_tpu_torch.ops import math as tm
 from sheeprl_tpu_torch.ops.optim import Adam
+from sheeprl_tpu_torch.resilience import manager
+from sheeprl_tpu_torch.utils.logger import read_scalars
+from sheeprl_tpu_torch.utils.utils import save_configs
 
 TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -703,3 +717,250 @@ def test_main_needs_cuda_without_a_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tdv3.main(tiny_cfg(**MAIN_TINY, log_base_dir=str(tmp_path)))
+
+
+# --------------------------------------------------------------------------- #
+# main() through the env pipeline, and the faults of ROADMAP queue C
+# --------------------------------------------------------------------------- #
+
+
+def _scalar_tags(log_dir):
+    (events,) = glob.glob(os.path.join(log_dir, "events.out.tfevents.*"))
+    return {tag for _, tag, _ in read_scalars(events)}
+
+
+def test_main_on_pixel_pendulum_repeats_actions(tmp_path, monkeypatch):
+    """A tiny ``main`` on PixelPendulum through ``build_vector_env``
+    (``sync``, as the env config asks) with ``env.action_repeat=2``: the
+    base env steps twice a policy step, and the heartbeat counts those
+    env steps, 2 x policy steps (queue C2); the test episode runs after
+    training (queue C1)."""
+    base_steps = [0]
+    real_step = tjp.JittablePixelEnv.step
+
+    def counted(self, action):
+        base_steps[0] += 1
+        return real_step(self, action)
+
+    beats = []
+    real_beat = tdv3.log_sps_and_heartbeat
+    monkeypatch.setattr(tjp.JittablePixelEnv, "step", counted)
+    monkeypatch.setattr(tdv3, "log_sps_and_heartbeat", lambda logger, **kw: (beats.append(kw), real_beat(logger, **kw)))
+    cfg = tiny_cfg(("rgb",), (), env="pixel_pendulum", **MAIN_TINY, log_base_dir=str(tmp_path), **{"env.action_repeat": 2})
+    assert tfactory.resolve_env_backend(cfg) == "sync"
+    out = tdv3.main(cfg, device="cpu")
+    assert out["env_steps"] == 24 and out["gradient_steps"] == 1 + 2 * 8
+    train_base_steps = 2 * out["env_steps"]
+    # PixelPendulum truncates at 200 raw steps: the test episode is 100 policy steps
+    assert base_steps[0] == train_base_steps + 200
+    assert sum(b["env_steps"] for b in beats) == train_base_steps
+    assert beats[-1]["policy_step"] == out["env_steps"]
+    assert out["test_cumulative_reward"] is not None and np.isfinite(out["test_cumulative_reward"])
+    assert "Test/cumulative_reward" in _scalar_tags(out["log_dir"])
+
+
+@pytest.mark.parametrize("case", ["run_test", "no_run_test", "preempted"])
+def test_main_runs_the_test_episode_after_training(case, tmp_path, monkeypatch):
+    """``algo.run_test`` (on by default) plays one episode after the loop
+    and logs ``Test/cumulative_reward``, as the JAX main does
+    (``dreamer_v3.py:1173-1174``); not when it is off, nor after a
+    preemption (queue C1)."""
+    played = []
+    real_test = tdv3.test
+    monkeypatch.setattr(tdv3, "test", lambda *a, **kw: played.append(1) or real_test(*a, **kw))
+    cfg = tiny_cfg((), ("state",), **MAIN_TINY, log_base_dir=str(tmp_path), run_name="t", **{"algo.run_test": case != "no_run_test"})
+    assert compose("XS")["algo"]["run_test"] is True
+    if case == "preempted":
+        polls = itertools.count(1)
+        monkeypatch.setattr(manager.RunResilience, "preempt_requested", lambda self: next(polls) >= 7)
+        with pytest.raises(SystemExit):
+            tdv3.main(cfg, device="cpu")
+        (log_dir,) = glob.glob(os.path.join(str(tmp_path), "dreamer_v3", "dummy_discrete", "t", "version_*"))
+    else:
+        log_dir = tdv3.main(cfg, device="cpu")["log_dir"]
+    assert played == ([1] if case == "run_test" else [])
+    assert ("Test/cumulative_reward" in _scalar_tags(log_dir)) == (case == "run_test")
+
+
+class FlakyPixelCatcher:
+    """A port PixelCatcher whose third ``step`` raises, once per test (the
+    env ``_target_`` of the restart drill)."""
+
+    crashed = False
+
+    def __new__(cls, **kwargs):
+        from sheeprl_tpu_torch.envs.toy import PixelCatcher
+
+        env = PixelCatcher(**kwargs)
+        real, calls = env.step, [0]
+
+        def step(action):
+            calls[0] += 1
+            if calls[0] == 3 and not FlakyPixelCatcher.crashed:
+                FlakyPixelCatcher.crashed = True
+                raise RuntimeError("env crash")
+            return real(action)
+
+        env.step = step
+        return env
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["host", "ring"])
+def test_restart_drill_amends_the_last_step(ring, tmp_path, monkeypatch):
+    """Env 0 raises at its third step: ``RestartOnException`` recreates it,
+    and the loop rewrites the last stored step of env 0 to a truncation
+    (``truncated`` 1, ``terminated`` 0, ``is_first`` 0) and starts the next
+    with ``is_first`` 1 (JAX ``dreamer_v3.py:869-882``): on the ring through
+    ``amend_last``, on the host buffer by the same index patch."""
+    monkeypatch.setattr(FlakyPixelCatcher, "crashed", False)
+    monkeypatch.setattr(tw.RestartOnException, "sleep", staticmethod(lambda s: None))
+    buffers = []
+    real_make = tdv3.make_sequential_replay
+    monkeypatch.setattr(tdv3, "make_sequential_replay", lambda *a, **kw: buffers.append(real_make(*a, **kw)) or buffers[-1])
+    cfg = tiny_cfg(
+        ("rgb",),
+        (),
+        env="pixel_catcher",
+        **MAIN_TINY,
+        log_base_dir=str(tmp_path),
+        **{"env.backend": "sync", "buffer.device": ring, "algo.run_test": False, "env.max_episode_steps": 50},
+    )
+    cfg.env.wrapper["_target_"] = f"{__name__}.FlakyPixelCatcher"
+    with pytest.warns(UserWarning, match="Restarting env after crash"):
+        tdv3.main(cfg, device="cpu")
+    assert FlakyPixelCatcher.crashed
+    (rb,) = buffers
+    if ring:
+        assert isinstance(rb, tdb.DeviceReplayBuffer)
+        flags = {k: rb._bufs[k][0, :4, 0].numpy() for k in ("terminated", "truncated", "is_first")}
+    else:
+        flags = {k: np.asarray(rb.buffer[0][k])[:4].reshape(-1) for k in ("terminated", "truncated", "is_first")}
+    # rows 0-2 hold policy steps 1-3 (step 3 crashed), row 3 the restart's first obs
+    np.testing.assert_array_equal(flags["truncated"], [0, 0, 1, 0])
+    np.testing.assert_array_equal(flags["terminated"], [0, 0, 0, 0])
+    np.testing.assert_array_equal(flags["is_first"], [1, 0, 0, 1])
+
+
+def test_amend_last_matches_jax():
+    """The ring's ``amend_last`` rewrites the same slot to the same flags as
+    the JAX ring's, at an unwrapped and a wrapped cursor."""
+    rng = np.random.default_rng(0)
+    jring = jdb.DeviceReplayBuffer(5, n_envs=2, obs_keys=("state",), seed=1)
+    tring = tdb.DeviceReplayBuffer(5, n_envs=2, obs_keys=("state",), device="cpu", seed=1)
+    for i in range(8):
+        step = {
+            "state": rng.standard_normal((1, 2, 3)).astype(np.float32),
+            "actions": rng.standard_normal((1, 2, 2)).astype(np.float32),
+            **{k: (rng.random((1, 2, 1)) < 0.5).astype(np.float32) for k in ("rewards", "terminated", "truncated", "is_first")},
+        }
+        jring.add(step)
+        tring.add(step)
+        if i in (2, 7):
+            for ring in (jring, tring):
+                ring.amend_last(i % 2, terminated=0.0, truncated=1.0, is_first=0.0)
+            for k in ("terminated", "truncated", "is_first"):
+                np.testing.assert_array_equal(tring._bufs[k].numpy(), np.asarray(jring._bufs[k]))
+
+
+# tests/test_torch_cli.py::TINY: a dry run on the CPU at tiny widths
+CLI_TINY = [
+    "exp=dreamer_v3",
+    "env=dummy",
+    "env.id=dummy_discrete",
+    "fabric=cpu",
+    "dry_run=True",
+    "buffer.memmap=False",
+    "algo.per_rank_batch_size=1",
+    "algo.per_rank_sequence_length=1",
+    "buffer.size=8",
+    "algo.learning_starts=0",
+    "algo.horizon=4",
+    "algo.dense_units=8",
+    "algo.mlp_layers=1",
+    "algo.world_model.encoder.cnn_channels_multiplier=2",
+    "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.transition_model.hidden_size=8",
+    "algo.world_model.discrete_size=4",
+    "algo.world_model.stochastic_size=4",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[state]",
+    "env.num_envs=2",
+    "env.screen_size=16",
+]
+
+
+def _cli_argv(tmp_path, *extra):
+    return CLI_TINY + [f"log_base_dir={tmp_path}", "run_name=auto", "metric.telemetry.enabled=True", *extra]
+
+
+def test_cli_records_the_auto_resume_events(tmp_path, monkeypatch):
+    """``checkpoint.resume_from=auto`` past a newest checkpoint that does
+    not load: the CLI's run record says ``resume_fallbacks: 1`` and its
+    telemetry holds one ``resume_fallback`` and one ``auto_resume`` event,
+    the events the JAX package queues on the same directory (queue C3)."""
+    from sheeprl_tpu.resilience import autoresume as jar
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.resilience.manifest import build_manifest
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    runs = tmp_path / "RUNS.jsonl"
+    monkeypatch.setenv("SHEEPRL_TPU_RUNS_JSONL", str(runs))
+    cli.run(_cli_argv(tmp_path))
+    base = tmp_path / "dreamer_v3" / "dummy_discrete" / "auto"
+    (good,) = glob.glob(str(base / "version_0" / "checkpoint" / "*.ckpt"))
+    torn = str(base / "version_0" / "checkpoint" / "ckpt_999_0.ckpt")
+    save_checkpoint(torn, {"update": 999}, manifest=build_manifest(step=999, backend="pickle", world_size=1, state={"update": 999}))
+    with open(torn, "wb") as f:
+        f.write(b"\x00torn")
+    # the JAX package on the same directory
+    jcfg = dotdict({"log_base_dir": str(tmp_path), "root_dir": "dreamer_v3/dummy_discrete", "run_name": "auto", "fabric": {"devices": 1}})
+    jar._pending_events.clear()
+    with pytest.warns(UserWarning, match="falling back"):
+        assert jar.resolve_auto_resume(jcfg) == good
+    want = [(kind, fields["path"]) for kind, fields in jar._pending_events]
+    jar._pending_events.clear()
+    assert want == [("resume_fallback", torn), ("auto_resume", good)]
+    with pytest.warns(UserWarning, match="falling back"):
+        cli.run(_cli_argv(tmp_path, "checkpoint.resume_from=auto"))
+    records = [json.loads(line) for line in runs.read_text().splitlines()]
+    assert [r["resume_fallbacks"] for r in records] == [0, 1]
+    stream = [json.loads(line) for line in (base / "telemetry.jsonl").read_text().splitlines()]
+    got = [(e["event"], e["path"]) for e in stream if e["event"] in ("resume_fallback", "auto_resume")]
+    assert got == want
+
+
+def test_saved_config_reads_back_in_pyyaml(tmp_path):
+    """``config.yaml`` of every ``configs/exp/*.yaml`` that composes reads
+    back through PyYAML (the JAX package's reader) and the port's reader
+    with the composed values and types: floats keep a ``.`` and a signed
+    exponent (queue C4)."""
+    from sheeprl_tpu_torch.config.compose import compose as compose_tree, load_config_file
+
+    def same(got, want, path):
+        assert type(got) is type(want) or (isinstance(want, dict) and isinstance(got, dict)), (path, got, want)
+        if isinstance(want, dict):
+            assert set(got) == set(want), path
+            for k in want:
+                same(got[k], want[k], f"{path}.{k}")
+        elif isinstance(want, list):
+            assert len(got) == len(want), path
+            for i, (g, w) in enumerate(zip(got, want)):
+                same(g, w, f"{path}[{i}]")
+        else:
+            assert got == want, (path, got, want)
+
+    composed = 0
+    for path in sorted(glob.glob(os.path.join(os.path.dirname(tdv3.__file__), "..", "..", "configs", "exp", "*.yaml"))):
+        name = os.path.basename(path)[:-5]
+        try:
+            cfg = compose_tree("config", [f"exp={name}"]).to_dict()
+        except Exception:
+            continue  # an exp with a mandatory value to set on the command line
+        composed += 1
+        save_configs(cfg, str(tmp_path / name))
+        text = (tmp_path / name / "config.yaml").read_text()
+        same(yaml.safe_load(text), cfg, name)
+        same(load_config_file(str(tmp_path / name / "config.yaml")).to_dict(), cfg, name)
+        assert not re.search(r"[:\[,]\s*-?\d+e[-+]?\d", text), name  # no float without a "."
+    assert composed >= 40

@@ -75,7 +75,11 @@ def test_make_env_caps_the_episode():
 
 
 def test_make_env_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_env(compose("XS", overrides={"env.frame_stack": 4}), 0)()
-    with pytest.raises(NotImplementedError):
-        make_env(compose("XS", overrides={"env.id": "CartPole-v1"}), 0)()
+    # frame stacks are ported now (the JAX pipeline's FrameStack, NHWC frames on a leading axis)
+    env = make_env(compose("XS", overrides={"env.frame_stack": 4, "env.screen_size": 16}), 0)()
+    assert env.reset(seed=0)[0]["rgb"].shape == (4, 16, 16, 3)
+    # gymnasium's registry and video capture are not
+    with pytest.raises(NotImplementedError, match="gymnasium"):
+        make_env(compose("XS", overrides={"env.wrapper": {"_target_": "gymnasium.make", "id": "CartPole-v1"}}), 0)()
+    with pytest.raises(NotImplementedError, match="capture_video"):
+        make_env(compose("XS", overrides={"env.capture_video": True}), 0, 0, "run_dir")()

@@ -1,5 +1,5 @@
 """The port stands alone: no module of sheeprl_tpu_torch/ and not
-chip_smoke.py imports JAX, flax, optax, gymnasium, PyYAML or sheeprl_tpu, and the
+chip_smoke.py imports JAX, flax, optax, gymnasium, PyYAML, cv2 or sheeprl_tpu, and the
 package imports and runs ``evaluate`` on the CPU with those blocked."""
 
 import ast
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "yaml", "sheeprl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "yaml", "cv2", "sheeprl_tpu"}
 
 
 def _port_files():
