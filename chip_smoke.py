@@ -154,6 +154,29 @@ which exits non-zero:
    numpy as np, torch, tempfile; from sheeprl_tpu_torch.ops import fused_gru
    as fg; fg.load_library(); c.phase_env_pipeline(torch, np, fg,
    tempfile.mkdtemp())'``.
+12. PPO and Dreamer-V3 at ``bf16-true`` (bf16-mixed unless named): (a)
+   the PPO update (GAE, then epochs x minibatches of forward, backward and
+   Adam) captured as one CUDA graph against the same update eager on the
+   card, from the same weights and train generator, at ``exp=ppo`` widths
+   and at ``exp=ppo_atari``'s NatureCNN on PixelCatcher: parameters after
+   three updates within ``PPO_UPDATE_BOUND``, ms an update replayed and
+   eager, one capture, and a profiler window over two replays (device busy
+   time, idle share, kernels a replay, top kernels); (b) ``exp=ppo`` through ``cli.run`` (the port's
+   host CartPole-v1, ``sync``, 4 envs) for ``PPO_CLI_UPDATES`` updates;
+   (c) the same with ``algo.fused_rollout=True`` at 4 envs and at 64 envs
+   with batch 1024: one replay an update, no ``fused_fallback``; (d)
+   NatureCNN on PixelCatcher (8 envs, ``sync``): env-steps/s (overall and
+   steady, the first update capturing), ms an update, the env span's share
+   and the test episode of each; (e) one Dreamer-V3 S step at ``bf16-true``
+   bit-equal to the step at ``bf16-mixed`` (fp32 parameters at both, as
+   the JAX modules fix them), B1 called 80 times a step with a bf16 x.
+   PPO reaches no TPU kernel, so no kernel is added; its numbers ride in
+   the kernels line under ``fused_gru``'s ``ppo``. Alone on the card:
+   ``python -c 'import chip_smoke as c, numpy as np, torch, tempfile; from
+   sheeprl_tpu_torch.ops import fused_gru as fg; fg.load_library();
+   c.phase_ppo_update(torch, np); c.phase_ppo_cli(torch, tempfile.mkdtemp());
+   rb, s, a, k = c.filled_replay(np, c.train_cfg("pixel_catcher"), 80);
+   c.phase_bf16_true(torch, np, fg, rb, s, a, k)'``.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -165,6 +188,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1445,6 +1469,7 @@ def profile_replays(torch, fn, replays: int = 4, top: int = 8):
         "wall_ms_per_replay": 1e3 * seconds / replays,
         "device_busy_ms_per_replay": busy_us / 1e3 / replays,
         "device_idle_share": 1.0 - busy_us / 1e6 / seconds if busy_us else None,
+        "kernels_per_replay": len(kernels) / replays,
         "gru_step_kernels_per_replay": len(b1) / replays,
         "gru_step_ms_per_replay": b1_us / 1e3 / replays,
         "gru_step_share_of_device_time": b1_us / busy_us if busy_us else None,
@@ -2872,6 +2897,251 @@ def glob_one(pattern: str) -> str:
     return found[0]
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: PPO (host loop, fused on-device rollout, NatureCNN) and
+# Dreamer-V3 at bf16-true
+# --------------------------------------------------------------------------- #
+
+# the PPO models of 12(a): exp=ppo (CartPole-v1's 4-vector, 2 actions, 4
+# envs) and exp=ppo_atari's NatureCNN on PixelCatcher (64x64x3, 3 actions,
+# 8 envs), each at its exp's rollout, batch and epochs
+PPO_MODELS = {
+    "mlp_cartpole": (["exp=ppo"], {"state": ((4,), "float32")}, 2),
+    "nature_cnn_pixel_catcher": (["exp=ppo_atari", "env=pixel_catcher", "env.id=pixel_catcher"], {"rgb": ((64, 64, 3), "uint8")}, 3),
+}
+# captured against eager: the same kernels in both, max |diff| relative to
+# the parameter's largest element, after PPO_PARITY_UPDATES updates
+PPO_UPDATE_BOUND = 1e-5
+PPO_PARITY_UPDATES = 3
+PPO_TIMED = 10
+# the CLI runs of 12(b)-(d): a few updates each
+PPO_CLI_UPDATES = 6
+PPO_FUSED_ENVS = ((4, 64), (64, 1024))  # (env.num_envs, per_rank_batch_size): 8 minibatches each
+PPO_CNN_UPDATES = 4
+
+
+def ppo_cfg(*overrides):
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    return dotdict(compose("config", [*overrides, f"seed={SEED}", "env.capture_video=False"]))
+
+
+def ppo_update_models(torch, np, model: str, precision: str = BF16):
+    """The agent, its Adam, the train generator and the update of 12(a) on
+    the card (seeded weights), with its static inputs: one rollout of the
+    exp's shape drawn from a seeded numpy generator."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_local_train, make_update_fn
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.optim import adam
+
+    exp, obs, n_actions = PPO_MODELS[model]
+    cfg = ppo_cfg(*exp, f"fabric.precision={precision}")
+    algo = cfg.algo
+    space = spaces.Dict({k: spaces.Box(0, 255, shape, np.dtype(dt)) for k, (shape, dt) in obs.items()})
+    agent, _ = build_agent((n_actions,), False, cfg, space, device="cuda")
+    steps, envs = int(algo.rollout_steps), int(cfg.env.num_envs)
+    opt = adam(list(agent.parameters()), algo.optimizer, float(algo.max_grad_norm or 0.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    local_train = make_local_train(agent, opt, cfg, list(obs), steps * envs, gen)
+    update = make_update_fn(agent, local_train, cfg, list(obs))
+    rng = np.random.default_rng(SEED)
+    inputs = {}
+    for k, (shape, dt) in obs.items():
+        draw = rng.integers(0, 256, (steps + 1, envs, *shape)) if dt == "uint8" else rng.standard_normal((steps + 1, envs, *shape))
+        inputs[k] = torch.from_numpy(draw[:steps].astype(dt)).cuda()
+        inputs[f"next/{k}"] = torch.from_numpy(draw[steps].astype(dt)).cuda()
+    inputs["actions"] = torch.from_numpy(np.eye(n_actions, dtype=np.float32)[rng.integers(0, n_actions, (steps, envs))]).cuda()
+    for k in ("values", "logprobs", "rewards"):
+        inputs[k] = torch.from_numpy(rng.standard_normal((steps, envs, 1)).astype(np.float32)).cuda()
+    inputs["logprobs"] = -inputs["logprobs"].abs() - 0.5
+    inputs["dones"] = torch.from_numpy((rng.random((steps, envs, 1)) < 0.02).astype(np.float32)).cuda()
+    inputs["coefs"] = torch.tensor([float(algo.clip_coef), float(algo.ent_coef)], device="cuda")
+    return cfg, agent, opt, gen, update, inputs
+
+
+def phase_ppo_update(torch, np):
+    """(a) the PPO update captured as one CUDA graph (``CapturedStep``)
+    against the same update run eagerly on the card, from the same weights
+    and train-generator state, at bf16-mixed: parameters after
+    ``PPO_PARITY_UPDATES`` updates within ``PPO_UPDATE_BOUND``; ms an
+    update replayed and eager (CUDA events), replays and captures."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.ops import graph
+
+    report = {"card": card_line(), "bound": PPO_UPDATE_BOUND}
+    with cudnn_deterministic(torch):
+        for model in PPO_MODELS:
+            cfg, g_agent, g_opt, g_gen, g_update, inputs = ppo_update_models(torch, np, model)
+            _, e_agent, _, e_gen, e_update, _ = ppo_update_models(torch, np, model)
+            e_agent.load_state_dict(g_agent.state_dict())
+            captures = graph.capture_count
+            fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
+            for _ in range(PPO_PARITY_UPDATES):
+                got = fn()
+                want = e_update(inputs)
+            torch.cuda.synchronize()
+            err = max(
+                ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(g_agent.parameters(), e_agent.parameters())
+            )
+            metric_err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+            ms = step_ms(torch, fn, PPO_TIMED)
+            eager_ms = step_ms(torch, lambda: e_update(inputs), 3)
+            prof = profile_replays(torch, fn, 2, top=5)
+            algo = cfg.algo
+            report[model] = {
+                "rollout": [int(algo.rollout_steps), int(cfg.env.num_envs)],
+                "minibatch_steps_per_update": int(algo.update_epochs) * (int(algo.rollout_steps) * int(cfg.env.num_envs) // int(algo.per_rank_batch_size)),
+                "param_max_rel_err": err,
+                "metric_max_rel_err": metric_err,
+                "ms_per_update_replayed": ms,
+                "ms_per_update_eager": eager_ms,
+                "replays": fn.replays,
+                "captures": graph.capture_count - captures,
+                "profile": {k: prof[k] for k in ("wall_ms_per_replay", "device_busy_ms_per_replay", "device_idle_share", "kernels_per_replay", "top_kernels_ms_per_replay")},
+            }
+            if not (err <= PPO_UPDATE_BOUND and metric_err <= PPO_UPDATE_BOUND and torch.isfinite(got).all()):
+                raise AssertionError(f"12(a) {model}: the captured PPO update against eager: {report[model]}")
+            if report[model]["captures"] != 1:
+                raise AssertionError(f"12(a) {model}: {report[model]['captures']} captures, want 1")
+    print("phase 12(a) ppo_update " + json.dumps(report), flush=True)
+    return report
+
+
+def ppo_cli(torch, tmp: str, run_name: str, overrides: list) -> tuple:
+    """``cli.run`` of ``overrides`` in this process, its printing kept apart;
+    returns (main's report, the fused_fallback reasons, seconds)."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    out, fallbacks = {}, []
+    real_main, real_fallback = ppo.main, ppo.fused_fallback
+
+    def keep(fabric, cfg):
+        out.update(real_main(fabric, cfg))
+
+    def fallback(reason, detail):
+        fallbacks.append(reason)
+        real_fallback(reason, detail)
+
+    argv = [
+        *overrides,
+        f"seed={SEED}",
+        "env.capture_video=False",
+        f"log_base_dir={tmp}/logs",
+        f"metric.telemetry.runs_jsonl={tmp}/RUNS.jsonl",
+        f"run_name={run_name}",
+    ]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(ppo, "main", keep), mock.patch.object(ppo, "fused_fallback", fallback), contextlib.redirect_stdout(buf):
+        cli.run(argv)
+    torch.cuda.synchronize()
+    return out, fallbacks, time.perf_counter() - t0
+
+
+def ppo_run_report(out: dict, seconds: float) -> dict:
+    ms = [s * 1e3 for s in out["update_seconds"]]
+    # the first update captures the graphs: the steady rate is the median
+    # of the later updates' host seconds, rollout included
+    later = sorted(out["update_wall_seconds"][1:])
+    return {
+        "updates": out["updates"],
+        "env_steps": out["env_steps"],
+        "env_steps_per_s": out["env_steps"] / out["seconds"],
+        "env_steps_per_s_steady": out["env_steps"] / out["updates"] / later[len(later) // 2] if later else None,
+        "update_wall_s": out["update_wall_seconds"],
+        "loop_seconds": out["seconds"],
+        "process_seconds": seconds,
+        "ms_per_update": ms,
+        # the first update captures the graph
+        "ms_per_update_steady": float(sorted(ms[1:])[len(ms[1:]) // 2]) if len(ms) > 1 else ms[0],
+        "env_span_share": out["env_seconds"] / out["seconds"],
+        "replays": out["replays"],
+        "test_cumulative_reward": out["test_cumulative_reward"],
+        "test_steps": out["test_steps"],
+        "metrics": out["metrics"],
+    }
+
+
+def phase_ppo_cli(torch, tmp: str):
+    """(b) ``exp=ppo`` (CartPole-v1 host envs, ``sync``, 4 envs,
+    bf16-mixed) through the CLI for ``PPO_CLI_UPDATES`` updates; (c) the
+    same with ``algo.fused_rollout=True`` at 4 and 64 envs: one replay an
+    update, no ``fused_fallback``; (d) ``exp=ppo_atari``'s NatureCNN on
+    PixelCatcher (``sync``, 8 envs). Env-steps/s, ms an update, the env
+    span's share and the test episode's return of each."""
+    report = {"card": card_line()}
+    base = ["exp=ppo", "env.backend=sync", "metric.log_level=1"]
+    steps = 128 * 4 * PPO_CLI_UPDATES
+    out, fallbacks, seconds = ppo_cli(torch, tmp, "ppo_host", [*base, f"algo.total_steps={steps}"])
+    report["host_loop"] = ppo_run_report(out, seconds)
+    if out["fused_rollout"] or out["updates"] != PPO_CLI_UPDATES or not all(map(math.isfinite, out["metrics"].values())):
+        raise AssertionError(f"12(b) exp=ppo: {report['host_loop']}")
+    print("phase 12(b) ppo_host_loop " + json.dumps(report["host_loop"]), flush=True)
+    report["fused"] = {}
+    for envs, batch in PPO_FUSED_ENVS:
+        steps = 128 * envs * PPO_CLI_UPDATES
+        args = [*base, "algo.fused_rollout=True", f"env.num_envs={envs}", f"algo.per_rank_batch_size={batch}", f"algo.total_steps={steps}"]
+        out, fallbacks, seconds = ppo_cli(torch, tmp, f"ppo_fused_{envs}", args)
+        row = ppo_run_report(out, seconds)
+        row["fused_fallback"] = fallbacks
+        row["replays_per_update"] = out["replays"] / out["updates"]
+        report["fused"][envs] = row
+        print(f"phase 12(c) ppo_fused_{envs}_envs " + json.dumps(row), flush=True)
+        if fallbacks or not out["fused_rollout"] or out["replays"] != out["updates"] or out["updates"] != PPO_CLI_UPDATES:
+            raise AssertionError(f"12(c) fused rollout at {envs} envs: {row}")
+    steps = 128 * 8 * PPO_CNN_UPDATES
+    args = ["exp=ppo_atari", "env=pixel_catcher", "env.id=pixel_catcher", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={steps}"]
+    out, fallbacks, seconds = ppo_cli(torch, tmp, "ppo_cnn", args)
+    report["nature_cnn"] = ppo_run_report(out, seconds)
+    print("phase 12(d) ppo_nature_cnn_pixel_catcher " + json.dumps(report["nature_cnn"]), flush=True)
+    if out["updates"] != PPO_CNN_UPDATES or not all(map(math.isfinite, out["metrics"].values())):
+        raise AssertionError(f"12(d) NatureCNN on PixelCatcher: {report['nature_cnn']}")
+    return report
+
+
+def phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
+    """(e) one Dreamer-V3 S train step at bf16-true against the same step
+    at bf16-mixed on the card, the same weights and batch, the smooth
+    samplers: metrics, Moments and every gradient bit-equal (the JAX
+    modules fix fp32 parameters, so both precisions compute the same), B1
+    called 80 times a step with a bf16 x in each. Returns B1's launches."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    batch = to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], torch.device("cuda"))
+    per_step = SCAN_CALLS + IMAGINE_CALLS
+    out, launches = {}, 0
+    with deterministic(), cudnn_deterministic(torch):
+        mixed, _, _ = train_models(torch, train_cfg("pixel_catcher", precision=BF16), obs_space, actions_dim, is_continuous)
+        states = snapshot(mixed)
+        for precision in (BF16, "bf16-true"):
+            models, step, _ = train_models(torch, train_cfg("pixel_catcher", precision=precision), obs_space, actions_dim, is_continuous, states)
+            if models["wm"].dtype != torch.bfloat16 or any(p.dtype != torch.float32 for p in models["wm"].parameters()):
+                raise AssertionError(f"Dreamer-V3 at {precision}: bf16 compute and fp32 parameters expected")
+            grads = {}
+            metrics, calls = one_step(torch, fg, step, batch, grads)
+            if (calls, fg.bf16_x_launch_count) != (per_step, per_step):
+                raise AssertionError(f"{precision}: {calls} B1 calls, {fg.bf16_x_launch_count} with a bf16 x (want {per_step})")
+            launches += calls
+            out[precision] = (metrics, grads, snapshot(models))
+    (m_a, g_a, s_a), (m_b, g_b, s_b) = out[BF16], out["bf16-true"]
+    equal = {
+        "metrics": bool(torch.equal(m_a, m_b)),
+        **{f"{k}_grads": all(torch.equal(a, b) for a, b in zip(g_a[k], g_b[k])) for k in g_a},
+        "params_after_step": all(torch.equal(s_a[k][n], s_b[k][n]) for k in s_a for n in s_a[k]),
+    }
+    report = {"card": card_line(), "bit_equal": equal, "fused_gru_calls": launches, "fused_gru_bf16_x_calls_per_step": per_step}
+    print("phase 12(e) dv3_bf16_true " + json.dumps(report), flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"12(e) Dreamer-V3 bf16-true is not bit-equal to bf16-mixed: {equal}")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2977,6 +3247,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         env_launches, env_report = phase_env_pipeline(torch, np, fg, tmp)
 
+    # phase 12: PPO, (a) the captured update against eager, (b) exp=ppo
+    # on the host loop, (c) the fused rollout at 4 and 64 envs, (d) NatureCNN
+    # on PixelCatcher; (e) Dreamer-V3 S at bf16-true against bf16-mixed
+    t12 = time.perf_counter()
+    ppo_update = phase_ppo_update(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        ppo_runs = phase_ppo_cli(torch, tmp)
+    bf16_true_launches = phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -2987,9 +3267,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()),
-            # every launch of the bf16-mixed paths read a bf16 x (checked there)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()),
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches,
+            # every launch of the bf16-mixed and bf16-true paths read a bf16 x (checked there)
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches,
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -3001,6 +3281,7 @@ def main() -> int:
                 "cli_train_loop": cli_launches,
                 "cli_train_loop_replays": cli["replays"],
                 "env_pipeline_cli_loops": env_launches,
+                "dv3_bf16_true_and_mixed_steps": bf16_true_launches,
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -3028,6 +3309,15 @@ def main() -> int:
                 "cli_mfu": cli["mfu_last_heartbeat"],
                 "pixel_pendulum_async_env_steps_per_s": env_report["pendulum"]["env_steps_per_s"],
                 "host_ms_per_vector_step": env_report["host_ms_per_vector_step"],
+            },
+            # PPO (phase 12) reaches no TPU kernel: its numbers ride here
+            "ppo": {
+                "ms_per_update_replayed": {m: ppo_update[m]["ms_per_update_replayed"] for m in PPO_MODELS},
+                "host_loop_env_steps_per_s": ppo_runs["host_loop"]["env_steps_per_s"],
+                "host_loop_env_steps_per_s_steady": ppo_runs["host_loop"]["env_steps_per_s_steady"],
+                "fused_env_steps_per_s": {envs: r["env_steps_per_s"] for envs, r in ppo_runs["fused"].items()},
+                "fused_env_steps_per_s_steady": {envs: r["env_steps_per_s_steady"] for envs, r in ppo_runs["fused"].items()},
+                "nature_cnn_env_steps_per_s": ppo_runs["nature_cnn"]["env_steps_per_s"],
             },
         },
         {

@@ -7,9 +7,12 @@ Ported here: ``_LNMLP`` (:59-76), ``CNNEncoder`` (:79-105), ``MLPEncoder``
 (:323-515, with the reward and continue heads, ``decode``, ``dynamic`` and
 ``imagination``), ``rssm_scan`` (:518-543), ``Actor`` (:546-583),
 ``actor_dists`` (:586-603, every head), ``_actor_unimix`` (:606-611),
+``MinedojoActor`` and ``sample_minedojo_actions`` (:614-665),
 ``sample_actor_actions`` (:666-687), ``actor_logprob_entropy`` (:690-707),
-``make_critic`` (:710-729), ``PlayerDV3`` (:732-848) and ``build_agent``
-(:851-996; the critic pair in ``build_critic``).
+``make_critic`` (:710-729), ``PlayerDV3`` (:732-848, the masked step
+too) and ``build_agent`` (:851-996; the critic pair in ``build_critic``).
+The decoders are built over the encoder's keys with the decoder keys'
+sizes, as the JAX ``build_agent`` builds them (:880-881).
 
 Layouts: images enter NHWC uint8 as in the JAX package. The encoder runs
 its convolutions NCHW, takes each LayerNorm over channels, and flattens in
@@ -29,7 +32,8 @@ Precision: every module takes the compute dtype of ``fabric.precision``
 in it, LayerNorms in fp32 cast back, the heads of the representation,
 transition, reward and continue models, the actor and the critic in fp32,
 the decoders' outputs and ``encode``'s features are fp32, and the entry
-points cast latents to the compute dtype. Parameters stay fp32. At
+points cast latents to the compute dtype. Parameters stay fp32, at
+``bf16-true`` too (the JAX modules fix ``param_dtype=jnp.float32``). At
 ``bf16-mixed`` the fused step takes bf16 ``x`` and fp32 ``h`` and computes
 in fp32 (as JAX ``fused=pallas``), where the plain ``RecurrentModel``
 rounds its state to bf16 inside the step (as the flax cell).
@@ -254,7 +258,10 @@ class CNNDecoder(nn.Module):
 
 class MLPDecoder(nn.Module):
     """An ``_LNMLP`` trunk and one linear head per key, all in ``dtype``;
-    the heads' outputs cast to fp32."""
+    the heads' outputs cast to fp32. The heads pair ``keys`` with
+    ``output_dims`` as ``zip`` does, as the JAX decoder does: with fewer
+    dims than keys (decoder keys other than the encoder's) the trunk has
+    fewer heads, or none."""
 
     def __init__(
         self,
@@ -274,7 +281,7 @@ class MLPDecoder(nn.Module):
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.mlp(latent.to(self.dtype))
-        return {k: self.heads[k](x).float() for k in self.keys}
+        return {k: head(x).float() for k, head in self.heads.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -704,6 +711,70 @@ def actor_logprob_entropy(
     return logp, ent
 
 
+class MinedojoActor(Actor):
+    """The actor whose discrete heads honour MineDojo's action masks at play
+    time (JAX ``agent.py:614-620``): the action-type head is masked
+    directly, the craft head only where the sampled action type is CRAFT
+    (15), the item head by the equip/place mask for action types 16 and 17
+    and by the destroy mask for 18 (:func:`sample_minedojo_actions`).
+    Selected by ``algo.actor.cls``; the modules are the ``Actor``'s."""
+
+
+MINEDOJO_CRAFT, MINEDOJO_EQUIP, MINEDOJO_PLACE, MINEDOJO_DESTROY = 15, 16, 17, 18
+
+
+def _gumbel_uniform(generator: Optional[torch.Generator], shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Uniforms in ``[tiny, 1)`` for a Gumbel-max draw (the one place the
+    parity tests inject the JAX package's)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u.clamp_min(torch.finfo(u.dtype).tiny)
+
+
+def _masked_head(logits: torch.Tensor, generator: Optional[torch.Generator], greedy: bool) -> torch.Tensor:
+    """A straight-through one-hot of ``logits``: the mode, or the
+    Gumbel-max draw of ``jax.random.categorical``."""
+    d = OneHotCategoricalStraightThrough(logits)
+    if greedy:
+        return d.mode
+    gumbel = -torch.log(-torch.log(_gumbel_uniform(generator, tuple(logits.shape), logits.device)))
+    sample = F.one_hot((gumbel + logits).argmax(-1), logits.shape[-1]).to(logits.dtype)
+    probs = d.probs
+    return sample + (probs - probs.detach())
+
+
+def sample_minedojo_actions(
+    actor: Actor,
+    state: torch.Tensor,
+    generator: Optional[torch.Generator],
+    mask: Optional[Dict[str, torch.Tensor]],
+    greedy: bool = False,
+) -> torch.Tensor:
+    """The three MineDojo heads sampled in turn under the masks (JAX
+    ``agent.py:622-665``): masked logits are ``-inf``, the action type
+    sampled first decides which mask holds for the craft and item heads.
+    Returns the concatenated straight-through one-hots."""
+    heads = actor(state)
+    neg_inf = torch.tensor(float("-inf"), device=state.device)
+    logits0 = _actor_unimix(heads[0], actor.unimix)
+    if mask is not None:
+        logits0 = torch.where(mask["mask_action_type"].bool(), logits0, neg_inf)
+    a0 = _masked_head(logits0, generator, greedy)
+    func = a0.argmax(-1)
+    logits1 = _actor_unimix(heads[1], actor.unimix)
+    if mask is not None:
+        is_craft = (func == MINEDOJO_CRAFT)[..., None]
+        logits1 = torch.where(is_craft & ~mask["mask_craft_smelt"].bool(), neg_inf, logits1)
+    a1 = _masked_head(logits1, generator, greedy)
+    logits2 = _actor_unimix(heads[2], actor.unimix)
+    if mask is not None:
+        is_equip_place = ((func == MINEDOJO_EQUIP) | (func == MINEDOJO_PLACE))[..., None]
+        is_destroy = (func == MINEDOJO_DESTROY)[..., None]
+        logits2 = torch.where(is_equip_place & ~mask["mask_equip_place"].bool(), neg_inf, logits2)
+        logits2 = torch.where(is_destroy & ~mask["mask_destroy"].bool(), neg_inf, logits2)
+    a2 = _masked_head(logits2, generator, greedy)
+    return torch.cat([a0, a1, a2], -1)
+
+
 # --------------------------------------------------------------------------- #
 # critic
 # --------------------------------------------------------------------------- #
@@ -782,15 +853,23 @@ class PlayerDV3:
         generator: Optional[torch.Generator] = None,
         greedy: bool = False,
         sample_state: bool = True,
+        mask: Optional[Dict[str, np.ndarray]] = None,
     ) -> np.ndarray:
         """One observe+act step on a ``prepare_obs`` dict; keeps (h, z,
         action) on the device for the next step and returns the actions on
         the host. Images cross the bus as uint8. ``sample_state=False`` takes
-        the posterior's mode in place of a sample."""
+        the posterior's mode in place of a sample. ``mask`` (the env's
+        ``mask*`` keys) is honoured by a ``MinedojoActor`` and ignored by any
+        other actor, as in the JAX player (:836-848)."""
         keys = self.wm.cnn_keys + self.wm.mlp_keys
         obs_t = {k: torch.as_tensor(obs[k]).to(self.device) for k in keys}
         z, h = self.wm.observe_step(self.z, self.h, self.actions, obs_t, generator, sample_state)
-        action = sample_actor_actions(self.actor, torch.cat([z, h], -1), generator, greedy)
+        latent = torch.cat([z, h], -1)
+        if mask and isinstance(self.actor, MinedojoActor):
+            mask_t = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in mask.items()}
+            action = sample_minedojo_actions(self.actor, latent, generator, mask_t, greedy)
+        else:
+            action = sample_actor_actions(self.actor, latent, generator, greedy)
         self.actions, self.h, self.z = action, h, z
         return action.cpu().numpy()
 
@@ -824,8 +903,6 @@ def build_agent(
     wm_cfg = algo["world_model"]
     cnn_keys = tuple(algo["cnn_keys"]["encoder"])
     mlp_keys = tuple(algo["mlp_keys"]["encoder"])
-    if tuple(algo["cnn_keys"]["decoder"]) != cnn_keys or tuple(algo["mlp_keys"]["decoder"]) != mlp_keys:
-        raise NotImplementedError("decoder keys other than the encoder's are not ported yet")
     screen = int(cfg["env"]["screen_size"])
     obs_model = wm_cfg["observation_model"]
     wm = WorldModel(
@@ -848,8 +925,10 @@ def build_agent(
         cnn_stages=int(np.log2(screen) - np.log2(4)),
         learnable_initial_recurrent_state=bool(wm_cfg["learnable_initial_recurrent_state"]),
         fused_recurrent=wm_cfg["recurrent_model"].get("fused", "auto"),
-        cnn_output_channels=[_image_channels(tuple(obs_space[k].shape)) for k in cnn_keys],
-        mlp_output_dims=[int(obs_space[k].shape[0]) for k in mlp_keys],
+        # the decoders are built over the encoder's keys with the decoder
+        # keys' sizes, as the JAX build_agent builds them (:880-881)
+        cnn_output_channels=[_image_channels(tuple(obs_space[k].shape)) for k in algo["cnn_keys"]["decoder"]],
+        mlp_output_dims=[int(obs_space[k].shape[0]) for k in algo["mlp_keys"]["decoder"]],
         decoder_cnn_multiplier=int(obs_model["cnn_channels_multiplier"]),
         decoder_mlp_layers=int(obs_model["mlp_layers"]),
         decoder_dense_units=int(obs_model["dense_units"]),
@@ -861,9 +940,8 @@ def build_agent(
         dtype=dtype,
     )
     actor_cfg = algo["actor"]
-    if "minedojo" in str(actor_cfg.get("cls", "")).lower():
-        raise NotImplementedError("MinedojoActor is not ported yet")
-    actor = Actor(
+    actor_cls = MinedojoActor if "minedojo" in str(actor_cfg.get("cls", "")).lower() else Actor
+    actor = actor_cls(
         latent_state_size=wm.latent_state_size,
         actions_dim=actions_dim,
         is_continuous=is_continuous,

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.ops.optim import Adam
-from sheeprl_tpu_torch.utils.checkpoint import EmptyState, ScaleByAdamState
+from sheeprl_tpu_torch.utils.checkpoint import EmptyState, ScaleByAdamState, ScaleByScheduleState
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -304,9 +304,10 @@ def _adam_nesting(opt: Adam, adam_state: ScaleByAdamState) -> Any:
     """optax's state nesting of ``sheeprl_tpu/ops/optim.py::adam``: adam is
     ``chain(scale_by_adam, scale_by_learning_rate)`` (adamw adds
     ``add_decayed_weights`` between them), behind ``chain(
-    clip_by_global_norm, .)`` when clipping; every state but Adam's is
-    empty."""
-    inner = (adam_state, EmptyState(), EmptyState()) if opt.weight_decay else (adam_state, EmptyState())
+    clip_by_global_norm, .)`` when clipping; every state but Adam's and a
+    scheduled learning rate's count is empty."""
+    lr_state = ScaleByScheduleState(adam_state.count) if opt.schedule_steps > 0 else EmptyState()
+    inner = (adam_state, EmptyState(), lr_state) if opt.weight_decay else (adam_state, lr_state)
     return (EmptyState(), inner) if opt.max_grad_norm > 0 else inner
 
 

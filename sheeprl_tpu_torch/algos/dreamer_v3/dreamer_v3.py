@@ -665,6 +665,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     step_data: Dict[str, np.ndarray] = {}
     obs, _ = envs.reset(seed=seed)
     stacked = {k: obs[k] for k in obs_keys}
+    # MineDojo's action masks ride the observation (JAX :847-849)
+    masks = {k: obs[k] for k in obs if k.startswith("mask")}
     prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
     for k in obs_keys:
         step_data[k] = prepared[k][np.newaxis]
@@ -761,7 +763,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                 if update <= learning_starts and state is None:
                     actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
                 else:
-                    actions = player.get_actions(prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen)
+                    actions = player.get_actions(
+                        prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen, mask=masks or None
+                    )
                     real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
                 step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
                 rb.add(step_data)
@@ -795,6 +799,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                         aggregator.update("Game/ep_len_avg", float(ep["l"][i]))
 
             stacked = {k: next_obs[k] for k in obs_keys}
+            masks = {k: next_obs[k] for k in next_obs if k.startswith("mask")}
             prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
             for k in obs_keys:
                 step_data[k] = prepared[k][np.newaxis]

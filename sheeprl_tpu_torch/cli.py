@@ -25,7 +25,13 @@ from sheeprl_tpu_torch.utils.registry import find_algorithm, find_evaluation
 from sheeprl_tpu_torch.utils.utils import dotdict, print_config
 
 # the ported algorithm packages: importing one registers its entry points
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3",)
+ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3", "sheeprl_tpu_torch.algos.ppo")
+# JAX algorithms whose port is queued, by the ROADMAP item that holds it
+UNPORTED_ALGORITHMS = {
+    "ppo_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
+    "a2c": "queued in ROADMAP A4 (with the rmsprop optimizer)",
+    "ppo_recurrent": "queued in ROADMAP A4 (with its recurrent superstep)",
+}
 
 
 def _register_algorithms() -> None:
@@ -81,6 +87,8 @@ def check_configs(cfg: dotdict) -> None:
     logging is on."""
     if cfg.algo.name is None:
         raise ValueError("algo.name must be set")
+    if cfg.algo.name in UNPORTED_ALGORITHMS:
+        raise NotImplementedError(f"algo.name={cfg.algo.name!r} is not ported to sheeprl_tpu_torch yet: {UNPORTED_ALGORITHMS[cfg.algo.name]}")
     _register_algorithms()
     find_algorithm(cfg.algo.name)
     if cfg.metric.log_level > 0 and not cfg.metric.get("aggregator"):

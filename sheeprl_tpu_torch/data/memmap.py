@@ -141,6 +141,15 @@ class MemmapArray(np.lib.mixins.NDArrayOperatorsMixin):
         return state
 
     def __setstate__(self, state: dict) -> None:
+        # a pickled memmap holds only its file's name: without the file
+        # there is no data to restore, and an empty array would be a lie
+        filename = Path(state["_filename"])
+        if not filename.is_file():
+            raise FileNotFoundError(
+                f"a memory-mapped array of this checkpoint keeps its data in {filename}, which no longer exists: "
+                "a checkpoint of a memmapped replay buffer restores only while its files are on disk "
+                "(resume with buffer.checkpoint=False to start with an empty buffer instead)"
+            )
         self.__dict__.update(state)
 
     def __array__(self, dtype: Any = None, copy: Any = None) -> np.ndarray:

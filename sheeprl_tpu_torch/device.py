@@ -3,9 +3,10 @@ of ``sheeprl_tpu/parallel/fabric.py`` and of its ``Precision``, :40-80).
 
 An entry point takes ``device=None``, which means the CUDA card. Without a
 card it raises: the plain PyTorch path runs only when the caller asks for
-the CPU by name, as the tests do. The precision is ``fp32`` or
+the CPU by name, as the tests do. The precision is ``fp32``,
 ``bf16-mixed`` (fp32 parameters and optimizer state, bf16 compute, the
-default of ``configs/fabric/default.yaml``); ``bf16-true`` is not ported.
+default of ``configs/fabric/default.yaml``) or ``bf16-true`` (bf16 compute,
+and bf16 parameters where the algorithm asks for ``param_dtype``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,11 @@ class Precision:
     """Numeric policy: ``fp32`` computes in float32; ``bf16-mixed`` keeps
     parameters and optimizer state in float32 and computes in bfloat16 at
     the cast points of the JAX modules (flax ``dtype=bf16``,
-    ``param_dtype=fp32``)."""
+    ``param_dtype=fp32``); ``bf16-true`` computes in bfloat16 and has a
+    bfloat16 ``param_dtype``. As in the JAX package, only the algorithms
+    that cast their parameters to ``param_dtype`` (PPO) hold bf16
+    parameters: Dreamer-V3's modules fix fp32 parameters, so it computes
+    at ``bf16-true`` exactly what it computes at ``bf16-mixed``."""
 
     name: str = "fp32"
 
@@ -48,20 +53,15 @@ class Precision:
         name = PRECISION_ALIASES.get(str(self.name), str(self.name))
         if name not in PRECISIONS:
             raise ValueError(f"unknown precision {self.name!r}; choose from {PRECISIONS} (aliases: {PRECISION_ALIASES})")
-        if name == "bf16-true":
-            raise NotImplementedError(
-                "precision 'bf16-true' (bf16 parameters) is not ported yet: it is queued in ROADMAP.md; "
-                "use 'bf16-mixed' or '32-true'"
-            )
         object.__setattr__(self, "name", name)
 
     @property
     def param_dtype(self) -> torch.dtype:
-        return torch.float32
+        return torch.bfloat16 if self.name == "bf16-true" else torch.float32
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.name == "bf16-mixed" else torch.float32
+        return torch.bfloat16 if self.name in ("bf16-mixed", "bf16-true") else torch.float32
 
 
 def compute_dtype(precision: str = "32-true") -> torch.dtype:

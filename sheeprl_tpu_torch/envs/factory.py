@@ -21,10 +21,15 @@ algorithm main: env ``i`` of process ``rank`` gets seed
 with ``env.sync_env`` kept as the deprecated alias (``backend`` null →
 ``sync`` when ``sync_env`` is true, else ``async``).
 
+``env.wrapper._target_: gymnasium.make`` builds the port's own host env
+for the ids it has (``envs/classic.py``: ``CartPole-v1`` and
+``Pendulum-v1``, behind gymnasium's ``TimeLimit``), with vector
+observations only.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``gymnasium.make`` and the game adapters (DMC, Atari, Crafter,
-MineRL, MineDojo, Diambra, Mario), and video capture (``RecordVideo``
-needs moviepy).
+item: ``gymnasium.make`` of any other id, pixels of the classic-control
+envs, the game adapters (DMC, Atari, Crafter, MineRL, MineDojo, Diambra,
+Mario), and video capture (``RecordVideo`` needs moviepy).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Any, Callable, Dict, Optional
 
 from sheeprl_tpu_torch.config.compose import instantiate
 from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.classic import CLASSIC_ENVS, make_classic_env
 from sheeprl_tpu_torch.envs.dummy import get_dummy_env
 from sheeprl_tpu_torch.envs.vector import AsyncVectorEnv, SyncVectorEnv, VectorEnv
 from sheeprl_tpu_torch.envs.wrappers import (
@@ -136,7 +142,21 @@ def make_env(
 def _build_env(cfg: Dict[str, Any], seed: Optional[int], rank: int, run_name: Optional[str], prefix: str, vector_env_idx: int) -> Any:
     env_cfg = cfg["env"]
     wrapper_cfg = env_cfg["wrapper"]
-    _check_ported(wrapper_cfg)
+    classic = str(wrapper_cfg.get("_target_", "")) == "gymnasium.make"
+    if classic:
+        env_id = str(wrapper_cfg.get("id", env_cfg["id"]))
+        if env_id not in CLASSIC_ENVS:
+            raise NotImplementedError(
+                f"env.wrapper._target_ 'gymnasium.make' with id {env_id!r}: gymnasium's registry is not ported to "
+                f"sheeprl_tpu_torch (ROADMAP A1); the port's own host envs are {sorted(CLASSIC_ENVS)}"
+            )
+        if list(cfg["algo"]["cnn_keys"]["encoder"]):
+            raise NotImplementedError(
+                f"pixel observations of {env_id} (algo.cnn_keys.encoder): gymnasium renders it with pygame, which is "
+                "not ported to sheeprl_tpu_torch yet (ROADMAP A1); use algo.cnn_keys.encoder=[]"
+            )
+    else:
+        _check_ported(wrapper_cfg)
     if env_cfg.get("capture_video") and rank == 0 and vector_env_idx == 0 and run_name is not None:
         raise NotImplementedError(
             "env.capture_video=True: video capture (gymnasium's RecordVideo, which needs moviepy) is not ported to "
@@ -147,7 +167,10 @@ def _build_env(cfg: Dict[str, Any], seed: Optional[int], rank: int, run_name: Op
         instantiate_kwargs["seed"] = seed
     if "rank" in wrapper_cfg:
         instantiate_kwargs["rank"] = rank + vector_env_idx
-    env = instantiate(wrapper_cfg, **instantiate_kwargs)
+    if classic:
+        env = make_classic_env(env_id, seed=seed)
+    else:
+        env = instantiate(wrapper_cfg, **instantiate_kwargs)
 
     if env_cfg["action_repeat"] > 1:
         env = ActionRepeat(env, env_cfg["action_repeat"])

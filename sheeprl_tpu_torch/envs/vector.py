@@ -137,7 +137,8 @@ class SyncVectorEnv(VectorEnv):
 
     def close(self) -> None:
         if not self.closed:
-            for env in self.envs:
+            # a constructor that raised leaves no envs to close
+            for env in getattr(self, "envs", ()):
                 env.close()
             self.closed = True
 

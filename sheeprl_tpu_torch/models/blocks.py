@@ -1,6 +1,12 @@
 """Network blocks (port of ``sheeprl_tpu/models/blocks.py``: ``LayerNorm``
-at lines 68-85 and ``LayerNormGRUCell`` at lines 296-338), and the dense
-and convolution layers of the port with flax's compute dtype.
+at lines 68-85, ``MLP`` at :115, ``NatureCNN`` at :268 and
+``LayerNormGRUCell`` at lines 296-338), and the dense and convolution
+layers of the port with flax's compute dtype.
+
+The port's images are NCHW where flax's are NHWC. ``NatureCNN`` flattens
+its last conv map in CHW order where flax flattens in HWC order, so the
+weight converters permute the input rows of its feature ``Dense``
+(``algos/ppo/convert.py``).
 
 The GRU cell keeps its projection as ``kernel [in, out]``, the layout of a
 flax ``Dense``, because the fused CUDA step reads it as it is
@@ -16,6 +22,8 @@ not inside it. At fp32 every cast is a no-op.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -122,3 +130,96 @@ class LayerNormGRUCell(nn.Module):
         cand = torch.tanh(torch.sigmoid(reset) * cand)
         update = torch.sigmoid(update - 1)
         return update * cand + (1 - update) * h
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "identity": lambda x: x,
+}
+
+
+def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An activation by name; a torch-style class path (``torch.nn.Tanh``)
+    names its last part. ``jax.nn.gelu`` is the tanh approximation."""
+    key = "identity" if name is None else str(name).rsplit(".", 1)[-1].lower()
+    if key not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; available: {sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[key]
+
+
+class MLP(nn.Module):
+    """Dense -> (LayerNorm) -> activation per hidden size, then an output
+    Dense when ``output_dim`` is set (flax ``MLP``'s layer order, without
+    dropout). ``layers.i`` is flax's ``Dense_i`` and ``norms.i`` its
+    ``LayerNorm_i``."""
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden_sizes: Sequence[int],
+        output_dim: Optional[int] = None,
+        activation: str = "relu",
+        layer_norm: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        if not hidden_sizes and output_dim is None:
+            raise ValueError("The number of layers should be at least 1.")
+        dims = [in_features, *hidden_sizes] + ([output_dim] if output_dim is not None else [])
+        self.layers = nn.ModuleList(Dense(a, b, compute_dtype=compute_dtype) for a, b in zip(dims[:-1], dims[1:]))
+        self.norms = nn.ModuleList(LayerNorm(h) for h in hidden_sizes) if layer_norm else None
+        self.n_hidden = len(hidden_sizes)
+        self.act = get_activation(activation)
+        self.output_dim = output_dim if output_dim is not None else (hidden_sizes[-1] if hidden_sizes else in_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < self.n_hidden:
+                if self.norms is not None:
+                    x = self.norms[i](x)
+                x = self.act(x)
+        return x
+
+
+class NatureCNN(nn.Module):
+    """The DQN Nature conv net on NCHW input: convs of 32, 64, 64 channels,
+    kernels 8, 4, 3, strides 4, 2, 1, VALID padding, ReLU, the map flattened
+    in CHW order, then ``Dense(features_dim)`` and ReLU when
+    ``features_dim`` is set."""
+
+    CHANNELS = (32, 64, 64)
+    KERNELS = (8, 4, 3)
+    STRIDES = (4, 2, 1)
+
+    def __init__(
+        self, in_channels: int, image_size: int, features_dim: Optional[int] = 512, compute_dtype: torch.dtype = torch.float32
+    ) -> None:
+        super().__init__()
+        chans = [in_channels, *self.CHANNELS]
+        self.convs = nn.ModuleList(
+            Conv2d(a, b, k, stride=s, compute_dtype=compute_dtype)
+            for a, b, k, s in zip(chans[:-1], chans[1:], self.KERNELS, self.STRIDES)
+        )
+        side = int(image_size)
+        for k, s in zip(self.KERNELS, self.STRIDES):
+            side = (side - k) // s + 1
+        if side < 1:
+            raise ValueError(f"NatureCNN needs images of at least 36 pixels a side, got {image_size}")
+        self.map_shape = (self.CHANNELS[-1], side, side)
+        flat = self.CHANNELS[-1] * side * side
+        self.fc = Dense(flat, features_dim, compute_dtype=compute_dtype) if features_dim is not None else None
+        self.output_dim = features_dim if features_dim is not None else flat
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.convs:
+            x = torch.relu(conv(x))
+        x = x.flatten(-3)
+        return x if self.fc is None else torch.relu(self.fc(x))

@@ -51,7 +51,7 @@ _FLIGHTREC_EVENTS = 256
 # dense peaks by card name and precision, FLOP/s (NVIDIA data sheet, H100
 # SXM: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32 outside them)
 PEAK_FLOPS: Dict[str, Dict[str, float]] = {
-    "NVIDIA H100 80GB HBM3": {"bf16-mixed": 989e12, "fp32": 67e12},
+    "NVIDIA H100 80GB HBM3": {"bf16-mixed": 989e12, "bf16-true": 989e12, "fp32": 67e12},
 }
 
 _active_telemetry: Optional["RunTelemetry"] = None
@@ -204,6 +204,7 @@ class RunTelemetry:
         self._total_ckpt_commits = 0
         self._total_ckpt_skipped = 0
         self._total_nan_rollbacks = 0
+        self._fused_fallbacks: Dict[str, int] = {}
         self._total_preemptions = 0
         self._total_crash_checkpoints = 0
         self._total_resume_fallbacks = 0
@@ -269,6 +270,13 @@ class RunTelemetry:
     def record_ckpt_skipped(self, path: str, step: int, **fields: Any) -> None:
         self._total_ckpt_skipped += 1
         self.emit("ckpt_skipped", path=path, ckpt_step=int(step), **fields)
+        self.writer.flush()
+
+    def record_fused_fallback(self, reason: str, detail: str = "", **fields: Any) -> None:
+        """A fused path was asked for and the run took the host loop: one
+        ``fused_fallback`` event and a run-end count by reason."""
+        self._fused_fallbacks[reason] = self._fused_fallbacks.get(reason, 0) + 1
+        self.emit("fused_fallback", reason=reason, detail=detail, **fields)
         self.writer.flush()
 
     def record_nan_rollback(self, path: Optional[str], reason: str, remaining: int, **fields: Any) -> None:
@@ -462,7 +470,7 @@ class RunTelemetry:
             "train_windows": self._total_train_windows,
             "train_dispatches": self._total_train_dispatches,
             "train_gradient_steps": self._total_train_gradient_steps,
-            "fused_fallbacks": {},
+            "fused_fallbacks": dict(self._fused_fallbacks),
             "worker_restarts": 0,
             "masked_slots": 0,
             "ckpt_commits": self._total_ckpt_commits,
@@ -521,6 +529,7 @@ class RunTelemetry:
             preemptions=self._total_preemptions,
             crash_checkpoints=self._total_crash_checkpoints,
             resume_fallbacks=self._total_resume_fallbacks,
+            fused_fallbacks=dict(self._fused_fallbacks),
             deliberate_compiles=dict(self.watchdog.deliberate_compiles),
             telemetry_rotations=self.writer.rotations,
             telemetry_segments=[os.path.basename(p) for p in self.writer.segments()],
@@ -625,6 +634,12 @@ def telemetry_preemption(signum: int, **fields: Any) -> None:
     tel = _active_telemetry
     if tel is not None:
         tel.record_preemption(signum, **fields)
+
+
+def telemetry_fused_fallback(reason: str, detail: str = "", **fields: Any) -> None:
+    tel = _active_telemetry
+    if tel is not None:
+        tel.record_fused_fallback(reason, detail, **fields)
 
 
 def telemetry_crash_checkpoint(path: str, error: str, **fields: Any) -> None:

@@ -1,5 +1,6 @@
 """Distributions (port of ``sheeprl_tpu/ops/distributions.py``: ``Normal``,
-``Independent``, ``TanhNormal`` :201-241, ``OneHotCategorical`` and
+``Independent``, ``TanhNormal`` :201-241, ``Categorical`` :243-268,
+``OneHotCategorical`` and
 ``OneHotCategoricalStraightThrough`` :272-336, the Dreamer-V3 heads
 ``SymlogDistribution``, ``MSEDistribution``, ``TwoHotEncodingDistribution``
 and ``Bernoulli`` :338-490, and ``kl_divergence`` :503).
@@ -88,6 +89,43 @@ class Independent:
 
     def entropy(self) -> torch.Tensor:
         return self.base.entropy().sum(dim=self._dims)
+
+
+class Categorical:
+    """Integer-support categorical over the last axis of ``logits``.
+    ``sample`` is the Gumbel-max draw of ``jax.random.categorical``
+    (``argmax(logits - log(-log(u)))``, ``u`` uniform in ``[tiny, 1)``):
+    one ``torch.rand`` of the logits' shape, which a CUDA graph captures
+    with its generator."""
+
+    def __init__(self, logits: torch.Tensor) -> None:
+        self.logits = logits
+
+    @property
+    def log_probs(self) -> torch.Tensor:
+        return F.log_softmax(self.logits, dim=-1)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return F.softmax(self.logits, dim=-1)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.logits.argmax(-1)
+
+    def sample(self, generator: Optional[torch.Generator] = None, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        shape = tuple(sample_shape) + tuple(self.logits.shape)
+        with torch.no_grad():
+            u = torch.rand(shape, generator=generator, device=self.logits.device, dtype=self.logits.dtype)
+            tiny = torch.finfo(self.logits.dtype).tiny
+            return (self.logits - torch.log(-torch.log(u.clamp_min(tiny)))).argmax(-1)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return self.log_probs.gather(-1, value.long().unsqueeze(-1)).squeeze(-1)
+
+    def entropy(self) -> torch.Tensor:
+        lp = self.log_probs
+        return -(lp.exp() * lp).sum(-1)
 
 
 class OneHotCategorical:

@@ -29,6 +29,7 @@ run. There is no fallback on the card: a failed capture or replay raises.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -114,8 +115,16 @@ class CapturedStep:
         for g in self.generators:
             graph.register_generator_state(g)
         before = fused_gru.launch_count
-        with torch.cuda.graph(graph):
-            self._out = self.step(self.inputs)
+        # a dead graph that the cyclic collector frees mid-capture resets
+        # itself inside the capture, which invalidates it: collect first,
+        # and not during it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._out = self.step(self.inputs)
+        finally:
+            gc.enable()
         self.captured_launches = fused_gru.launch_count - before
         self.graph = graph
         global capture_count

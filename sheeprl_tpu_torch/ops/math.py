@@ -1,6 +1,6 @@
 """Numeric transforms (port of ``sheeprl_tpu/ops/math.py``: ``symlog`` and
 ``symexp`` :21-29, ``two_hot_encoder``/``two_hot_decoder`` :31-64,
-``compute_lambda_values`` :107-127, ``normalize`` :183 and the Moments
+``gae`` :65-104, ``compute_lambda_values`` :107-127, ``normalize`` :183 and the Moments
 return normaliser :208-242).
 
 The reverse-time recurrence is a Python loop where the JAX package scans.
@@ -56,6 +56,32 @@ def two_hot_decoder(x: torch.Tensor, support_range: int) -> torch.Tensor:
         raise ValueError("support_size must be odd")
     support = torch.linspace(-support_range, support_range, num_buckets, dtype=x.dtype, device=x.device)
     return (x * support).sum(-1, keepdim=True)
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over a time-major ``[T, ...]``
+    rollout, where ``dones[t]`` flags the current observation (CleanRL's
+    convention): ``delta_t = r_t + gamma * nd_t * V_{t+1} - V_t`` and
+    ``A_t = delta_t + gamma * lambda * nd_t * A_{t+1}``, a reverse loop over
+    T; ``next_value [...]`` bootstraps the step after ``T - 1``. Returns
+    ``(returns, advantages)``."""
+    not_dones = 1.0 - dones.to(values.dtype)
+    next_values = torch.cat([values[1:], next_value[None]], 0)
+    adv = torch.zeros_like(next_value)
+    advantages = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        delta = rewards[t] + gamma * next_values[t] * not_dones[t] - values[t]
+        adv = delta + gamma * gae_lambda * not_dones[t] * adv
+        advantages.append(adv)
+    advantages = torch.stack(advantages[::-1])
+    return advantages + values, advantages
 
 
 def compute_lambda_values(

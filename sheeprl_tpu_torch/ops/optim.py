@@ -39,7 +39,9 @@ class Adam:
     """optax's Adam (``adamw`` when ``weight_decay``), with global-norm
     clipping in front when ``max_grad_norm > 0``. ``step(grads)`` updates
     ``params`` in place (no autograd) and returns the gradients' global norm
-    before clipping. Multi-tensor (``torch._foreach_*``) ops, each rounding
+    before clipping. With ``schedule_steps`` the learning rate decays
+    linearly to 0 over that many steps (``optax.linear_schedule``).
+    Multi-tensor (``torch._foreach_*``) ops, each rounding
     as optax's elementwise expression does.
 
     Every piece of state lives on the parameters' device and is updated in
@@ -56,8 +58,12 @@ class Adam:
         eps: float = 1e-8,
         weight_decay: float = 0.0,
         max_grad_norm: float = 0.0,
+        schedule_steps: int = 0,
     ) -> None:
         self.params = list(params)
+        # anneal_lr: optax's linear_schedule(lr, 0, schedule_steps), read at
+        # the step count before each update, on the device
+        self.schedule_steps = int(schedule_steps or 0)
         self.lr, self.eps, self.weight_decay = float(lr), float(eps), float(weight_decay)
         self.b1, self.b2 = (float(b) for b in betas)
         self.max_grad_norm = float(max_grad_norm or 0.0)
@@ -71,6 +77,10 @@ class Adam:
         norm = global_norm(grads)
         if self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
+        lr = self.lr
+        if self.schedule_steps > 0:
+            done = self.count.clamp(0, self.schedule_steps).float() / self.schedule_steps
+            lr = self.lr * (1 - done)
         self.count.add_(1)
         # optax's bias corrections, 1 - decay**count, in fp32 on the device
         n = self.count.float()
@@ -87,13 +97,14 @@ class Adam:
         update = torch._foreach_div(torch._foreach_div(self.mu, c1), denom)
         if self.weight_decay:
             torch._foreach_add_(update, torch._foreach_mul(self.params, self.weight_decay))
-        torch._foreach_sub_(self.params, torch._foreach_mul(update, self.lr))
+        torch._foreach_sub_(self.params, torch._foreach_mul(update, lr))
         return norm
 
 
-def adam(params: Sequence[torch.nn.Parameter], opt_cfg: dict, clip: float = 0.0) -> Adam:
+def adam(params: Sequence[torch.nn.Parameter], opt_cfg: dict, clip: float = 0.0, schedule_steps: int = 0) -> Adam:
     """The optimizer of a config group (``lr``, ``eps``, ``weight_decay``,
-    ``betas``) with the algo's ``clip_gradients``."""
+    ``betas``) with the algo's ``clip_gradients`` and, for ``anneal_lr``,
+    the linear decay's length."""
     return Adam(
         params,
         lr=float(opt_cfg["lr"]),
@@ -101,4 +112,5 @@ def adam(params: Sequence[torch.nn.Parameter], opt_cfg: dict, clip: float = 0.0)
         eps=float(opt_cfg["eps"]),
         weight_decay=float(opt_cfg.get("weight_decay", 0.0) or 0.0),
         max_grad_norm=float(clip or 0.0),
+        schedule_steps=schedule_steps,
     )

@@ -25,14 +25,33 @@ it, so index noise and gradient noise never share a stream.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from sheeprl_tpu_torch.obs.telemetry import telemetry_fused_fallback
 from sheeprl_tpu_torch.resilience.sentinel import all_finite
 
 # the JAX package's salt for the replay draw's stream (:53)
 SAMPLE_KEY_SALT = 0x5EED
+
+_warned_fallback_reasons: set = set()
+
+
+def fused_fallback(reason: str, detail: str) -> None:
+    """Record that a fused path (``algo.fused_rollout``) could not run and
+    the loop takes the host path: a ``fused_fallback`` telemetry event
+    every time, and a ``UserWarning`` once a reason a run (JAX :81-96)."""
+    telemetry_fused_fallback(reason, detail)
+    if reason not in _warned_fallback_reasons:
+        _warned_fallback_reasons.add(reason)
+        warnings.warn(detail, UserWarning, stacklevel=3)
+
+
+def reset_fused_fallback_warnings() -> None:
+    """Warn again for every reason (a new run)."""
+    _warned_fallback_reasons.clear()
 
 
 def pregathered(ctx: Dict[str, torch.Tensor], step_index: int) -> Dict[str, torch.Tensor]:

@@ -19,7 +19,13 @@ unpickling them by default would import optax and, with it, JAX. Here:
 - flax's ``FrozenDict`` becomes ``dict``;
 - the port's own stand-ins and replay buffers (the host buffers and the
   device ring, both pickled as host arrays) are allowed;
-- the JAX package's replay buffers raise ``NotImplementedError``;
+- the JAX package's replay buffers (``ReplayBuffer``,
+  ``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer``, the device
+  ring) and its ``MemmapArray`` load as the port's classes of the same
+  name, whose pickled state has the same fields: the host buffers' arrays
+  and cursors, the ring's host arrays and cursors, a numpy generator each.
+  A JAX memmapped buffer pickles only its files' names, so it loads while
+  those files exist and raises ``FileNotFoundError`` once they are gone;
 - any other class raises ``pickle.UnpicklingError`` with its dotted name.
 """
 
@@ -43,10 +49,17 @@ class ScaleByAdamState(NamedTuple):
     nu: Any
 
 
+class ScaleByScheduleState(NamedTuple):
+    """optax ``ScaleByScheduleState``: a learning-rate schedule's count."""
+
+    count: Any
+
+
 # the optax state classes of the optimizers the port has (Adam behind
-# global-norm clipping), by name: their module paths vary across optax
-# versions. Another optimizer's state raises until that optimizer is ported.
-OPTAX_STAND_INS = {cls.__name__: cls for cls in (EmptyState, ScaleByAdamState)}
+# global-norm clipping, with a scheduled learning rate), by name: their
+# module paths vary across optax versions. Another optimizer's state raises
+# until that optimizer is ported.
+OPTAX_STAND_INS = {cls.__name__: cls for cls in (EmptyState, ScaleByAdamState, ScaleByScheduleState)}
 
 _NUMPY_MODULES = frozenset(
     ("numpy", "numpy.core.multiarray", "numpy._core.multiarray", "numpy.core.numeric", "numpy._core.numeric")
@@ -69,10 +82,24 @@ _NUMPY_RANDOM = frozenset(
 _BUILTINS = frozenset(
     ("set", "frozenset", "complex", "slice", "range", "bytearray", "tuple", "list", "dict", "int", "float", "bool", "str")
 )
+# the JAX package's classes that load as the port's (module, name)
+_JAX_CLASSES = {
+    ("sheeprl_tpu.data.buffers", "ReplayBuffer"): ("sheeprl_tpu_torch.data.buffers", "ReplayBuffer"),
+    ("sheeprl_tpu.data.buffers", "SequentialReplayBuffer"): ("sheeprl_tpu_torch.data.buffers", "SequentialReplayBuffer"),
+    ("sheeprl_tpu.data.buffers", "EnvIndependentReplayBuffer"): (
+        "sheeprl_tpu_torch.data.buffers",
+        "EnvIndependentReplayBuffer",
+    ),
+    ("sheeprl_tpu.data.device_buffer", "DeviceReplayBuffer"): ("sheeprl_tpu_torch.data.device_buffer", "DeviceReplayBuffer"),
+    ("sheeprl_tpu.data.memmap", "MemmapArray"): ("sheeprl_tpu_torch.data.memmap", "MemmapArray"),
+}
+# a pickled buffer's memmap directory
+_PATHS = frozenset(("PosixPath", "PurePosixPath", "WindowsPath", "PureWindowsPath"))
 _PORT_CLASSES = {
     "sheeprl_tpu_torch.utils.checkpoint": frozenset(OPTAX_STAND_INS),
     "sheeprl_tpu_torch.data.buffers": frozenset(("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer")),
     "sheeprl_tpu_torch.data.device_buffer": frozenset(("DeviceReplayBuffer",)),
+    "sheeprl_tpu_torch.data.memmap": frozenset(("MemmapArray",)),
 }
 
 
@@ -98,11 +125,10 @@ class CheckpointUnpickler(pickle.Unpickler):
             return dict
         if name in _PORT_CLASSES.get(module, ()):
             return super().find_class(module, name)
-        if module.startswith("sheeprl_tpu.data"):
-            raise NotImplementedError(
-                f"the checkpoint holds the JAX package's replay buffer ({module}.{name}); loading it is not "
-                "ported: resume with buffer.checkpoint=False, or from a checkpoint saved without the buffer"
-            )
+        if (module, name) in _JAX_CLASSES:
+            return super().find_class(*_JAX_CLASSES[(module, name)])
+        if module in ("pathlib", "pathlib._local") and name in _PATHS:
+            return super().find_class(module, name)
         raise pickle.UnpicklingError(f"checkpoint refers to {module}.{name}, which is not on the allow-list")
 
 

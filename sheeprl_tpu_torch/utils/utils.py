@@ -1,5 +1,6 @@
 """Host utilities (port of ``sheeprl_tpu/utils/utils.py``: ``dotdict`` :17,
-``set_nested``/``del_nested`` :77-101, ``Ratio`` :118, ``save_configs`` and
+``set_nested``/``del_nested`` :77-101, ``polynomial_decay`` :104, ``Ratio`` :118,
+``save_configs`` and
 ``print_config`` :165-194). ``get_log_dir`` and ``run_base_dir`` moved to
 ``utils/logger.py`` and are re-exported here."""
 
@@ -198,3 +199,18 @@ class Ratio:
         self._prev = state_dict["_prev"]
         self._pretrain_steps = state_dict["_pretrain_steps"]
         return self
+
+
+def polynomial_decay(
+    current_step: int,
+    *,
+    initial: float = 1.0,
+    final: float = 0.0,
+    max_decay_steps: int = 100,
+    power: float = 1.0,
+) -> float:
+    """``initial`` decayed to ``final`` over ``max_decay_steps`` with
+    ``power`` (JAX ``utils/utils.py:104-115``)."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final

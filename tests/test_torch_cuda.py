@@ -853,3 +853,112 @@ def test_cuda_superstep_draws_from_the_ring(cuda):
     assert fn.replays == 2 and not torch.equal(sample_gen.get_state(), drawn)
     after = ring.host_arrays()
     assert all(np.array_equal(before[k], after[k]) for k in before)
+
+
+# --------------------------------------------------------------------------- #
+# PPO: the captured update and the fused rollout; Dreamer-V3 at bf16-true
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+def test_cuda_ppo_captured_update_matches_eager(cuda, monkeypatch):
+    """The PPO update at exp=ppo widths (bf16-mixed) as one CUDA graph
+    against the same update eager, from the same weights and train
+    generator: three updates, every parameter within chip_smoke's bound,
+    one capture."""
+    import chip_smoke
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.ops import graph
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _, g_agent, g_opt, g_gen, g_update, inputs = chip_smoke.ppo_update_models(torch, np, "mlp_cartpole")
+    _, e_agent, e_opt, _, e_update, _ = chip_smoke.ppo_update_models(torch, np, "mlp_cartpole")
+    captures = graph.capture_count
+    fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
+    for _ in range(3):
+        got, want = fn(), e_update(inputs)
+        assert torch.isfinite(got).all()
+    assert fn.replays == 3 and graph.capture_count == captures + 1
+    assert int(g_opt.count) == int(e_opt.count) == 3 * 10 * 8
+    for a, b in zip(g_agent.parameters(), e_agent.parameters()):
+        assert (a - b).abs().max() <= chip_smoke.PPO_UPDATE_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_superstep_replay_matches_eager(cuda):
+    """The fused rollout (CartPole twin, 16 steps of 4 envs), GAE and the
+    update as one CUDA graph against the same superstep eager on the card,
+    from the same generator states and env carry: metrics, episode flags,
+    the carry and the parameters."""
+    from sheeprl_tpu_torch.algos.ppo import agent as tagent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_local_train, opt_state_tensors
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.jittable import get_jittable_env
+    from sheeprl_tpu_torch.ops import graph
+    from sheeprl_tpu_torch.ops.optim import adam
+    from sheeprl_tpu_torch.ops.rollout_scan import init_env_carry, make_onpolicy_superstep_fn
+
+    import chip_smoke
+
+    spec = get_jittable_env("CartPole-v1")
+    cfg = chip_smoke.ppo_cfg("exp=ppo", "algo.per_rank_batch_size=16", "algo.update_epochs=2")
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    runs = []
+    for _ in range(2):
+        agent, _ = tagent.build_agent((2,), False, cfg, space, device="cuda")
+        opt = adam(list(agent.parameters()), cfg.algo.optimizer, 0.0)
+        gens = [torch.Generator(device="cuda").manual_seed(s) for s in (1, 2, 3)]
+        carry = init_env_carry(spec, 4, gens[1])
+        superstep = make_onpolicy_superstep_fn(
+            spec,
+            policy_fn=lambda obs, g, a=agent: tagent.rollout_step(a, obs, g),
+            value_fn=lambda obs, a=agent: a(obs)[1],
+            local_train=make_local_train(agent, opt, cfg, ["state"], 64, gens[2]),
+            obs_key="state",
+            rollout_steps=16,
+            gamma=0.99,
+            gae_lambda=0.95,
+            policy_generator=gens[0],
+            env_generator=gens[1],
+        )
+        coefs = torch.tensor([0.2, 0.0], device="cuda")
+        runs.append((agent, carry, superstep, coefs, opt, gens))
+    (g_agent, g_carry, g_step, coefs, g_opt, g_gens), (e_agent, e_carry, e_step, _, _, _) = runs
+    def fused(d):
+        metrics, stats = g_step({k: v for k, v in d.items() if k != "coefs"}, d["coefs"])
+        return metrics, stats["done"]
+
+    fn = graph.CapturedStep(
+        fused,
+        {**g_carry, "coefs": coefs},
+        opt_state_tensors(g_agent, g_opt) + list(g_carry.values()),
+        g_gens,
+    )
+    for _ in range(2):
+        (got, g_done), (want, e_stats) = fn(), e_step(e_carry, coefs)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        assert torch.equal(g_done, e_stats["done"])
+    assert fn.replays == 2
+    for k in g_carry:
+        torch.testing.assert_close(g_carry[k], e_carry[k], atol=1e-5, rtol=1e-5)
+    for a, b in zip(g_agent.parameters(), e_agent.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_dv3_bf16_true_step_is_bit_equal_to_bf16_mixed(cuda, smooth):
+    """Dreamer-V3 keeps fp32 parameters at bf16-true, as the JAX modules
+    do: one train step (the fused step reading a bf16 x) bit-equal to the
+    step at bf16-mixed from the same weights."""
+    mixed, mstep, _ = _train(False, "auto", 4, precision="bf16-mixed")
+    true, tstep, _ = _train(False, "auto", 4, _snapshot(mixed), precision="bf16-true")
+    assert all(p.dtype == torch.float32 for p in true["wm"].parameters()) and true["wm"].dtype == torch.bfloat16
+    batch = _batch(8, 4, False)
+    g_m, g_t = {}, {}
+    m_m, launches_m, _ = _step(mstep, batch, g_m)
+    m_t, launches_t, _ = _step(tstep, batch, g_t)
+    assert launches_m == launches_t == 8 + 5 and tgru.bf16_x_launch_count == launches_t
+    assert torch.equal(m_m, m_t)
+    for k in g_m:
+        assert all(torch.equal(a, b) for a, b in zip(g_m[k], g_t[k])), k

@@ -43,6 +43,26 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+# the modules of the PPO slice: each is scanned by test_no_forbidden_import
+PPO_SLICE = (
+    "algos/ppo/agent.py",
+    "algos/ppo/convert.py",
+    "algos/ppo/evaluate.py",
+    "algos/ppo/loss.py",
+    "algos/ppo/ppo.py",
+    "algos/ppo/utils.py",
+    "envs/classic.py",
+    "envs/variants.py",
+    "ops/rollout_scan.py",
+    "utils/prealloc.py",
+)
+
+
+def test_the_scan_covers_the_ppo_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(PPO_SLICE) <= scanned
+
+
 def test_the_scan_sees_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom sheeprl_tpu.ops import math\nimport sheeprl_tpu_torch\n")
@@ -66,6 +86,13 @@ cfg = compose("XS", overrides={{
     "env.screen_size": 16, "env.max_episode_steps": 4}})
 reward, steps = evaluate(cfg, device="cpu")
 assert steps == 4, steps
+# PPO on the port's own CartPole-v1 (gymnasium.make is the config's target)
+from sheeprl_tpu_torch.algos.ppo.evaluate import evaluate as ppo_evaluate
+from sheeprl_tpu_torch.config import compose as compose_config
+from sheeprl_tpu_torch.utils.utils import dotdict
+cfg = dotdict(compose_config("config", ["exp=ppo", "env.capture_video=False", "env.max_episode_steps=5"]))
+reward, steps = ppo_evaluate(cfg, device="cpu")
+assert steps == 5, steps
 import chip_smoke
 print("OK")
 """

@@ -206,22 +206,25 @@ def check_layers(got, want, first):
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("name", ["32-true", "32", "fp32", "bf16", "bf16-mixed"])
+@pytest.mark.parametrize("name", ["32-true", "32", "fp32", "bf16", "bf16-mixed", "bf16-true"])
 def test_precision_policy_matches_jax(name):
     assert Precision(name).name == JaxPrecision(name).name
     assert str(Precision(name).compute_dtype).split(".")[-1] == jnp.dtype(JaxPrecision(name).compute_dtype).name
-    assert Precision(name).param_dtype == torch.float32
+    assert str(Precision(name).param_dtype).split(".")[-1] == jnp.dtype(JaxPrecision(name).param_dtype).name
     assert compute_dtype(name) == Precision(name).compute_dtype
 
 
 def test_bf16_true_and_unknown_precisions_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Precision("bf16-true")
+    """An unknown precision raises. ``bf16-true`` no longer does: it is
+    accepted, and Dreamer-V3 keeps fp32 parameters under it as the JAX
+    modules do (``tests/test_torch_dv3_gaps.py`` holds its train step)."""
     with pytest.raises(ValueError):
         Precision("fp16")
+    assert Precision("bf16-true").param_dtype == torch.bfloat16
     cfg = tiny_cfg(**{"fabric.precision": "bf16-true"})
-    with pytest.raises(NotImplementedError):
-        tagent.build_agent((3,), False, cfg, obs_space(("rgb",), ()), device="cpu")
+    wm, actor, _ = tagent.build_agent((3,), False, cfg, obs_space(("rgb",), ("state",)), device="cpu")
+    assert wm.dtype == actor.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in [*wm.parameters(), *actor.parameters()])
 
 
 def test_default_precision_is_bf16_mixed():
