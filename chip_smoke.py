@@ -99,8 +99,9 @@ which exits non-zero:
    superstep replay in the profiler; (c) ms per gradient step (in turns),
    the device's idle share, host-to-device bytes and peak memory of four
    replay paths: host buffer and ring, K = 0 and K = 4 (and the K = 1
-   ring's peak memory); (d) ``main()`` at 8(e)'s cuts with buffer.size
-   100000: the memmapped host buffer, the ring per step, the ring with
+   ring's peak memory; each profiled over 4 gradient steps); (d)
+   ``main()`` at 8(e)'s cuts with buffer.size 100000 and 320 env steps: the
+   memmapped host buffer, the ring per step, the ring with
    K = 4 (env-steps/s, gradient steps/s, the kernel's launches), then the
    drill: the ring checkpointed with ``buffer.checkpoint``, its contents
    restored into a memmapped host buffer and back, and ``main()`` resumed
@@ -177,7 +178,36 @@ which exits non-zero:
    c.phase_ppo_update(torch, np); c.phase_ppo_cli(torch, tempfile.mkdtemp());
    rb, s, a, k = c.filled_replay(np, c.train_cfg("pixel_catcher"), 80);
    c.phase_bf16_true(torch, np, fg, rb, s, a, k)'``.
+13. A2C and recurrent PPO (bf16-mixed): (a) the A2C update (GAE and one
+   RMSProp step over the 5 x 4 rollout) captured against eager at
+   ``exp=a2c`` widths: parameters and RMSProp's ``nu`` after three updates
+   within ``PPO_UPDATE_BOUND`` (bit-equality reported), ms an update
+   replayed and eager, one capture; (b) ``exp=a2c`` through ``cli.run`` on
+   the host CartPole-v1 loop (``sync``, 4 envs) for ``A2C_CLI_UPDATES``
+   updates, then with ``algo.fused_rollout=True`` (one replay an update, no
+   ``fused_fallback``): env-steps/s overall and steady, the test episode;
+   (c) the recurrent update at ``exp=ppo_recurrent`` widths (LSTM 64, 16
+   envs x 512 steps, sequences of 16, 8 minibatches, 8 epochs) on one
+   seeded rollout, the host path's padded chunks and the fused path's
+   fixed windows with resets, each captured against eager within
+   ``PPO_UPDATE_BOUND``, ms an update replayed and eager, a profiler window
+   over two replays; the player's LSTM step (its CUDA graph) against the
+   same step on the CPU for 64 steps, teacher-forced, within 1e-5 at fp32;
+   (d) ``exp=ppo_recurrent`` through ``cli.run`` on the host loop, cut to
+   ``RPPO_CLI_UPDATES`` updates of 8192 env steps (the cuts printed):
+   env-steps/s overall and steady, ms an update, the captures made (one for
+   each padded sequence count), the env span's share; then the fused
+   rollout, one replay an update, no ``fused_fallback``. Neither algorithm
+   reaches a TPU kernel: the phase checks that B1 and B2 were not launched,
+   and their numbers ride in the kernels line under ``fused_gru``'s
+   ``a2c`` and ``ppo_recurrent``. Alone on the card: ``python -c 'import
+   chip_smoke as c, numpy as np, torch, tempfile;
+   c.phase_a2c_update(torch, np); c.phase_a2c_cli(torch, tempfile.mkdtemp());
+   c.phase_rppo_update(torch, np); c.phase_rppo_cli(torch,
+   tempfile.mkdtemp())'``.
 5. The kernels line (JSON), then the device line (JSON) last.
+
+Each phase prints its seconds and the smoke's so far.
 
 TF32 is off for every phase (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the plain versions compute in full
@@ -1813,12 +1843,15 @@ SUPERSTEP_K = 4
 PATH_STEPS = 2 * SUPERSTEP_K
 PATH_WINDOWS = 2
 PATHS = ("host_k0", "ring_k0", "ring_k4", "host_k4")
+# each path's profiler window: one superstep's worth of gradient steps (8
+# until PR 12; the window's trace took about 21 s a path to read)
+PROFILE_STEPS = SUPERSTEP_K
 # (d) main(): phase 8(e)'s loop with buffer.size 100000 (auto picks the
-# ring), three ways, run in turns (each twice, the order reversed the
-# second time); then the drill: the ring checkpointed with the buffer
+# ring) cut to 320 env steps (384 until phase 13 needed the time), three
+# ways, each once; then the drill: the ring checkpointed with the buffer
 # (buffer.checkpoint) at 288 env steps, resumed into the memmapped host
 # buffer to 320, and from that into the ring with supersteps to 352
-RING_LOOP_CUTS = {**LOOP_CUTS, "buffer.size": 100000}
+RING_LOOP_CUTS = {**LOOP_CUTS, "algo.total_steps": 320, "buffer.size": 100000}
 RING_LOOPS = {
     "host_k0": {"buffer.device": False},
     "ring_k0": {},
@@ -2180,13 +2213,13 @@ def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
         report["clocks"].append(f"{name}: {clocks_line()}")
     report["timed_seconds"] = time.perf_counter() - start
     for name in PATHS:
-        prof = profile_window(torch, lambda: runs[name][0](PATH_STEPS))
+        prof = profile_window(torch, lambda: runs[name][0](PROFILE_STEPS))
         report["paths"][name].update(
             ms_per_gradient_step=times[name],
             device_idle_share=prof["device_idle_share"],
-            device_busy_ms_per_gradient_step=prof["device_busy_ms"] / PATH_STEPS,
-            h2d_bytes_per_gradient_step=None if prof["h2d_bytes"] is None else prof["h2d_bytes"] / PATH_STEPS,
-            h2d_copies_per_gradient_step=prof["h2d_copies"] / PATH_STEPS,
+            device_busy_ms_per_gradient_step=prof["device_busy_ms"] / PROFILE_STEPS,
+            h2d_bytes_per_gradient_step=None if prof["h2d_bytes"] is None else prof["h2d_bytes"] / PROFILE_STEPS,
+            h2d_copies_per_gradient_step=prof["h2d_copies"] / PROFILE_STEPS,
         )
     report["seconds"] = time.perf_counter() - start
     print("replay_paths " + json.dumps(report), flush=True)
@@ -2196,7 +2229,8 @@ def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
 
 
 def phase_ring_loops(torch, np, fg, tmp):
-    """(d) main() at phase 8(e)'s cuts with buffer.size 100000: the host
+    """(d) main() at phase 8(e)'s cuts with buffer.size 100000 and 320 env
+    steps: the host
     buffer (memmapped) per step, the ring per step, the ring in supersteps
     of K = 4, each once (twice in turns until phase 11 needed the time).
     Returns ({way: the kernel's launches in its run, counted from 0 just
@@ -2928,24 +2962,27 @@ def ppo_cfg(*overrides):
 
 
 def ppo_update_models(torch, np, model: str, precision: str = BF16):
-    """The agent, its Adam, the train generator and the update of 12(a) on
-    the card (seeded weights), with its static inputs: one rollout of the
-    exp's shape drawn from a seeded numpy generator."""
+    """The agent, its optimizer, the train generator and the update of
+    12(a) (PPO) or 13(a) (A2C) on the card (seeded weights), with its
+    static inputs: one rollout of the exp's shape drawn from a seeded numpy
+    generator."""
+    from sheeprl_tpu_torch.algos.a2c import a2c
+    from sheeprl_tpu_torch.algos.ppo import ppo
     from sheeprl_tpu_torch.algos.ppo.agent import build_agent
-    from sheeprl_tpu_torch.algos.ppo.ppo import make_local_train, make_update_fn
     from sheeprl_tpu_torch.envs import spaces
-    from sheeprl_tpu_torch.ops.optim import adam
+    from sheeprl_tpu_torch.ops.optim import build_optimizer
 
-    exp, obs, n_actions = PPO_MODELS[model]
+    exp, obs, n_actions = {**PPO_MODELS, **A2C_MODELS}[model]
     cfg = ppo_cfg(*exp, f"fabric.precision={precision}")
     algo = cfg.algo
     space = spaces.Dict({k: spaces.Box(0, 255, shape, np.dtype(dt)) for k, (shape, dt) in obs.items()})
     agent, _ = build_agent((n_actions,), False, cfg, space, device="cuda")
     steps, envs = int(algo.rollout_steps), int(cfg.env.num_envs)
-    opt = adam(list(agent.parameters()), algo.optimizer, float(algo.max_grad_norm or 0.0))
+    opt = build_optimizer(list(agent.parameters()), algo.optimizer, float(algo.max_grad_norm or 0.0))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    make_local_train = a2c.make_local_train if algo.name == "a2c" else ppo.make_local_train
     local_train = make_local_train(agent, opt, cfg, list(obs), steps * envs, gen)
-    update = make_update_fn(agent, local_train, cfg, list(obs))
+    update = ppo.make_update_fn(agent, local_train, cfg, list(obs))
     rng = np.random.default_rng(SEED)
     inputs = {}
     for k, (shape, dt) in obs.items():
@@ -2957,69 +2994,89 @@ def ppo_update_models(torch, np, model: str, precision: str = BF16):
         inputs[k] = torch.from_numpy(rng.standard_normal((steps, envs, 1)).astype(np.float32)).cuda()
     inputs["logprobs"] = -inputs["logprobs"].abs() - 0.5
     inputs["dones"] = torch.from_numpy((rng.random((steps, envs, 1)) < 0.02).astype(np.float32)).cuda()
-    inputs["coefs"] = torch.tensor([float(algo.clip_coef), float(algo.ent_coef)], device="cuda")
+    inputs["coefs"] = torch.tensor([float(algo.get("clip_coef", 0.0)), float(algo.get("ent_coef", 0.0))], device="cuda")
     return cfg, agent, opt, gen, update, inputs
+
+
+def captured_against_eager(torch, build, label: str, eager_timed: int = 3) -> dict:
+    """One update built twice by ``build() -> (cfg, agent, opt, gen,
+    update, inputs)`` from the same seeds: the first captured as one CUDA
+    graph (``CapturedStep``), the second run eagerly on the card with the
+    first's weights; after ``PPO_PARITY_UPDATES`` updates every parameter
+    and optimizer state tensor within ``PPO_UPDATE_BOUND`` of eager
+    (relative to its largest element; bit-equality reported), one capture;
+    ms an update replayed and eager (CUDA events) and a profiler window over
+    two replays."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.ops import graph
+
+    cfg, g_agent, g_opt, g_gen, g_update, inputs = build()
+    _, e_agent, e_opt, _, e_update, _ = build()
+    e_agent.load_state_dict(g_agent.state_dict())
+    captures = graph.capture_count
+    fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
+    for _ in range(PPO_PARITY_UPDATES):
+        got = fn()
+        want = e_update(inputs)
+    torch.cuda.synchronize()
+    # the optimizer's float state (its step count last, an integer)
+    pairs = list(zip(g_agent.parameters(), e_agent.parameters())) + list(zip(g_opt.state_tensors()[:-1], e_opt.state_tensors()[:-1]))
+    rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in pairs]
+    bit_equal = all(torch.equal(a, b) for a, b in pairs) and bool(torch.equal(got, want))
+    n_params = len(list(g_agent.parameters()))
+    metric_err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    ms = step_ms(torch, fn, PPO_TIMED)
+    eager_ms = step_ms(torch, lambda: e_update(inputs), eager_timed)
+    prof = profile_replays(torch, fn, 2, top=5)
+    row = {
+        "param_max_rel_err": max(rel[:n_params]),
+        "optimizer_state_max_rel_err": max(rel[n_params:]),
+        "metric_max_rel_err": metric_err,
+        "bit_equal": bit_equal,
+        "optimizer_steps": int(g_opt.count),
+        "ms_per_update_replayed": ms,
+        "ms_per_update_eager": eager_ms,
+        "replays": fn.replays,
+        "captures": graph.capture_count - captures,
+        "profile": {k: prof[k] for k in ("wall_ms_per_replay", "device_busy_ms_per_replay", "device_idle_share", "kernels_per_replay", "top_kernels_ms_per_replay")},
+    }
+    if not (max(rel) <= PPO_UPDATE_BOUND and metric_err <= PPO_UPDATE_BOUND and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: the captured update against eager: {row}")
+    if row["captures"] != 1:
+        raise AssertionError(f"{label}: {row['captures']} captures, want 1")
+    return row
 
 
 def phase_ppo_update(torch, np):
     """(a) the PPO update captured as one CUDA graph (``CapturedStep``)
     against the same update run eagerly on the card, from the same weights
-    and train-generator state, at bf16-mixed: parameters after
-    ``PPO_PARITY_UPDATES`` updates within ``PPO_UPDATE_BOUND``; ms an
-    update replayed and eager (CUDA events), replays and captures."""
-    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
-    from sheeprl_tpu_torch.ops import graph
-
+    and train-generator state, at bf16-mixed (:func:`captured_against_eager`)."""
     report = {"card": card_line(), "bound": PPO_UPDATE_BOUND}
     with cudnn_deterministic(torch):
         for model in PPO_MODELS:
-            cfg, g_agent, g_opt, g_gen, g_update, inputs = ppo_update_models(torch, np, model)
-            _, e_agent, _, e_gen, e_update, _ = ppo_update_models(torch, np, model)
-            e_agent.load_state_dict(g_agent.state_dict())
-            captures = graph.capture_count
-            fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
-            for _ in range(PPO_PARITY_UPDATES):
-                got = fn()
-                want = e_update(inputs)
-            torch.cuda.synchronize()
-            err = max(
-                ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for a, b in zip(g_agent.parameters(), e_agent.parameters())
-            )
-            metric_err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-            ms = step_ms(torch, fn, PPO_TIMED)
-            eager_ms = step_ms(torch, lambda: e_update(inputs), 3)
-            prof = profile_replays(torch, fn, 2, top=5)
+            row = captured_against_eager(torch, lambda: ppo_update_models(torch, np, model), f"12(a) {model}")
+            cfg = ppo_cfg(*PPO_MODELS[model][0])
             algo = cfg.algo
-            report[model] = {
-                "rollout": [int(algo.rollout_steps), int(cfg.env.num_envs)],
-                "minibatch_steps_per_update": int(algo.update_epochs) * (int(algo.rollout_steps) * int(cfg.env.num_envs) // int(algo.per_rank_batch_size)),
-                "param_max_rel_err": err,
-                "metric_max_rel_err": metric_err,
-                "ms_per_update_replayed": ms,
-                "ms_per_update_eager": eager_ms,
-                "replays": fn.replays,
-                "captures": graph.capture_count - captures,
-                "profile": {k: prof[k] for k in ("wall_ms_per_replay", "device_busy_ms_per_replay", "device_idle_share", "kernels_per_replay", "top_kernels_ms_per_replay")},
-            }
-            if not (err <= PPO_UPDATE_BOUND and metric_err <= PPO_UPDATE_BOUND and torch.isfinite(got).all()):
-                raise AssertionError(f"12(a) {model}: the captured PPO update against eager: {report[model]}")
-            if report[model]["captures"] != 1:
-                raise AssertionError(f"12(a) {model}: {report[model]['captures']} captures, want 1")
+            row["rollout"] = [int(algo.rollout_steps), int(cfg.env.num_envs)]
+            row["minibatch_steps_per_update"] = int(algo.update_epochs) * (int(algo.rollout_steps) * int(cfg.env.num_envs) // int(algo.per_rank_batch_size))
+            report[model] = row
     print("phase 12(a) ppo_update " + json.dumps(report), flush=True)
     return report
 
 
-def ppo_cli(torch, tmp: str, run_name: str, overrides: list) -> tuple:
+def ppo_cli(torch, tmp: str, run_name: str, overrides: list, module=None) -> tuple:
     """``cli.run`` of ``overrides`` in this process, its printing kept apart;
-    returns (main's report, the fused_fallback reasons, seconds)."""
+    returns (main's report, the fused_fallback reasons, seconds). ``module``
+    is the algorithm's (PPO's by default): its ``main`` is wrapped, and the
+    ``fused_fallback`` of PPO's gate and of the module are counted."""
     import io
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.algos.ppo import ppo
 
+    module = module or ppo
     out, fallbacks = {}, []
-    real_main, real_fallback = ppo.main, ppo.fused_fallback
+    real_main, real_fallback = module.main, ppo.fused_fallback
 
     def keep(fabric, cfg):
         out.update(real_main(fabric, cfg))
@@ -3027,6 +3084,8 @@ def ppo_cli(torch, tmp: str, run_name: str, overrides: list) -> tuple:
     def fallback(reason, detail):
         fallbacks.append(reason)
         real_fallback(reason, detail)
+
+    gates = {ppo, module} if hasattr(module, "fused_fallback") else {ppo}
 
     argv = [
         *overrides,
@@ -3038,7 +3097,11 @@ def ppo_cli(torch, tmp: str, run_name: str, overrides: list) -> tuple:
     ]
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with mock.patch.object(ppo, "main", keep), mock.patch.object(ppo, "fused_fallback", fallback), contextlib.redirect_stdout(buf):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(module, "main", keep))
+        for gate in gates:
+            stack.enter_context(mock.patch.object(gate, "fused_fallback", fallback))
+        stack.enter_context(contextlib.redirect_stdout(buf))
         cli.run(argv)
     torch.cuda.synchronize()
     return out, fallbacks, time.perf_counter() - t0
@@ -3142,6 +3205,202 @@ def phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: A2C (RMSProp) and recurrent PPO (the LSTM, the sequence update,
+# the fused recurrent rollout)
+# --------------------------------------------------------------------------- #
+
+# exp=a2c at full width (64 x 2 tanh, 5 steps x 4 envs on CartPole-v1)
+A2C_MODELS = {"a2c_cartpole": (["exp=a2c"], {"state": ((4,), "float32")}, 2)}
+A2C_CLI_UPDATES = 250  # of 20 env steps each (exp=a2c: 1250)
+# exp=ppo_recurrent at full width: LSTM 64, 16 envs x 512 steps, sequences
+# of 16, 8 minibatches, 8 epochs; one seeded rollout with episodes of about
+# 1 / RPPO_DONE_RATE steps
+RPPO_DONE_RATE = 0.05
+RPPO_PLAYER_STEPS = 64
+RPPO_PLAYER_TOL = 1e-5
+RPPO_CLI_UPDATES = 3  # of 8192 env steps each (exp=ppo_recurrent: 49)
+
+
+def rppo_update_models(torch, np, windows: bool, precision: str = BF16):
+    """The recurrent agent, its AdamW, the train generator and one update at
+    ``exp=ppo_recurrent`` widths on the card (seeded weights) over one
+    seeded rollout: the host path's (the sequences cut at the episode ends
+    and padded, ``make_update_fn``) or, with ``windows``, the fused path's
+    (GAE, fixed windows of 16 that cross episode ends, the update replaying
+    the resets), with its static inputs."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as rp
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.math import gae
+    from sheeprl_tpu_torch.ops.optim import build_optimizer
+    from sheeprl_tpu_torch.ops.rollout_scan import fixed_windows
+
+    cfg = ppo_cfg("exp=ppo_recurrent", f"fabric.precision={precision}")
+    algo = cfg.algo
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    agent, _ = build_agent((2,), False, cfg, space, device="cuda")
+    opt = build_optimizer(list(agent.parameters()), algo.optimizer, float(algo.max_grad_norm or 0.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    steps, envs, hidden = int(algo.rollout_steps), int(cfg.env.num_envs), int(algo.rnn.lstm.hidden_size)
+    seq_len, num_batches = int(algo.per_rank_sequence_length), int(algo.per_rank_num_batches)
+    local_train = rp.make_local_train(agent, opt, cfg, ["state"], gen, sequence_dones=windows)
+    rng = np.random.default_rng(SEED)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    onehot = lambda shape: np.eye(2, dtype=np.float32)[rng.integers(0, 2, shape)]  # noqa: E731
+    dones = (rng.random((steps, envs, 1)) < RPPO_DONE_RATE).astype(np.float32)
+    inputs = {
+        "state": cuda(rng.standard_normal((steps, envs, 4)).astype(np.float32)),
+        "actions": cuda(onehot((steps, envs))),
+        "prev_actions": cuda(onehot((steps, envs))),
+        "values": cuda(rng.standard_normal((steps, envs, 1)).astype(np.float32)),
+        "logprobs": cuda(-np.abs(rng.standard_normal((steps, envs, 1))).astype(np.float32) - 0.5),
+        "rewards": cuda(rng.standard_normal((steps, envs, 1)).astype(np.float32)),
+        "dones": cuda(dones),
+        "prev_hx": cuda(0.5 * rng.standard_normal((steps, envs, hidden)).astype(np.float32)),
+        "prev_cx": cuda(0.5 * rng.standard_normal((steps, envs, hidden)).astype(np.float32)),
+        "next/state": cuda(rng.standard_normal((envs, 4)).astype(np.float32)),
+        "next/prev_actions": cuda(onehot(envs)),
+        "next/hx": cuda(0.5 * rng.standard_normal((envs, hidden)).astype(np.float32)),
+        "next/cx": cuda(0.5 * rng.standard_normal((envs, hidden)).astype(np.float32)),
+        "coefs": torch.tensor([float(algo.clip_coef), float(algo.ent_coef)], device="cuda"),
+    }
+    if not windows:
+        layout = rp.sequence_layout(dones[..., 0], seq_len, num_batches)
+        for k, v in zip(("seq/index", "seq/mask", "seq/start", "seq/valid"), layout):
+            inputs[k] = cuda(v)
+        return cfg, agent, opt, gen, rp.make_update_fn(agent, local_train, cfg, ["state"]), inputs
+    gamma, lmbda = float(algo.gamma), float(algo.gae_lambda)
+
+    def window_update(d):
+        with torch.no_grad():
+            nv = agent({"state": d["next/state"][None]}, d["next/prev_actions"][None], d["next/hx"], d["next/cx"])[1][0]
+            data = {k: d[k] for k in ("state", "dones", "values", "actions", "logprobs", "rewards", "prev_hx", "prev_cx", "prev_actions")}
+            data["returns"], data["advantages"] = gae(d["rewards"], d["values"], d["dones"], nv, gamma, lmbda)
+            seq, hx0, cx0 = fixed_windows(data, seq_len)
+        return local_train(seq, hx0, cx0, d["coefs"])
+
+    return cfg, agent, opt, gen, window_update, inputs
+
+
+def phase_a2c_update(torch, np):
+    """13(a) the A2C update (GAE and one RMSProp step over the 20-step
+    rollout) captured against eager at ``exp=a2c`` widths, bf16-mixed
+    (:func:`captured_against_eager`: parameters and RMSProp's ``nu``)."""
+    report = {"card": card_line(), "bound": PPO_UPDATE_BOUND}
+    with cudnn_deterministic(torch):
+        for model in A2C_MODELS:
+            report[model] = captured_against_eager(torch, lambda: ppo_update_models(torch, np, model), f"13(a) {model}")
+    print("phase 13(a) a2c_update " + json.dumps(report), flush=True)
+    return report
+
+
+def onpolicy_run_checks(label: str, out: dict, fallbacks: list, updates: int, fused: bool) -> None:
+    """A CLI run's report: its updates, finite metrics, a test episode, and
+    on the fused path one replay an update and no ``fused_fallback``."""
+    ok = out["updates"] == updates and all(map(math.isfinite, out["metrics"].values())) and out["test_steps"] > 0
+    if fused:
+        ok = ok and out["fused_rollout"] and not fallbacks and out["replays"] == out["updates"]
+    else:
+        ok = ok and not out["fused_rollout"]
+    if not ok:
+        raise AssertionError(f"{label}: {out['updates']} updates (want {updates}), fused={out['fused_rollout']}, fallbacks={fallbacks}, replays={out['replays']}, metrics={out['metrics']}")
+
+
+def phase_a2c_cli(torch, tmp: str):
+    """13(b) ``exp=a2c`` through ``cli.run`` (CartPole-v1 host envs,
+    ``sync``, 4 envs, bf16-mixed) for ``A2C_CLI_UPDATES`` updates, then the
+    same with ``algo.fused_rollout=True``: env-steps/s (overall and
+    steady) and the test episode of each."""
+    from sheeprl_tpu_torch.algos.a2c import a2c
+
+    report = {"card": card_line(), "cuts": {"algo.total_steps": [20 * A2C_CLI_UPDATES, 25000]}}
+    base = ["exp=a2c", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={20 * A2C_CLI_UPDATES}"]
+    for fused in (False, True):
+        out, fallbacks, seconds = ppo_cli(torch, tmp, f"a2c_fused_{fused}", [*base, f"algo.fused_rollout={fused}"], a2c)
+        # 250 updates: their ranges, not every update's numbers
+        row = {k: v for k, v in ppo_run_report(out, seconds).items() if k not in ("update_wall_s", "ms_per_update")}
+        row["ms_per_update_range"] = [min(out["update_seconds"]) * 1e3, max(out["update_seconds"]) * 1e3]
+        row["fused_fallback"] = fallbacks
+        row["replays_per_update"] = out["replays"] / max(out["updates"], 1)
+        report["fused" if fused else "host_loop"] = row
+        print(f"phase 13(b) a2c_{'fused' if fused else 'host_loop'} " + json.dumps(row), flush=True)
+        onpolicy_run_checks(f"13(b) exp=a2c fused={fused}", out, fallbacks, A2C_CLI_UPDATES, fused)
+    return report
+
+
+def phase_rppo_update(torch, np):
+    """13(c) the recurrent update at ``exp=ppo_recurrent`` widths (bf16-mixed)
+    captured against eager on the card, the host path's padded chunks and
+    the fused path's fixed windows with resets (:func:`captured_against_eager`),
+    with a profiler window over two replays each; then the player's LSTM
+    step on the card (its CUDA graph) against the same step on the CPU for
+    ``RPPO_PLAYER_STEPS`` steps at fp32, teacher-forced from the CPU's state:
+    ``hx'``, ``cx'``, the values and the log-probs within
+    ``RPPO_PLAYER_TOL``."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+    from sheeprl_tpu_torch.envs import spaces
+
+    report = {"card": card_line(), "bound": PPO_UPDATE_BOUND, "rollout": [512, 16], "sequence_length": 16}
+    with cudnn_deterministic(torch):
+        for name, windows in (("host_padded_chunks", False), ("fused_fixed_windows", True)):
+            # one eager update timed: each takes over a second
+            row = captured_against_eager(torch, lambda: rppo_update_models(torch, np, windows), f"13(c) {name}", eager_timed=1)
+            if not windows:
+                _, _, _, _, _, inputs = rppo_update_models(torch, np, False)
+                row["sequences_padded"] = int(inputs["seq/mask"].shape[1])
+                row["sequences_valid"] = int(inputs["seq/valid"].sum().item())
+            report[name] = row
+            print(f"phase 13(c) rppo_update_{name} " + json.dumps(row), flush=True)
+    cfg = ppo_cfg("exp=ppo_recurrent", f"fabric.precision={FP32}")
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    card, player = build_agent((2,), False, cfg, space, device="cuda")
+    cpu, _ = build_agent((2,), False, cfg, space, {k: v.cpu() for k, v in card.state_dict().items()}, device="cpu")
+    rng = np.random.default_rng(SEED)
+    envs, hidden = int(cfg.env.num_envs), card.lstm_hidden_size
+    hx, cx, pa = torch.zeros(envs, hidden), torch.zeros(envs, hidden), torch.zeros(envs, 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err = 0.0
+    with torch.no_grad():
+        for _ in range(RPPO_PLAYER_STEPS):
+            obs = {"state": rng.standard_normal((envs, 4)).astype(np.float32)}
+            actions, _, logprobs, values, new_hx, new_cx = player.rollout_actions(obs, pa.cuda(), hx.cuda(), cx.cuda(), gen)
+            heads, want_values, (want_hx, want_cx) = cpu({"state": torch.from_numpy(obs["state"])[None]}, pa[None], hx, cx)
+            want_logprobs = torch.log_softmax(heads[0][0].float(), -1).gather(-1, actions.cpu().argmax(-1, keepdim=True))
+            for got, want in ((new_hx, want_hx), (new_cx, want_cx), (values, want_values[0]), (logprobs, want_logprobs)):
+                err = max(err, (got.cpu() - want).abs().max().item())
+            hx, cx = want_hx, want_cx
+            pa = torch.from_numpy(np.eye(2, dtype=np.float32)[rng.integers(0, 2, envs)])
+    report["player_lstm_card_vs_cpu"] = {"steps": RPPO_PLAYER_STEPS, "max_abs_err": err, "tol": RPPO_PLAYER_TOL, "replays": player._rollout.replays}
+    print("phase 13(c) rppo_player " + json.dumps(report["player_lstm_card_vs_cpu"]), flush=True)
+    if not err <= RPPO_PLAYER_TOL:
+        raise AssertionError(f"13(c) the player's LSTM step on the card against the CPU: {err} > {RPPO_PLAYER_TOL}")
+    return report
+
+
+def phase_rppo_cli(torch, tmp: str):
+    """13(d) ``exp=ppo_recurrent`` through ``cli.run`` (CartPole-v1 host
+    envs, ``sync``, 16 envs x 512 steps, bf16-mixed), cut to
+    ``RPPO_CLI_UPDATES`` updates: env-steps/s overall and steady, ms an
+    update, the captures made (one for each padded sequence count) and the
+    env span's share; then ``algo.fused_rollout=True``: one replay an update,
+    no ``fused_fallback``."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent
+
+    steps = 8192 * RPPO_CLI_UPDATES
+    report = {"card": card_line(), "cuts": {"algo.total_steps": [steps, 409000]}}
+    base = ["exp=ppo_recurrent", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={steps}"]
+    for fused in (False, True):
+        out, fallbacks, seconds = ppo_cli(torch, tmp, f"rppo_fused_{fused}", [*base, f"algo.fused_rollout={fused}"], ppo_recurrent)
+        row = ppo_run_report(out, seconds)
+        row.update(fused_fallback=fallbacks, captures=out["captures"], sequence_counts=out["sequence_counts"])
+        row["replays_per_update"] = out["replays"] / max(out["updates"], 1)
+        report["fused" if fused else "host_loop"] = row
+        print(f"phase 13(d) rppo_{'fused' if fused else 'host_loop'} " + json.dumps(row), flush=True)
+        onpolicy_run_checks(f"13(d) exp=ppo_recurrent fused={fused}", out, fallbacks, RPPO_CLI_UPDATES, fused)
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3162,6 +3421,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False")
 
+    t_smoke = t_phase = time.perf_counter()
+
+    def phase_took(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name} took {now - t_phase:.1f} s (smoke {now - t_smoke:.1f} s)", flush=True)
+        t_phase = now
+
     # phase 1: card and build
     print(card_line(), flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3169,6 +3436,7 @@ def main() -> int:
     fg.load_library()
     print(f"build: {fg.KERNEL} in {time.perf_counter() - t0:.2f} s", flush=True)
     print(_build.PTXAS_REPORT[fg.KERNEL], flush=True)
+    phase_took("1")
 
     # phase 2: kernel against plain (S: X = 32*32 + 3 actions)
     shapes = {
@@ -3179,9 +3447,11 @@ def main() -> int:
         "S_B1024": (1024, 1027, 512, 512),
     }
     max_err, rows = phase_kernel(torch, fg, shapes)
+    phase_took("2")
 
     # phase 3: the slice
     launches = phase_slice(torch, np, fg)
+    phase_took("3")
 
     # phase 4: the model-sharded step, (a) its projection kernel, (b) the step
     bf16 = torch.bfloat16
@@ -3198,6 +3468,7 @@ def main() -> int:
     }
     proj_err, proj_rows = phase_proj(torch, fg, proj_shapes)
     proj_launches = phase_sharded_step(torch, np, fg)
+    phase_took("4")
 
     # phase 6: training, (a) fused against plain and (b) launches a step,
     # (c) time an eager step, (d) the short loop (replayed steps)
@@ -3205,6 +3476,7 @@ def main() -> int:
     timing = phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     with tempfile.TemporaryDirectory() as tmp:
         loop_launches, loop = phase_train_loop(torch, np, fg, tmp)
+    phase_took("6")
 
     # phase 7: the captured step, (a) replayed against eager, (b) fresh
     # noise, (c) time a replayed step, (d) rollback and resume on main()
@@ -3212,6 +3484,7 @@ def main() -> int:
     replay = phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous)
     with tempfile.TemporaryDirectory() as tmp:
         phase_drill(torch, np, tmp)
+    phase_took("7")
 
     # phase 8: the default precision, bf16-mixed: (a) B1 with a bf16 x, (b)
     # the eager step against plain and fp32, (c) replayed against eager, (d)
@@ -3223,39 +3496,55 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         bf16_loop_launches, bf16_loop = phase_train_loop(torch, np, fg, tmp, BF16, "bf16_train_loop")
     bf16_player_launches, bf16_player = phase_bf16_player(torch, np, fg)
+    phase_took("8")
 
     # phase 9: replay where the JAX package keeps it (bf16-mixed): (a) the
     # ring on the card, (b) a superstep against single replays, (c) the four
     # replay paths timed, (d) main() three ways and the drill across modes
-    t9 = time.perf_counter()
     phase_ring(torch, np)
     superstep = phase_superstep_parity(torch, np, rb, obs_space, actions_dim, is_continuous)
     paths = phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous)
     with tempfile.TemporaryDirectory() as tmp:
         ring_loop_launches, ring_loops = phase_ring_loops(torch, np, fg, tmp)
         phase_ring_drill(torch, np, tmp)
-    print(f"phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    phase_took("9")
 
     # phase 10: the entry point, (a) train through the CLI, (b) cli_eval,
     # (c) resume with a precision override, (d) times
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli = phase_cli(torch, np, fg, tmp, bf16_loop)
+    phase_took("10")
 
     # phase 11: the env pipeline, (a) the pixel specs on the card and
     # ImageTransform, (b) PixelPendulum through the CLI (action repeat 2,
     # async), (c) the grayscale/resize path and the restart drill on the ring
     with tempfile.TemporaryDirectory() as tmp:
         env_launches, env_report = phase_env_pipeline(torch, np, fg, tmp)
+    phase_took("11")
 
     # phase 12: PPO, (a) the captured update against eager, (b) exp=ppo
     # on the host loop, (c) the fused rollout at 4 and 64 envs, (d) NatureCNN
     # on PixelCatcher; (e) Dreamer-V3 S at bf16-true against bf16-mixed
-    t12 = time.perf_counter()
     ppo_update = phase_ppo_update(torch, np)
     with tempfile.TemporaryDirectory() as tmp:
         ppo_runs = phase_ppo_cli(torch, tmp)
     bf16_true_launches = phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
-    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+    phase_took("12")
+
+    # phase 13: A2C, (a) the captured update against eager, (b) exp=a2c on
+    # the host loop and fused; recurrent PPO, (c) both updates captured
+    # against eager and the player's LSTM step against the CPU, (d)
+    # exp=ppo_recurrent on the host loop and fused. Neither reaches B1 or B2
+    b1_before, b2_before = fg.launch_count, fg.proj_launch_count
+    a2c_update = phase_a2c_update(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        a2c_runs = phase_a2c_cli(torch, tmp)
+    rppo_update = phase_rppo_update(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        rppo_runs = phase_rppo_cli(torch, tmp)
+    if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
+        raise AssertionError(f"phase 13 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
+    phase_took("13")
 
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
@@ -3318,6 +3607,25 @@ def main() -> int:
                 "fused_env_steps_per_s": {envs: r["env_steps_per_s"] for envs, r in ppo_runs["fused"].items()},
                 "fused_env_steps_per_s_steady": {envs: r["env_steps_per_s_steady"] for envs, r in ppo_runs["fused"].items()},
                 "nature_cnn_env_steps_per_s": ppo_runs["nature_cnn"]["env_steps_per_s"],
+            },
+            # A2C and recurrent PPO (phase 13) reach no TPU kernel and launch
+            # neither B1 nor B2 (checked): their numbers ride here too
+            "a2c": {
+                "b1_b2_launches": 0,
+                "ms_per_update_replayed": a2c_update["a2c_cartpole"]["ms_per_update_replayed"],
+                "host_loop_env_steps_per_s": a2c_runs["host_loop"]["env_steps_per_s"],
+                "host_loop_env_steps_per_s_steady": a2c_runs["host_loop"]["env_steps_per_s_steady"],
+                "fused_env_steps_per_s": a2c_runs["fused"]["env_steps_per_s"],
+                "fused_env_steps_per_s_steady": a2c_runs["fused"]["env_steps_per_s_steady"],
+            },
+            "ppo_recurrent": {
+                "b1_b2_launches": 0,
+                "ms_per_update_replayed": {k: rppo_update[k]["ms_per_update_replayed"] for k in ("host_padded_chunks", "fused_fixed_windows")},
+                "host_loop_env_steps_per_s": rppo_runs["host_loop"]["env_steps_per_s"],
+                "host_loop_env_steps_per_s_steady": rppo_runs["host_loop"]["env_steps_per_s_steady"],
+                "host_loop_captures": rppo_runs["host_loop"]["captures"],
+                "fused_env_steps_per_s": rppo_runs["fused"]["env_steps_per_s"],
+                "fused_env_steps_per_s_steady": rppo_runs["fused"]["env_steps_per_s_steady"],
             },
         },
         {

@@ -27,7 +27,8 @@ go the other way, for checkpoints in the JAX layout: a state dict (or any
 tree keyed as one, such as Adam's moments) becomes the JAX param tree, and
 a key with no flax counterpart raises. ``adam_to_optax`` and
 ``adam_from_optax`` carry an optimizer's state across in optax's chain
-nesting.
+nesting, ``rmsprop_to_optax`` and ``rmsprop_from_optax`` RMSProp's, and
+``optimizer_to_optax``/``optimizer_from_optax`` pick by the optimizer.
 
 ``shard_recurrent`` cuts the recurrent model's params into one model rank's
 arguments of the model-sharded step (``pallas_gru.py:393-395`` and the
@@ -42,8 +43,15 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.optim import Adam
-from sheeprl_tpu_torch.utils.checkpoint import EmptyState, ScaleByAdamState, ScaleByScheduleState
+from sheeprl_tpu_torch.ops.optim import Adam, Optimizer, RMSProp
+from sheeprl_tpu_torch.utils.checkpoint import (
+    EmptyState,
+    ScaleByAdamState,
+    ScaleByRmsState,
+    ScaleByRStdDevState,
+    ScaleByScheduleState,
+    TraceState,
+)
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -345,6 +353,75 @@ def adam_from_optax(
         opt.mu[i].copy_(mu[name])
         opt.nu[i].copy_(nu[name])
     opt.count.fill_(int(np.asarray(adam.count)))
+
+
+def _rmsprop_nesting(opt: RMSProp, scale_state: Any, trace: Any) -> Any:
+    """optax's state nesting of ``sheeprl_tpu/ops/optim.py::rmsprop`` (and
+    ``rmsprop_tf``): ``chain(scale_by_rms or scale_by_stddev,
+    scale_by_learning_rate, trace or identity)``, behind ``chain(
+    add_decayed_weights, .)`` with weight decay and ``chain(
+    clip_by_global_norm, .)`` when clipping."""
+    lr_state = ScaleByScheduleState(np.asarray(opt.count.item(), dtype=np.int32)) if opt.schedule_steps > 0 else EmptyState()
+    state: Any = (scale_state, lr_state, TraceState(trace) if opt.trace is not None else EmptyState())
+    if opt.weight_decay:
+        state = (EmptyState(), state)
+    return (EmptyState(), state) if opt.max_grad_norm > 0 else state
+
+
+def _rmsprop_core(opt: RMSProp, state: Any) -> Any:
+    """The inner ``rmsprop`` chain of an optax state with ``opt``'s nesting."""
+    if opt.max_grad_norm > 0:
+        state = state[1]
+    return state[1] if opt.weight_decay else state
+
+
+def rmsprop_to_optax(opt: RMSProp, names: Sequence[str], to_flax: Callable[[Mapping[str, Any]], Any]) -> Any:
+    """``opt``'s state in optax's nesting (``nu``, ``mu`` and ``trace`` as
+    flax trees), as :func:`adam_to_optax` builds Adam's."""
+    tree = lambda ts: to_flax(dict(zip(names, ts, strict=True)))  # noqa: E731
+    nu = tree(opt.nu)
+    scale = ScaleByRStdDevState(mu=tree(opt.mu), nu=nu) if opt.mu is not None else ScaleByRmsState(nu=nu)
+    return _rmsprop_nesting(opt, scale, tree(opt.trace) if opt.trace is not None else None)
+
+
+@torch.no_grad()
+def rmsprop_from_optax(
+    state: Any, opt: RMSProp, names: Sequence[str], from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+) -> None:
+    """Load an optax RMSProp state (the JAX package's or the port's) into
+    ``opt``, in place; raises unless it has ``opt``'s nesting."""
+    scale = ScaleByRStdDevState(None, None) if opt.mu is not None else ScaleByRmsState(None)
+    want = _rmsprop_nesting(opt, scale, None)
+    if _nesting(state) != _nesting(want):
+        raise ValueError(f"optimizer state nesting {_nesting(state)} is not this optimizer's {_nesting(want)}")
+    core = _rmsprop_core(opt, state)
+    pairs = [(opt.nu, core[0].nu)]
+    if opt.mu is not None:
+        pairs.append((opt.mu, core[0].mu))
+    if opt.trace is not None:
+        pairs.append((opt.trace, core[2].trace))
+    for tensors, tree in pairs:
+        flat = from_flax(tree)
+        for t, name in zip(tensors, names):
+            t.copy_(flat[name])
+    if opt.schedule_steps > 0:
+        opt.count.fill_(int(np.asarray(core[1].count)))
+
+
+def optimizer_to_optax(opt: Optimizer, names: Sequence[str], to_flax: Callable[[Mapping[str, Any]], Any]) -> Any:
+    """:func:`adam_to_optax` or :func:`rmsprop_to_optax`, by ``opt``'s type."""
+    return rmsprop_to_optax(opt, names, to_flax) if isinstance(opt, RMSProp) else adam_to_optax(opt, names, to_flax)
+
+
+def optimizer_from_optax(
+    state: Any, opt: Optimizer, names: Sequence[str], from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+) -> None:
+    """:func:`adam_from_optax` or :func:`rmsprop_from_optax`, by ``opt``'s
+    type."""
+    if isinstance(opt, RMSProp):
+        rmsprop_from_optax(state, opt, names, from_flax)
+    else:
+        adam_from_optax(state, opt, names, from_flax)
 
 
 # the recurrent model's params in the fused step's order (w1, b1, g1, be1,

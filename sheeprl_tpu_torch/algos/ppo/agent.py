@@ -144,46 +144,61 @@ class PPOAgent(nn.Module):
         return [head(x) for head in self.actor_heads], values
 
 
-def _dists(agent: PPOAgent, actor_out: List[torch.Tensor]) -> List[Any]:
+def _dists(agent: Any, actor_out: List[torch.Tensor]) -> List[Any]:
     if agent.is_continuous:
         mean, log_std = actor_out[0].float().chunk(2, -1)
         return [Independent(Normal(mean, log_std.exp()), 1)]
     return [Categorical(logits=h.float()) for h in actor_out]
 
 
-def sample_actions(
-    agent: PPOAgent, obs: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None, greedy: bool = False
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The rollout policy (JAX ``:137-164``): ``(actions, logprobs [B, 1],
-    values [B, 1])``, ``actions`` the concatenated one-hots (discrete) or
-    the raw vector (continuous), the layout the rollout stores."""
-    actor_out, values = agent(obs)
+def sample_heads(
+    agent: Any, actor_out: List[torch.Tensor], generator: Optional[torch.Generator] = None, greedy: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(actions, logprobs [..., 1])`` drawn from the actor's raw heads:
+    the concatenated one-hots (discrete) or the raw vector (continuous),
+    the layout the rollout stores; a multi-discrete space draws its heads
+    in order and sums their log-probs."""
     dists = _dists(agent, actor_out)
     if agent.is_continuous:
         d = dists[0]
         act = d.mode if greedy else d.sample(generator)
-        return act, d.log_prob(act)[..., None], values
+        return act, d.log_prob(act)[..., None]
     samples = [d.mode if greedy else d.sample(generator) for d in dists]
     logprob = sum(d.log_prob(s) for d, s in zip(dists, samples))[..., None]
     onehots = [nn.functional.one_hot(s, dim).float() for s, dim in zip(samples, agent.actions_dim)]
-    return torch.cat(onehots, -1), logprob, values
+    return torch.cat(onehots, -1), logprob
+
+
+def evaluate_heads(agent: Any, actor_out: List[torch.Tensor], actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logprobs [..., 1], entropy [..., 1])`` of stored ``actions`` under
+    the actor's raw heads; the heads of a multi-discrete space are
+    summed."""
+    dists = _dists(agent, actor_out)
+    if agent.is_continuous:
+        d = dists[0]
+        return d.log_prob(actions)[..., None], d.entropy()[..., None]
+    parts = torch.split(actions, list(agent.actions_dim), -1)
+    logprob = sum(d.log_prob(p.argmax(-1)) for d, p in zip(dists, parts))[..., None]
+    entropy = sum(d.entropy() for d in dists)[..., None]
+    return logprob, entropy
+
+
+def sample_actions(
+    agent: PPOAgent, obs: Mapping[str, torch.Tensor], generator: Optional[torch.Generator] = None, greedy: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rollout policy (JAX ``:137-164``): ``(actions, logprobs [B, 1],
+    values [B, 1])`` (:func:`sample_heads`)."""
+    actor_out, values = agent(obs)
+    return (*sample_heads(agent, actor_out, generator, greedy), values)
 
 
 def evaluate_actions(
     agent: PPOAgent, obs: Mapping[str, torch.Tensor], actions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stored actions re-evaluated for the update (JAX ``:167-189``):
-    ``(logprobs [B, 1], entropy [B, 1], values [B, 1])``; the heads of a
-    multi-discrete space are summed."""
+    ``(logprobs [B, 1], entropy [B, 1], values [B, 1])``."""
     actor_out, values = agent(obs)
-    dists = _dists(agent, actor_out)
-    if agent.is_continuous:
-        d = dists[0]
-        return d.log_prob(actions)[..., None], d.entropy()[..., None], values
-    parts = torch.split(actions, list(agent.actions_dim), -1)
-    logprob = sum(d.log_prob(p.argmax(-1)) for d, p in zip(dists, parts))[..., None]
-    entropy = sum(d.entropy() for d in dists)[..., None]
-    return logprob, entropy, values
+    return (*evaluate_heads(agent, actor_out, actions), values)
 
 
 def real_actions_from_onehot(actions_dim: Sequence[int], is_continuous: bool, actions: torch.Tensor) -> torch.Tensor:
@@ -285,7 +300,7 @@ def build_agent(
         cnn_channels=sum(_image_channels(obs_space[k].shape) for k in cnn_keys),
         image_size=image_size,
         mlp_in_features=sum(int(np.prod(obs_space[k].shape)) for k in mlp_keys),
-        cnn_features_dim=int(algo["encoder"]["cnn_features_dim"]),
+        cnn_features_dim=int(algo["encoder"].get("cnn_features_dim", 512)),
         mlp_features_dim=algo["encoder"]["mlp_features_dim"],
         encoder_units=int(algo["encoder"]["dense_units"]),
         encoder_layers=int(algo["encoder"]["mlp_layers"]),

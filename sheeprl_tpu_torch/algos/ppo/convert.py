@@ -53,9 +53,10 @@ def _unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def _flax_path(name: str) -> Tuple[str, str]:
+def _flax_path(name: str, prefixes: Mapping[str, str] = _PREFIXES) -> Tuple[str, str]:
     """(flax path, kind) of a port state-dict key; kind is ``dense``,
-    ``conv``, ``fc`` (NatureCNN's feature Dense) or ``plain``."""
+    ``conv``, ``fc`` (NatureCNN's feature Dense) or ``plain``. ``prefixes``
+    maps the port's MLP modules to their flax scopes."""
     m = re.fullmatch(r"cnn_encoder\.cnn\.convs\.(\d+)\.(weight|bias)", name)
     if m:
         leaf = "kernel" if m[2] == "weight" else "bias"
@@ -66,7 +67,7 @@ def _flax_path(name: str) -> Tuple[str, str]:
     m = re.fullmatch(r"actor_heads\.(\d+)\.(weight|bias)", name)
     if m:
         return (f"actor_head_{m[1]}/kernel", "dense") if m[2] == "weight" else (f"actor_head_{m[1]}/bias", "plain")
-    for src, dst in _PREFIXES.items():
+    for src, dst in prefixes.items():
         if name.startswith(src):
             m = re.fullmatch(r"(layers|norms)\.(\d+)\.(weight|bias)", name[len(src) :])
             if m is None:
@@ -89,13 +90,13 @@ def _fc_map_shape(flat: Mapping[str, Any], rows: int) -> Tuple[int, int, int]:
     return side, side, c
 
 
-def agent_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def agent_from_flax(tree: Mapping[str, Any], prefixes: Mapping[str, str] = _PREFIXES) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``PPOAgent`` from a JAX ``PPOAgent`` param
     tree."""
     flat = _flatten(tree["params"] if "params" in tree else tree)
     out: Dict[str, torch.Tensor] = {}
     for path in list(flat):
-        name, kind = _port_name(path)
+        name, kind = _port_name(path, prefixes)
         a = np.asarray(flat[path], dtype=np.float32)
         if kind == "dense":
             a = a.T
@@ -108,7 +109,7 @@ def agent_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def agent_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+def agent_to_flax(sd: Mapping[str, Any], prefixes: Mapping[str, str] = _PREFIXES) -> Dict[str, Any]:
     """The JAX ``PPOAgent`` param tree (``{"params": ...}``) of a port
     state dict (or a tree keyed as one, such as Adam's moments), as numpy
     in each tensor's dtype (bf16 as float32)."""
@@ -116,7 +117,7 @@ def agent_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
     for name, v in sd.items():
         t = torch.as_tensor(v).detach().cpu()
         a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        path, kind = _flax_path(name)
+        path, kind = _flax_path(name, prefixes)
         if kind == "dense":
             a = a.T
         elif kind == "conv":
@@ -136,7 +137,7 @@ def _sd_map_shape(sd: Mapping[str, Any], cols: int) -> Tuple[int, int, int]:
     return c, side, side
 
 
-def _port_name(path: str) -> Tuple[str, str]:
+def _port_name(path: str, prefixes: Mapping[str, str] = _PREFIXES) -> Tuple[str, str]:
     """(port key, kind) of a flax path: the inverse of :func:`_flax_path`."""
     m = re.fullmatch(rf"{_CNN}/CNN_0/Conv_(\d+)/(kernel|bias)", path)
     if m:
@@ -147,7 +148,7 @@ def _port_name(path: str) -> Tuple[str, str]:
     m = re.fullmatch(r"actor_head_(\d+)/(kernel|bias)", path)
     if m:
         return (f"actor_heads.{m[1]}.weight", "dense") if m[2] == "kernel" else (f"actor_heads.{m[1]}.bias", "plain")
-    for dst, src in _PREFIXES.items():
+    for dst, src in prefixes.items():
         if path.startswith(src):
             rest = path[len(src) :]
             m = re.fullmatch(r"Dense_(\d+)/(kernel|bias)", rest)

@@ -31,6 +31,11 @@ resumes from the port's or the JAX package's. NaN rollback, the crash
 guard and the preemption exit are wired as in Dreamer-V3. A test episode
 runs at the end (``algo.run_test``).
 
+The loop itself is :func:`train_onpolicy`, which A2C (``algos/a2c``)
+shares: an :class:`OnPolicyAlgorithm` names what the two differ in (the
+update, its gradient steps, its metrics, the CNN keys, the truncation
+bootstrap of the host loop).
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item: ``algo.overlap_collection`` (A4), ``algo.player_device`` and
 ``algo.train_device`` other than the card (A4), and ``exp=ppo_decoupled``
@@ -42,12 +47,13 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, FrozenSet, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.convert import adam_from_optax, adam_to_optax
+from sheeprl_tpu_torch.algos.dreamer_v3.convert import optimizer_from_optax, optimizer_to_optax
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clock, _elapsed, restore_generator, stream_seed
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, PPOPlayer, build_agent, evaluate_actions, rollout_step
 from sheeprl_tpu_torch.algos.ppo.convert import agent_from_flax, agent_to_flax
@@ -69,7 +75,7 @@ from sheeprl_tpu_torch.obs.telemetry import (
 )
 from sheeprl_tpu_torch.ops.graph import CapturedStep
 from sheeprl_tpu_torch.ops.math import gae
-from sheeprl_tpu_torch.ops.optim import Adam, adam
+from sheeprl_tpu_torch.ops.optim import Optimizer, build_optimizer
 from sheeprl_tpu_torch.ops.rollout_scan import ENV_STREAM_SALT, init_env_carry, make_onpolicy_superstep_fn
 from sheeprl_tpu_torch.ops.superstep import fused_fallback, reset_fused_fallback_warnings
 from sheeprl_tpu_torch.parallel.fabric import Fabric
@@ -90,7 +96,7 @@ ROLLOUT_KEYS = ("dones", "values", "actions", "logprobs", "rewards")
 
 def make_local_train(
     agent: PPOAgent,
-    opt: Adam,
+    opt: Optimizer,
     cfg: Mapping[str, Any],
     obs_keys: Sequence[str],
     n_local: int,
@@ -178,9 +184,9 @@ def make_update_fn(
     return update
 
 
-def opt_state_tensors(agent: PPOAgent, opt: Adam) -> List[torch.Tensor]:
+def opt_state_tensors(agent: torch.nn.Module, opt: Optimizer) -> List[torch.Tensor]:
     """Every tensor an update writes in place."""
-    return [*agent.parameters(), *opt.mu, *opt.nu, opt.count]
+    return [*agent.parameters(), *opt.state_tensors()]
 
 
 def collect_rollout(
@@ -193,12 +199,14 @@ def collect_rollout(
     gamma: float,
     cnn_keys: Sequence[str],
     on_episode: Optional[Callable[[int, float, int, int], None]] = None,
+    bootstrap: bool = True,
 ) -> Dict[str, np.ndarray]:
     """The host loop's rollout (JAX :747-793): ``rollout_steps`` steps of
     the player on ``envs`` into ``buf``, the truncation bootstrap
-    ``gamma * V(final_obs)`` on every truncated env; returns the
-    observation after the last step. ``on_episode(env, return, length,
-    t)`` is called for each episode that ended at step ``t``."""
+    ``gamma * V(final_obs)`` on every truncated env unless ``bootstrap``
+    is off (JAX A2C's host loop has none); returns the observation after
+    the last step. ``on_episode(env, return, length, t)`` is called for
+    each episode that ended at step ``t``."""
     agent = player.agent
     obs_keys = agent.cnn_keys + agent.mlp_keys
     num_envs = envs.num_envs
@@ -211,7 +219,7 @@ def collect_rollout(
         obs, rewards, terminated, truncated, info = envs.step(real.reshape(num_envs, *act_shape))
         rewards = np.asarray(rewards, dtype=np.float32).reshape(num_envs, 1)
         truncated_envs = np.nonzero(truncated)[0]
-        if len(truncated_envs) > 0 and "final_obs" in info:
+        if bootstrap and len(truncated_envs) > 0 and "final_obs" in info:
             final = {k: np.stack([np.asarray(info["final_obs"][e][k]) for e in truncated_envs]) for k in obs_keys}
             final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(truncated_envs))
             vals = player.get_values(final).cpu().numpy().reshape(len(truncated_envs))
@@ -301,13 +309,23 @@ def _check_ported(cfg: Mapping[str, Any]) -> None:
             )
 
 
-@register_algorithm()
-def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None) -> Dict[str, Any]:
-    """Train PPO, called as the CLI calls it, ``main(fabric, cfg)``, on the
-    Fabric's device, or as ``main(cfg, device=...)`` on ``device`` (the CUDA
-    card unless ``device="cpu"``), for ``algo.total_steps`` env steps (one
-    update with ``dry_run``), as the JAX ``main`` runs it on one device.
-    Returns the run's counts, seconds, metrics and graph replays."""
+class RunStart(NamedTuple):
+    fabric: Fabric
+    cfg: Dict[str, Any]
+    state: Optional[Dict[str, Any]]
+    log_dir: str
+    logger: Any
+    callback: CheckpointCallback
+    resil: RunResilience
+
+
+def start_run(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike, vector_only: bool = False) -> RunStart:
+    """The opening of PPO's, A2C's and recurrent PPO's ``main``: the
+    Fabric (the CLI's, or one on ``device`` with a checkpoint callback when
+    called as ``main(cfg, device=...)``), the unported options refused, the
+    CNN keys dropped with a warning when ``vector_only`` (A2C), the
+    checkpoint to resume (``auto`` resolved) loaded, the log dir, logger
+    and saved config, and the resilience plane over the callback."""
     ckpt_cfg = (cfg if isinstance(fabric, Fabric) else fabric)["checkpoint"]
     if not isinstance(fabric, Fabric):
         callback = CheckpointCallback(
@@ -315,9 +333,10 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         )
         fabric, cfg = Fabric.for_device(device, fabric["fabric"]["precision"], [callback]), fabric
     _check_ported(cfg)
-    dev = fabric.device
     algo = cfg["algo"]
-    seed = int(cfg["seed"])
+    if vector_only and algo["cnn_keys"]["encoder"]:
+        warnings.warn(f"{algo['name']} is vector-only; the CNN keys will be ignored")
+        algo["cnn_keys"]["encoder"] = []
     resume_from = ckpt_cfg["resume_from"]
     if resume_from == "auto":
         resume_from = resolve_auto_resume(cfg)
@@ -331,7 +350,53 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     callback = next((cb for cb in fabric.callbacks if isinstance(cb, CheckpointCallback)), None)
     if callback is None:
         raise ValueError("fabric.callbacks holds no CheckpointCallback: the run could not save its checkpoints")
-    resil = RunResilience(cfg, log_dir, callback)
+    return RunStart(fabric, cfg, state, log_dir, logger, callback, RunResilience(cfg, log_dir, callback))
+
+
+@dataclass(frozen=True)
+class OnPolicyAlgorithm:
+    """What PPO's and A2C's loops differ in: ``make_local_train(agent, opt,
+    cfg, obs_keys, n_local, generator) -> local_train(data, coefs)`` (the
+    update over the flat rollout, returning ``metric_order``'s values),
+    ``gradient_steps(cfg, n_local)`` (optimizer steps an update), the
+    aggregator's keys, whether the agent reads vectors only (A2C drops the
+    CNN keys with a warning) and whether the host loop bootstraps truncated
+    episodes."""
+
+    make_local_train: Callable[..., Callable[..., torch.Tensor]]
+    gradient_steps: Callable[[Mapping[str, Any], int], int]
+    metric_order: Tuple[str, ...]
+    aggregator_keys: FrozenSet[str]
+    vector_only: bool = False
+    bootstrap_truncated: bool = True
+
+
+def _ppo_gradient_steps(cfg: Mapping[str, Any], n_local: int) -> int:
+    algo = cfg["algo"]
+    return int(algo["update_epochs"]) * max(1, n_local // int(algo["per_rank_batch_size"]))
+
+
+PPO = OnPolicyAlgorithm(make_local_train, _ppo_gradient_steps, METRIC_ORDER, frozenset(AGGREGATOR_KEYS))
+
+
+@register_algorithm()
+def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None) -> Dict[str, Any]:
+    """Train PPO, called as the CLI calls it, ``main(fabric, cfg)``, on the
+    Fabric's device, or as ``main(cfg, device=...)`` on ``device`` (the CUDA
+    card unless ``device="cpu"``), for ``algo.total_steps`` env steps (one
+    update with ``dry_run``), as the JAX ``main`` runs it on one device.
+    Returns the run's counts, seconds, metrics and graph replays."""
+    return train_onpolicy(fabric, cfg, device, PPO)
+
+
+def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike, algorithm: OnPolicyAlgorithm) -> Dict[str, Any]:
+    """The on-policy loop of PPO and A2C (``main``'s contract), with what
+    differs taken from ``algorithm``."""
+    fabric, cfg, state, log_dir, logger, callback, resil = start_run(fabric, cfg, device, algorithm.vector_only)
+    ckpt_cfg = cfg["checkpoint"]
+    dev = fabric.device
+    algo = cfg["algo"]
+    seed = int(cfg["seed"])
 
     envs = build_vector_env(cfg, 0, log_dir, "train")
     observation_space = envs.single_observation_space
@@ -370,19 +435,17 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     if state is not None:
         batch_size = elastic_per_rank_batch_size(int(state["batch_size"]), 1)
         algo["per_rank_batch_size"] = batch_size
-    num_minibatches = max(1, n_local // batch_size)
-    update_epochs = int(algo["update_epochs"])
-    steps_per_update = update_epochs * num_minibatches
+    steps_per_update = algorithm.gradient_steps(cfg, n_local)
     max_grad_norm = float(algo["max_grad_norm"] or 0.0)
-    opt = adam(
+    opt = build_optimizer(
         list(agent.parameters()),
         algo["optimizer"],
         max_grad_norm,
-        schedule_steps=num_updates * steps_per_update if algo["anneal_lr"] else 0,
+        schedule_steps=num_updates * steps_per_update if algo.get("anneal_lr", False) else 0,
     )
     param_names = [n for n, _ in agent.named_parameters()]
     if state is not None:
-        adam_from_optax(state["opt_state"], opt, param_names, agent_from_flax)
+        optimizer_from_optax(state["opt_state"], opt, param_names, agent_from_flax)
     if int(cfg["buffer"]["size"]) < rollout_steps:
         raise ValueError(f"The size of the buffer ({cfg['buffer']['size']}) cannot be lower than the rollout steps ({rollout_steps})")
 
@@ -411,20 +474,21 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         restore_generator(train_gen, state.get("rng_key"), seed, start_update - 1)
         restore_generator(player_gen, state.get("player_rng_key"), seed, start_update - 1, 1)
 
-    local_train = make_local_train(agent, opt, cfg, obs_keys, n_local, train_gen)
-    coefs = torch.tensor([float(algo["clip_coef"]), float(algo["ent_coef"])], device=dev)
-    initial_clip_coef, initial_ent_coef = float(algo["clip_coef"]), float(algo["ent_coef"])
+    local_train = algorithm.make_local_train(agent, opt, cfg, obs_keys, n_local, train_gen)
+    # A2C has neither coefficient: its update reads no coefs
+    initial_clip_coef, initial_ent_coef = float(algo.get("clip_coef", 0.0)), float(algo.get("ent_coef", 0.0))
+    coefs = torch.tensor([initial_clip_coef, initial_ent_coef], device=dev)
     clip_coef, ent_coef = initial_clip_coef, initial_ent_coef
     metric_cfg = cfg["metric"]
     log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
-    aggregator = build_aggregator(cfg, AGGREGATOR_KEYS)
+    aggregator = build_aggregator(cfg, algorithm.aggregator_keys)
     count_flops = get_telemetry() is not None
     gamma = float(algo["gamma"])
 
     def ckpt_state_fn(completed_update: int) -> Dict[str, Any]:
         return {
             "agent": agent_to_flax(agent.state_dict()),
-            "opt_state": adam_to_optax(opt, param_names, agent_to_flax),
+            "opt_state": optimizer_to_optax(opt, param_names, agent_to_flax),
             "update": completed_update,
             "batch_size": batch_size,
             "last_log": last_log,
@@ -444,7 +508,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         sd = agent_from_flax(restored["agent"])
         for name, p in agent.named_parameters():
             p.copy_(sd[name])
-        adam_from_optax(restored["opt_state"], opt, param_names, agent_from_flax)
+        optimizer_from_optax(restored["opt_state"], opt, param_names, agent_from_flax)
         if "rng_key" in restored:
             restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
         resil.resalt_key(train_gen)
@@ -533,7 +597,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                 t_env = time.perf_counter()
                 with timer("Time/env_interaction_time"):
                     next_obs = collect_rollout(
-                        player, envs, buf, next_obs, player_gen, rollout_steps, gamma, cnn_keys, on_episode
+                        player, envs, buf, next_obs, player_gen, rollout_steps, gamma, cnn_keys, on_episode, algorithm.bootstrap_truncated
                     )
                 policy_step += policy_steps_per_update
                 env_seconds += time.perf_counter() - t_env
@@ -568,7 +632,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                         update_fn.inputs[k].copy_(v)
                 continue
             if log_level > 0:
-                for name, value in zip(METRIC_ORDER, metrics_np):
+                for name, value in zip(algorithm.metric_order, metrics_np):
                     aggregator.update(name, float(value))
             if log_level > 0 and (policy_step - last_log >= log_every or update == num_updates):
                 metrics_dict = aggregator.compute()
@@ -585,9 +649,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                 last_log = policy_step
                 last_train = train_windows
             # anneal the coefficients (JAX :548-558)
-            if algo["anneal_clip_coef"]:
+            if algo.get("anneal_clip_coef", False):
                 clip_coef = polynomial_decay(update, initial=initial_clip_coef, final=0.0, max_decay_steps=num_updates, power=1.0)
-            if algo["anneal_ent_coef"]:
+            if algo.get("anneal_ent_coef", False):
                 ent_coef = polynomial_decay(update, initial=initial_ent_coef, final=0.0, max_decay_steps=num_updates, power=1.0)
             if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
                 update == num_updates and ckpt_cfg["save_last"]
@@ -626,7 +690,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         "env_seconds": env_seconds,
         "update_seconds": window_seconds,
         "update_wall_seconds": wall,
-        "metrics": {} if metrics is None else dict(zip(METRIC_ORDER, metrics.cpu().tolist())),
+        "metrics": {} if metrics is None else dict(zip(algorithm.metric_order, metrics.cpu().tolist())),
         "rollbacks": resil.rollbacks,
         "last_checkpoint": last_checkpoint,
         "fused_rollout": fused_spec is not None,

@@ -25,12 +25,15 @@ from sheeprl_tpu_torch.utils.registry import find_algorithm, find_evaluation
 from sheeprl_tpu_torch.utils.utils import dotdict, print_config
 
 # the ported algorithm packages: importing one registers its entry points
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3", "sheeprl_tpu_torch.algos.ppo")
+ALGORITHM_MODULES = (
+    "sheeprl_tpu_torch.algos.dreamer_v3",
+    "sheeprl_tpu_torch.algos.ppo",
+    "sheeprl_tpu_torch.algos.a2c",
+    "sheeprl_tpu_torch.algos.ppo_recurrent",
+)
 # JAX algorithms whose port is queued, by the ROADMAP item that holds it
 UNPORTED_ALGORITHMS = {
     "ppo_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
-    "a2c": "queued in ROADMAP A4 (with the rmsprop optimizer)",
-    "ppo_recurrent": "queued in ROADMAP A4 (with its recurrent superstep)",
 }
 
 

@@ -1,11 +1,11 @@
-"""Fake environments for the mlp-key path (port of the discrete and
-continuous envs of ``sheeprl_tpu/envs/dummy.py``). The obs dict holds
+"""Fake environments for the mlp-key path (port of the discrete,
+multi-discrete and continuous envs of ``sheeprl_tpu/envs/dummy.py``). The obs dict holds
 ``rgb`` (NHWC uint8) and ``state`` (float32), both encoding the step index;
 episodes end via ``terminated`` after ``n_steps``."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -57,12 +57,18 @@ class DiscreteDummyEnv(BaseDummyEnv):
         self.action_space = spaces.Discrete(action_dim)
 
 
+class MultiDiscreteDummyEnv(BaseDummyEnv):
+    def __init__(self, image_size=(64, 64, 3), n_steps: int = 128, vector_shape=(10,), action_dims: Sequence[int] = (2, 2)) -> None:
+        super().__init__(image_size=image_size, n_steps=n_steps, vector_shape=vector_shape)
+        self.action_space = spaces.MultiDiscrete(list(action_dims))
+
+
 def get_dummy_env(id: str, **kwargs) -> BaseDummyEnv:
     """Select a dummy env by id substring."""
     if "continuous" in id:
         return ContinuousDummyEnv(**kwargs)
     if "multidiscrete" in id:
-        raise NotImplementedError("the multidiscrete dummy env is not ported yet")
+        return MultiDiscreteDummyEnv(**kwargs)
     if "discrete" in id:
         return DiscreteDummyEnv(**kwargs)
     raise ValueError(f"Unrecognized dummy environment: {id}")

@@ -218,7 +218,7 @@ TorchPendulum = make_pendulum_spec()
 
 
 # Physics factories keyed by env id, for the ``physics_*`` scenario variants
-# (``envs/variants.py``, not ported yet). Each maps the canonical
+# (``envs/variants.py``). Each maps the canonical
 # randomization axes (size / speed / mass multipliers) onto the env's own
 # constants.
 def _cartpole_physics(size: Scalar, speed: Scalar, mass: Scalar) -> JittableEnvSpec:

@@ -1,11 +1,12 @@
 """Minimal observation and action spaces: the parts of gymnasium's ``Box``,
-``Discrete`` and ``Dict`` that the port's envs, wrappers, vector envs and
+``Discrete``, ``MultiDiscrete`` and ``Dict`` that the port's envs, wrappers, vector envs and
 agent read (gymnasium is not a dependency of the port).
 
 Each space keeps a numpy ``Generator``, seeded by :meth:`seed`, for
 :meth:`sample`. Draws follow gymnasium's rules (uniform in a bounded float
 ``Box``, normal where unbounded, exponential where half-bounded, uniform
-integers in an integer ``Box`` and ``Discrete``), not its bit streams.
+integers in an integer ``Box``, ``Discrete`` and ``MultiDiscrete``), not
+its bit streams.
 ``Dict`` keeps its keys sorted, as gymnasium's ``Dict`` does for a plain
 mapping.
 """
@@ -108,6 +109,31 @@ class Discrete(Space):
         return f"Discrete({self.n})"
 
 
+class MultiDiscrete(Space):
+    """One ``Discrete(n)`` per entry of ``nvec``, as an int64 vector."""
+
+    def __init__(self, nvec: Sequence[int], seed: Optional[int] = None) -> None:
+        self.nvec = np.asarray(nvec, dtype=np.int64)
+        if self.nvec.ndim != 1 or (self.nvec <= 0).any():
+            raise ValueError(f"MultiDiscrete needs a vector of positive sizes, got {nvec!r}")
+        self.shape = tuple(self.nvec.shape)
+        self.dtype = np.dtype(np.int64)
+        super().__init__(seed)
+
+    def sample(self) -> np.ndarray:
+        return self.np_random.integers(0, self.nvec).astype(self.dtype)
+
+    def contains(self, x: Any) -> bool:
+        x = np.asarray(x)
+        return bool(x.shape == self.shape and x.dtype.kind in "iu" and np.all(x >= 0) and np.all(x < self.nvec))
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, MultiDiscrete) and np.array_equal(self.nvec, other.nvec)
+
+    def __repr__(self) -> str:
+        return f"MultiDiscrete({self.nvec.tolist()})"
+
+
 class Dict(Space):
     def __init__(self, spaces: Mapping[str, Space], seed: Optional[int] = None) -> None:
         self.spaces = dict(sorted(dict(spaces).items()))
@@ -146,10 +172,13 @@ class Dict(Space):
 
 
 def action_dims(action_space) -> Tuple[Tuple[int, ...], bool]:
-    """``(actions_dim, is_continuous)`` for a Box or Discrete action space
-    (``sheeprl_tpu/utils/evaluation.py::action_dims``)."""
+    """``(actions_dim, is_continuous)`` for a Box, Discrete or MultiDiscrete
+    action space (``sheeprl_tpu/utils/evaluation.py::action_dims``): a
+    MultiDiscrete space gives one size per sub-action."""
     if isinstance(action_space, Box):
         return tuple(action_space.shape), True
     if isinstance(action_space, Discrete):
         return (action_space.n,), False
+    if isinstance(action_space, MultiDiscrete):
+        return tuple(int(n) for n in action_space.nvec), False
     raise TypeError(f"unsupported action space {action_space!r}")

@@ -1,7 +1,8 @@
 """Network blocks (port of ``sheeprl_tpu/models/blocks.py``: ``LayerNorm``
 at lines 68-85, ``MLP`` at :115, ``NatureCNN`` at :268 and
-``LayerNormGRUCell`` at lines 296-338), and the dense and convolution
-layers of the port with flax's compute dtype.
+``LayerNormGRUCell`` at lines 296-338), flax's ``OptimizedLSTMCell`` (the
+recurrent PPO agent's LSTM), and the dense and convolution layers of the
+port with flax's compute dtype.
 
 The port's images are NCHW where flax's are NHWC. ``NatureCNN`` flattens
 its last conv map in CHW order where flax flattens in HWC order, so the
@@ -23,7 +24,7 @@ not inside it. At fp32 every cast is a no-op.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,6 +131,81 @@ class LayerNormGRUCell(nn.Module):
         cand = torch.tanh(torch.sigmoid(reset) * cand)
         update = torch.sigmoid(update - 1)
         return update * cand + (1 - update) * h
+
+
+class LSTMCell(nn.Module):
+    """flax ``nn.OptimizedLSTMCell`` (``features=hidden_size``), the carry
+    ``(c, h)``::
+
+        dense_h = h @ [Whi|Whf|Whg|Who] + [bhi|bhf|bhg|bho]
+        dense_i = x @ [Wii|Wif|Wig|Wio]
+        i, f, o = sigmoid(dense_h + dense_i)    g = tanh(dense_h + dense_i)
+        c' = f * c + i * g
+        h' = o * tanh(c')
+
+    The eight flax ``DenseParams`` are held concatenated in flax's layout
+    and gate order (i, f, g, o), as the cell concatenates them before its
+    two products: ``input_kernel [in, 4H]`` (the ``i*`` kernels, no bias),
+    ``hidden_kernel [H, 4H]`` and ``hidden_bias [4H]`` (the ``h*``
+    kernels and biases); ``algos/ppo_recurrent/convert.py`` splits and
+    joins them.
+
+    Both products, the bias, the gate sums, the gates and the carry
+    compute in ``compute_dtype`` (flax's ``promote_dtype`` casts the
+    inputs, kernels and bias to the cell's ``dtype``), so at bf16 ``c`` and
+    ``h`` stay bf16 from one step to the next. :meth:`input_projection`
+    takes the ``x`` products of a whole sequence at once (the same
+    products, row by row) and :meth:`step` one step from them; ``forward``
+    is both for one step. Plain tensor code, one step at a time, which a
+    CUDA graph captures: ``torch.nn.LSTM`` would not reproduce flax's cast
+    points."""
+
+    def __init__(self, input_size: int, hidden_size: int, compute_dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.input_size, self.hidden_size = int(input_size), int(hidden_size)
+        self.compute_dtype = compute_dtype
+        self.input_kernel = nn.Parameter(torch.empty(self.input_size, 4 * self.hidden_size))
+        self.hidden_kernel = nn.Parameter(torch.empty(self.hidden_size, 4 * self.hidden_size))
+        self.hidden_bias = nn.Parameter(torch.zeros(4 * self.hidden_size))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's initialisers, one gate at a time: lecun normal input
+        kernels (truncated normal, variance 1 / in), orthogonal hidden
+        kernels, zero biases."""
+        h = self.hidden_size
+        std = (1.0 / self.input_size) ** 0.5 / 0.87962566103423978
+        for k in range(4):
+            w = torch.empty(self.input_size, h)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            self.input_kernel[:, k * h : (k + 1) * h].copy_(w)
+            q = torch.empty(h, h)
+            nn.init.orthogonal_(q, generator=generator)
+            self.hidden_kernel[:, k * h : (k + 1) * h].copy_(q)
+        self.hidden_bias.zero_()
+
+    def input_projection(self, x: torch.Tensor) -> torch.Tensor:
+        """``dense_i`` of ``x [..., in]``: ``[..., 4H]`` in the compute
+        dtype."""
+        dt = self.compute_dtype
+        return x.to(dt) @ self.input_kernel.to(dt)
+
+    def step(self, carry: Tuple[torch.Tensor, torch.Tensor], dense_i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step from ``dense_i`` (:meth:`input_projection` of the
+        step's input): the new carry ``(c', h')``; ``h'`` is the output."""
+        dt = self.compute_dtype
+        c, h = carry
+        dense_h = h.to(dt) @ self.hidden_kernel.to(dt) + self.hidden_bias.to(dt)
+        i, f, g, o = (dense_h + dense_i).chunk(4, -1)
+        i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), torch.tanh(g)
+        new_c = f * c.to(dt) + i * g
+        return new_c, o * torch.tanh(new_c)
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """flax's cell call: ``((c', h'), h')``."""
+        new_c, new_h = self.step(carry, self.input_projection(x))
+        return (new_c, new_h), new_h
 
 
 ACTIVATIONS = {

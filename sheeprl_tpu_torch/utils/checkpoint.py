@@ -15,7 +15,8 @@ unpickling them by default would import optax and, with it, JAX. Here:
 - numpy's array and dtype reconstructors, its random generators' and a few
   builtins are allowed as they are;
 - optax's state classes become the stand-in records below, which keep their
-  fields (``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``);
+  fields (``ScaleByAdamState(count, mu, nu)``, ``ScaleByRmsState(nu)``,
+  ``ScaleByRStdDevState(mu, nu)``, ``TraceState(trace)``, ``EmptyState()``);
 - flax's ``FrozenDict`` becomes ``dict``;
 - the port's own stand-ins and replay buffers (the host buffers and the
   device ring, both pickled as host arrays) are allowed;
@@ -55,11 +56,33 @@ class ScaleByScheduleState(NamedTuple):
     count: Any
 
 
-# the optax state classes of the optimizers the port has (Adam behind
-# global-norm clipping, with a scheduled learning rate), by name: their
-# module paths vary across optax versions. Another optimizer's state raises
-# until that optimizer is ported.
-OPTAX_STAND_INS = {cls.__name__: cls for cls in (EmptyState, ScaleByAdamState, ScaleByScheduleState)}
+class ScaleByRmsState(NamedTuple):
+    """optax ``ScaleByRmsState``: RMSProp's second moment."""
+
+    nu: Any
+
+
+class ScaleByRStdDevState(NamedTuple):
+    """optax ``ScaleByRStdDevState``: centered RMSProp's two moments."""
+
+    mu: Any
+    nu: Any
+
+
+class TraceState(NamedTuple):
+    """optax ``TraceState``: a momentum trace."""
+
+    trace: Any
+
+
+# the optax state classes of the optimizers the port has (Adam and RMSProp
+# behind global-norm clipping, with a scheduled learning rate and RMSProp's
+# momentum trace), by name: their module paths vary across optax versions.
+# Another optimizer's state raises until that optimizer is ported.
+OPTAX_STAND_INS = {
+    cls.__name__: cls
+    for cls in (EmptyState, ScaleByAdamState, ScaleByScheduleState, ScaleByRmsState, ScaleByRStdDevState, TraceState)
+}
 
 _NUMPY_MODULES = frozenset(
     ("numpy", "numpy.core.multiarray", "numpy._core.multiarray", "numpy.core.numeric", "numpy._core.numeric")

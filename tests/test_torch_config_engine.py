@@ -170,7 +170,7 @@ def test_group_options_list_the_port_tree():
     [
         {"_target_": "gymnasium.make", "id": "CartPole-v1"},
         {"_target_": "sheeprl_tpu_torch.envs.dmc.DMCWrapper"},
-        {"_target_": "sheeprl_tpu_torch.ops.optim.rmsprop"},
+        {"_target_": "sheeprl_tpu_torch.ops.optim.sgd"},
         {"_target_": "sheeprl_tpu.utils.metric.MeanMetric"},
     ],
 )

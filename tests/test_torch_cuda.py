@@ -4,7 +4,8 @@ train step (fused against plain, launches a step, determinism, the
 continuous actor's gradient through the kernel's backward), and the train
 step captured as a CUDA graph (sheeprl_tpu_torch/ops/graph.py: replays
 against eager steps, fresh noise each replay, a capture refusing a host
-sync, Adam's count on the device).
+sync, Adam's count on the device); the PPO, A2C and recurrent PPO updates
+and fused rollouts captured against eager.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so with ``--noconftest``
@@ -962,3 +963,115 @@ def test_cuda_dv3_bf16_true_step_is_bit_equal_to_bf16_mixed(cuda, smooth):
     assert torch.equal(m_m, m_t)
     for k in g_m:
         assert all(torch.equal(a, b) for a, b in zip(g_m[k], g_t[k])), k
+
+
+@pytest.mark.cuda
+def test_cuda_a2c_captured_update_matches_eager(cuda, monkeypatch):
+    """The A2C update at exp=a2c widths (bf16-mixed: GAE and one RMSProp
+    step) as one CUDA graph against the same update eager: three updates,
+    every parameter and RMSProp's nu within chip_smoke's bound."""
+    import chip_smoke
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.ops import graph
+    from sheeprl_tpu_torch.ops.optim import RMSProp
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _, g_agent, g_opt, g_gen, g_update, inputs = chip_smoke.ppo_update_models(torch, np, "a2c_cartpole")
+    _, e_agent, e_opt, _, e_update, _ = chip_smoke.ppo_update_models(torch, np, "a2c_cartpole")
+    assert isinstance(g_opt, RMSProp)
+    fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
+    for _ in range(3):
+        got, want = fn(), e_update(inputs)
+        assert torch.isfinite(got).all()
+    assert fn.replays == 3
+    pairs = list(zip(g_agent.parameters(), e_agent.parameters())) + list(zip(g_opt.nu, e_opt.nu))
+    for a, b in pairs:
+        assert (a - b).abs().max() <= chip_smoke.PPO_UPDATE_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [False, True], ids=["padded_chunks", "fixed_windows"])
+def test_cuda_recurrent_ppo_captured_update_matches_eager(cuda, monkeypatch, windows):
+    """The recurrent update at exp=ppo_recurrent widths (bf16-mixed), the
+    host path's padded episode chunks and the fused path's fixed windows
+    with resets, as one CUDA graph against the same update eager: two
+    updates, every parameter within chip_smoke's bound, one capture."""
+    import chip_smoke
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.ops import graph
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _, g_agent, g_opt, g_gen, g_update, inputs = chip_smoke.rppo_update_models(torch, np, windows)
+    _, e_agent, _, _, e_update, _ = chip_smoke.rppo_update_models(torch, np, windows)
+    captures = graph.capture_count
+    fn = graph.CapturedStep(g_update, inputs, opt_state_tensors(g_agent, g_opt), g_gen)
+    for _ in range(2):
+        got, want = fn(), e_update(inputs)
+        assert torch.isfinite(got).all()
+    assert fn.replays == 2 and graph.capture_count == captures + 1
+    assert int(g_opt.count) == 2 * 8 * 8
+    for a, b in zip(g_agent.parameters(), e_agent.parameters()):
+        assert (a - b).abs().max() <= chip_smoke.PPO_UPDATE_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_recurrent_fused_superstep_is_one_replay_an_update(cuda):
+    """The recurrent fused rollout (CartPole twin, 16 steps of 4 envs,
+    windows of 4), GAE and the sequence update as one CUDA graph: one
+    replay an update, against the same superstep eager on the card from the
+    same generator states and carry: metrics, episode flags, the carry (the
+    LSTM state and previous actions included) and the parameters."""
+    import chip_smoke
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import opt_state_tensors
+    from sheeprl_tpu_torch.algos.ppo_recurrent import agent as ragent
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_local_train
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.jittable import get_jittable_env
+    from sheeprl_tpu_torch.ops import graph
+    from sheeprl_tpu_torch.ops.optim import build_optimizer
+    from sheeprl_tpu_torch.ops.rollout_scan import init_recurrent_env_carry, make_recurrent_onpolicy_superstep_fn
+
+    spec = get_jittable_env("CartPole-v1")
+    cfg = chip_smoke.ppo_cfg("exp=ppo_recurrent", "algo.update_epochs=2", "algo.per_rank_num_batches=2", "fabric.precision=32-true")
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    runs = []
+    for _ in range(2):
+        agent, _ = ragent.build_agent((2,), False, cfg, space, device="cuda")
+        opt = build_optimizer(list(agent.parameters()), cfg.algo.optimizer, 0.5)
+        gens = [torch.Generator(device="cuda").manual_seed(s) for s in (1, 2, 3)]
+        carry = init_recurrent_env_carry(spec, 4, gens[1], agent.lstm_hidden_size, 2)
+        superstep = make_recurrent_onpolicy_superstep_fn(
+            spec,
+            policy_fn=lambda obs, pa, h, c, g, a=agent: ragent.recurrent_rollout_step(a, obs, pa, h, c, g),
+            value_fn=lambda obs, pa, h, c, a=agent: a(obs, pa, h, c)[1],
+            local_train=make_local_train(agent, opt, cfg, ["state"], gens[2], sequence_dones=True),
+            obs_key="state",
+            rollout_steps=16,
+            seq_len=4,
+            gamma=0.99,
+            gae_lambda=0.95,
+            reset_on_done=True,
+            policy_generator=gens[0],
+            env_generator=gens[1],
+        )
+        runs.append((agent, carry, superstep, opt, gens))
+    (g_agent, g_carry, g_step, g_opt, g_gens), (e_agent, e_carry, e_step, _, _) = runs
+    coefs = torch.tensor([0.2, 0.001], device="cuda")
+
+    def fused(d):
+        metrics, stats = g_step({k: v for k, v in d.items() if k != "coefs"}, d["coefs"])
+        return metrics, stats["done"]
+
+    fn = graph.CapturedStep(fused, {**g_carry, "coefs": coefs}, opt_state_tensors(g_agent, g_opt) + list(g_carry.values()), g_gens)
+    for update in range(2):
+        (got, g_done), (want, e_stats) = fn(), e_step(e_carry, coefs)
+        assert fn.replays == update + 1
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        assert torch.equal(g_done, e_stats["done"])
+    for k in g_carry:
+        torch.testing.assert_close(g_carry[k], e_carry[k], atol=1e-5, rtol=1e-5)
+    for a, b in zip(g_agent.parameters(), e_agent.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

@@ -51,14 +51,14 @@ def test_pixel_catcher_spaces_match_jax():
     assert spaces.action_dims(PixelCatcher(continuous_actions=True).action_space) == ((1,), True)
 
 
-@pytest.mark.parametrize("env_id", ["dummy_discrete", "dummy_continuous"])
+@pytest.mark.parametrize("env_id", ["dummy_discrete", "dummy_multidiscrete", "dummy_continuous"])
 def test_dummy_envs_match_jax(env_id):
     a, b = tdummy.get_dummy_env(env_id), jdummy.get_dummy_env(env_id)
     assert a.observation_space["state"].shape == b.observation_space["state"].shape
     for env in (a, b):
         env.reset(seed=0)
     for _ in range(6):
-        act = np.zeros(2, np.float32) if "continuous" in env_id else 1
+        act = np.zeros(2, np.float32) if "continuous" in env_id else (np.array([1, 0]) if "multi" in env_id else 1)
         o1, r1, t1, u1, _ = a.step(act)
         o2, r2, t2, u2, _ = b.step(act)
         for k in ("rgb", "state"):
@@ -83,3 +83,20 @@ def test_make_env_refuses_what_is_not_ported():
         make_env(compose("XS", overrides={"env.wrapper": {"_target_": "gymnasium.make", "id": "CartPole-v1"}}), 0)()
     with pytest.raises(NotImplementedError, match="capture_video"):
         make_env(compose("XS", overrides={"env.capture_video": True}), 0, 0, "run_dir")()
+
+
+def test_multidiscrete_space_matches_the_jax_envs():
+    """The multi-discrete dummy env's action space: the JAX package's sizes
+    (``nvec``) as the port's ``action_dims``, samples of gymnasium's shape
+    and dtype inside every sub-space, and ``contains``."""
+    port, jax_env = tdummy.get_dummy_env("dummy_multidiscrete"), jdummy.get_dummy_env("dummy_multidiscrete")
+    space = port.action_space
+    assert spaces.action_dims(space) == (tuple(jax_env.action_space.nvec.tolist()), False)
+    wide = spaces.MultiDiscrete([3, 5, 2], seed=0)
+    draws = np.stack([wide.sample() for _ in range(500)])
+    got, want = space.sample(), jax_env.action_space.sample()
+    assert got.shape == want.shape == space.shape and got.dtype == want.dtype == draws.dtype
+    assert (draws >= 0).all() and (draws < wide.nvec).all()
+    assert all(len(np.unique(draws[:, i])) == n for i, n in enumerate(wide.nvec))
+    assert wide.contains(np.array([2, 4, 1])) and not wide.contains(np.array([3, 0, 0]))
+    assert space == spaces.MultiDiscrete([2, 2]) and space != wide

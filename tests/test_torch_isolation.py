@@ -58,9 +58,31 @@ PPO_SLICE = (
 )
 
 
+# the modules of the A2C and recurrent PPO slice
+RECURRENT_SLICE = (
+    "algos/a2c/a2c.py",
+    "algos/a2c/agent.py",
+    "algos/a2c/evaluate.py",
+    "algos/a2c/loss.py",
+    "algos/a2c/utils.py",
+    "algos/ppo_recurrent/agent.py",
+    "algos/ppo_recurrent/convert.py",
+    "algos/ppo_recurrent/evaluate.py",
+    "algos/ppo_recurrent/ppo_recurrent.py",
+    "algos/ppo_recurrent/utils.py",
+    "models/blocks.py",
+    "ops/optim.py",
+)
+
+
 def test_the_scan_covers_the_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(PPO_SLICE) <= scanned
+
+
+def test_the_scan_covers_the_a2c_and_recurrent_ppo_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(RECURRENT_SLICE) <= scanned
 
 
 def test_the_scan_sees_a_forbidden_import(tmp_path):
@@ -93,6 +115,13 @@ from sheeprl_tpu_torch.utils.utils import dotdict
 cfg = dotdict(compose_config("config", ["exp=ppo", "env.capture_video=False", "env.max_episode_steps=5"]))
 reward, steps = ppo_evaluate(cfg, device="cpu")
 assert steps == 5, steps
+# A2C and recurrent PPO on it too
+from sheeprl_tpu_torch.algos.a2c.evaluate import evaluate as a2c_evaluate
+from sheeprl_tpu_torch.algos.ppo_recurrent.evaluate import evaluate as rppo_evaluate
+for exp, run in (("a2c", a2c_evaluate), ("ppo_recurrent", rppo_evaluate)):
+    cfg = dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False", "env.max_episode_steps=5"]))
+    reward, steps = run(cfg, device="cpu")
+    assert steps == 5, (exp, steps)
 import chip_smoke
 print("OK")
 """
