@@ -205,6 +205,29 @@ which exits non-zero:
    c.phase_a2c_update(torch, np); c.phase_a2c_cli(torch, tempfile.mkdtemp());
    c.phase_rppo_update(torch, np); c.phase_rppo_cli(torch,
    tempfile.mkdtemp())'``.
+14. SAC, DroQ and SAC-AE (bf16-mixed): (a) one update of each at full
+   published width on one seeded batch, captured against the same update
+   run eagerly on the card from the same weights and generators: SAC a
+   chunk of 16 gradient steps (256 hidden, 2 critics, batch 256), DroQ
+   G = 20 (a chunk of 16, four one-step replays, the actor update), SAC-AE
+   two steps, one of each gate phase (512-channel convs on 9 x 64 x 64
+   frames, hidden 1024, batch 128); every parameter and optimizer state
+   within ``SAC_UPDATE_BOUND`` of eager (bit-equality reported), ms a
+   replay, a profiler window (kernels a replay, busy ms, idle share) and
+   SAC-AE's FLOPs a gradient step and MFU; (b) ``exp=sac`` and
+   ``exp=droq`` through ``cli.run`` on 4 Pendulum-v1 envs and
+   ``exp=sac_ae`` on 4 PixelPendulum envs with a frame stack of 3, each on
+   the ring and on the host buffer, and SAC with
+   ``algo.fused_gradient_steps=4`` on the ring (the cuts printed):
+   env-steps/s overall and steady, captures, host-to-device bytes a
+   gradient step, the test episode, no ``fused_fallback``; ``buffer.device:
+   auto`` picking the host buffer for SAC-AE at its published 1M
+   transitions; (c) ``cli_eval`` on each algorithm's checkpoint of (b);
+   (d) no B1 or B2 launch in the phase. The SAC family reaches no TPU
+   kernel; its numbers ride in the kernels line under ``fused_gru``'s
+   ``sac_family``. Alone on the card: ``python -c 'import chip_smoke as c,
+   numpy as np, torch, tempfile; c.phase_sac_update(torch, np);
+   c.phase_sac_cli(torch, np, tempfile.mkdtemp())'`` (TF32 off first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -887,10 +910,11 @@ SCAN_CALLS, IMAGINE_CALLS = TRAIN_T, HORIZON + 1
 # backward and 16 imagination steps at B=1024.
 METRIC_BOUND = 1e-3
 GRAD_BOUND = 1e-3
-TIMED_STEPS, WARMUP_STEPS = 10, 3
+TIMED_STEPS, WARMUP_STEPS = 5, 3
 # the short loop: a few hundred env steps of main(), cut from the exp's
-# 5M steps, 1024 learning_starts and 1M-step buffer
-LOOP_CUTS = {"algo.total_steps": 384, "algo.learning_starts": 256, "buffer.size": 4096}
+# 5M steps, 1024 learning_starts and 1M-step buffer (384 env steps until
+# phase 14 needed the time)
+LOOP_CUTS = {"algo.total_steps": 320, "algo.learning_starts": 256, "buffer.size": 4096}
 
 
 # the samplers of phase 6's parity checks; tests/test_torch_cuda.py uses them too
@@ -3064,11 +3088,12 @@ def phase_ppo_update(torch, np):
     return report
 
 
-def ppo_cli(torch, tmp: str, run_name: str, overrides: list, module=None) -> tuple:
+def ppo_cli(torch, tmp: str, run_name: str, overrides: list, module=None, gates=()) -> tuple:
     """``cli.run`` of ``overrides`` in this process, its printing kept apart;
     returns (main's report, the fused_fallback reasons, seconds). ``module``
     is the algorithm's (PPO's by default): its ``main`` is wrapped, and the
-    ``fused_fallback`` of PPO's gate and of the module are counted."""
+    ``fused_fallback`` of PPO's gate, of the module and of ``gates`` are
+    counted."""
     import io
 
     from sheeprl_tpu_torch import cli
@@ -3085,7 +3110,7 @@ def ppo_cli(torch, tmp: str, run_name: str, overrides: list, module=None) -> tup
         fallbacks.append(reason)
         real_fallback(reason, detail)
 
-    gates = {ppo, module} if hasattr(module, "fused_fallback") else {ppo}
+    gates = {ppo, *gates, *((module,) if hasattr(module, "fused_fallback") else ())}
 
     argv = [
         *overrides,
@@ -3219,7 +3244,7 @@ A2C_CLI_UPDATES = 250  # of 20 env steps each (exp=a2c: 1250)
 RPPO_DONE_RATE = 0.05
 RPPO_PLAYER_STEPS = 64
 RPPO_PLAYER_TOL = 1e-5
-RPPO_CLI_UPDATES = 3  # of 8192 env steps each (exp=ppo_recurrent: 49)
+RPPO_CLI_UPDATES = 2  # of 8192 env steps each (exp=ppo_recurrent: 49)
 
 
 def rppo_update_models(torch, np, windows: bool, precision: str = BF16):
@@ -3401,6 +3426,245 @@ def phase_rppo_cli(torch, tmp: str):
     return report
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: SAC, DroQ and SAC-AE
+# --------------------------------------------------------------------------- #
+
+# algorithm: (config overrides, gradient steps of the update held against eager)
+SAC_MODELS = {
+    "sac": (["exp=sac"], 16),
+    "droq": (["exp=droq"], 20),
+    "sac_ae": (["exp=sac_ae", "env=pixel_pendulum", "env.id=PixelPendulum-v0", "env.frame_stack=3"], 2),
+}
+SAC_UPDATE_BOUND = 1e-6
+SAC_UPDATES = 2  # captured against eager, each on the same batch
+SAC_TIMED = 3
+# the CLI runs of 14(b): (run, algorithm, overrides); every cut printed
+SAC_CLI_RUNS = (
+    ("sac_ring", "sac", ["exp=sac", "buffer.device=auto", "algo.total_steps=2000"]),
+    ("sac_host", "sac", ["exp=sac", "buffer.device=False", "algo.total_steps=2000"]),
+    ("sac_ring_fused_k4", "sac", ["exp=sac", "buffer.device=auto", "algo.fused_gradient_steps=4", "algo.total_steps=2000"]),
+    ("droq_ring", "droq", ["exp=droq", "buffer.device=auto", "algo.total_steps=480"]),
+    ("droq_host", "droq", ["exp=droq", "buffer.device=False", "algo.total_steps=480"]),
+    ("sac_ae_ring", "sac_ae", [*SAC_MODELS["sac_ae"][0], "buffer.device=auto", "buffer.size=20000", "algo.learning_starts=64", "algo.total_steps=160"]),
+    ("sac_ae_host", "sac_ae", [*SAC_MODELS["sac_ae"][0], "buffer.device=False", "buffer.size=20000", "algo.learning_starts=64", "algo.total_steps=160"]),
+)
+# captures a loop may make: two a train function (DroQ's actor update is a
+# third function), four for SAC-AE's gate phases
+SAC_MAX_CAPTURES = {"sac": 2, "droq": 3, "sac_ae": 4}
+
+
+def sac_family_trainer(torch, np, name: str, precision: str = BF16):
+    """(cfg, trainer) of ``name`` at its exp's widths on the card, seeded
+    weights (the same for every call), no fused draws."""
+    from sheeprl_tpu_torch.algos.droq.droq import build_droq
+    from sheeprl_tpu_torch.algos.sac.sac import build_sac
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SCREEN_SIZE, build_sac_ae
+    from sheeprl_tpu_torch.envs import spaces
+
+    cfg = ppo_cfg(*SAC_MODELS[name][0], f"fabric.precision={precision}")
+    action = spaces.Box(-2.0, 2.0, (1,), np.float32)
+    if name == "sac_ae":
+        cfg.env.screen_size = SCREEN_SIZE
+        obs = spaces.Dict({"rgb": spaces.Box(0, 255, (3, SCREEN_SIZE, SCREEN_SIZE, 3), np.uint8)})
+    else:
+        obs = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (3,), np.float32)})
+    build = {"sac": build_sac, "droq": build_droq, "sac_ae": build_sac_ae}[name]
+    trainer, _ = build(cfg, obs, action, None, torch.device("cuda"), int(cfg.algo.per_rank_batch_size), 0)
+    return cfg, trainer
+
+
+def sac_family_batch(torch, np, trainer, n: int) -> dict:
+    """``[n, B, ...]`` of the trainer's batch keys from a seeded generator,
+    on the card: uint8 pixels, normal vectors, actions in the bounds, 5%
+    terminations."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for k, (shape, dt) in trainer.batch_spec().items():
+        full = (n, trainer.batch_size, *shape)
+        if dt == torch.uint8:
+            a = rng.integers(0, 256, full).astype(np.uint8)
+        elif k == "actions":
+            a = rng.uniform(-2, 2, full).astype(np.float32)
+        elif k == "terminated":
+            a = (rng.random(full) < 0.05).astype(np.float32)
+        else:
+            a = rng.standard_normal(full).astype(np.float32)
+        out[k] = torch.from_numpy(a).cuda()
+    return out
+
+
+def sac_family_update(torch, trainer, batch: dict, n_steps: int, eager: bool) -> list:
+    """One update of ``n_steps`` gradient steps as the loop's train window
+    runs it (full chunks, a remainder as one-step replays, DroQ's actor
+    update last) on the rows of ``batch``: replayed graphs, or with
+    ``eager`` the same step functions called directly. Returns the
+    metrics of each call."""
+    from sheeprl_tpu_torch.utils.utils import gradient_step_chunks
+
+    out, row = [], 0
+    for n in gradient_step_chunks(n_steps, {"gradient_steps_chunk": trainer.chunk}):
+        length = n if n == trainer.chunk else 1
+        for _ in range(n // length):
+            fn = trainer._graph(length, trainer.grad_steps % trainer.period)
+            for k, dst in fn.inputs.items():
+                dst.copy_(batch[k][row : row + length])
+            out.append(fn.step(fn.inputs) if eager else fn())
+            row += length
+            trainer.grad_steps += length
+    if hasattr(trainer, "actor_update"):
+        fn = trainer._actor_graph()
+        fn.inputs["observations"].copy_(batch["observations"][0])
+        out.append(fn.step(fn.inputs) if eager else fn())
+    return out
+
+
+def phase_sac_update(torch, np):
+    """14(a) each algorithm's update captured against eager at full width
+    (``SAC_MODELS``), bf16-mixed: ``SAC_UPDATES`` updates on the same
+    batch from the same weights and generator states, every state tensor
+    within ``SAC_UPDATE_BOUND`` (relative to its largest element; bit
+    equality reported), the captures, ms a replay of each graph, a profiler
+    window, and SAC-AE's FLOPs a gradient step with its MFU."""
+    from sheeprl_tpu_torch.obs.flops import count_flops
+    from sheeprl_tpu_torch.ops import graph
+
+    report = {"card": card_line(), "bound": SAC_UPDATE_BOUND}
+    with cudnn_deterministic(torch):
+        for name, (_, n_steps) in SAC_MODELS.items():
+            cfg, got = sac_family_trainer(torch, np, name)
+            _, want = sac_family_trainer(torch, np, name)
+            batch = sac_family_batch(torch, np, got, n_steps)
+            captures = graph.capture_count
+            for _ in range(SAC_UPDATES):
+                g = sac_family_update(torch, got, batch, n_steps, eager=False)
+                w = sac_family_update(torch, want, batch, n_steps, eager=True)
+            torch.cuda.synchronize()
+            pairs = [(a, b) for a, b in zip(got.state_tensors(), want.state_tensors()) if a.is_floating_point()]
+            rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in pairs)
+            metric_err = max(((a - b).abs() / b.abs().clamp_min(1.0)).max().item() for a, b in zip(g, w))
+            bit_equal = all(torch.equal(a, b) for a, b in pairs) and all(torch.equal(a, b) for a, b in zip(g, w))
+            row = {
+                "widths": {"batch": got.batch_size, "hidden": int(cfg.algo.hidden_size), "critics": int(cfg.algo.critic.n)},
+                "gradient_steps_per_update": n_steps,
+                "state_max_rel_err": rel,
+                "metric_max_rel_err": metric_err,
+                "bit_equal": bit_equal,
+                "captures": graph.capture_count - captures,
+                "graphs": {str(k): {"replays": fn.replays} for k, fn in got.graphs.items()},
+            }
+            for key, fn in got.graphs.items():
+                fn_row = row["graphs"][str(key)]
+                fn_row["ms_per_replay"] = step_ms(torch, fn, SAC_TIMED)
+                prof = profile_replays(torch, fn, 2, top=5)
+                fn_row["profile"] = {k: prof[k] for k in ("wall_ms_per_replay", "device_busy_ms_per_replay", "device_idle_share", "kernels_per_replay", "top_kernels_ms_per_replay")}
+            if name == "sac_ae":
+                # the FLOPs of the two gate phases' steps, eager: a gradient step is their mean
+                flops = [count_flops(fn.step, fn.inputs)[1] for fn in want.graphs.values()]
+                per_step = sum(flops) / len(flops)
+                ms = sum(r["ms_per_replay"] for r in row["graphs"].values()) / len(row["graphs"])
+                row["flops_per_gradient_step"] = per_step
+                row["flops_by_phase"] = flops
+                row["ms_per_gradient_step_replayed"] = ms
+                row["mfu_bf16"] = per_step / (ms / 1e3) / BF16_TC_FLOP_PER_S
+            report[name] = row
+            print(f"phase 14(a) {name}_update " + json.dumps(row), flush=True)
+            if not (rel <= SAC_UPDATE_BOUND and metric_err <= SAC_UPDATE_BOUND and all(torch.isfinite(m).all() for m in g)):
+                raise AssertionError(f"14(a) {name}: the captured update against eager: {row}")
+            if row["captures"] != len(got.graphs):
+                raise AssertionError(f"14(a) {name}: {row['captures']} captures for {len(got.graphs)} graphs")
+    return report
+
+
+def sac_run_report(out: dict, seconds: float) -> dict:
+    # the steady rate: the median host seconds of the later half of the
+    # updates (every capture and the learning_starts updates before them)
+    later = sorted(out["update_wall_seconds"][len(out["update_wall_seconds"]) // 2 :])
+    per_update = out["env_steps"] / max(out["updates"], 1)
+    windows = sorted(out["window_seconds"])
+    return {
+        "replay_buffer": out["replay_buffer"],
+        "updates": out["updates"],
+        "env_steps": out["env_steps"],
+        "gradient_steps": out["gradient_steps"],
+        "env_steps_per_s": out["env_steps"] / out["seconds"],
+        "env_steps_per_s_steady": per_update / later[len(later) // 2] if later else None,
+        "loop_seconds": out["seconds"],
+        "process_seconds": seconds,
+        "env_span_share": out["env_seconds"] / out["seconds"],
+        "window_ms_median": 1e3 * windows[len(windows) // 2] if windows else None,
+        "captures": out["captures"],
+        "replays": out["replays"],
+        "fused_gradient_steps": out["fused_gradient_steps"],
+        "h2d_bytes_per_gradient_step": out["h2d_bytes"] / max(out["gradient_steps"], 1),
+        "test_steps": out["test_steps"],
+        "test_cumulative_reward": out["test_cumulative_reward"],
+        "metrics": out["metrics"],
+    }
+
+
+def phase_sac_cli(torch, np, tmp: str):
+    """14(b) the CLI runs of ``SAC_CLI_RUNS`` through ``cli.run`` (4 envs,
+    ``sync``, bf16-mixed); (c) ``cli_eval`` on each algorithm's last
+    checkpoint; and where ``buffer.device: auto`` puts SAC-AE's published
+    1M transitions."""
+    import glob
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.droq import droq
+    from sheeprl_tpu_torch.algos.sac import sac
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.data.device_buffer import estimate_transition_bytes, resolve_device_buffer
+    from sheeprl_tpu_torch.envs import spaces
+
+    modules = {"sac": sac, "droq": droq, "sac_ae": sac_ae}
+    report = {"card": card_line(), "runs": {}, "evaluations": {}}
+    ckpts = {}
+    for run, name, overrides in SAC_CLI_RUNS:
+        args = [*overrides, "env.backend=sync", "env.num_envs=4", "metric.log_level=1"]
+        out, fallbacks, seconds = ppo_cli(torch, tmp, run, args, modules[name], gates=(sac,))
+        row = sac_run_report(out, seconds)
+        row.update(cuts=overrides, fused_fallback=fallbacks)
+        report["runs"][run] = row
+        print(f"phase 14(b) {run} " + json.dumps(row), flush=True)
+        want_buffer = "device" if "buffer.device=auto" in overrides else "memmap"
+        ok = (
+            row["replay_buffer"] == want_buffer
+            and not fallbacks
+            and 0 < out["captures"] <= SAC_MAX_CAPTURES[name]
+            and all(map(math.isfinite, out["metrics"].values()))
+            and out["test_steps"] > 0
+            and out["gradient_steps"] > 0
+        )
+        if "algo.fused_gradient_steps=4" in overrides:
+            ok = ok and out["fused_gradient_steps"] == 4 and out["replays"] == out["train_windows"]
+        if not ok:
+            raise AssertionError(f"14(b) {run}: {row}")
+        ckpts.setdefault(name, sorted(glob.glob(f"{out['log_dir']}/checkpoint/*.ckpt"))[-1])
+    for name, ckpt in ckpts.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.evaluation([f"checkpoint_path={ckpt}"])
+        text = buf.getvalue()
+        reward = [line for line in text.splitlines() if line.startswith("Test - Reward")]
+        report["evaluations"][name] = {"checkpoint": ckpt.rsplit("/", 1)[-1], "seconds": time.perf_counter() - t0, "line": reward[-1] if reward else None}
+        print(f"phase 14(c) {name}_cli_eval " + json.dumps(report["evaluations"][name]), flush=True)
+        if not reward:
+            raise AssertionError(f"14(c) cli_eval of {name} played no test episode: {text[-500:]}")
+    # exp=sac_ae's published replay: 1M transitions over 4 envs of 2 x 9 x 64 x 64 bytes
+    pixels = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64, 3), np.uint8)})
+    cfg = ppo_cfg(*SAC_MODELS["sac_ae"][0])
+    est = estimate_transition_bytes(pixels, ["rgb"], (1,), int(cfg.buffer.size) // 4, 4, True)
+    on_ring = resolve_device_buffer(cfg, "cuda", pixels, (1,), int(cfg.buffer.size) // 4, 4, estimated_bytes=est)
+    report["sac_ae_published_replay"] = {"estimated_bytes": est, "device_max_bytes": int(cfg.buffer.device_max_bytes), "ring": on_ring}
+    print("phase 14(b) sac_ae_published_replay " + json.dumps(report["sac_ae_published_replay"]), flush=True)
+    if on_ring:
+        raise AssertionError("14(b) buffer.device=auto put exp=sac_ae's 1M transitions on the card")
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3546,6 +3810,18 @@ def main() -> int:
         raise AssertionError(f"phase 13 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
     phase_took("13")
 
+    # phase 14: SAC, DroQ and SAC-AE, (a) each update captured against
+    # eager at full width, (b) the CLI runs on the ring and the host buffer
+    # (SAC fused too), (c) cli_eval; (d) neither B1 nor B2 launched
+    b1_before, b2_before = fg.launch_count, fg.proj_launch_count
+    sac_update = phase_sac_update(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        sac_runs = phase_sac_cli(torch, np, tmp)
+    if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
+        raise AssertionError(f"phase 14 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
+    print("phase 14(d) b1_b2_launches 0", flush=True)
+    phase_took("14")
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -3626,6 +3902,16 @@ def main() -> int:
                 "host_loop_captures": rppo_runs["host_loop"]["captures"],
                 "fused_env_steps_per_s": rppo_runs["fused"]["env_steps_per_s"],
                 "fused_env_steps_per_s_steady": rppo_runs["fused"]["env_steps_per_s_steady"],
+            },
+            # the SAC family (phase 14) reaches no TPU kernel and launches
+            # neither B1 nor B2 (checked)
+            "sac_family": {
+                "b1_b2_launches": 0,
+                "ms_per_replay": {n: {k: r["ms_per_replay"] for k, r in sac_update[n]["graphs"].items()} for n in SAC_MODELS},
+                "sac_ae_flops_per_gradient_step": sac_update["sac_ae"]["flops_per_gradient_step"],
+                "sac_ae_mfu_bf16": sac_update["sac_ae"]["mfu_bf16"],
+                "env_steps_per_s": {run: r["env_steps_per_s"] for run, r in sac_runs["runs"].items()},
+                "env_steps_per_s_steady": {run: r["env_steps_per_s_steady"] for run, r in sac_runs["runs"].items()},
             },
         },
         {

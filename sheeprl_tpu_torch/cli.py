@@ -30,10 +30,14 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.ppo",
     "sheeprl_tpu_torch.algos.a2c",
     "sheeprl_tpu_torch.algos.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.sac",
+    "sheeprl_tpu_torch.algos.droq",
+    "sheeprl_tpu_torch.algos.sac_ae",
 )
 # JAX algorithms whose port is queued, by the ROADMAP item that holds it
 UNPORTED_ALGORITHMS = {
     "ppo_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
+    "sac_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
 }
 
 

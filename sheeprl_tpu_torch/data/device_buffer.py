@@ -1,5 +1,9 @@
-"""Sequence replay resident on the card (port of
-``sheeprl_tpu/data/device_buffer.py``, single device).
+"""Replay resident on the card (port of ``sheeprl_tpu/data/device_buffer.py``,
+single device): sequence windows for the Dreamer loops and uniform
+transitions for the SAC family (``transition_item_mask`` :89,
+``draw_transition_batch`` :162, ``sample_transitions`` :593-676, the
+transition host-buffer conversions :838-893, ``make_transition_replay``
+:1064).
 
 The host buffers copy every sampled batch over the bus: at Dreamer-V3's
 B=16, T=64 and 64x64x3 pixels that is 12.6 MB a gradient step. The ring
@@ -37,7 +41,7 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.device import DeviceLike, resolve_device
 
 SmallSlices = Dict[str, Tuple[int, int, Tuple[int, ...]]]
@@ -119,6 +123,82 @@ def draw_sequence_batch(
     env_idx, starts = draw_from_mask(generator, mask, batch_size)
     offsets = torch.arange(sequence_length, dtype=torch.int64, device=starts.device)
     return gather_sequences(bufs, env_idx, (starts[:, None] + offsets[None, :]) % capacity)
+
+
+def transition_item_mask(pos: torch.Tensor, full: torch.Tensor, capacity: int, sample_next_obs: bool) -> torch.Tensor:
+    """``[n_envs, capacity]`` bool mask of the items a transition draw may
+    take: every stored item, less the one before each env's write cursor
+    when ``sample_next_obs`` (its successor is the oldest slot, about to be
+    overwritten)."""
+    s = torch.arange(capacity, dtype=torch.int64, device=pos.device)[None, :]
+    pos = pos.to(torch.int64)[:, None]
+    full = full.to(torch.bool)[:, None]
+    end = pos - (1 if sample_next_obs else 0)
+    second_end = torch.where(end >= 0, capacity, capacity + end)
+    when_full = (s < end.clamp(min=0)) | ((s >= pos) & (s < second_end))
+    return torch.where(full, when_full, s < end.clamp(min=0))
+
+
+def gather_transition_items(bufs: Dict[str, torch.Tensor], env_idx: torch.Tensor, time_idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``env_idx`` and ``time_idx [N]`` to ``[N, ...]`` values, device to
+    device."""
+    env, time = env_idx.to(torch.int64), time_idx.to(torch.int64)
+    return {k: b[env, time] for k, b in bufs.items()}
+
+
+def _with_next(
+    out: Dict[str, torch.Tensor], bufs: Dict[str, torch.Tensor], env_idx: torch.Tensor, next_idx: torch.Tensor, obs_keys: Sequence[str]
+) -> Dict[str, torch.Tensor]:
+    for k in obs_keys:
+        if k in bufs:
+            out[f"next_{k}"] = bufs[k][env_idx.to(torch.int64), next_idx.to(torch.int64)]
+    return out
+
+
+def draw_transition_items(
+    generator: torch.Generator, pos: torch.Tensor, full: torch.Tensor, capacity: int, n: int, sample_next_obs: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(env_idx [n], item [n])``: :func:`draw_from_mask` over
+    :func:`transition_item_mask`, the same draws mapped to the same items,
+    without the ``[n, capacity]`` rows: an env's valid items are at most
+    two ranges, ``[0, end)`` and, once full, ``[pos, second_end)``, so the
+    (j+1)-th of them is found arithmetically in O(n), where the mask's
+    cumulative sum reads ``n * capacity`` entries (a 1M-transition ring at
+    batch 256 is 64M a draw). Every env must have a valid item (the callers
+    check on the host first)."""
+    n_envs = pos.shape[0]
+    env_idx = torch.randint(0, n_envs, (n,), generator=generator, device=pos.device)
+    p = pos.to(torch.int64)[env_idx]
+    f = full.to(torch.bool)[env_idx]
+    end = p - (1 if sample_next_obs else 0)
+    first = end.clamp(min=0)
+    second_end = torch.where(end >= 0, capacity, capacity + end)
+    counts = torch.where(f, first + (second_end - p), first)
+    u = torch.rand((n,), generator=generator, device=pos.device)
+    j = torch.minimum((u * counts.to(torch.float32)).to(torch.int64), (counts - 1).clamp(min=0))
+    return env_idx, torch.where(j < first, j, p + (j - first))
+
+
+def draw_transition_batch(
+    bufs: Dict[str, torch.Tensor],
+    pos: torch.Tensor,
+    full: torch.Tensor,
+    generator: torch.Generator,
+    batch_size: int,
+    sample_next_obs: bool = False,
+    obs_keys: Sequence[str] = (),
+) -> Dict[str, torch.Tensor]:
+    """One ``[B, ...]`` batch of uniform transitions drawn and gathered on
+    the device (a uniform env, then a uniform valid item,
+    :func:`draw_transition_items`), ``next_<key>`` of each of ``obs_keys``
+    at the next item when ``sample_next_obs``: the replay read of the SAC
+    family's fused superstep."""
+    capacity = next(iter(bufs.values())).shape[1] - 1
+    env_idx, items = draw_transition_items(generator, pos, full, capacity, batch_size, sample_next_obs)
+    out = gather_transition_items(bufs, env_idx, items)
+    if sample_next_obs:
+        _with_next(out, bufs, env_idx, (items + 1) % capacity, obs_keys)
+    return out
 
 
 def _small_slices(items: Dict[str, Tuple[int, ...]]) -> SmallSlices:
@@ -312,6 +392,53 @@ class DeviceReplayBuffer:
                 f"Data added so far: {self._pos[env]}"
             )
 
+    def _valid_items(self, env: int, sample_next_obs: bool) -> np.ndarray:
+        """One env's items whose transition does not straddle its write
+        cursor (``ReplayBuffer._valid_idxes``' rule, per env)."""
+        pos = int(self._pos[env])
+        end = pos - 1 if sample_next_obs else pos
+        if self._full[env]:
+            second_end = self._buffer_size if end >= 0 else self._buffer_size + end
+            return np.concatenate([np.arange(0, max(end, 0)), np.arange(pos, second_end)]).astype(np.intp)
+        return np.arange(0, max(end, 0), dtype=np.intp)
+
+    def _check_items(self, env: int, sample_next_obs: bool) -> np.ndarray:
+        valid = self._valid_items(env, sample_next_obs)
+        if len(valid) == 0:
+            raise ValueError(
+                "You want to sample the next observations, but not enough samples have been "
+                f"added to env {env}. Make sure that at least two samples are added."
+                if sample_next_obs
+                else "No sample has been added to the buffer. Please add at least one sample calling 'self.add()'"
+            )
+        return valid
+
+    def sample_transitions(
+        self, batch_size: int, n_samples: int = 1, sample_next_obs: bool = False
+    ) -> Dict[str, torch.Tensor]:
+        """``[n_samples, batch_size, ...]`` uniform transitions on the
+        device: a uniform env for each row, then per env (in sorted order) a
+        uniform valid item, from the buffer's numpy generator in the JAX
+        ring's order, with ``next_<key>`` at the next item for the obs keys
+        when ``sample_next_obs``. Only the indices cross the bus."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        if self._bufs is None:
+            raise RuntimeError("The buffer has not been initialized. Try to add some data first.")
+        n = batch_size * n_samples
+        env_idx = self._draw_env_idx(n)
+        items = np.empty((n,), np.intp)
+        for env in np.unique(env_idx):
+            valid = self._check_items(int(env), sample_next_obs)
+            rows = np.nonzero(env_idx == env)[0]
+            items[rows] = valid[self._rng.integers(0, len(valid), size=(len(rows),), dtype=np.intp)]
+        parts = [env_idx, items] + ([(items + 1) % self._buffer_size] if sample_next_obs else [])
+        idx = to_device(np.concatenate(parts).astype(np.int32), self._device)
+        flat = gather_transition_items(self._bufs, idx[:n], idx[n : 2 * n])
+        if sample_next_obs:
+            _with_next(flat, self._bufs, idx[:n], idx[2 * n :], self._obs_keys)
+        return {k: v.view(n_samples, batch_size, *v.shape[1:]) for k, v in flat.items()}
+
     def draw_indices(self, batch_size: int, sequence_length: int) -> Tuple[np.ndarray, np.ndarray]:
         """``(env_idx [B], start [B])`` on the host: the env of each row,
         then per env (in sorted order) uniform over its valid starts."""
@@ -363,18 +490,24 @@ class DeviceReplayBuffer:
             env_idx, starts = self.draw_indices(batch_size, sequence_length)
             yield self.gather(env_idx, starts, sequence_length, out)
 
-    def superstep_inputs(self, sequence_length: int) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
-        """``(bufs, pos, full)`` for an in-graph draw. The cursors are copied
-        into the ring's static device tensors, which a captured superstep
-        reads: only they cross the bus for a train window. The in-graph draw
-        cannot raise, so every env is checked here first, with
-        :meth:`draw_indices`' errors. The loop adds no step between this
-        call and the superstep it feeds (a train window runs between env
-        steps)."""
+    def superstep_inputs(
+        self, sequence_length: Optional[int] = None, sample_next_obs: bool = False
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+        """``(bufs, pos, full)`` for an in-graph draw of sequences of
+        ``sequence_length``, or of transitions when it is ``None``. The
+        cursors are copied into the ring's static device tensors, which a
+        captured superstep reads: only they cross the bus for a train
+        window. The in-graph draw cannot raise, so every env is checked here
+        first, with :meth:`draw_indices`' or :meth:`sample_transitions`'
+        errors. The loop adds no step between this call and the superstep it
+        feeds (a train window runs between env steps)."""
         if self._bufs is None:
             raise RuntimeError("The buffer has not been initialized. Try to add some data first.")
         for env in range(self._n_envs):
-            self._check_sequences(env, int(sequence_length))
+            if sequence_length is None:
+                self._check_items(env, sample_next_obs)
+            else:
+                self._check_sequences(env, int(sequence_length))
         copy_from_host_(self._pos_dev, self._pos.astype(np.int32))
         copy_from_host_(self._full_dev, self._full.copy())
         return self._bufs, self._pos_dev, self._full_dev
@@ -493,6 +626,35 @@ class DeviceReplayBuffer:
             sub._full = bool(self._full[env])
         return host
 
+    @classmethod
+    def from_transition_host_buffer(cls, host_rb: ReplayBuffer, device: DeviceLike = None, seed: Optional[int] = None) -> "DeviceReplayBuffer":
+        """Load a plain ``ReplayBuffer`` (the SAC family's host layout:
+        ``[size, n_envs, ...]`` arrays, one cursor for every env) into a
+        ring on ``device``."""
+        arrays = {k: np.asarray(v).swapaxes(0, 1) for k, v in host_rb.buffer.items()}
+        out = cls(host_rb.buffer_size, n_envs=host_rb.n_envs, obs_keys=host_rb._obs_keys, device=device, seed=seed)
+        out._pos = np.full((host_rb.n_envs,), host_rb._pos, np.int64)
+        out._full = np.full((host_rb.n_envs,), host_rb.full, bool)
+        out._pending_arrays = {k: (v if v.dtype == np.uint8 else v.astype(np.float32)) for k, v in arrays.items()}
+        out._pixel_keys = tuple(k for k in sorted(arrays) if arrays[k].dtype == np.uint8)
+        return out.restore_to_device(device)
+
+    def to_transition_host_buffer(self, memmap: bool = False, memmap_dir: Any = None) -> ReplayBuffer:
+        """The ring as a plain ``ReplayBuffer`` (the SAC family's host
+        layout). Its envs advance in lockstep in those loops, so env 0's
+        cursor is the buffer's; a ring written by partial adds raises."""
+        if not ((self._pos == self._pos[0]).all() and (self._full == self._full[0]).all()):
+            raise RuntimeError(
+                "to_transition_host_buffer requires lockstep env cursors (the plain ReplayBuffer has one "
+                f"global cursor) but pos={self._pos.tolist()} full={self._full.tolist()}; "
+                "convert with to_host_buffer() instead"
+            )
+        host = ReplayBuffer(self._buffer_size, n_envs=self._n_envs, obs_keys=self._obs_keys, memmap=memmap, memmap_dir=memmap_dir)
+        host.add({k: v.swapaxes(0, 1) for k, v in self.host_arrays().items()})
+        host._pos = int(self._pos[0])
+        host._full = bool(self._full[0])
+        return host
+
     def ring_bytes(self) -> int:
         """Device bytes of the allocated ring."""
         if self._bufs is None:
@@ -510,6 +672,23 @@ def estimate_ring_bytes(obs_space: Any, actions_dim: Sequence[int], buffer_size:
         itemsize = 1 if np.issubdtype(space.dtype, np.uint8) else 4
         per_step += int(np.prod(space.shape)) * itemsize
     per_step += (int(np.sum(actions_dim)) + 4) * 4
+    return per_step * int(buffer_size) * int(n_envs)
+
+
+def estimate_transition_bytes(
+    obs_space: Any, keys: Sequence[str], actions_dim: Sequence[int], buffer_size: int, n_envs: int, store_next_obs: bool
+) -> int:
+    """The ring's bytes for a SAC-family step dict: the stored obs keys
+    (twice when the loop stores the next observation too), the actions and
+    3 scalar flags."""
+    per_step = 0
+    for k in keys:
+        space = obs_space[k]
+        itemsize = 1 if np.issubdtype(space.dtype, np.uint8) else 4
+        per_step += int(np.prod(space.shape)) * itemsize
+    if store_next_obs:
+        per_step *= 2
+    per_step += (int(np.sum(actions_dim)) + 3) * 4
     return per_step * int(buffer_size) * int(n_envs)
 
 
@@ -569,6 +748,33 @@ def make_sequential_replay(
     )
 
 
+def make_transition_replay(
+    cfg: Dict[str, Any],
+    device: DeviceLike,
+    obs_space: Any,
+    stored_keys: Sequence[str],
+    actions_dim: Sequence[int],
+    buffer_size: int,
+    num_envs: int,
+    obs_keys: Sequence[str],
+    memmap_dir: Any,
+    seed: Optional[int],
+    store_next_obs: bool,
+) -> Any:
+    """The SAC family's transition replay: the ring when
+    :func:`resolve_device_buffer` picks it for
+    :func:`estimate_transition_bytes` of ``stored_keys`` (the observation
+    keys the loop writes), else the host ``ReplayBuffer`` (memmapped under
+    ``memmap_dir`` with ``buffer.memmap``). ``obs_keys`` are the step-dict
+    keys that get a ``next_`` twin with ``sample_next_obs``."""
+    est = estimate_transition_bytes(obs_space, stored_keys, actions_dim, buffer_size, num_envs, store_next_obs)
+    if resolve_device_buffer(cfg, device, obs_space, actions_dim, buffer_size, num_envs, estimated_bytes=est):
+        return DeviceReplayBuffer(buffer_size, n_envs=num_envs, obs_keys=obs_keys, device=device, seed=seed)
+    return ReplayBuffer(
+        buffer_size, num_envs, obs_keys=obs_keys, memmap=bool(cfg["buffer"]["memmap"]), memmap_dir=memmap_dir, seed=seed
+    )
+
+
 def adapt_restored_buffer(
     rb: Any,
     want_device: bool,
@@ -576,17 +782,28 @@ def adapt_restored_buffer(
     memmap: bool = False,
     memmap_dir: Any = None,
     device: DeviceLike = None,
+    mode: str = "sequence",
 ) -> Any:
     """A checkpoint's replay buffer in this run's mode: a ring or a host
-    buffer resumes into either. A host buffer lands memmapped under
-    ``memmap_dir`` with ``memmap`` (the run's ``buffer.memmap``), as a fresh
-    run of the config would hold it."""
+    buffer resumes into either. ``mode`` names the host layout:
+    ``sequence`` (the Dreamer loops' ``EnvIndependentReplayBuffer``) or
+    ``transition`` (the SAC family's plain ``ReplayBuffer``). A host buffer
+    lands memmapped under ``memmap_dir`` with ``memmap`` (the run's
+    ``buffer.memmap``), as a fresh run of the config would hold it."""
+    if mode not in ("sequence", "transition"):
+        raise ValueError(f"unknown replay mode {mode!r}; use sequence/transition")
     if isinstance(rb, DeviceReplayBuffer):
         if want_device:
             return rb.restore_to_device(device)
+        if mode == "transition":
+            return rb.to_transition_host_buffer(memmap=memmap, memmap_dir=memmap_dir)
         return rb.to_host_buffer(memmap=memmap, memmap_dir=memmap_dir)
     if want_device and isinstance(rb, EnvIndependentReplayBuffer):
         return DeviceReplayBuffer.from_host_buffer(rb, device=device, seed=seed)
+    if want_device and isinstance(rb, ReplayBuffer):
+        return DeviceReplayBuffer.from_transition_host_buffer(rb, device=device, seed=seed)
     if memmap and isinstance(rb, EnvIndependentReplayBuffer) and not all(rb.is_memmap):
+        rb.to_memmap(memmap_dir)
+    elif memmap and isinstance(rb, ReplayBuffer) and not rb.is_memmap:
         rb.to_memmap(memmap_dir)
     return rb

@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
 from sheeprl_tpu_torch.obs.span import span
 from sheeprl_tpu_torch.obs.telemetry import telemetry_ckpt_commit, telemetry_ckpt_skipped
@@ -109,6 +109,11 @@ class CheckpointCallback:
             return None
         if isinstance(rb, DeviceReplayBuffer):
             return rb.flag_last_truncated()
+        if isinstance(rb, ReplayBuffer):
+            last = (rb._pos - 1) % rb.buffer_size
+            saved_row = np.array(rb.buffer["truncated"][last])
+            rb.buffer["truncated"][last] = 1
+            return saved_row
         if not isinstance(rb, EnvIndependentReplayBuffer):
             raise TypeError(f"checkpointing a {type(rb).__name__} is not ported")
         saved = []
@@ -125,6 +130,9 @@ class CheckpointCallback:
             return
         if isinstance(rb, DeviceReplayBuffer):
             rb.restore_last_truncated(saved)
+            return
+        if isinstance(rb, ReplayBuffer):
+            rb.buffer["truncated"][(rb._pos - 1) % rb.buffer_size] = saved
             return
         for b, s in zip(rb.buffer, saved):
             b.buffer["truncated"][(b._pos - 1) % b.buffer_size] = s

@@ -1,15 +1,20 @@
 """Host utilities (port of ``sheeprl_tpu/utils/utils.py``: ``dotdict`` :17,
 ``set_nested``/``del_nested`` :77-101, ``polynomial_decay`` :104, ``Ratio`` :118,
 ``save_configs`` and
-``print_config`` :165-194). ``get_log_dir`` and ``run_base_dir`` moved to
+``print_config`` :165-194, ``SteadyStateProbe`` :197, ``gradient_step_chunks``
+:305 and ``weighted_chunk_metrics`` :327). ``get_log_dir`` and ``run_base_dir`` moved to
 ``utils/logger.py`` and are re-exported here."""
 
 from __future__ import annotations
 
 import json
 import os
+import time
 import warnings
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from sheeprl_tpu_torch.utils.logger import get_log_dir, run_base_dir  # noqa: F401  (re-export)
 
@@ -214,3 +219,78 @@ def polynomial_decay(
     if current_step > max_decay_steps or initial == final:
         return final
     return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
+
+
+def gradient_step_chunks(n_steps: int, algo_cfg: Mapping[str, Any]) -> List[int]:
+    """``n_steps`` gradient steps as full chunks of
+    ``algo.gradient_steps_chunk`` (16 by default) and a remainder (JAX
+    ``utils/utils.py:305-325``). ``Ratio``'s first call after the warm-up
+    repays the whole warm-up debt in one window; chunking keeps the set of
+    captured graph lengths at the chunk and one step."""
+    if n_steps <= 0:
+        return []
+    chunk = int(algo_cfg.get("gradient_steps_chunk", 16) or 16)
+    out = [chunk] * (int(n_steps) // chunk)
+    rem = int(n_steps) % chunk
+    if rem:
+        out.append(rem)
+    return out
+
+
+def weighted_chunk_metrics(chunk_metrics: Sequence[Tuple[int, Any]]) -> np.ndarray:
+    """The gradient-step-weighted mean of ``(steps, metrics)`` pairs, each
+    ``metrics`` the mean over its steps (a device tensor): one fetch for
+    the window, equal to the mean over all its steps (JAX :327-336)."""
+    weights = np.array([w for w, _ in chunk_metrics], np.float64)
+    stacked = torch.stack([torch.as_tensor(m).float() for _, m in chunk_metrics]).cpu().numpy()
+    return np.average(stacked, axis=0, weights=weights)
+
+
+class SteadyStateProbe:
+    """The ``SHEEPRL_TPU_BENCH_JSON`` steady-state throughput record of the
+    off-policy loops (JAX :197-302): the window opens ``WARMUP_UPDATES``
+    updates past both ``learning_starts`` and the run's first update (a
+    resumed run captures its graphs on its first updates too), and
+    :meth:`finish` writes ``{"steps", "seconds", "train_steps"}`` after a
+    device sync, or an ``error`` when the run ended before the window
+    opened. Opening the window also marks the run warm for telemetry."""
+
+    WARMUP_UPDATES = 64
+
+    def __init__(self) -> None:
+        self.path = os.environ.get("SHEEPRL_TPU_BENCH_JSON")
+        self._t0: Optional[float] = None
+        self._step0 = self._work0 = 0
+        self._first_update: Optional[int] = None
+
+    def mark_warm(self, update: int, learning_starts: int, step: int, work: int = 0) -> None:
+        if self._first_update is None:
+            self._first_update = update
+        if update >= learning_starts + self.WARMUP_UPDATES and update >= self._first_update + self.WARMUP_UPDATES:
+            self.mark(step, work)
+
+    def mark(self, step: int, work: int = 0) -> None:
+        from sheeprl_tpu_torch.obs.telemetry import telemetry_mark_warm
+
+        telemetry_mark_warm()
+        if self.path is None or self._t0 is not None:
+            return
+        self._t0, self._step0, self._work0 = time.perf_counter(), step, work
+
+    def finish(self, step: int, sync: Optional[Any] = None, work: int = 0) -> None:
+        if self.path is None:
+            return
+        if self._t0 is None:
+            record: Dict[str, Any] = {
+                "error": "window_never_opened",
+                "detail": f"run ended at step {step} before the steady-state window opened "
+                f"(first update {self._first_update}, warmup {self.WARMUP_UPDATES} updates)",
+            }
+        else:
+            if sync is not None:
+                sync()
+            record = {"steps": step - self._step0, "seconds": time.perf_counter() - self._t0}
+            if work:
+                record["train_steps"] = work - self._work0
+        with open(self.path, "w") as f:
+            json.dump(record, f)

@@ -1075,3 +1075,78 @@ def test_cuda_recurrent_fused_superstep_is_one_replay_an_update(cuda):
         torch.testing.assert_close(g_carry[k], e_carry[k], atol=1e-5, rtol=1e-5)
     for a, b in zip(g_agent.parameters(), e_agent.parameters()):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# the SAC family: captured updates and the transition ring
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sac", "droq", "sac_ae"])
+def test_cuda_sac_family_captured_update_matches_eager(cuda, monkeypatch, name):
+    """Each algorithm's update at full width (bf16-mixed) replayed from its
+    graphs against the same step functions run eagerly, from the same
+    weights and generators: two updates, every state tensor within
+    chip_smoke's bound, one capture a graph (SAC-AE: one a gate phase)."""
+    import chip_smoke
+
+    from sheeprl_tpu_torch.ops import graph
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    _, got = chip_smoke.sac_family_trainer(torch, np, name)
+    _, want = chip_smoke.sac_family_trainer(torch, np, name)
+    n_steps = chip_smoke.SAC_MODELS[name][1]
+    batch = chip_smoke.sac_family_batch(torch, np, got, n_steps)
+    captures = graph.capture_count
+    for _ in range(2):
+        g = chip_smoke.sac_family_update(torch, got, batch, n_steps, eager=False)
+        w = chip_smoke.sac_family_update(torch, want, batch, n_steps, eager=True)
+    assert graph.capture_count - captures == len(got.graphs) == {"sac": 1, "droq": 3, "sac_ae": 2}[name]
+    for a, b in zip(g, w):
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= chip_smoke.SAC_UPDATE_BOUND * b.abs().max().clamp_min(1.0)
+    for a, b in zip(got.state_tensors(), want.state_tensors()):
+        if a.is_floating_point():
+            assert (a - b).abs().max() <= chip_smoke.SAC_UPDATE_BOUND * b.abs().max().clamp_min(1e-30)
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_transition_draw_runs_on_the_card(cuda):
+    """The transition ring on the card: ``sample_transitions`` gathers the
+    rows the host drew, and ``draw_transition_batch`` inside a CUDA graph
+    draws only valid items (with the next observation) at every replay."""
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer, draw_transition_batch, transition_item_mask
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+
+    ring = DeviceReplayBuffer(16, n_envs=4, obs_keys=("observations",), device=cuda, seed=0)
+    rng = np.random.default_rng(0)
+    for i in range(10):
+        ring.add({
+            "observations": np.full((1, 4, 3), i, np.float32) + np.arange(4, dtype=np.float32)[None, :, None] / 10,
+            "actions": rng.standard_normal((1, 4, 1)).astype(np.float32),
+            "rewards": rng.standard_normal((1, 4, 1)).astype(np.float32),
+            "terminated": np.zeros((1, 4, 1), np.float32),
+            "truncated": np.zeros((1, 4, 1), np.float32),
+        })
+    sample = ring.sample_transitions(32, 2, sample_next_obs=True)
+    assert sample["observations"].is_cuda and sample["observations"].shape == (2, 32, 3)
+    torch.testing.assert_close(sample["next_observations"], sample["observations"] + 1)
+    bufs, pos, full = ring.superstep_inputs(sample_next_obs=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def draw(inputs):
+        batch = draw_transition_batch(bufs, inputs["pos"], inputs["full"], gen, 64, True, ("observations",))
+        return torch.stack([batch["observations"], batch["next_observations"]])
+
+    fn = CapturedStep(draw, {"pos": pos, "full": full}, [], gen)
+    seen = set()
+    for _ in range(3):
+        obs, nxt = fn()
+        torch.testing.assert_close(nxt, obs + 1)
+        assert bool((obs[:, 0] < 9).all())  # the newest item has no successor yet
+        seen.add(obs[:, 0].sum().item())
+    assert fn.graph is not None and fn.replays == 3 and len(seen) == 3
+    assert int(transition_item_mask(pos, full, 16, True).sum()) == 4 * 9

@@ -242,3 +242,151 @@ def test_adapt_restored_buffer_moves_between_modes(tmp_path):
     ring = tdb.adapt_restored_buffer(again, True, seed=11, device="cpu")
     assert isinstance(ring, tdb.DeviceReplayBuffer)
     _assert_arrays_equal(ring.host_arrays(), want)
+
+
+# --------------------------------------------------------------------------- #
+# the transition half (the SAC family)
+# --------------------------------------------------------------------------- #
+
+
+def _transition_step(rng, n, next_obs=True):
+    f = lambda *s: rng.standard_normal((1, n, *s)).astype(np.float32)  # noqa: E731
+    out = {"observations": f(3), "actions": f(1), "rewards": f(1), "terminated": (rng.random((1, n, 1)) < 0.2).astype(np.float32), "truncated": np.zeros((1, n, 1), np.float32)}
+    if next_obs:
+        out["next_observations"] = f(3)
+    return out
+
+
+@pytest.mark.parametrize("sample_next_obs", [False, True])
+def test_transition_item_mask_equals_jax_at_every_fill_level(sample_next_obs):
+    capacity = 6
+    for full in (False, True):
+        for pos in range(capacity):
+            p, f = np.array([pos, (pos + 2) % capacity, 0]), np.array([full, full, False])
+            want = np.asarray(jdb.transition_item_mask(p, f, capacity, sample_next_obs))
+            got = tdb.transition_item_mask(torch.from_numpy(p), torch.from_numpy(f), capacity, sample_next_obs).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f"pos {pos} full {full}")
+
+
+@pytest.mark.parametrize("sample_next_obs, steps", [(False, 5), (False, 11), (True, 11)])
+def test_transition_samples_equal_the_jax_ring(sample_next_obs, steps):
+    """The same adds from the same seed: the same ``[n, B]`` transitions
+    bit for bit (``next_observations`` from the next item when sampled),
+    before and after the ring wraps."""
+    j = jdb.DeviceReplayBuffer(8, n_envs=3, obs_keys=("observations",), seed=5)
+    t = tdb.DeviceReplayBuffer(8, n_envs=3, obs_keys=("observations",), device="cpu", seed=5)
+    rng = np.random.default_rng(1)
+    for _ in range(steps):
+        data = _transition_step(rng, 3, next_obs=not sample_next_obs)
+        j.add(data)
+        t.add(data)
+    for n in (1, 3):
+        _assert_arrays_equal(t.sample_transitions(B, n, sample_next_obs), j.sample_transitions(B, n, sample_next_obs))
+
+
+def test_transition_errors_match_jax():
+    for sample_next_obs in (False, True):
+        j = jdb.DeviceReplayBuffer(4, n_envs=2, seed=0)
+        t = tdb.DeviceReplayBuffer(4, n_envs=2, device="cpu", seed=0)
+        for ring in (j, t):
+            with pytest.raises(RuntimeError, match="not been initialized"):
+                ring.sample_transitions(B)
+            ring.add(_transition_step(np.random.default_rng(0), 2))
+        if sample_next_obs:  # one step stored: no next observation yet
+            with pytest.raises(ValueError) as je:
+                j.sample_transitions(B, sample_next_obs=True)
+            with pytest.raises(ValueError) as te:
+                t.sample_transitions(B, sample_next_obs=True)
+            assert str(je.value) == str(te.value)
+            with pytest.raises(ValueError, match="at least two samples"):
+                t.superstep_inputs(sample_next_obs=True)
+
+
+@pytest.mark.parametrize("sample_next_obs", [False, True])
+def test_arithmetic_transition_draw_equals_the_mask_draw(sample_next_obs):
+    """``draw_transition_items`` maps the same generator draws to the same
+    items as ``draw_from_mask`` over ``transition_item_mask``, at every fill
+    level, cursors apart."""
+    capacity = 7
+    for full in (False, True):
+        for pos in range(capacity):
+            p = torch.tensor([pos, (pos + 3) % capacity, max(pos, 2)])
+            f = torch.tensor([full, full, False])
+            mask = tdb.transition_item_mask(p, f, capacity, sample_next_obs)
+            want = tdb.draw_from_mask(torch.Generator().manual_seed(pos), mask, 500)
+            got = tdb.draw_transition_items(torch.Generator().manual_seed(pos), p, f, capacity, 500, sample_next_obs)
+            if bool(mask.any(1).all()):
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_in_graph_transition_draw_is_uniform_over_envs_and_valid_items():
+    """``draw_transition_batch``: only items the mask allows, each env near
+    1/E and, within an env, each valid item near 1/valid (the JAX draw's
+    distribution; the streams differ); ``next_<key>`` at the next item."""
+    t = tdb.DeviceReplayBuffer(8, n_envs=2, obs_keys=("observations",), device="cpu", seed=0)
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        t.add(_transition_step(rng, 2, next_obs=False))
+    bufs, pos, full = t.superstep_inputs(sample_next_obs=True)
+    n = 8000
+    mask = tdb.transition_item_mask(pos, full, 8, True)
+    env_idx, items = tdb.draw_transition_items(torch.Generator().manual_seed(3), pos, full, 8, n, True)
+    assert bool(mask[env_idx, items].all()) and int(mask.sum()) == 8
+    freq = torch.zeros(2, 8, dtype=torch.float64).index_put_((env_idx, items), torch.ones(n, dtype=torch.float64), accumulate=True) / n
+    sigma = (1 / 8 * 7 / 8 / n) ** 0.5
+    assert float((freq[mask] - 1 / 8).abs().max()) < 5 * sigma
+    batch = tdb.draw_transition_batch(bufs, pos, full, torch.Generator().manual_seed(3), 64, True, ("observations",))
+    assert batch["next_observations"].shape == (64, 3)
+    obs = bufs["observations"]
+    for o, nx in zip(batch["observations"], batch["next_observations"]):
+        (e, i) = [int(a[0]) for a in torch.nonzero((obs == o).all(-1), as_tuple=True)]
+        assert torch.equal(obs[e, i + 1], nx)
+
+
+@pytest.mark.parametrize("memmap", [False, True])
+def test_transition_host_buffer_round_trips_as_jax(tmp_path, memmap):
+    """ring -> plain ``ReplayBuffer`` -> ring, both packages: the same
+    arrays, cursors and samples; a ring written by partial adds refuses."""
+    j = jdb.DeviceReplayBuffer(6, n_envs=2, obs_keys=("observations",), seed=4)
+    t = tdb.DeviceReplayBuffer(6, n_envs=2, obs_keys=("observations",), device="cpu", seed=4)
+    rng = np.random.default_rng(3)
+    for _ in range(9):
+        data = _transition_step(rng, 2)
+        j.add(data)
+        t.add(data)
+    jh = j.to_transition_host_buffer(memmap=memmap, memmap_dir=tmp_path / "j")
+    th = t.to_transition_host_buffer(memmap=memmap, memmap_dir=tmp_path / "t")
+    assert isinstance(th, tb.ReplayBuffer) and th.is_memmap == memmap
+    assert (th._pos, th.full) == (jh._pos, jh.full) == (3, True)
+    _assert_arrays_equal({k: np.asarray(v) for k, v in th.buffer.items()}, {k: np.asarray(v) for k, v in jh.buffer.items()})
+    back_t = tdb.DeviceReplayBuffer.from_transition_host_buffer(th, device="cpu", seed=8)
+    back_j = jdb.DeviceReplayBuffer.from_transition_host_buffer(jh, seed=8)
+    _assert_arrays_equal(back_t.host_arrays(), back_j.host_arrays())
+    _assert_arrays_equal(back_t.sample_transitions(B, 2), back_j.sample_transitions(B, 2))
+    # the restore path: a pickled plain buffer into a ring and back
+    restored = tdb.adapt_restored_buffer(pickle.loads(pickle.dumps(th)), True, seed=8, device="cpu", mode="transition")
+    _assert_arrays_equal(restored.host_arrays(), back_t.host_arrays())
+    host = tdb.adapt_restored_buffer(pickle.loads(pickle.dumps(restored)), False, mode="transition")
+    assert isinstance(host, tb.ReplayBuffer) and host._pos == 3
+    t.add(_transition_step(rng, 1), [0])
+    with pytest.raises(RuntimeError, match="lockstep"):
+        t.to_transition_host_buffer()
+
+
+def test_transition_footprint_and_placement_equal_jax(monkeypatch):
+    space = _obs_space(8)
+    for keys, store_next in ((["state"], True), (["rgb", "state"], False)):
+        want = jdb.estimate_transition_bytes(space, keys, (2,), 100, 4, store_next)
+        assert tdb.estimate_transition_bytes(space, keys, (2,), 100, 4, store_next) == want
+    # exp=sac at 1M on 4 envs fits the default budget; exp=sac_ae does not
+    pendulum = spaces.Dict({"state": spaces.Box(-1, 1, (3,))})
+    assert tdb.estimate_transition_bytes(pendulum, ["state"], (1,), 250000, 4, True) == 40 * 10**6
+    pixels = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64, 3), np.uint8)})
+    assert tdb.estimate_transition_bytes(pixels, ["rgb"], (1,), 250000, 4, True) > 8 * 10**9
+    cfg = {"buffer": {"device": "auto", "memmap": False, "device_max_bytes": 8_000_000_000}}
+    ring = tdb.make_transition_replay(cfg, "cpu", pendulum, ["state"], (1,), 16, 4, ("observations",), None, 0, True)
+    assert isinstance(ring, tb.ReplayBuffer)  # auto never picks the ring on the CPU
+    cfg["buffer"]["device"] = True
+    ring = tdb.make_transition_replay(cfg, "cpu", pendulum, ["state"], (1,), 16, 4, ("observations",), None, 0, True)
+    assert isinstance(ring, tdb.DeviceReplayBuffer)

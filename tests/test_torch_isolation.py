@@ -75,6 +75,27 @@ RECURRENT_SLICE = (
 )
 
 
+# the modules of the SAC-family slice
+SAC_SLICE = (
+    "algos/sac/agent.py",
+    "algos/sac/convert.py",
+    "algos/sac/evaluate.py",
+    "algos/sac/loss.py",
+    "algos/sac/sac.py",
+    "algos/sac/utils.py",
+    "algos/droq/agent.py",
+    "algos/droq/droq.py",
+    "algos/droq/evaluate.py",
+    "algos/droq/utils.py",
+    "algos/sac_ae/agent.py",
+    "algos/sac_ae/evaluate.py",
+    "algos/sac_ae/sac_ae.py",
+    "algos/sac_ae/utils.py",
+    "data/device_buffer.py",
+    "utils/utils.py",
+)
+
+
 def test_the_scan_covers_the_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(PPO_SLICE) <= scanned
@@ -83,6 +104,47 @@ def test_the_scan_covers_the_ppo_slice():
 def test_the_scan_covers_the_a2c_and_recurrent_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(RECURRENT_SLICE) <= scanned
+
+
+def test_the_scan_covers_the_sac_family_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(SAC_SLICE) <= scanned
+
+
+# every registered entry point, and the pixel env of those that need one
+ENTRY_POINTS = {
+    "dreamer_v3": ["env=pixel_catcher", "env.id=pixel_catcher"],
+    "ppo": [],
+    "a2c": [],
+    "ppo_recurrent": [],
+    "sac": [],
+    "droq": [],
+    "sac_ae": ["env=pixel_pendulum", "env.id=PixelPendulum-v0"],
+}
+
+
+@pytest.mark.parametrize("module", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(module, monkeypatch):
+    """``main`` and ``evaluate`` with no device (and the SAC family's
+    ``build_agent``) ask for the CUDA card: without one they raise, with no
+    CPU fallback."""
+    import importlib
+
+    import torch
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pkg = f"sheeprl_tpu_torch.algos.{module}"
+    train, evaluate = (importlib.import_module(f"{pkg}.{m}") for m in (module, "evaluate"))
+    cfg = dotdict(compose("config", [f"exp={module}", "env.capture_video=False", *ENTRY_POINTS[module]]))
+    calls = [lambda: train.main(cfg), lambda: evaluate.evaluate(cfg)]
+    if module in ("sac", "droq", "sac_ae"):
+        calls.append(lambda: importlib.import_module(f"{pkg}.agent").build_agent(cfg, None, None))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
 
 
 def test_the_scan_sees_a_forbidden_import(tmp_path):
@@ -120,6 +182,18 @@ from sheeprl_tpu_torch.algos.a2c.evaluate import evaluate as a2c_evaluate
 from sheeprl_tpu_torch.algos.ppo_recurrent.evaluate import evaluate as rppo_evaluate
 for exp, run in (("a2c", a2c_evaluate), ("ppo_recurrent", rppo_evaluate)):
     cfg = dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False", "env.max_episode_steps=5"]))
+    reward, steps = run(cfg, device="cpu")
+    assert steps == 5, (exp, steps)
+# the SAC family: SAC and DroQ on the port's Pendulum-v1, SAC-AE on PixelPendulum
+from sheeprl_tpu_torch.algos.sac.evaluate import evaluate as sac_evaluate
+from sheeprl_tpu_torch.algos.droq.evaluate import evaluate as droq_evaluate
+from sheeprl_tpu_torch.algos.sac_ae.evaluate import evaluate as sac_ae_evaluate
+for exp, run, extra in (
+    ("sac", sac_evaluate, []),
+    ("droq", droq_evaluate, []),
+    ("sac_ae", sac_ae_evaluate, ["env=pixel_pendulum", "env.id=PixelPendulum-v0", "algo.cnn_channels_multiplier=1", "algo.hidden_size=16"]),
+):
+    cfg = dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False", "env.max_episode_steps=5", *extra]))
     reward, steps = run(cfg, device="cpu")
     assert steps == 5, (exp, steps)
 import chip_smoke

@@ -62,6 +62,7 @@ from sheeprl_tpu.parallel.fabric import Precision as JaxPrecision
 from sheeprl_tpu.utils.utils import dotdict
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as tagent
 from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as tdv3
+from sheeprl_tpu_torch.algos.sac_ae import agent as tagent_ae
 from sheeprl_tpu_torch.algos.dreamer_v3.convert import (
     _world_model_path,
     actor_from_flax,
@@ -533,3 +534,99 @@ def test_main_trains_at_bf16_mixed_on_cpu(tmp_path):
     out = tdv3.main(cfg, device="cpu")
     assert out["gradient_steps"] == 1 + 2 * 8
     assert all(np.isfinite(v) for v in out["metrics"].values())
+
+
+# --------------------------------------------------------------------------- #
+# the SAC family (SAC, DroQ, SAC-AE): each product layer at bf16-mixed
+# --------------------------------------------------------------------------- #
+
+# entry: the first product layers (flax paths), fed the same inputs
+SAC_FAMILY = {
+    "sac_actor": ["Dense_0"],
+    "sac_critics": ["Dense_0"],
+    "droq_critics": ["Dense_0"],
+    "sac_ae_encoder": ["Conv_0", "mlp_encoder/Dense_0"],
+    "sac_ae_decoder": ["fc", "mlp_decoder/Dense_0"],
+    "sac_ae_actor": ["Dense_0"],
+    "sac_ae_q": ["Dense_0"],
+}
+
+
+def _sac_family_entry(entry, precision="bf16-mixed"):
+    """(port output, JAX output, port layers, JAX layers) of one SAC-family
+    module, both packages at ``precision``, from the same weights; the
+    stacked ensembles run under ``jax.vmap`` on the JAX side, their layer
+    outputs stacked ``[n, B, ...]`` as the port's."""
+    from sheeprl_tpu_torch.algos.sac.convert import StackedDense
+    from tests import test_torch_droq, test_torch_sac, test_torch_sac_ae
+
+    rng = np.random.default_rng(21)
+    if entry.startswith("sac_ae"):
+        cfg = test_torch_sac_ae.ae_cfg()
+        cfg["fabric"]["precision"] = precision
+        jag, tag, _ = test_torch_sac_ae.ae_pair(cfg)
+        raw = test_torch_sac_ae._raw(4, 22)
+        feat = np.asarray(jax.jit(jag.encoder.apply)(jag.encoder_params, test_torch_sac_ae._jax_obs(raw)), np.float32)
+        act = rng.uniform(-2, 2, (4, 1)).astype(np.float32)
+        calls = {
+            "sac_ae_encoder": (tag.encoder, jag.encoder, jag.encoder_params, (test_torch_sac_ae._jax_obs(raw),), lambda: tag.encoder(tagent_ae.encoder_inputs({k: t(v) for k, v in raw.items()}, ("rgb",), ("state",)))),
+            "sac_ae_decoder": (tag.decoder, jag.decoder, jag.decoder_params, (feat,), lambda: tag.decoder(t(feat))),
+            "sac_ae_actor": (tag.actor, jag.actor, jag.actor_params, (feat,), lambda: tag.actor(t(feat))),
+            "sac_ae_q": (tag.qf, jag.qf, jag.qfs_params, (feat, act), lambda: tag.qf(t(feat), t(act))),
+        }
+    else:
+        droq = entry.startswith("droq")
+        cfg = test_torch_droq.droq_cfg() if droq else test_torch_sac.sac_cfg()
+        cfg["fabric"]["precision"] = precision
+        jag, tag, _ = test_torch_droq._pair_at(cfg) if droq else test_torch_sac.jax_pair(cfg)
+        obs = rng.standard_normal((6, 5)).astype(np.float32)
+        act = rng.uniform(-2, 2, (6, 2)).astype(np.float32)
+        calls = {
+            "sac_actor": (tag.actor, jag.actor, jag.actor_params, (obs,), lambda: tag.actor(t(obs))),
+            "sac_critics": (tag.critic, jag.critic, jag.critic_params, (obs, act), lambda: tag.critic(t(obs), t(act))),
+            "droq_critics": (tag.critic, jag.critic, jag.critic_params, (obs, act), lambda: tag.critic(t(obs), t(act))),
+        }
+    tmod, jmod, params, args, port_fn = calls[entry]
+    jfn = lambda p, *a: jmod.apply(p, *a, capture_intermediates=True, mutable=["intermediates"])  # noqa: E731
+    if entry.endswith(("critics", "_q")):
+        # the JAX ensemble: one module vmapped over stacked params
+        jfn = jax.vmap(jfn, in_axes=(0,) + (None,) * len(args))
+    want, inter = jax.jit(jfn)(params, *args)
+    seen, hooks = {}, []
+    for name, m in tmod.named_modules():
+        if isinstance(m, PRODUCT_LAYERS + (StackedDense,)):
+            path = name.replace(".", "/")
+            hooks.append(m.register_forward_hook(lambda _m, _a, o, p=path: seen.setdefault(p, []).append(_nhwc(o))))
+    try:
+        with torch.no_grad():
+            got = port_fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    flat = lambda o: list(o.values()) if isinstance(o, dict) else list(o) if isinstance(o, (tuple, list)) else [o]  # noqa: E731
+    if entry.endswith(("critics", "_q")):
+        want = jnp.moveaxis(want[..., 0], 0, -1)
+    jlayers = {p: v for p, v in _flax_layers(inter["intermediates"]).items() if p}
+    return flat(got), flat(want), seen, jlayers
+
+
+@pytest.mark.parametrize("entry", list(SAC_FAMILY))
+def test_sac_family_product_layers_compute_as_flax_at_bf16(entry):
+    """Every Dense, stacked Dense, conv and transposed conv of the SAC
+    family outputs flax's dtype at bf16-mixed (the hidden products bf16, the
+    heads fp32), the first products equal, the outputs within
+    ``ENTRY_TOL``; in fp32 the same layers fail the check."""
+    got, want, layers, jlayers = _sac_family_entry(entry)
+    for g, w in zip(got, want):
+        if entry == "sac_ae_decoder" and g.dim() == 4:
+            g = g.permute(0, 2, 3, 1)
+        assert same_dtype(g, w) and tuple(g.shape) == tuple(w.shape), (entry, g.dtype, w.dtype, g.shape, w.shape)
+        assert rel_err(g, w) <= ENTRY_TOL, (entry, rel_err(g, w) / EPS)
+    # the decoder's last deconvolution is flax's before the crop: its dtype only
+    first = SAC_FAMILY[entry]
+    mismatched = sorted(p for p in layers if not all(same_dtype(a, b) for a, b in zip(layers[p], jlayers[p])))
+    assert set(layers) <= set(jlayers) and not mismatched, (sorted(set(layers) - set(jlayers)), mismatched)
+    worst = max(rel_err(layers[p][0], jlayers[p][0]) for p in first)
+    assert worst <= LAYER_TOL, worst / EPS
+    _, _, layers32, _ = _sac_family_entry(entry, "32-true")
+    assert any(not same_dtype(layers32[p][0], jlayers[p][0]) for p in first)
