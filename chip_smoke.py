@@ -228,6 +228,27 @@ which exits non-zero:
    ``sac_family``. Alone on the card: ``python -c 'import chip_smoke as c,
    numpy as np, torch, tempfile; c.phase_sac_update(torch, np);
    c.phase_sac_cli(torch, np, tempfile.mkdtemp())'`` (TF32 off first).
+15. The serving tier (``python -m sheeprl_tpu_torch serve``), over phase
+   12's PPO checkpoints (the exp=ppo MLP on CartPole-v1 and the NatureCNN on
+   PixelCatcher, bf16-mixed): (a) each model's ladder (``serve.batch_ladder``
+   1, 2, 4, 8; one CUDA graph a rung for each of two replica slots): every
+   rung's replay bit-equal to the same rung run eagerly and equal to the
+   plain forward (the training player's greedy actions), ms a replay back
+   to back (CUDA events), host ms a round trip, capture seconds a rung,
+   host ms a request through ``ServeClient.infer`` at batch 1 (gather
+   window 0 and default); (b) ``serve ckpt_dir=... serve.load.enabled=true``
+   through ``cli.run``, a closed loop at concurrency 8, then an open loop at
+   a fixed rate: QPS, p50/p95 against ``slo_ms``, ``slo_met``, mean batch,
+   shed and retry counts, the ``kind: serve`` run record; (c) the drills:
+   ``replica_crash`` at batch 5 (the requeued request served), a hot swap
+   under load (nothing dropped, every answer equal to the plain forward of
+   the version stamped on it), ``poison_swap`` rejected. Serving reaches no
+   TPU kernel: the phase checks that B1 and B2 were not launched, and its
+   numbers ride in the kernels line under ``fused_gru``'s ``serve``. Alone
+   on the card (phase 12's runs first): ``python -c 'import chip_smoke as
+   c, numpy as np, torch, tempfile; from sheeprl_tpu_torch.ops import
+   fused_gru as fg; d = tempfile.mkdtemp(); c.phase_ppo_cli(torch, d);
+   c.phase_serve(torch, np, fg, d)'`` (TF32 off first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -361,6 +382,44 @@ def host_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+class TraceRange:
+    """``FunctionEvent.time_range``'s fields: start and end in us."""
+
+    __slots__ = ("start", "end")
+
+    def __init__(self, start: float, end: float) -> None:
+        self.start, self.end = start, end
+
+    def elapsed_us(self) -> float:
+        return self.end - self.start
+
+
+class TraceEvent:
+    """The fields of ``FunctionEvent`` that the phases read."""
+
+    __slots__ = ("name", "device_type", "time_range")
+
+    def __init__(self, name: str, device_type, time_range: TraceRange) -> None:
+        self.name, self.device_type, self.time_range = name, device_type, time_range
+
+
+def trace_events(prof) -> list:
+    """A finished torch.profiler session's events, as ``prof.events()``
+    gives them (its filtered names and hidden events left out, times in us
+    from the trace's start), read straight from the session's kineto
+    results: ``prof.events()`` builds a ``FunctionEvent`` and the call tree
+    for every event, seconds for the trace of a few Dreamer-V3 steps."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    events = []
+    for e in res.events():
+        name = e.name()
+        if name in ("[memory]", "[OutOfMemory]") or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        events.append(TraceEvent(name, e.device_type(), TraceRange((e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3)))
+    return events
+
+
 def capture(torch, fn, calls: int):
     """``calls`` calls of ``fn()`` captured in one CUDA graph, after three
     warm-up calls on a side stream."""
@@ -436,7 +495,7 @@ def launch_breakdown_us(torch, fn, calls: int = 20, replays: int = 10):
         torch.cuda.synchronize()
     del graph
     events = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start
+        (e for e in trace_events(prof) if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start
     )
     per_call = len(events) // (replays * calls)
     if not events or per_call * replays * calls != len(events):
@@ -801,7 +860,7 @@ def profile_player(torch, np, player, cfg, envs, steps, generator):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, _, seconds = run_player(torch, np, player, cfg, envs, steps, generator, False, True)
     by_name = {}
-    for e in prof.events():
+    for e in trace_events(prof):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
@@ -1177,7 +1236,7 @@ def profile_train(torch, fg, step, rb, steps: int, moments, gen):
     finally:
         del rec.forward, wm.dynamic, wm.imagination
         dreamer_v3.rssm_scan, dreamer_v3._grads, Adam.step = saved
-    events = list(prof.events())
+    events = trace_events(prof)
 
     def is_range(e):
         return e.name.split("_B")[0] in RANGES
@@ -1497,7 +1556,7 @@ def profile_replays(torch, fn, replays: int = 4, top: int = 8):
 
     def ready(prof):
         # the recorded replays' events, read before the profiler clears them
-        seen["kernels"] = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        seen["kernels"] = [e for e in trace_events(prof) if e.device_type == DeviceType.CUDA]
 
     torch.cuda.synchronize()
     with profile(
@@ -2092,7 +2151,7 @@ def profile_window(torch, window):
 
     def ready(prof):
         # the recorded window's events, read before the profiler clears them
-        seen["busy_us"] = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+        seen["busy_us"] = sum(e.time_range.elapsed_us() for e in trace_events(prof) if e.device_type == DeviceType.CUDA)
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "trace.json")
             prof.export_chrome_trace(path)
@@ -3665,6 +3724,392 @@ def phase_sac_cli(torch, np, tmp: str):
     return report
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the serving tier (python -m sheeprl_tpu_torch serve), serving
+# phase 12's PPO checkpoints
+# --------------------------------------------------------------------------- #
+
+# the served models: phase 12's exp=ppo MLP (CartPole-v1) and exp=ppo_atari
+# NatureCNN (PixelCatcher 64x64x3) runs, by run name
+SERVE_RUNS = {"mlp_cartpole": "ppo_host", "nature_cnn_pixel_catcher": "ppo_cnn"}
+SERVE_LADDER = (1, 2, 4, 8)  # configs/config.yaml serve.batch_ladder
+SERVE_REPLAYS = 200  # back-to-back replays a rung between CUDA events
+SERVE_ROUND_TRIPS = 100  # stage, copy in, replay, copy out, synchronize
+SERVE_REQUESTS = 100  # sequential ServeClient.infer calls at batch 1
+SERVE_LOAD_S = 5.0  # each CLI load run (closed loop, then open loop)
+SERVE_OPEN_RATE_HZ = 1000.0
+SERVE_SWAP_TRAFFIC_S = 1.0  # traffic before and after the hot swap
+SERVE_CRASH_REQUESTS = 10  # replica_crash at batch 5 of one replica
+
+
+def serve_ckpt_dir(tmp: str, run_name: str) -> str:
+    import glob
+
+    (ckpt_dir,) = glob.glob(f"{tmp}/logs/ppo/*/{run_name}/version_*/checkpoint")
+    return ckpt_dir
+
+
+def serve_model(torch, np, ckpt_dir: str) -> dict:
+    """A PPO run's newest committed checkpoint as ``cli_serve`` builds it on
+    the card (the stored config resolved, ``build_served_policy``), with the plain
+    forward: the training player's greedy actions (``PPOPlayer.get_actions``,
+    what the test episode runs) on the same weights, as env indices."""
+    import os
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent, real_actions_from_onehot
+    from sheeprl_tpu_torch.algos.ppo.convert import agent_from_flax
+    from sheeprl_tpu_torch.config.compose import load_config_file, resolve
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.envs.spaces import action_dims
+    from sheeprl_tpu_torch.resilience.discovery import newest_committed
+    from sheeprl_tpu_torch.serve.policy import build_served_policy
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    ckpt = newest_committed(ckpt_dir)
+    cfg = dotdict(resolve(load_config_file(os.path.join(os.path.dirname(ckpt_dir), "config.yaml"))))
+    cfg.env.capture_video = False
+    state = load_checkpoint(ckpt.path)
+    policy = build_served_policy(cfg, state, "cuda")
+    env = make_env(cfg, cfg.seed, 0, None, "serve")()
+    dims, continuous = action_dims(env.action_space)
+    space = env.observation_space
+    env.close()
+
+    def plain(agent_state):
+        _, player = build_agent(dims, continuous, cfg, space, agent_from_flax(agent_state), device="cuda")
+
+        def actions(obs_list):
+            batch = {k: np.stack([o[k] for o in obs_list]) for k in policy.obs_spec}
+            onehot, _, _ = player.get_actions(batch, greedy=True)
+            return real_actions_from_onehot(dims, continuous, onehot).cpu().numpy()
+
+        return actions
+
+    return {"cfg": cfg, "state": state, "ckpt": ckpt, "policy": policy, "plain": plain}
+
+
+def serve_obs(np, policy, n: int, seed: int) -> list:
+    """``n`` seeded observations of the policy's spec (the load generator's
+    draws)."""
+    from sheeprl_tpu_torch.serve.loadgen import random_obs
+
+    make, rng = random_obs(policy.obs_spec), np.random.default_rng(seed)
+    return [make(rng) for _ in range(n)]
+
+
+def plain_at(np, plain, obs_list: list, batch: int):
+    """``plain`` over ``obs_list`` in batches of ``batch`` rows (the last
+    zero-padded, as a rung pads it)."""
+    rows = []
+    for j in range(0, len(obs_list), batch):
+        chunk = obs_list[j : j + batch]
+        pad = [{k: np.zeros_like(v) for k, v in chunk[0].items()}] * (batch - len(chunk))
+        rows.append(plain(chunk + pad)[: len(chunk)])
+    return np.concatenate(rows)
+
+
+def serve_config(**node):
+    from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
+
+    return serve_config_from_cfg({"serve": {"batch_ladder": list(SERVE_LADDER), "monitor_interval_s": 0.01, "backoff_base_s": 0.01, **node}})
+
+
+def phase_serve_ladder(torch, np, model: str, served: dict) -> dict:
+    """15(a) the ladder of one model: a ``ModelStore`` of two replica slots
+    (one CUDA graph a rung a slot), each rung's replay held against the same
+    rung run eagerly (bit for bit) and against the plain forward (the
+    player's greedy actions, equal), ms a replay back to back (CUDA events),
+    host ms a round trip (stage, copy in, replay, copy out, synchronize),
+    capture seconds a rung; then host ms a request through
+    ``ServeClient.infer`` at batch 1, with the gather window at 0 and at its
+    default (slo_ms / 5, capped at 10 ms)."""
+    from sheeprl_tpu_torch.serve.client import ServeClient
+    from sheeprl_tpu_torch.serve.model import ModelStore
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    policy, ckpt = served["policy"], served["ckpt"]
+    plain = served["plain"](served["state"]["agent"])
+    store = ModelStore(policy, SERVE_LADDER, step=ckpt.step, path=ckpt.path, slots=2)
+    row = {"capture_s": dict(store.warmup_s), "rungs": {}}
+    for b in SERVE_LADDER:
+        obs = serve_obs(np, policy, b, seed=b)
+        got = {}
+        for slot, ladder in enumerate(store.current.ladders):
+            rung = ladder.rung(b)
+            got[slot] = rung.run(obs)
+            eager = rung.eager(obs)
+            if not np.array_equal(got[slot], eager):
+                raise AssertionError(f"15(a) {model} rung {b} slot {slot}: replay {got[slot]} != eager {eager}")
+        want = plain(obs)
+        if not (np.array_equal(got[0], got[1]) and np.array_equal(got[0].astype(want.dtype), want)):
+            raise AssertionError(f"15(a) {model} rung {b}: replays {got} != plain {want}")
+        rung = store.current.ladders[0].rung(b)
+        with torch.cuda.stream(rung.stream):
+            for _ in range(10):
+                rung.step.replay()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(SERVE_REPLAYS):
+                rung.step.replay()
+            end.record()
+        end.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_ROUND_TRIPS):
+            rung.run(obs)
+        row["rungs"][b] = {
+            "bit_equal_to_eager": True,
+            "equal_to_plain": True,
+            "ms_per_replay": start.elapsed_time(end) / SERVE_REPLAYS,
+            "host_ms_per_round_trip": (time.perf_counter() - t0) * 1e3 / SERVE_ROUND_TRIPS,
+        }
+    obs = serve_obs(np, policy, SERVE_REQUESTS, seed=0)
+    want = plain(obs)
+    for window in (0.0, None):
+        server = PolicyServer(policy, serve_config(gather_window_ms=window), step=ckpt.step, path=ckpt.path).start()
+        try:
+            client = ServeClient(server, seed=0)
+            client.infer(obs[0])
+            t0 = time.perf_counter()
+            out = np.stack([client.infer(o) for o in obs])
+            ms = (time.perf_counter() - t0) * 1e3 / len(obs)
+            snap = server.snapshot()
+        finally:
+            server.close()
+        if not np.array_equal(out.astype(want.dtype), want) or snap["mean_batch"] != 1.0:
+            raise AssertionError(f"15(a) {model} ServeClient at batch 1 (window {window}): {snap}")
+        row[f"host_ms_per_request_b1_window_{'default' if window is None else 0}"] = ms
+    row["host_ms_per_request_b1_p50_server"] = snap["p50_ms"]
+    return row
+
+
+def serve_cli(tmp: str, ckpt_dir: str, run: str, *extra) -> dict:
+    """``cli.run(["serve", ...])`` in this process, its printing kept apart:
+    the ``serve_stats`` JSON it prints and the ``RUNS.jsonl`` record it
+    appends."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.obs.registry import read_run_records
+
+    runs = f"{tmp}/serve_{run}_RUNS.jsonl"
+    argv = ["serve", f"ckpt_dir={ckpt_dir}", "serve.load.enabled=true", f"serve.load.duration_s={SERVE_LOAD_S}", f"metric.telemetry.runs_jsonl={runs}", *extra]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.run(argv)
+    text = buf.getvalue()
+    snap = json.loads(text[text.index('{\n  "serve_stats"') :])["serve_stats"]
+    record = read_run_records(runs)[-1]
+    return {"snap": snap, "record": record, "banner": text.splitlines()[:2], "seconds": time.perf_counter() - t0}
+
+
+def phase_serve_cli(torch, tmp: str, ckpt_dir: str) -> dict:
+    """15(b) ``python -m sheeprl_tpu_torch serve ckpt_dir=<phase 12's exp=ppo
+    run>/checkpoint serve.load.enabled=true`` through ``cli.run``: a closed
+    loop at concurrency 8 for ``SERVE_LOAD_S``, then an open loop at
+    ``SERVE_OPEN_RATE_HZ``: QPS, p50/p95 against ``slo_ms``, ``slo_met``,
+    mean batch, shed and retry counts, the run record's ``kind``."""
+    report = {"card": card_line()}
+    for run, extra in (("closed_loop", ()), ("open_loop", (f"serve.load.rate_hz={SERVE_OPEN_RATE_HZ}",))):
+        out = serve_cli(tmp, ckpt_dir, run, *extra)
+        snap, load = out["snap"], out["snap"]["load_report"]
+        row = {
+            **{k: load[k] for k in ("mode", "concurrency", "target_rate_hz", "ok", "shed", "expired", "errors", "client_retries", "client_rejections", "qps", "p50_ms", "p95_ms", "slo_ms", "slo_met")},
+            "mean_batch": snap["mean_batch"],
+            "server_p50_ms": snap["p50_ms"],
+            "server_p95_ms": snap["p95_ms"],
+            "warmup_s": snap["warmup_s"],
+            "record_kind": out["record"]["kind"],
+            "record_outcome": out["record"]["outcome"],
+            "banner": out["banner"],
+            "process_seconds": out["seconds"],
+        }
+        report[run] = row
+        print(f"phase 15(b) serve_cli_{run} " + json.dumps(row), flush=True)
+        if row["record_kind"] != "serve" or row["record_outcome"] != "completed" or load["ok"] <= 0 or load["errors"]:
+            raise AssertionError(f"15(b) serve CLI {run}: {row}")
+    return report
+
+
+def commit_perturbed(np, served: dict, step: int, scale: float = 0.5) -> tuple:
+    """A second committed checkpoint of the same structure beside the served
+    one: every weight moved by seeded noise (a newer training commit)."""
+    import os
+
+    from sheeprl_tpu_torch.resilience.manifest import build_manifest
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(step)
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        a = np.asarray(node)
+        return (a + scale * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    state = {"agent": move(served["state"]["agent"]), "update": 0}
+    path = os.path.join(os.path.dirname(served["ckpt"].path), f"ckpt_{step}_0.ckpt")
+    save_checkpoint(path, state, manifest=build_manifest(step=step, backend="pickle", world_size=1, state=state))
+    return path, state
+
+
+def phase_serve_drills(torch, np, served: dict) -> dict:
+    """15(c) the drills on the card over the exp=ppo MLP: (1)
+    ``replica_crash`` at batch 5 of one replica: the requeued request is
+    served by the restarted replica, every answer equal to the plain
+    forward; (2) a hot swap under load (8 threads of distinct requests, two
+    replicas) at the config's default SLO and deadline: nothing dropped,
+    both versions served, every answer equal to the plain forward of the
+    version stamped on it, at one of the ladder's batch sizes (rows are
+    independent), with the longest request latency across the swap and the
+    flip's pause; (3) ``poison_swap`` rejected, the old version serving."""
+    import threading
+
+    from sheeprl_tpu_torch.serve.errors import SwapRejected
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    policy, ckpt = served["policy"], served["ckpt"]
+    plain_old = served["plain"](served["state"]["agent"])
+    report = {}
+
+    cfg = serve_config(num_replicas=1, slo_ms=500.0, fault_injection={"enabled": True, "faults": [{"kind": "replica_crash", "replica": 0, "at_batch": 5}]})
+    server = PolicyServer(policy, cfg, step=ckpt.step, path=ckpt.path).start()
+    try:
+        obs = serve_obs(np, policy, SERVE_CRASH_REQUESTS, seed=1)
+        out = np.stack([server.infer(o) for o in obs])
+        deadline = time.monotonic() + 5.0
+        while server.replicas.total_restarts < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        snap = server.snapshot()
+    finally:
+        server.close()
+    want = np.concatenate([plain_old([o]) for o in obs])
+    report["replica_crash"] = {"requests": len(obs), "completed": snap["completed"], "restarts": snap["restarts"], "events": snap["events"], "equal_to_plain": bool(np.array_equal(out.astype(want.dtype), want))}
+    if not (report["replica_crash"]["equal_to_plain"] and snap["restarts"] == 1 and snap["completed"] == len(obs) and snap["events"].get("replica_restart") == 1):
+        raise AssertionError(f"15(c) replica_crash drill: {report['replica_crash']}")
+
+    new_step = ckpt.step + 1000
+    new_path, new_state = commit_perturbed(np, served, new_step)
+    plain_new = served["plain"](new_state["agent"])
+    events = []
+    cfg = serve_config()  # the default SLO, gather window and deadline
+    server = PolicyServer(policy, cfg, step=ckpt.step, path=ckpt.path, on_event=lambda kind, info: events.append((kind, info))).start()
+    stop = threading.Event()
+    records, failures = [], []
+
+    def traffic(seed: int) -> None:
+        from sheeprl_tpu_torch.serve.loadgen import random_obs
+
+        make, rng = random_obs(policy.obs_spec), np.random.default_rng(1000 + seed)
+        while not stop.is_set():
+            o = make(rng)
+            try:
+                t_in = time.perf_counter()
+                req = server.submit(o)
+                out = server.wait(req)
+                records.append((o, out, req.served_step, t_in, time.perf_counter()))
+            except Exception as err:  # the drill counts every failure
+                failures.append(repr(err))
+
+    threads = [threading.Thread(target=traffic, args=(i,), daemon=True) for i in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(SERVE_SWAP_TRAFFIC_S)
+        t0 = time.perf_counter()
+        server.request_swap(new_path)
+        swap_s = time.perf_counter() - t0
+        time.sleep(SERVE_SWAP_TRAFFIC_S)
+        stop.set()
+        for t in threads:
+            t.join(10.0)
+        snap = server.snapshot()
+    finally:
+        stop.set()
+        server.close()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("15(c) hot swap: a traffic thread did not stop")
+    steps = [r[2] for r in records]
+    obs = [r[0] for r in records]
+    got = np.stack([r[1] for r in records])
+    latency_ms = np.array([(r[4] - r[3]) * 1e3 for r in records])
+    # requests in flight at any instant of request_swap
+    across = [(r[4] - r[3]) * 1e3 for r in records if r[3] < t0 + swap_s and r[4] > t0]
+    matches = 0
+    for fn, step in ((plain_old, ckpt.step), (plain_new, new_step)):
+        idx = [i for i, s in enumerate(steps) if s == step]
+        if idx:
+            ok = np.zeros(len(idx), dtype=bool)
+            for b in SERVE_LADDER:
+                want = plain_at(np, fn, [obs[i] for i in idx], b)
+                ok |= (got[idx].astype(want.dtype) == want).all(axis=-1)
+            matches += int(ok.sum())
+    differ = int((plain_at(np, plain_old, obs, 8) != plain_at(np, plain_new, obs, 8)).any(axis=-1).sum())
+    report["hot_swap"] = {
+        "requests": len(records),
+        "failures": len(failures),
+        "old_version_answers": steps.count(ckpt.step),
+        "new_version_answers": steps.count(new_step),
+        "equal_to_plain_of_stamped_version": matches,
+        "answers_where_versions_differ": differ,
+        "slo_ms": cfg.slo_ms,
+        "deadline_ms": cfg.default_deadline_s * 1e3,
+        "shed_expired": snap["shed_expired"],
+        "shed_overloaded": snap["shed_overloaded"],
+        "failed": snap["failed"],
+        "latency_ms_p50": float(np.percentile(latency_ms, 50)),
+        "latency_ms_p99": float(np.percentile(latency_ms, 99)),
+        "latency_ms_max": float(latency_ms.max()),
+        "requests_across_swap": len(across),
+        "latency_ms_max_across_swap": max(across, default=None),
+        "request_swap_s": swap_s,
+        # the version's 8 graphs, captured while serving paused
+        "swap_capture_s": [info["capture_s"] for kind, info in events if kind == "swap"],
+        # the gate held alone: for the captures, then for the flip
+        "swap_pause_s": [info["pause_s"] for kind, info in events if kind == "swap"],
+        "serving_step": snap["serving_step"],
+        "swaps": snap["swaps"],
+    }
+    if failures or snap["shed_expired"] or snap["failed"] or matches != len(records) or not (report["hot_swap"]["old_version_answers"] and report["hot_swap"]["new_version_answers"]) or snap["serving_step"] != new_step:
+        raise AssertionError(f"15(c) hot swap under load: {report['hot_swap']} {failures[:3]}")
+
+    cfg = serve_config(fault_injection={"enabled": True, "faults": [{"kind": "poison_swap", "at_swap": 1}]})
+    server = PolicyServer(policy, cfg, step=ckpt.step, path=ckpt.path).start()
+    try:
+        try:
+            server.request_swap(new_path)
+            reason = None
+        except SwapRejected as err:
+            reason = str(err)
+        snap = server.snapshot()
+        out = server.infer(serve_obs(np, policy, 1, seed=2)[0])
+    finally:
+        server.close()
+    report["poison_swap"] = {"rejected": reason, "serving_step": snap["serving_step"], "swap_rejects": snap["swap_rejects"], "answer": np.asarray(out).tolist()}
+    if reason is None or "non-finite" not in reason or snap["serving_step"] != ckpt.step or snap["swap_rejects"] != 1:
+        raise AssertionError(f"15(c) poison_swap drill: {report['poison_swap']}")
+    return report
+
+
+def phase_serve(torch, np, fg, tmp: str) -> dict:
+    """Phase 15: (a) the ladder of both models, (b) the CLI's load runs,
+    (c) the drills; serving launches neither B1 nor B2 (checked)."""
+    b1_before, b2_before = fg.launch_count, fg.proj_launch_count
+    report = {"card": card_line(), "ladder": {}}
+    served = {model: serve_model(torch, np, serve_ckpt_dir(tmp, run)) for model, run in SERVE_RUNS.items()}
+    for model in SERVE_RUNS:
+        report["ladder"][model] = phase_serve_ladder(torch, np, model, served[model])
+        print(f"phase 15(a) serve_ladder_{model} " + json.dumps(report["ladder"][model]), flush=True)
+    report["cli"] = phase_serve_cli(torch, tmp, serve_ckpt_dir(tmp, SERVE_RUNS["mlp_cartpole"]))
+    report["drills"] = phase_serve_drills(torch, np, served["mlp_cartpole"])
+    print("phase 15(c) serve_drills " + json.dumps(report["drills"]), flush=True)
+    if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
+        raise AssertionError(f"phase 15 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
+    print("phase 15 b1_b2_launches 0", flush=True)
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3790,8 +4235,9 @@ def main() -> int:
     # on the host loop, (c) the fused rollout at 4 and 64 envs, (d) NatureCNN
     # on PixelCatcher; (e) Dreamer-V3 S at bf16-true against bf16-mixed
     ppo_update = phase_ppo_update(torch, np)
-    with tempfile.TemporaryDirectory() as tmp:
-        ppo_runs = phase_ppo_cli(torch, tmp)
+    # phase 15 serves these runs' checkpoints: the directory lives until then
+    ppo_tmp = tempfile.TemporaryDirectory()
+    ppo_runs = phase_ppo_cli(torch, ppo_tmp.name)
     bf16_true_launches = phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     phase_took("12")
 
@@ -3821,6 +4267,13 @@ def main() -> int:
         raise AssertionError(f"phase 14 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
     print("phase 14(d) b1_b2_launches 0", flush=True)
     phase_took("14")
+
+    # phase 15: the serving tier over phase 12's PPO checkpoints, (a) the
+    # ladder of CUDA graphs (MLP and NatureCNN), (b) the CLI's load runs,
+    # (c) the drills; neither B1 nor B2 launched
+    with ppo_tmp:
+        serve = phase_serve(torch, np, fg, ppo_tmp.name)
+    phase_took("15")
 
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
@@ -3902,6 +4355,17 @@ def main() -> int:
                 "host_loop_captures": rppo_runs["host_loop"]["captures"],
                 "fused_env_steps_per_s": rppo_runs["fused"]["env_steps_per_s"],
                 "fused_env_steps_per_s_steady": rppo_runs["fused"]["env_steps_per_s_steady"],
+            },
+            # serving PPO (phase 15) reaches no TPU kernel and launches
+            # neither B1 nor B2 (checked)
+            "serve": {
+                "b1_b2_launches": 0,
+                "ms_per_replay": {m: {b: r["ms_per_replay"] for b, r in row["rungs"].items()} for m, row in serve["ladder"].items()},
+                "host_ms_per_round_trip": {m: {b: r["host_ms_per_round_trip"] for b, r in row["rungs"].items()} for m, row in serve["ladder"].items()},
+                "capture_s": {m: row["capture_s"] for m, row in serve["ladder"].items()},
+                "host_ms_per_request_b1": {m: {k: row[k] for k in ("host_ms_per_request_b1_window_0", "host_ms_per_request_b1_window_default")} for m, row in serve["ladder"].items()},
+                **{run: {k: serve["cli"][run][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "slo_met", "mean_batch", "shed", "client_retries")} for run in ("closed_loop", "open_loop")},
+                "hot_swap": {k: serve["drills"]["hot_swap"][k] for k in ("slo_ms", "shed_expired", "failed", "latency_ms_max_across_swap", "request_swap_s", "swap_pause_s")},
             },
             # the SAC family (phase 14) reaches no TPU kernel and launches
             # neither B1 nor B2 (checked)

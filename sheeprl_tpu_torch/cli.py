@@ -7,7 +7,8 @@ or the CPU with ``fabric=cpu``) and calls the registered ``main(fabric,
 cfg)``, with run telemetry and the run registry around it.
 ``python -m sheeprl_tpu_torch.cli_eval checkpoint_path=...`` rebuilds the
 config stored beside a checkpoint (the port's or the JAX package's) and
-runs the registered evaluation.
+runs the registered evaluation; ``python -m sheeprl_tpu_torch serve ...``
+serves one (``cli_serve.py``).
 """
 
 from __future__ import annotations
@@ -155,10 +156,12 @@ def run(args: Optional[List[str]] = None) -> None:
     """``python -m sheeprl_tpu_torch exp=<exp> key=value ...``."""
     overrides = list(sys.argv[1:] if args is None else args)
     if overrides and overrides[0] == "serve":
-        raise NotImplementedError(
-            "`python -m sheeprl_tpu_torch serve` is not ported: the serving tier serves PPO, which the port "
-            "does not have yet (queued in ROADMAP.md)"
-        )
+        # `python -m sheeprl_tpu_torch serve checkpoint_path=...`: the policy-
+        # serving tier; its config comes from beside the checkpoint, not from
+        # a fresh composition, so dispatch before composing
+        from sheeprl_tpu_torch.cli_serve import serving
+
+        return serving(overrides[1:])
     cfg = dotdict(compose("config", overrides))
     if cfg.checkpoint.resume_from == "auto":
         from sheeprl_tpu_torch.resilience.autoresume import resolve_auto_resume

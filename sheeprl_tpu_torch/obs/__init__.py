@@ -12,7 +12,7 @@
 
 Everything is inert unless ``metric.telemetry.enabled=True``. The trace
 plane (``obs/trace.py``), the triggered profiler and the actor-learner,
-rollout, serve and net records are not ported (ROADMAP.md).
+rollout and net records are not ported (ROADMAP.md).
 """
 
 from sheeprl_tpu_torch.obs.heartbeat import log_sps_and_heartbeat
@@ -34,6 +34,8 @@ from sheeprl_tpu_torch.obs.telemetry import (
     telemetry_register_flops,
     telemetry_resume_fallback,
     telemetry_run_metrics,
+    telemetry_serve_event,
+    telemetry_serve_stats,
     telemetry_train_window,
 )
 
@@ -60,5 +62,7 @@ __all__ = [
     "telemetry_register_flops",
     "telemetry_resume_fallback",
     "telemetry_run_metrics",
+    "telemetry_serve_event",
+    "telemetry_serve_stats",
     "telemetry_train_window",
 ]

@@ -1,7 +1,8 @@
 """Run registry: one durable line per run in ``RUNS.jsonl`` (port of
 ``sheeprl_tpu/obs/registry.py``, the same records, path rules and schema).
 
-The train entry point (``cli.run_algorithm``) and ``cli_eval`` append ONE
+The train entry point (``cli.run_algorithm``), ``cli_eval`` and ``cli_serve``
+(``kind="serve"``, with the last ``serve_stats`` snapshot) append ONE
 compact JSON record at run end: what ran (algo, env, config digest, git
 sha), how it went (the telemetry rollup, ``RunTelemetry.run_summary``: SPS,
 MFU, duty cycle, device memory peak, CUDA-graph captures, checkpoint and

@@ -10,7 +10,8 @@ from ``cfg.metric.telemetry`` and torn down by :func:`shutdown_telemetry`
 ``process_index``. The kinds written here: ``run_start``, ``span``,
 ``compile``, ``device_poll``, ``heartbeat``, ``ckpt_committed``,
 ``ckpt_skipped``, ``nan_rollback``, ``preempt``, ``crash_checkpoint``,
-``resume_fallback`` and ``run_end``, with the JAX package's field names.
+``resume_fallback``, ``serve_stats``, ``serve_event`` and ``run_end``, with
+the JAX package's field names.
 
 What differs from the TPU package:
 
@@ -217,6 +218,10 @@ class RunTelemetry:
         self._last_mfu: Optional[float] = None
         self._last_train_flops_per_sec: Optional[float] = None
         self._final_metrics: Dict[str, float] = {}
+        # policy-serving accounting (serve/): the server's own serve_stats
+        # snapshot; supervision/swap events counted by kind
+        self._serve_last_stats: Optional[Dict[str, Any]] = None
+        self._serve_events: Dict[str, int] = {}
 
     # -- core event plumbing -------------------------------------------------
 
@@ -452,6 +457,28 @@ class RunTelemetry:
         if logger is not None:
             logger.log_metrics(scalars, step)
 
+    # -- serving -------------------------------------------------------------
+
+    def record_serve_stats(self, snapshot: Mapping[str, Any]) -> None:
+        """One serving-tier stats snapshot (queue depth, completed/shed
+        counts, p50/p95, replica/swap health): a ``serve_stats`` event; the
+        last snapshot becomes the ``run_end`` serve totals."""
+        snap = dict(snapshot)
+        self._serve_last_stats = snap
+        self.emit("serve_stats", **snap)
+        self.writer.flush()
+
+    def record_serve_event(self, kind: str, **fields: Any) -> None:
+        """One supervision/swap event (``replica_restart``,
+        ``replica_masked``, ``replica_hung``, ``swap``, ``swap_rejected``,
+        ``rollback``): a ``serve_event`` line + run_end per-kind counters."""
+        self._serve_events[kind] = self._serve_events.get(kind, 0) + 1
+        self.emit("serve_event", kind=kind, **fields)
+
+    def _serve_section(self) -> Dict[str, Any]:
+        """The run_end/run_summary ``serve`` section."""
+        return {"stats": self._serve_last_stats or {}, "events": dict(self._serve_events)}
+
     # -- run-registry rollup -------------------------------------------------
 
     def run_summary(self) -> Dict[str, Any]:
@@ -501,6 +528,8 @@ class RunTelemetry:
             summary["mfu"] = self._last_mfu
         if self._final_metrics:
             summary["final_metrics"] = dict(self._final_metrics)
+        if self._serve_last_stats is not None or self._serve_events:
+            summary["serve"] = self._serve_section()
         summary["telemetry_jsonl"] = self.writer.path
         summary["telemetry_segments"] = [os.path.basename(p) for p in self.writer.segments()]
         summary["telemetry_files"] = list(self.writer.segments())
@@ -514,6 +543,10 @@ class RunTelemetry:
 
     def close(self) -> None:
         self.watchdog.poll()
+        # only serving runs grow a `serve` section
+        extra_fields: Dict[str, Any] = {}
+        if self._serve_last_stats is not None or self._serve_events:
+            extra_fields["serve"] = self._serve_section()
         self.emit(
             "run_end",
             compiles_total=self.watchdog.compiles,
@@ -533,6 +566,7 @@ class RunTelemetry:
             deliberate_compiles=dict(self.watchdog.deliberate_compiles),
             telemetry_rotations=self.writer.rotations,
             telemetry_segments=[os.path.basename(p) for p in self.writer.segments()],
+            **extra_fields,
         )
         self.writer.close()
 
@@ -668,3 +702,19 @@ def telemetry_register_flops(source: Callable[[], Optional[float]], scale: float
         return None if flops is None else flops * float(scale)
 
     tel.set_flops_source(scaled)
+
+
+def telemetry_serve_stats(snapshot: Mapping[str, Any]) -> None:
+    """Emit one serving-tier stats snapshot (see
+    :meth:`RunTelemetry.record_serve_stats`); no-op when telemetry is off."""
+    tel = _active_telemetry
+    if tel is not None:
+        tel.record_serve_stats(snapshot)
+
+
+def telemetry_serve_event(kind: str, **fields: Any) -> None:
+    """Emit one serving supervision/swap event (see
+    :meth:`RunTelemetry.record_serve_event`); no-op when telemetry is off."""
+    tel = _active_telemetry
+    if tel is not None:
+        tel.record_serve_event(kind, **fields)

@@ -29,8 +29,9 @@ run. There is no fallback on the card: a failed capture or replay raises.
 
 from __future__ import annotations
 
+import contextlib
 import gc
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,6 +46,27 @@ capture_count = 0
 
 
 Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+@contextlib.contextmanager
+def collector_paused(collect: bool = True) -> Iterator[None]:
+    """Collect once (unless ``collect`` is off), then keep Python's cyclic
+    collector off inside: a dead graph that the collector frees mid-capture
+    resets itself inside the capture, which invalidates it. Nested (a
+    caller capturing several graphs under one), the inner one does nothing.
+    A caller that pauses other work for its captures (a server pausing its
+    replicas) passes ``collect=False``: a full collection holds the
+    interpreter lock for as long as it takes, and the pause with it."""
+    if not gc.isenabled():
+        yield
+        return
+    if collect:
+        gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 class CapturedStep:
@@ -115,30 +137,30 @@ class CapturedStep:
         for g in self.generators:
             graph.register_generator_state(g)
         before = fused_gru.launch_count
-        # a dead graph that the cyclic collector frees mid-capture resets
-        # itself inside the capture, which invalidates it: collect first,
-        # and not during it
-        gc.collect()
-        gc.disable()
-        try:
+        with collector_paused():
             with torch.cuda.graph(graph):
                 self._out = self.step(self.inputs)
-        finally:
-            gc.enable()
         self.captured_launches = fused_gru.launch_count - before
         self.graph = graph
         global capture_count
         capture_count += 1
+
+    def replay(self) -> Outputs:
+        """One replay on the current stream (capturing first if needed);
+        returns the graph's own output tensors, which the next replay
+        overwrites. On the card only."""
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        self.replays += 1
+        return self._out
 
     def __call__(self) -> Outputs:
         """One call of the step on ``inputs``; returns its outputs (tensors
         of their own: the graph's outputs are copied out)."""
         if self.device.type != "cuda":
             return self._eager()
-        if self.graph is None:
-            self.capture()
-        self.graph.replay()
-        self.replays += 1
+        self.replay()
         self.done.record(torch.cuda.current_stream(self.device))
         if isinstance(self._out, tuple):
             return tuple(t.clone() for t in self._out)

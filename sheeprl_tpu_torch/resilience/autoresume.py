@@ -1,6 +1,6 @@
 """``checkpoint.resume_from=auto`` (port of
-``sheeprl_tpu/resilience/autoresume.py`` with ``discovery.newest_valid``,
-with its ``resume_fallback`` telemetry events).
+``sheeprl_tpu/resilience/autoresume.py``, with its ``resume_fallback``
+telemetry events; the order and the load gate are ``discovery.py``'s).
 
 ``auto`` scans the run's base directory (``<log_base_dir>/<root_dir>/
 <run_name>``, every ``version_N`` under it), deletes torn writes, and walks
@@ -25,8 +25,8 @@ import warnings
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+from sheeprl_tpu_torch.resilience.discovery import sort_newest_first, validation_load_gate
 from sheeprl_tpu_torch.resilience.manifest import CommittedCheckpoint, committed_checkpoints, gc_torn
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 from sheeprl_tpu_torch.utils.logger import run_base_dir
 
 
@@ -63,21 +63,12 @@ def scan_run_checkpoints(run_root: str) -> List[CommittedCheckpoint]:
         for removed in gc_torn(ckpt_dir):
             warnings.warn(f"auto-resume: garbage-collected torn checkpoint write {removed!r}")
         found.extend(committed_checkpoints(ckpt_dir))
-    found.sort(key=lambda c: (c.step, c.manifest.get("wall_time", 0.0)), reverse=True)
-    return found
+    return sort_newest_first(found)
 
 
 def _config_gate(cand: CommittedCheckpoint) -> Optional[str]:
     config_path = os.path.join(os.path.dirname(os.path.dirname(cand.path)), "config.yaml")
     return None if os.path.isfile(config_path) else f"missing {config_path}"
-
-
-def _load_gate(cand: CommittedCheckpoint) -> Optional[str]:
-    try:
-        load_checkpoint(cand.path)
-    except Exception as exc:
-        return f"validation load failed: {exc!r}"
-    return None
 
 
 def resolve_auto_resume(cfg: Mapping[str, Any]) -> Optional[str]:
@@ -91,7 +82,7 @@ def resolve_auto_resume(cfg: Mapping[str, Any]) -> Optional[str]:
         )
         return None
     for cand in candidates:
-        reason = _config_gate(cand) or _load_gate(cand)
+        reason = _config_gate(cand) or validation_load_gate(cand)
         if reason is None:
             queue_resilience_event("auto_resume", path=cand.path, ckpt_step=cand.step, candidates=len(candidates))
             return cand.path

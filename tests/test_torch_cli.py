@@ -1,7 +1,8 @@
 """The port's entry points: the registry's contract and errors against the
 JAX registry's, ``python -m sheeprl_tpu_torch`` and ``cli_eval`` end to end on
 the CPU (``fabric=cpu``) in a child process with JAX, PyYAML, gymnasium and
-tensorboard blocked, the refusals (no CPU fallback, devices, serve), and
+tensorboard blocked, the refusals (no CPU fallback, devices, serve's
+torn checkpoints and unported options), and
 ``resume_from_checkpoint`` on a JAX run's ``yaml.safe_dump`` config."""
 
 import glob
@@ -19,6 +20,7 @@ from sheeprl_tpu.utils import registry as jax_registry
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.parallel.fabric import Fabric, fabric_from_config
+from sheeprl_tpu_torch.serve.errors import SwapRejected
 from sheeprl_tpu_torch.utils import registry
 from sheeprl_tpu_torch.utils.callback import CheckpointCallback
 from sheeprl_tpu_torch.utils.logger import read_scalars
@@ -124,9 +126,35 @@ def test_the_fabric_node_builds_the_ports_fabric():
     assert isinstance(callback, CheckpointCallback) and callback.keep_last == 5 and callback.async_save
 
 
-def test_serve_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.run(["serve", "checkpoint_path=x"])
+def test_serve_is_not_ported(tmp_path):
+    """(Named when ``serve`` was refused.) ``serve`` now dispatches to
+    ``cli_serve``, which refuses a checkpoint without a commit manifest."""
+    torn = tmp_path / "checkpoint" / "ckpt_9_0.ckpt"
+    torn.parent.mkdir()
+    torn.write_bytes(b"half a checkpoint")
+    with pytest.raises(SwapRejected, match="manifest"):
+        cli.run(["serve", f"checkpoint_path={torn}"])
+
+
+@pytest.mark.parametrize(
+    "override, item",
+    [
+        ("serve.fleet.enabled=True", "A7.1"),
+        ("serve.aot_cache_dir=/tmp/aot", "A10"),
+        ("serve.fleet.remote_agents=[localhost:1]", "A10"),
+    ],
+)
+def test_serve_refuses_what_is_not_ported(tmp_path, override, item):
+    from sheeprl_tpu_torch.resilience.manifest import build_manifest
+    from sheeprl_tpu_torch.serve.policy import make_linear_state
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    (tmp_path / "config.yaml").write_text(json.dumps({"algo": {"name": "linear"}, "seed": 1}))
+    state = make_linear_state()
+    ckpt = tmp_path / "checkpoint" / "ckpt_5_0.ckpt"
+    save_checkpoint(str(ckpt), state, manifest=build_manifest(step=5, backend="pickle", world_size=1, state=state))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        cli.run(["serve", f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", override])
 
 
 def test_profiler_is_refused(tmp_path):

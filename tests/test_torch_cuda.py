@@ -1150,3 +1150,162 @@ def test_cuda_ring_transition_draw_runs_on_the_card(cuda):
         seen.add(obs[:, 0].sum().item())
     assert fn.graph is not None and fn.replays == 3 and len(seen) == 3
     assert int(transition_item_mask(pos, full, 16, True).sum()) == 4 * 9
+
+
+# --------------------------------------------------------------------------- #
+# the serving tier: one CUDA graph a rung, two replicas, hot swap
+# --------------------------------------------------------------------------- #
+
+
+def _commit_linear(ckpt_dir, step, seed):
+    import os
+
+    from sheeprl_tpu_torch.resilience.manifest import build_manifest
+    from sheeprl_tpu_torch.serve.policy import make_linear_state
+    from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+    state = make_linear_state(in_dim=6, out_dim=3, seed=seed)
+    path = os.path.join(str(ckpt_dir), f"ckpt_{step}_0.ckpt")
+    save_checkpoint(path, state, manifest=build_manifest(step=step, backend="pickle", world_size=1, state=state))
+    return path, state
+
+
+def _served(kind, device):
+    """The linear drill policy, or the exp=ppo MLP (CartPole-v1's spaces,
+    seeded weights) as its checkpoint would hold it."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.convert import agent_to_flax
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.serve.policy import build_linear_policy, build_ppo_policy, make_linear_state
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    if kind == "linear":
+        return build_linear_policy({}, make_linear_state(in_dim=6, out_dim=3), device)
+    cfg = dotdict(compose("config", ["exp=ppo", "env.capture_video=False", "seed=5"]))
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    agent, _ = build_agent((2,), False, cfg, space, device="cpu")
+    return build_ppo_policy(cfg, {"agent": agent_to_flax(agent.state_dict())}, device)
+
+
+def _requests(policy, n, seed):
+    from sheeprl_tpu_torch.serve.loadgen import random_obs
+
+    make, rng = random_obs(policy.obs_spec), np.random.default_rng(seed)
+    return [make(rng) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "ppo_mlp"])
+def test_cuda_serve_rung_replay_is_bit_equal_to_eager(cuda, kind):
+    from sheeprl_tpu_torch.ops import graph
+    from sheeprl_tpu_torch.serve.model import ModelStore
+
+    policy = _served(kind, cuda)
+    captures = graph.capture_count
+    store = ModelStore(policy, [1, 2, 4, 8], step=1, path="x", slots=2)
+    assert graph.capture_count - captures == 8  # one graph a rung a slot
+    for b in (1, 2, 4, 8):
+        obs = _requests(policy, b, seed=b)
+        outs = []
+        for ladder in store.current.ladders:
+            rung = ladder.rung(b)
+            outs.append(rung.run(obs))
+            assert np.array_equal(outs[-1], rung.eager(obs)), (kind, b)
+        assert np.array_equal(*outs)
+        # a short batch is zero-padded up to its rung and sliced back
+        short = store.current.ladders[0].run(obs[: max(1, b - 1)])
+        assert len(short) == max(1, b - 1)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_two_replicas_answer_distinct_concurrent_requests(cuda, tmp_path):
+    import threading
+
+    from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
+    from sheeprl_tpu_torch.serve.policy import build_linear_policy
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    path, state = _commit_linear(tmp_path, 100, seed=0)
+    policy = build_linear_policy({}, state, cuda)
+    cfg = serve_config_from_cfg({"serve": {"num_replicas": 2, "gather_window_ms": 2.0, "slo_ms": 500.0}})
+    w, b = state["agent"]["w"].astype(np.float64), state["agent"]["b"].astype(np.float64)
+    results, errors = [], []
+
+    def client(seed):
+        for obs in _requests(policy, 50, seed):
+            try:
+                results.append((obs["vector"], server.infer(obs)))
+            except Exception as err:  # noqa: BLE001 — every failure is counted
+                errors.append(err)
+
+    server = PolicyServer(policy, cfg, step=100, path=path).start()
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30.0)
+        assert not any(t.is_alive() for t in threads)
+        served = [slot.stats.requests for slot in server.replicas.slots]
+    finally:
+        server.close()
+    assert not errors and len(results) == 400
+    for vector, out in results:
+        np.testing.assert_allclose(out, vector @ w + b, rtol=1e-5, atol=1e-5)
+    assert all(n > 0 for n in served), served  # both replicas served, each on its own graphs
+
+
+@pytest.mark.cuda
+def test_cuda_serve_swap_under_load_never_mixes_versions(cuda, tmp_path):
+    import threading
+    import time
+
+    from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
+    from sheeprl_tpu_torch.serve.policy import build_linear_policy
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    path, old = _commit_linear(tmp_path, 100, seed=0)
+    new_path, new = _commit_linear(tmp_path, 200, seed=7)
+    policy = build_linear_policy({}, old, cuda)
+    # the default SLO, gather window and deadline: a swap must not stall them
+    cfg = serve_config_from_cfg({"serve": {"num_replicas": 2}})
+    expect = {s: (st["agent"]["w"].astype(np.float64), st["agent"]["b"].astype(np.float64)) for s, st in ((100, old), (200, new))}
+    stop = threading.Event()
+    records, errors = [], []
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            obs = {"vector": rng.standard_normal(6).astype(np.float32)}
+            try:
+                req = server.submit(obs)
+                records.append((obs["vector"], server.wait(req), req.served_step))
+            except Exception as err:  # noqa: BLE001 — every failure is counted
+                errors.append(err)
+
+    server = PolicyServer(policy, cfg, step=100, path=path).start()
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        assert server.request_swap(new_path).step == 200
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(10.0)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        stop.set()
+        server.close()
+    assert not errors, errors[:3]
+    snap = server.snapshot()
+    assert snap["shed_expired"] == 0 and snap["failed"] == 0, snap
+    steps = {s for _, _, s in records}
+    assert steps == {100, 200}
+    for vector, out, step in records:
+        w, b = expect[step]
+        other_w, other_b = expect[300 - step]
+        np.testing.assert_allclose(out, vector @ w + b, rtol=1e-5, atol=1e-5)
+        assert not np.allclose(out, vector @ other_w + other_b, rtol=1e-3, atol=1e-3)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of sheeprl_tpu_torch/ and not
 chip_smoke.py imports JAX, flax, optax, gymnasium, PyYAML, cv2 or sheeprl_tpu, and the
-package imports and runs ``evaluate`` on the CPU with those blocked."""
+package imports and runs ``evaluate`` and ``serve`` on the CPU with those
+blocked."""
 
 import ast
 import os
@@ -96,6 +97,27 @@ SAC_SLICE = (
 )
 
 
+# the modules of the serving slice
+SERVE_SLICE = (
+    "cli_serve.py",
+    "resilience/discovery.py",
+    "rollout/supervisor.py",
+    "serve/__init__.py",
+    "serve/batching.py",
+    "serve/client.py",
+    "serve/config.py",
+    "serve/errors.py",
+    "serve/fault_injection.py",
+    "serve/loadgen.py",
+    "serve/model.py",
+    "serve/policy.py",
+    "serve/replica.py",
+    "serve/server.py",
+    "serve/supervisor.py",
+    "utils/faults.py",
+)
+
+
 def test_the_scan_covers_the_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(PPO_SLICE) <= scanned
@@ -109,6 +131,11 @@ def test_the_scan_covers_the_a2c_and_recurrent_ppo_slice():
 def test_the_scan_covers_the_sac_family_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(SAC_SLICE) <= scanned
+
+
+def test_the_scan_covers_the_serving_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(SERVE_SLICE) <= scanned
 
 
 # every registered entry point, and the pixel env of those that need one
@@ -196,6 +223,19 @@ for exp, run, extra in (
     cfg = dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False", "env.max_episode_steps=5", *extra]))
     reward, steps = run(cfg, device="cpu")
     assert steps == 5, (exp, steps)
+# the serving tier: a linear checkpoint served through the CLI on the CPU
+import json, os, tempfile
+from sheeprl_tpu_torch import cli
+from sheeprl_tpu_torch.resilience.manifest import build_manifest
+from sheeprl_tpu_torch.serve.policy import make_linear_state
+from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+run = tempfile.mkdtemp()
+with open(os.path.join(run, "config.yaml"), "w") as f:
+    json.dump({{"algo": {{"name": "linear"}}, "seed": 1, "metric": {{"telemetry": {{"runs_jsonl": False}}}}}}, f)
+state = make_linear_state()
+ckpt = os.path.join(run, "checkpoint", "ckpt_5_0.ckpt")
+save_checkpoint(ckpt, state, manifest=build_manifest(step=5, backend="pickle", world_size=1, state=state))
+cli.run(["serve", "ckpt_dir=" + os.path.dirname(ckpt), "fabric.accelerator=cpu", "serve.load.enabled=true", "serve.load.duration_s=0.2"])
 import chip_smoke
 print("OK")
 """
