@@ -99,8 +99,8 @@ which exits non-zero:
    superstep replay in the profiler; (c) ms per gradient step (in turns),
    the device's idle share, host-to-device bytes and peak memory of four
    replay paths: host buffer and ring, K = 0 and K = 4 (and the K = 1
-   ring's peak memory; each profiled over 4 gradient steps); (d)
-   ``main()`` at 8(e)'s cuts with buffer.size 100000 and 320 env steps: the
+   ring's peak memory; each profiled over 2 gradient steps, K = 4 over 4); (d)
+   ``main()`` at 8(e)'s cuts with buffer.size 100000 and 288 env steps: the
    memmapped host buffer, the ring per step, the ring with
    K = 4 (env-steps/s, gradient steps/s, the kernel's launches), then the
    drill: the ring checkpointed with ``buffer.checkpoint``, its contents
@@ -249,6 +249,28 @@ which exits non-zero:
    c, numpy as np, torch, tempfile; from sheeprl_tpu_torch.ops import
    fused_gru as fg; d = tempfile.mkdtemp(); c.phase_ppo_cli(torch, d);
    c.phase_serve(torch, np, fg, d)'`` (TF32 off first).
+16. Plan2Explore on Dreamer-V3 (``algos/p2e_dv3``) at S widths (the keys
+   of ``configs/algo/dreamer_v3_S.yaml`` over ``exp=p2e_dv3_exploration``),
+   bf16-mixed, on PixelCatcher: (a) the exploration step (world model, 8
+   ensemble members, two imaginations, five actor and critic updates) on
+   phase 6's replay, B=16, T=64, horizon 15, the smooth samplers: three
+   replays of its CUDA graph against three eager steps within
+   ``REPLAY_BOUND``, one eager B1 step against the plain model within
+   ``P2E_METRIC_BOUND``/``P2E_GRAD_BOUND`` (tests/test_torch_precision.py's
+   train-step bounds), B1 called 96 times a step (64 at B=16, 2 x 16 at
+   B=1024); ms a replay and a profiler window (192 ``gru_step`` kernels a
+   replay, idle share, top kernels); (b) ``exp=p2e_dv3_exploration``
+   through ``cli.run`` cut to ``P2E_CUTS``, ending with its checkpoint,
+   ``exp=p2e_dv3_finetuning`` from it, cut alike (the policy step at which
+   its player switched from the exploration actor to the task actor), then
+   ``cli_eval`` on the finetuning checkpoint: env-steps/s, B1's launches of
+   each (in the kernels line under ``fused_gru``'s ``p2e_dv3``), every
+   one counted reading a bf16 ``x``, the run records. Alone on the card: ``python -c 'import chip_smoke as c, numpy
+   as np, torch, tempfile; from sheeprl_tpu_torch.ops import fused_gru as
+   fg; fg.load_library(); rb, s, a, k = c.filled_replay(np,
+   c.train_cfg("pixel_catcher"), 80); c.phase_p2e_step(torch, np, fg, rb,
+   s, a, k); c.phase_p2e_cli(torch, np, fg, tempfile.mkdtemp())'`` (TF32
+   off first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -969,11 +991,13 @@ SCAN_CALLS, IMAGINE_CALLS = TRAIN_T, HORIZON + 1
 # backward and 16 imagination steps at B=1024.
 METRIC_BOUND = 1e-3
 GRAD_BOUND = 1e-3
-TIMED_STEPS, WARMUP_STEPS = 5, 3
+TIMED_STEPS, WARMUP_STEPS = 3, 2  # 5, 3 until phase 16 needed the time
 # the short loop: a few hundred env steps of main(), cut from the exp's
 # 5M steps, 1024 learning_starts and 1M-step buffer (384 env steps until
-# phase 14 needed the time)
-LOOP_CUTS = {"algo.total_steps": 320, "algo.learning_starts": 256, "buffer.size": 4096}
+# phase 14 and 320 until phase 16 needed the time)
+LOOP_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096}
+# eager steps in 6(c)'s profiler window of each step (4 until phase 16)
+PROFILED_EAGER_STEPS = 2
 
 
 # the samplers of phase 6's parity checks; tests/test_torch_cuda.py uses them too
@@ -1323,7 +1347,7 @@ def phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     print("train_timing " + json.dumps(report), flush=True)
     for fused in ("auto", "flax"):
         _, step = runs[fused]
-        moments[fused], prof = profile_train(torch, fg, step, rb, 4, moments[fused], gen)
+        moments[fused], prof = profile_train(torch, fg, step, rb, PROFILED_EAGER_STEPS, moments[fused], gen)
         print(f"train_profile_{'fused' if fused == 'auto' else 'plain'} " + json.dumps(prof), flush=True)
     del runs
     return report
@@ -1403,6 +1427,10 @@ REPLAYED_STEPS = 3
 # the generator reproduces the first within REPLAY_BOUND
 NOISE_MIN = 1e-4
 REPLAY_TIMED = 8
+# eager steps timed in 7(c) (REPLAY_TIMED until phase 16 needed the time)
+EAGER_TIMED = 3
+# replays in 7(c)'s and 8(d)'s profiler windows (4 until phase 16)
+PROFILED_REPLAYS = 2
 # (d) the drill: S on PixelCatcher (4 envs), 320 env steps, training from
 # 256 (64 steps an env: one sequence), a checkpoint every 64 policy steps, a
 # forced NaN at update 72 (one rollback to the checkpoint of policy step
@@ -1595,8 +1623,8 @@ def profile_replays(torch, fn, replays: int = 4, top: int = 8):
 def phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous):
     """(c) ms per gradient step replayed and eager, B1 (fused: auto) and
     the plain recurrent model (fused: flax), CUDA events around REPLAY_TIMED
-    steps, in turns fused, plain, plain, fused; then torch.profiler over 4
-    replays of each: device busy time, idle share, B1's gru_step kernels a
+    steps (EAGER_TIMED eager), in turns fused, plain, plain, fused; then
+    torch.profiler over PROFILED_REPLAYS replays of each: device busy time, idle share, B1's gru_step kernels a
     replayed step (2 launches x 80 calls) and their time, the top kernels."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
     from sheeprl_tpu_torch.ops.math import init_moments
@@ -1611,25 +1639,25 @@ def phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous):
         fn()  # capture and one replay
         runs[fused] = (models, step, fn, gen, init_moments(dev))
 
-    def timed(body):
+    def timed(body, calls=REPLAY_TIMED):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        for _ in range(REPLAY_TIMED):
+        for _ in range(calls):
             body()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / REPLAY_TIMED
+        return start.elapsed_time(end) / calls
 
     times = {f"{k}_{mode}": [] for k in ("fused", "plain") for mode in ("replayed", "eager")}
     for fused in ("auto", "flax", "flax", "auto"):
         _, step, fn, gen, moments = runs[fused]
         key = "fused" if fused == "auto" else "plain"
         times[f"{key}_replayed"].append(timed(fn))
-        times[f"{key}_eager"].append(timed(lambda: step(moments, batch, gen)))
+        times[f"{key}_eager"].append(timed(lambda: step(moments, batch, gen), EAGER_TIMED))
     report = {f"ms_per_gradient_step_{k}": v for k, v in times.items()}
     for fused in ("auto", "flax"):
-        report[f"profile_{'fused' if fused == 'auto' else 'plain'}"] = profile_replays(torch, runs[fused][2])
+        report[f"profile_{'fused' if fused == 'auto' else 'plain'}"] = profile_replays(torch, runs[fused][2], PROFILED_REPLAYS)
     print("replay_timing " + json.dumps(report), flush=True)
     if report["profile_fused"]["gru_step_kernels_per_replay"] != 2 * (SCAN_CALLS + IMAGINE_CALLS):
         raise AssertionError(f"a replayed step ran {report['profile_fused']['gru_step_kernels_per_replay']} gru_step kernels")
@@ -1830,7 +1858,7 @@ def step_ms(torch, fn, steps: int = REPLAY_TIMED) -> float:
 
 def phase_bf16_timing(torch, rb, obs_space, actions_dim, is_continuous):
     """(d) ms per replayed S step, B1 and plain, at bf16-mixed and fp32, in
-    turns within this call; then torch.profiler over 4 replays of each
+    turns within this call; then torch.profiler over PROFILED_REPLAYS replays of each
     bf16 step: idle share, top kernels, B1's share."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
 
@@ -1849,7 +1877,7 @@ def phase_bf16_timing(torch, rb, obs_space, actions_dim, is_continuous):
         times[key].append(step_ms(torch, runs[key][1]))
     report = {f"ms_per_replayed_step_{k}": v for k, v in times.items()}
     for key in ("b1_bf16", "plain_bf16"):
-        report[f"profile_{key}"] = profile_replays(torch, runs[key][1], top=10)
+        report[f"profile_{key}"] = profile_replays(torch, runs[key][1], PROFILED_REPLAYS, top=10)
     print("bf16_replay_timing " + json.dumps(report), flush=True)
     if report["profile_b1_bf16"]["gru_step_kernels_per_replay"] != 2 * (SCAN_CALLS + IMAGINE_CALLS):
         raise AssertionError(f"a bf16 replayed step ran {report['profile_b1_bf16']['gru_step_kernels_per_replay']} gru_step kernels")
@@ -1924,17 +1952,19 @@ SUPERSTEP_K = 4
 # PATH_STEPS gradient steps, in turns, on buffers of the loop's size
 # (buffer.size 100000 over 4 envs, PixelCatcher frames repeated)
 PATH_STEPS = 2 * SUPERSTEP_K
-PATH_WINDOWS = 2
+PATH_WINDOWS = 1  # 2 until phase 16 needed the time
 PATHS = ("host_k0", "ring_k0", "ring_k4", "host_k4")
 # each path's profiler window: one superstep's worth of gradient steps (8
 # until PR 12; the window's trace took about 21 s a path to read)
 PROFILE_STEPS = SUPERSTEP_K
+# a per-step path's window (PROFILE_STEPS until phase 16 needed the time)
+PROFILE_STEPS_K0 = 2
 # (d) main(): phase 8(e)'s loop with buffer.size 100000 (auto picks the
-# ring) cut to 320 env steps (384 until phase 13 needed the time), three
+# ring) cut to 288 env steps (384 until phase 13, 320 until phase 16), three
 # ways, each once; then the drill: the ring checkpointed with the buffer
 # (buffer.checkpoint) at 288 env steps, resumed into the memmapped host
 # buffer to 320, and from that into the ring with supersteps to 352
-RING_LOOP_CUTS = {**LOOP_CUTS, "algo.total_steps": 320, "buffer.size": 100000}
+RING_LOOP_CUTS = {**LOOP_CUTS, "buffer.size": 100000}
 RING_LOOPS = {
     "host_k0": {"buffer.device": False},
     "ring_k0": {},
@@ -2296,13 +2326,14 @@ def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
         report["clocks"].append(f"{name}: {clocks_line()}")
     report["timed_seconds"] = time.perf_counter() - start
     for name in PATHS:
-        prof = profile_window(torch, lambda: runs[name][0](PROFILE_STEPS))
+        steps = PROFILE_STEPS if name.endswith(f"_k{SUPERSTEP_K}") else PROFILE_STEPS_K0
+        prof = profile_window(torch, lambda: runs[name][0](steps))
         report["paths"][name].update(
             ms_per_gradient_step=times[name],
             device_idle_share=prof["device_idle_share"],
-            device_busy_ms_per_gradient_step=prof["device_busy_ms"] / PROFILE_STEPS,
-            h2d_bytes_per_gradient_step=None if prof["h2d_bytes"] is None else prof["h2d_bytes"] / PROFILE_STEPS,
-            h2d_copies_per_gradient_step=prof["h2d_copies"] / PROFILE_STEPS,
+            device_busy_ms_per_gradient_step=prof["device_busy_ms"] / steps,
+            h2d_bytes_per_gradient_step=None if prof["h2d_bytes"] is None else prof["h2d_bytes"] / steps,
+            h2d_copies_per_gradient_step=prof["h2d_copies"] / steps,
         )
     report["seconds"] = time.perf_counter() - start
     print("replay_paths " + json.dumps(report), flush=True)
@@ -2312,7 +2343,7 @@ def phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous):
 
 
 def phase_ring_loops(torch, np, fg, tmp):
-    """(d) main() at phase 8(e)'s cuts with buffer.size 100000 and 320 env
+    """(d) main() at phase 8(e)'s cuts with buffer.size 100000 and 288 env
     steps: the host
     buffer (memmapped) per step, the ring per step, the ring in supersteps
     of K = 4, each once (twice in turns until phase 11 needed the time).
@@ -2477,31 +2508,33 @@ def run_module(module: str, argv: list, tmp: str) -> tuple:
     return proc.stdout, seconds
 
 
-def cli_in_process(torch, fg, argv: list) -> tuple:
-    """``cli.run(argv)`` in this process, its printing kept apart; returns
-    (main's report, wrapper calls, seconds)."""
+def cli_in_process(torch, fg, argv: list, module=None) -> tuple:
+    """``cli.run(argv)`` in this process, its printing kept apart, with
+    ``module``'s ``main`` (Dreamer-V3's by default) kept for its report;
+    returns (main's report, wrapper calls, calls with a bf16 x, seconds)."""
     import io
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
 
+    module = module or dv3
     out = {}
-    real_main = dv3.main
+    real_main = module.main
 
-    def keep(fabric, cfg):
-        out.update(real_main(fabric, cfg))
+    def keep(fabric, cfg, **kw):
+        out.update(real_main(fabric, cfg, **kw))
 
     buf = io.StringIO()
     # ---- the main path: counts at 0 just before, read just after ----
     fg.reset_launch_count()
     t0 = time.perf_counter()
-    with mock.patch.object(dv3, "main", keep), contextlib.redirect_stdout(buf):
+    with mock.patch.object(module, "main", keep), contextlib.redirect_stdout(buf):
         cli.run(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    calls = fg.launch_count
+    calls, bf16_calls = fg.launch_count, fg.bf16_x_launch_count
     # ------------------------------------------------------------------
-    return out, calls, seconds
+    return out, calls, bf16_calls, seconds
 
 
 def run_dir(tmp: str, run_name: str) -> str:
@@ -2591,15 +2624,20 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
         flush=True,
     )
     # the same argv in this process: the kernel's launches on the main path
-    out, calls, on_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_b"))
+    out, calls, bf16_calls, on_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_b"))
     per_step = SCAN_CALLS + IMAGINE_CALLS
     acting = (CLI_CUTS["algo.total_steps"] - learning_starts) // 4 + out["test_steps"]
     captured = out["captured_launches_per_step"]
     launches = calls - captured + captured * out["replays"]
-    if captured != per_step or out["replays"] != out["gradient_steps"] or calls != acting + (WARMUP_STEPS + 1) * per_step:
+    if (
+        captured != per_step
+        or out["replays"] != out["gradient_steps"]
+        or calls != acting + (WARMUP_STEPS + 1) * per_step
+        or bf16_calls != calls
+    ):
         raise AssertionError(
             f"cli in process: {calls} wrapper calls (want {acting} + {WARMUP_STEPS + 1} x {per_step}), "
-            f"{captured} captured a step, {out['replays']} replays for {out['gradient_steps']} steps"
+            f"{bf16_calls} with a bf16 x, {captured} captured a step, {out['replays']} replays for {out['gradient_steps']} steps"
         )
     record_b = read_run_records(runs)[-1]
     # (b) cli_eval on (a)'s last checkpoint, one episode capped at EVAL_CAP
@@ -2612,9 +2650,11 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
     if "Test - Reward:" not in eval_out or (record["kind"], record["outcome"]) != ("eval", "completed"):
         raise AssertionError(f"cli_eval: {eval_out[-2000:]} {record}")
     reward = float(eval_out.split("Test - Reward:")[-1].split()[0])
-    # (c) resume (a)'s mid-run checkpoint at fp32 from the command line
-    _, c_seconds = run_module(
-        "sheeprl_tpu_torch",
+    # (c) resume (a)'s mid-run checkpoint at fp32 from the command line, in
+    # this process (a subprocess until phase 16 needed the time)
+    _, _, _, c_seconds = cli_in_process(
+        torch,
+        fg,
         [
             "exp=dreamer_v3",
             "env=pixel_catcher",
@@ -2624,7 +2664,6 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
             f"metric.telemetry.runs_jsonl={runs}",
             "run_name=cli_c",
         ],
-        tmp,
     )
     resumed = load_config_file(f"{run_dir(tmp, 'cli_c')}/version_0/config.yaml")
     record_c = read_run_records(runs)[-1]
@@ -2638,7 +2677,7 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
     ):
         raise AssertionError(f"cli resume: {resumed['fabric']} {record_c} {resumed_ckpts}")
     # (d) the same in-process run with telemetry off
-    off, _, off_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_d", telemetry=False))
+    off, _, _, off_seconds = cli_in_process(torch, fg, cli_argv(tmp, "cli_d", telemetry=False))
     report = {
         "card": card,
         "cuts": CLI_CUTS,
@@ -2648,13 +2687,14 @@ def phase_cli(torch, np, fg, tmp: str, loop_report: dict):
             "phase_8e_loop": loop_report["env_steps_per_s"],
         },
         "loop_seconds": {"cli_telemetry_on": out["seconds"], "cli_telemetry_off": off["seconds"], "phase_8e_loop": loop_report["seconds"]},
-        "cli_run_seconds_in_process": {"telemetry_on": on_seconds, "telemetry_off": off_seconds},
-        "subprocess_seconds": {"train": a_seconds, "eval": b_seconds, "resume": c_seconds},
+        "cli_run_seconds_in_process": {"telemetry_on": on_seconds, "telemetry_off": off_seconds, "resume": c_seconds},
+        "subprocess_seconds": {"train": a_seconds, "eval": b_seconds},
         "flops_per_gradient_step": record_b.get("flops_per_train_step"),
         "mfu_last_heartbeat": record_b.get("mfu"),
         "mfu_subprocess_heartbeats": mfus,
         "sps_train_registry": record_b.get("sps_train"),
         "fused_gru_wrapper_calls": calls,
+        "fused_gru_bf16_x_wrapper_calls": bf16_calls,
         "fused_gru_launches": launches,
         "replays": out["replays"],
         "eval_reward": reward,
@@ -4110,6 +4150,262 @@ def phase_serve(torch, np, fg, tmp: str) -> dict:
     return report
 
 
+# phase 16: Plan2Explore on Dreamer-V3 at S widths (configs/algo/dreamer_v3_S.yaml's keys on
+# the command line over exp=p2e_dv3_exploration's XL defaults), bf16-mixed, PixelCatcher
+P2E_S = {
+    "algo.dense_units": 512,
+    "algo.mlp_layers": 2,
+    "algo.world_model.encoder.cnn_channels_multiplier": 32,
+    "algo.world_model.recurrent_model.recurrent_state_size": 512,
+    "algo.world_model.transition_model.hidden_size": 512,
+    "algo.world_model.representation_model.hidden_size": 512,
+}
+# the CLI runs, cut from the exp's 5M (exploration) and 1M (finetuning)
+# steps, 1024 and 16384 learning_starts and 1M-step buffers: training
+# starts once each of the 4 envs holds one 64-step sequence, for 8 updates
+P2E_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096}
+# an exploration step: the observation scan (T calls at B) and two
+# imaginations of horizon + 1 calls at B = T * B
+P2E_CALLS = SCAN_CALLS + 2 * IMAGINE_CALLS
+# B1 against the plain model at bf16-mixed: tests/test_torch_precision.py's
+# train-step bounds, TRAIN_TOL (metrics, relative to max(|plain|, 1)) and
+# TRAIN_GRAD_TOL (each gradient tensor, relative to its largest element)
+P2E_METRIC_BOUND = 2.0**-8
+P2E_GRAD_BOUND = 16 * 2.0**-8
+
+
+def p2e_cfg(exp: str = "p2e_dv3_exploration", fused: str = "auto", precision: str = BF16, argv=(), **overrides):
+    """``exp`` at S widths on PixelCatcher, composed as the CLI composes it
+    (``argv``, then the dotted ``overrides``)."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    args = {**P2E_S, "seed": SEED, "algo.world_model.recurrent_model.fused": fused, "fabric.precision": precision, **overrides}
+    return dotdict(compose("config", [f"exp={exp}", "env=pixel_catcher", *argv] + [f"{k}={v}" for k, v in args.items()]))
+
+
+def p2e_models(torch, cfg, obs_space, actions_dim, is_continuous, state=None):
+    """The P2E agent of ``cfg`` on the card (seeded, or ``state``'s models),
+    its optimizers, Moments and train step."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as expl
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.algos.p2e_dv3.convert import load_checkpoint_state
+    from sheeprl_tpu_torch.ops.math import init_moments
+
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, device="cuda")
+    if state is not None:
+        load_checkpoint_state(state, agent)
+    opts = expl.build_optimizers(cfg, agent)
+    dev = torch.device("cuda")
+    moments = (init_moments(dev), {k: init_moments(dev) for k in agent.critics_exploration})
+    return agent, opts, moments, expl.make_train_step(agent, opts, cfg, is_continuous)
+
+
+def p2e_params(agent):
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import trained_modules
+
+    return [p for m in trained_modules(agent) for p in m.parameters()]
+
+
+def phase_p2e_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
+    """16(a) the exploration train step at S, bf16-mixed, on REPLAYED_STEPS
+    batches of phase 6's PixelCatcher replay (B=16, T=64, horizon 15), the
+    smooth samplers and cuDNN's deterministic algorithms: replays of the
+    captured step (B1 inside) against as many eager steps (metrics, every
+    trained parameter and Moments within REPLAY_BOUND); one eager B1 step
+    against the plain model (fused: flax) from the same weights within
+    P2E_METRIC_BOUND and P2E_GRAD_BOUND, B1 called P2E_CALLS times a step;
+    then ms a replay (CUDA events) and a profiler window over replays: B1's
+    gru_step kernels a replay, the device's idle share, the top kernels
+    (the ensemble's batched products among them)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as expl
+    from sheeprl_tpu_torch.algos.p2e_dv3.convert import checkpoint_state
+
+    dev = torch.device("cuda")
+    batches = [to_batch(rb.sample(TRAIN_B, sequence_length=TRAIN_T), ["rgb"], dev) for _ in range(REPLAYED_STEPS)]
+    cfg = p2e_cfg()
+    report = {"B": TRAIN_B, "T": TRAIN_T, "horizon": HORIZON, "precision": BF16, "replay_bound": REPLAY_BOUND}
+    with cudnn_deterministic(torch), deterministic():
+        graphed, gopts, (gmt, gme), gstep = p2e_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        if not graphed.world_model.fused or graphed.world_model.dtype != torch.bfloat16:
+            raise AssertionError("the bf16-mixed S P2E world model is not the bf16 B1 model")
+        state = checkpoint_state(graphed, gopts, gmt, gme)
+        eager, _, (emt, eme), estep = p2e_models(torch, cfg, obs_space, actions_dim, is_continuous, state)
+        plain, _, (pmt, pme), pstep = p2e_models(torch, p2e_cfg(fused="flax"), obs_space, actions_dim, is_continuous, state)
+        # one eager step of B1 and of the plain model from the same weights
+        grads = {}
+        out = {}
+        for key, step, mt, me, want in (("b1", estep, emt, eme, P2E_CALLS), ("plain", pstep, pmt, pme, 0)):
+            g = grads[key] = {}
+            fg.reset_launch_count()
+            out[key] = step(mt, me, batches[0], None, g)
+            torch.cuda.synchronize()
+            if (fg.launch_count, fg.bf16_x_launch_count) != (want, want) or not torch.isfinite(out[key]).all():
+                raise AssertionError(f"P2E eager step ({key}): {fg.launch_count} B1 calls, {fg.bf16_x_launch_count} with a bf16 x, want {want}")
+        order = expl.metric_order(tuple(graphed.critics_exploration))
+        metric_err = ((out["b1"] - out["plain"]).abs() / out["plain"].abs().clamp_min(1.0)).max().item()
+        grad_err = {
+            k: max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(grads["b1"][k], grads["plain"][k]))
+            for k in grads["b1"]
+        }
+        report["b1_vs_plain"] = {
+            "metric_max_rel_err": metric_err,
+            "grad_max_rel_err": grad_err,
+            "metric_bound": P2E_METRIC_BOUND,
+            "grad_bound": P2E_GRAD_BOUND,
+            "fused_gru_bf16_x_calls_per_step": P2E_CALLS,
+            "metrics_b1": dict(zip(order, out["b1"].tolist())),
+        }
+        if metric_err > P2E_METRIC_BOUND or max(grad_err.values()) > P2E_GRAD_BOUND:
+            raise AssertionError(f"the P2E B1 step against the plain model: {report['b1_vs_plain']}")
+        del plain, pstep, grads
+        # replays against eager steps: the eager agent restarts from the weights
+        eager, _, (emt, eme), estep = p2e_models(torch, cfg, obs_space, actions_dim, is_continuous, state)
+        inputs = {k: v.clone() for k, v in batches[0].items()}
+        fn = expl.make_train_fn(gstep, graphed, gopts, gmt, gme, inputs, None)
+        metric_errs = []
+        for b in batches:
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            got = fn()
+            want = estep(emt, eme, b, None)
+            metric_errs.append(rel_err(torch, got, want))
+        torch.cuda.synchronize()
+        param_err = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(p2e_params(graphed), p2e_params(eager))
+        )
+        moments_err = max(
+            rel_err(torch, getattr(a, f), getattr(b, f))
+            for a, b in [(gmt, emt)] + [(gme[k], eme[k]) for k in gme]
+            for f in ("low", "high")
+        )
+        report["replayed_vs_eager"] = {
+            "metric_max_rel_err_per_step": metric_errs,
+            "param_max_rel_err": param_err,
+            "moments_max_rel_err": moments_err,
+            "captured_fused_gru_calls": fn.captured_launches,
+            "replays": fn.replays,
+        }
+        if max(metric_errs + [param_err, moments_err]) > REPLAY_BOUND or fn.captured_launches != P2E_CALLS:
+            raise AssertionError(f"the P2E step replayed against eager: {report['replayed_vs_eager']}")
+        del graphed, eager, estep, fn
+    torch.cuda.empty_cache()
+    # timing with the real samplers and a train generator, as main() runs it
+    agent, opts, (mt, me), step = p2e_models(torch, cfg, obs_space, actions_dim, is_continuous)
+    fn = expl.make_train_fn(step, agent, opts, mt, me, {k: v.clone() for k, v in batches[0].items()}, torch.Generator(device="cuda").manual_seed(SEED))
+    fn()  # capture and one replay
+    report["ms_per_replay"] = [step_ms(torch, fn), step_ms(torch, fn)]
+    report["profile"] = profile_replays(torch, fn, replays=2, top=12)
+    report["card"] = card_line()
+    print("phase 16(a) p2e_step " + json.dumps(report), flush=True)
+    if report["profile"]["gru_step_kernels_per_replay"] != 2 * P2E_CALLS:
+        raise AssertionError(f"a replayed P2E step ran {report['profile']['gru_step_kernels_per_replay']} gru_step kernels, want {2 * P2E_CALLS}")
+    del agent, fn
+    return report
+
+
+def phase_p2e_cli(torch, np, fg, tmp: str):
+    """16(b) ``exp=p2e_dv3_exploration`` through ``cli.run`` at S widths
+    with P2E_CUTS, ending with its checkpoint; ``exp=p2e_dv3_finetuning``
+    from it, cut alike; ``cli_eval`` on the finetuning checkpoint. Reports
+    env-steps/s of each run, B1's launches (the wrapper's calls outside
+    capture plus the captured calls times the replays), the policy step at
+    which the finetuning player switched from the exploration actor to the
+    task actor, and the cuts."""
+    import glob
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as expl
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_finetuning as fine
+
+    common = {**P2E_S, **P2E_CUTS, "seed": SEED, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}
+    args = [f"{k}={v}" for k, v in common.items()]
+    report = {"card": card_line(), "cuts": P2E_CUTS, "widths": P2E_S}
+    runs = {}
+    ckpt = None
+    for name, module, extra in (
+        ("exploration", expl, ["exp=p2e_dv3_exploration", "env=pixel_catcher", "run_name=explore"]),
+        ("finetuning", fine, ["exp=p2e_dv3_finetuning", "env=pixel_catcher", "run_name=finetune"]),
+    ):
+        if ckpt is not None:
+            extra = extra + [f"checkpoint.exploration_ckpt_path={ckpt}"]
+        out, calls, bf16_calls, seconds = cli_in_process(torch, fg, extra + args, module)
+        # the wrapper's calls outside capture, and the captured ones once a replay
+        captured = out["captured_launches_per_step"]
+        launches = calls - captured + captured * out["replays"]
+        bf16_launches = bf16_calls - captured + captured * out["replays"]
+        ckpts = sorted(glob.glob(f"{out['log_dir']}/checkpoint/*.ckpt"))
+        runs[name] = {
+            "env_steps": out["env_steps"],
+            "gradient_steps": out["gradient_steps"],
+            "run_seconds": seconds,
+            "loop_seconds": out["seconds"],
+            "env_steps_per_s": out["env_steps"] / out["seconds"],
+            "replay_buffer": out["replay_buffer"],
+            "fused_gru_wrapper_calls": calls,
+            "fused_gru_bf16_x_wrapper_calls": bf16_calls,
+            "fused_gru_captured_per_step": captured,
+            "replays": out["replays"],
+            "fused_gru_launches": launches,
+            "fused_gru_bf16_x_launches": bf16_launches,
+            "test_steps": out["test_steps"],
+            "checkpoint": ckpts[-1].rsplit("/", 1)[-1] if ckpts else None,
+            "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+        }
+        if name == "finetuning":
+            runs[name]["player_switched_to_task_actor_at_policy_step"] = out["switched_at"]
+        want_calls = P2E_CALLS if name == "exploration" else SCAN_CALLS + IMAGINE_CALLS
+        if (
+            out["env_steps"] != P2E_CUTS["algo.total_steps"]
+            or out["gradient_steps"] <= 0
+            or out["replays"] != out["gradient_steps"]
+            or captured != want_calls
+            # every call at bf16-mixed reads a bf16 x, the captured ones too
+            or bf16_calls != calls
+            or not runs[name]["last_metrics_finite"]
+            or not ckpts
+        ):
+            raise AssertionError(f"P2E {name} through the CLI: {runs[name]}")
+        ckpt = ckpts[-1]
+    # the first gradient step follows the env step at learning_starts; the
+    # task actor takes the next one
+    switched = runs["finetuning"]["player_switched_to_task_actor_at_policy_step"]
+    num_envs = int(p2e_cfg().env.num_envs)
+    if switched != P2E_CUTS["algo.learning_starts"] + num_envs:
+        raise AssertionError(f"the finetuning player switched to the task actor at policy step {switched}")
+    # cli_eval on the finetuning checkpoint (the task actor), one capped episode
+    buf = io.StringIO()
+    fg.reset_launch_count()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.evaluation([f"checkpoint_path={ckpt}", f"env.max_episode_steps={EVAL_CAP}"])
+    torch.cuda.synchronize()
+    evaluated = "Test - Reward:" in buf.getvalue()
+    report["cli_eval"] = {
+        "seconds": time.perf_counter() - t0,
+        "fused_gru_launches": fg.launch_count,
+        "fused_gru_bf16_x_launches": fg.bf16_x_launch_count,
+        "episode_played": evaluated,
+    }
+    records = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")]
+    report["records"] = [[r["kind"], r["algo"], r["outcome"]] for r in records]
+    report["runs"] = runs
+    print("phase 16(b) p2e_cli " + json.dumps(report), flush=True)
+    if not evaluated or fg.launch_count <= 0 or fg.bf16_x_launch_count != fg.launch_count or report["records"] != [
+        ["train", "p2e_dv3_exploration", "completed"],
+        ["train", "p2e_dv3_finetuning", "completed"],
+        ["eval", "p2e_dv3_finetuning", "completed"],
+    ]:
+        raise AssertionError(f"P2E cli_eval or run records: {report['cli_eval']}, {report['records']}")
+    launches = {name: r["fused_gru_launches"] for name, r in runs.items()}
+    launches["cli_eval"] = report["cli_eval"]["fused_gru_launches"]
+    bf16_launches = {name: r["fused_gru_bf16_x_launches"] for name, r in runs.items()}
+    bf16_launches["cli_eval"] = report["cli_eval"]["fused_gru_bf16_x_launches"]
+    return launches, bf16_launches, report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4275,6 +4571,15 @@ def main() -> int:
         serve = phase_serve(torch, np, fg, ppo_tmp.name)
     phase_took("15")
 
+    # phase 16: Plan2Explore on Dreamer-V3 at S, bf16-mixed, (a) the
+    # exploration step replayed against eager and B1 against plain, its
+    # time and profile, (b) exploration and finetuning through the CLI,
+    # then cli_eval
+    p2e_step = phase_p2e_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    with tempfile.TemporaryDirectory() as tmp:
+        p2e_launches, p2e_bf16_launches, p2e_cli = phase_p2e_cli(torch, np, fg, tmp)
+    phase_took("16")
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -4285,9 +4590,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches,
-            # every launch of the bf16-mixed and bf16-true paths read a bf16 x (checked there)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()),
+            # every launch of the bf16-mixed and bf16-true paths read a bf16 x
+            # (checked there; P2E's counted in its runs)
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()),
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -4300,6 +4606,7 @@ def main() -> int:
                 "cli_train_loop_replays": cli["replays"],
                 "env_pipeline_cli_loops": env_launches,
                 "dv3_bf16_true_and_mixed_steps": bf16_true_launches,
+                "p2e_dv3": p2e_launches,
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -4366,6 +4673,17 @@ def main() -> int:
                 "host_ms_per_request_b1": {m: {k: row[k] for k in ("host_ms_per_request_b1_window_0", "host_ms_per_request_b1_window_default")} for m, row in serve["ladder"].items()},
                 **{run: {k: serve["cli"][run][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "slo_met", "mean_batch", "shed", "client_retries")} for run in ("closed_loop", "open_loop")},
                 "hot_swap": {k: serve["drills"]["hot_swap"][k] for k in ("slo_ms", "shed_expired", "failed", "latency_ms_max_across_swap", "request_swap_s", "swap_pause_s")},
+            },
+            # Plan2Explore on Dreamer-V3 (phase 16) runs B1 in its scan and
+            # both imaginations of an exploration step
+            "p2e_dv3": {
+                "calls_per_exploration_step": p2e_step["replayed_vs_eager"]["captured_fused_gru_calls"],
+                "gru_step_kernels_per_replay_by_profiler": p2e_step["profile"]["gru_step_kernels_per_replay"],
+                "ms_per_exploration_replay": p2e_step["ms_per_replay"],
+                "device_idle_share": p2e_step["profile"]["device_idle_share"],
+                "b1_vs_plain_metric_max_rel_err": p2e_step["b1_vs_plain"]["metric_max_rel_err"],
+                "env_steps_per_s": {name: r["env_steps_per_s"] for name, r in p2e_cli["runs"].items()},
+                "finetuning_switched_to_task_actor_at": p2e_cli["runs"]["finetuning"]["player_switched_to_task_actor_at_policy_step"],
             },
             # the SAC family (phase 14) reaches no TPU kernel and launches
             # neither B1 nor B2 (checked)

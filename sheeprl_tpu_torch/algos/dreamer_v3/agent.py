@@ -884,6 +884,30 @@ def _image_channels(shape: Tuple[int, ...]) -> int:
     return int(np.prod(shape[:-3]) * shape[-1]) if len(shape) >= 3 else 1
 
 
+def make_actor(
+    cfg: Dict[str, Any], latent_state_size: int, actions_dim: Sequence[int], is_continuous: bool, dtype: torch.dtype
+) -> Actor:
+    """The actor of ``cfg`` (a ``MinedojoActor`` when ``algo.actor.cls``
+    names one), uninitialised."""
+    algo = cfg["algo"]
+    actor_cfg = algo["actor"]
+    actor_cls = MinedojoActor if "minedojo" in str(actor_cfg.get("cls", "")).lower() else Actor
+    return actor_cls(
+        latent_state_size=latent_state_size,
+        actions_dim=actions_dim,
+        is_continuous=is_continuous,
+        distribution=str(cfg.get("distribution", {}).get("type", "auto")),
+        init_std=float(actor_cfg["init_std"]),
+        min_std=float(actor_cfg["min_std"]),
+        max_std=float(actor_cfg.get("max_std", 1.0)),
+        dense_units=int(actor_cfg["dense_units"]),
+        mlp_layers=int(actor_cfg["mlp_layers"]),
+        unimix=float(algo["unimix"]),
+        action_clip=float(actor_cfg["action_clip"]),
+        dtype=dtype,
+    )
+
+
 def build_agent(
     actions_dim: Sequence[int],
     is_continuous: bool,
@@ -939,22 +963,7 @@ def build_agent(
         continue_dense_units=int(wm_cfg["discount_model"]["dense_units"]),
         dtype=dtype,
     )
-    actor_cfg = algo["actor"]
-    actor_cls = MinedojoActor if "minedojo" in str(actor_cfg.get("cls", "")).lower() else Actor
-    actor = actor_cls(
-        latent_state_size=wm.latent_state_size,
-        actions_dim=actions_dim,
-        is_continuous=is_continuous,
-        distribution=str(cfg.get("distribution", {}).get("type", "auto")),
-        init_std=float(actor_cfg["init_std"]),
-        min_std=float(actor_cfg["min_std"]),
-        max_std=float(actor_cfg.get("max_std", 1.0)),
-        dense_units=int(actor_cfg["dense_units"]),
-        mlp_layers=int(actor_cfg["mlp_layers"]),
-        unimix=float(algo["unimix"]),
-        action_clip=float(actor_cfg["action_clip"]),
-        dtype=dtype,
-    )
+    actor = make_actor(cfg, wm.latent_state_size, actions_dim, is_continuous, dtype)
     generator = torch.Generator().manual_seed(int(cfg["seed"]))
     for module, state in ((wm, world_model_state), (actor, actor_state)):
         if state is None:

@@ -34,17 +34,21 @@ JAX ``main`` does: the aggregated metrics through the run's logger
 through the dispatch fence), and, with ``metric.telemetry.enabled``, the
 telemetry hooks (``obs/``): the step, each train window's launches, the
 FLOPs of one gradient step for MFU and a heartbeat a log window. Multiple
-processes are not ported (ROADMAP queue A).
+processes are not ported (ROADMAP queue A). The loop's parts, ``EnvLoop``,
+``loop_state``, ``ReplayTrainer`` (the per-step train window) and
+``LogWindows``, also run the P2E mains.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +143,188 @@ def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.T
     return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
 
+def train_hparams(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The hyperparameters of one Dreamer-V3 gradient step, read once from
+    ``cfg``: the encoder and decoder keys, the imagination horizon, the
+    lambda-return's ``gamma`` and ``lmbda``, the actor's entropy coefficient,
+    the KL terms, the continue scale and the Moments' arguments."""
+    algo = cfg["algo"]
+    wmc = algo["world_model"]
+    mcfg = algo["actor"]["moments"]
+    return dict(
+        cnn_keys=tuple(algo["cnn_keys"]["encoder"]),
+        mlp_keys=tuple(algo["mlp_keys"]["encoder"]),
+        cnn_dec_keys=tuple(algo["cnn_keys"]["decoder"]),
+        mlp_dec_keys=tuple(algo["mlp_keys"]["decoder"]),
+        horizon=int(algo["horizon"]),
+        gamma=float(algo["gamma"]),
+        lmbda=float(algo["lmbda"]),
+        ent_coef=float(algo["actor"]["ent_coef"]),
+        kl_args=(
+            float(wmc["kl_dynamic"]),
+            float(wmc["kl_representation"]),
+            float(wmc["kl_free_nats"]),
+            float(wmc["kl_regularizer"]),
+        ),
+        continue_scale=float(wmc["continue_scale_factor"]),
+        moments_args=dict(
+            decay=float(mcfg["decay"]),
+            max_=float(mcfg["max"]),
+            percentile_low=float(mcfg["percentile"]["low"]),
+            percentile_high=float(mcfg["percentile"]["high"]),
+        ),
+    )
+
+
+def world_model_step(
+    wm: WorldModel,
+    world_opt: Adam,
+    data: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    hp: Dict[str, Any],
+    detach_heads: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], torch.Tensor, List[torch.Tensor]]:
+    """The world-model loss over a ``[T, B]`` batch and its Adam step.
+    ``detach_heads`` feeds the reward and continue heads detached latents
+    (Plan2Explore). Returns ``(hs, zs, metrics, gnorm, grads)``: the
+    posterior scan's states, the eight world-model metrics of
+    ``METRIC_ORDER`` and the gradients before clipping."""
+    is_first = data["is_first"].clone()
+    is_first[0] = 1.0
+    # a_t in the RSSM input is the action that led to o_t
+    batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
+    batch_obs = {k: data[k] for k in hp["cnn_keys"] + hp["mlp_keys"]}
+    obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in hp["cnn_dec_keys"]}
+    obs_targets.update({k: data[k].float() for k in hp["mlp_dec_keys"]})
+
+    embedded = wm.encode(batch_obs)
+    hs, zs, post_logits, prior_logits = rssm_scan(wm, embedded, batch_actions, is_first, generator)
+    latents = torch.cat([zs, hs], -1)
+    recon = wm.decode(latents)
+    po: Dict[str, Any] = {k: MSEDistribution(recon[k], dims=3) for k in hp["cnn_dec_keys"]}
+    po.update({k: SymlogDistribution(recon[k], dims=1) for k in hp["mlp_dec_keys"]})
+    head_in = latents.detach() if detach_heads else latents
+    pr = TwoHotEncodingDistribution(wm.reward_logits(head_in), dims=1)
+    pc = Independent(Bernoulli(wm.continue_logits(head_in)), 1)
+    rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+        po,
+        obs_targets,
+        pr,
+        data["rewards"],
+        prior_logits,
+        post_logits,
+        *hp["kl_args"],
+        pc,
+        1 - data["terminated"],
+        hp["continue_scale"],
+    )
+    grads = _grads(rec_loss, list(wm.parameters()))
+    gnorm = world_opt.step(grads)
+    with torch.no_grad():
+        post_ent = Independent(OneHotCategorical(post_logits), 1).entropy().mean()
+        prior_ent = Independent(OneHotCategorical(prior_logits), 1).entropy().mean()
+    metrics = [rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, post_ent, prior_ent]
+    return hs, zs, metrics, gnorm, grads
+
+
+def imagine(
+    wm: WorldModel,
+    actor: Actor,
+    start_z: torch.Tensor,
+    start_h: torch.Tensor,
+    horizon: int,
+    generator: Optional[torch.Generator],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``horizon + 1`` latents from the start states, each with the action
+    ``actor`` sampled at it (the last step's successor is not kept)."""
+    z, h = start_z, start_h
+    lat = torch.cat([z, h], -1)
+    lats, acts = [], []
+    for _ in range(horizon + 1):
+        action = sample_actor_actions(actor, lat.detach(), generator)
+        lats.append(lat)
+        acts.append(action)
+        z, h = wm.imagination(z, h, action, generator)
+        lat = torch.cat([z, h], -1)
+    return torch.stack(lats), torch.stack(acts)
+
+
+def policy_loss(
+    actor: Actor,
+    trajectories: torch.Tensor,
+    imagined_actions: torch.Tensor,
+    advantage: torch.Tensor,
+    discount: torch.Tensor,
+    ent_coef: float,
+    is_continuous: bool,
+) -> torch.Tensor:
+    """The actor's objective over an imagination: the advantage itself with
+    continuous actions (its gradient runs back through imagination), the
+    log-probability times the detached advantage with discrete ones, plus
+    the entropy bonus, discounted."""
+    logp, entropy = actor_logprob_entropy(actor, trajectories.detach(), imagined_actions.detach())
+    objective = advantage if is_continuous else logp[..., None][:-1] * advantage.detach()
+    return -torch.mean(discount[:-1] * (objective + ent_coef * entropy[..., None][:-1]))
+
+
+def critic_loss(critic: Critic, target_critic: Critic, traj_in: torch.Tensor, lambda_values: torch.Tensor, discount: torch.Tensor) -> torch.Tensor:
+    """The two-hot critic's loss on the detached imagination ``traj_in``
+    against the lambda-returns and the target critic's values."""
+    with torch.no_grad():
+        target_values = TwoHotEncodingDistribution(target_critic(traj_in), dims=1).mean
+    qv = TwoHotEncodingDistribution(critic(traj_in), dims=1)
+    value_loss = -qv.log_prob(lambda_values.detach()) - qv.log_prob(target_values)
+    return torch.mean(value_loss * discount[:-1].squeeze(-1))
+
+
+def behaviour_step(
+    wm: WorldModel,
+    actor: Actor,
+    critic: Critic,
+    target_critic: Critic,
+    actor_opt: Adam,
+    critic_opt: Adam,
+    moments: MomentsState,
+    start: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    generator: Optional[torch.Generator],
+    hp: Dict[str, Any],
+    is_continuous: bool,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """The actor and critic updates over one imagination from ``start`` =
+    ``(z, h, true_continue)`` with the (updated) world model, the Moments
+    normalising the lambda-returns in place. Returns ``([policy_loss,
+    value_loss], [actor_gnorm, critic_gnorm], [actor_grads, critic_grads])``."""
+    start_z, start_h, true_continue = start
+    gamma = hp["gamma"]
+    with torch.set_grad_enabled(is_continuous):
+        trajectories, imagined_actions = imagine(wm, actor, start_z, start_h, hp["horizon"], generator)
+        values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
+        rewards = TwoHotEncodingDistribution(wm.reward_logits(trajectories), dims=1).mean
+        continues = Independent(Bernoulli(wm.continue_logits(trajectories)), 1).mode
+        continues = torch.cat([true_continue[None], continues[1:]], 0)
+        lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, hp["lmbda"])
+        discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
+    new_moments, (offset, invscale) = update_moments(moments, lambda_values, **hp["moments_args"])
+    moments.low.copy_(new_moments.low)
+    moments.high.copy_(new_moments.high)
+    advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
+    loss = policy_loss(actor, trajectories, imagined_actions, advantage, discount, hp["ent_coef"], is_continuous)
+    actor_grads = _grads(loss, list(actor.parameters()))
+    actor_gnorm = actor_opt.step(actor_grads)
+
+    value_loss = critic_loss(critic, target_critic, trajectories[:-1].detach(), lambda_values, discount)
+    critic_grads = _grads(value_loss, list(critic.parameters()))
+    critic_gnorm = critic_opt.step(critic_grads)
+    return [loss, value_loss], [actor_gnorm, critic_gnorm], [actor_grads, critic_grads]
+
+
+def imagination_start(zs: torch.Tensor, hs: torch.Tensor, terminated: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every posterior of the batch as an imagination start, detached:
+    ``(z [T*B, S], h [T*B, H], true_continue [T*B, 1])``."""
+    n = zs.shape[0] * zs.shape[1]
+    return zs.detach().reshape(n, -1), hs.detach().reshape(n, -1), (1 - terminated).reshape(n, 1)
+
+
 def make_train_step(
     wm: WorldModel,
     actor: Actor,
@@ -161,43 +347,7 @@ def make_train_step(
     ``[T, B, ...]`` tensors on the models' device; ``grads_out``, a dict, receives each model's
     gradients before clipping (``world_model``, ``actor``, ``critic``).
     """
-    algo = cfg["algo"]
-    wmc = algo["world_model"]
-    cnn_keys = tuple(algo["cnn_keys"]["encoder"])
-    mlp_keys = tuple(algo["mlp_keys"]["encoder"])
-    cnn_dec_keys = tuple(algo["cnn_keys"]["decoder"])
-    mlp_dec_keys = tuple(algo["mlp_keys"]["decoder"])
-    horizon = int(algo["horizon"])
-    gamma = float(algo["gamma"])
-    lmbda = float(algo["lmbda"])
-    ent_coef = float(algo["actor"]["ent_coef"])
-    kl_args = (float(wmc["kl_dynamic"]), float(wmc["kl_representation"]))
-    kl_args += (float(wmc["kl_free_nats"]), float(wmc["kl_regularizer"]))
-    continue_scale = float(wmc["continue_scale_factor"])
-    mcfg = algo["actor"]["moments"]
-    moments_args = dict(
-        decay=float(mcfg["decay"]),
-        max_=float(mcfg["max"]),
-        percentile_low=float(mcfg["percentile"]["low"]),
-        percentile_high=float(mcfg["percentile"]["high"]),
-    )
-    wm_params = list(wm.parameters())
-    actor_params = list(actor.parameters())
-    critic_params = list(critic.parameters())
-
-    def imagine(start_z: torch.Tensor, start_h: torch.Tensor, generator: Optional[torch.Generator]):
-        """``horizon + 1`` latents from the start states, each with the
-        action sampled at it (the last step's successor is not kept)."""
-        z, h = start_z, start_h
-        lat = torch.cat([z, h], -1)
-        lats, acts = [], []
-        for _ in range(horizon + 1):
-            action = sample_actor_actions(actor, lat.detach(), generator)
-            lats.append(lat)
-            acts.append(action)
-            z, h = wm.imagination(z, h, action, generator)
-            lat = torch.cat([z, h], -1)
-        return torch.stack(lats), torch.stack(acts)
+    hp = train_hparams(cfg)
 
     def train_step(
         moments: MomentsState,
@@ -205,95 +355,13 @@ def make_train_step(
         generator: Optional[torch.Generator] = None,
         grads_out: Optional[Dict[str, List[torch.Tensor]]] = None,
     ) -> Tuple[MomentsState, torch.Tensor]:
-        T, B = data["rewards"].shape[:2]
-        is_first = data["is_first"].clone()
-        is_first[0] = 1.0
-        # a_t in the RSSM input is the action that led to o_t
-        batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
-        batch_obs = {k: data[k] for k in cnn_keys + mlp_keys}
-        obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in cnn_dec_keys}
-        obs_targets.update({k: data[k].float() for k in mlp_dec_keys})
-
-        # ---------------- world model ---------------- #
-        embedded = wm.encode(batch_obs)
-        hs, zs, post_logits, prior_logits = rssm_scan(wm, embedded, batch_actions, is_first, generator)
-        latents = torch.cat([zs, hs], -1)
-        recon = wm.decode(latents)
-        po: Dict[str, Any] = {k: MSEDistribution(recon[k], dims=3) for k in cnn_dec_keys}
-        po.update({k: SymlogDistribution(recon[k], dims=1) for k in mlp_dec_keys})
-        pr = TwoHotEncodingDistribution(wm.reward_logits(latents), dims=1)
-        pc = Independent(Bernoulli(wm.continue_logits(latents)), 1)
-        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
-            po,
-            obs_targets,
-            pr,
-            data["rewards"],
-            prior_logits,
-            post_logits,
-            *kl_args,
-            pc,
-            1 - data["terminated"],
-            continue_scale,
+        hs, zs, wm_metrics, wm_gnorm, wm_grads = world_model_step(wm, world_opt, data, generator, hp)
+        # behaviour: imagination reads the updated world model
+        start = imagination_start(zs, hs, data["terminated"])
+        losses, gnorms, (actor_grads, critic_grads) = behaviour_step(
+            wm, actor, critic, target_critic, actor_opt, critic_opt, moments, start, generator, hp, is_continuous
         )
-        wm_grads = _grads(rec_loss, wm_params)
-        wm_gnorm = world_opt.step(wm_grads)
-
-        # ---------------- behaviour (imagination reads the updated model) ---------------- #
-        start_z = zs.detach().reshape(T * B, -1)
-        start_h = hs.detach().reshape(T * B, -1)
-        true_continue = (1 - data["terminated"]).reshape(T * B, 1)
-        with torch.set_grad_enabled(is_continuous):
-            trajectories, imagined_actions = imagine(start_z, start_h, generator)
-            values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
-            rewards = TwoHotEncodingDistribution(wm.reward_logits(trajectories), dims=1).mean
-            continues = Independent(Bernoulli(wm.continue_logits(trajectories)), 1).mode
-            continues = torch.cat([true_continue[None], continues[1:]], 0)
-            lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, lmbda)
-            discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
-        new_moments, (offset, invscale) = update_moments(moments, lambda_values, **moments_args)
-        moments.low.copy_(new_moments.low)
-        moments.high.copy_(new_moments.high)
-        baseline = values[:-1]
-        advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
-        logp, entropy = actor_logprob_entropy(actor, trajectories.detach(), imagined_actions.detach())
-        if is_continuous:
-            objective = advantage
-        else:
-            objective = logp[..., None][:-1] * advantage.detach()
-        policy_loss = -torch.mean(discount[:-1] * (objective + ent_coef * entropy[..., None][:-1]))
-        actor_grads = _grads(policy_loss, actor_params)
-        actor_gnorm = actor_opt.step(actor_grads)
-
-        # ---------------- critic ---------------- #
-        traj_in = trajectories[:-1].detach()
-        with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(target_critic(traj_in), dims=1).mean
-        qv = TwoHotEncodingDistribution(critic(traj_in), dims=1)
-        value_loss = -qv.log_prob(lambda_values.detach()) - qv.log_prob(target_values)
-        value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
-        critic_grads = _grads(value_loss, critic_params)
-        critic_gnorm = critic_opt.step(critic_grads)
-
-        with torch.no_grad():
-            post_ent = Independent(OneHotCategorical(post_logits), 1).entropy().mean()
-            prior_ent = Independent(OneHotCategorical(prior_logits), 1).entropy().mean()
-            metrics = torch.stack(
-                [
-                    rec_loss,
-                    observation_loss,
-                    reward_loss,
-                    state_loss,
-                    continue_loss,
-                    kl,
-                    post_ent,
-                    prior_ent,
-                    policy_loss,
-                    value_loss,
-                    wm_gnorm,
-                    actor_gnorm,
-                    critic_gnorm,
-                ]
-            ).detach()
+        metrics = torch.stack([*wm_metrics, *losses, wm_gnorm, *gnorms]).detach()
         if grads_out is not None:
             grads_out.update(world_model=wm_grads, actor=actor_grads, critic=critic_grads)
         return moments, metrics
@@ -509,6 +577,358 @@ def restore_generator(generator: torch.Generator, saved: Any, seed: int, update:
     generator.manual_seed(stream_seed(seed, update, *salt))
 
 
+def resolve_fabric(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike) -> Tuple[Fabric, Dict[str, Any], CheckpointCallback]:
+    """``(fabric, cfg, checkpoint callback)`` of a Dreamer-family ``main``
+    called as the CLI calls it, ``main(fabric, cfg)``, or as ``main(cfg,
+    device=...)``: a one-device Fabric on ``device`` (the CUDA card unless
+    ``device="cpu"``) at the config's precision, with a
+    ``CheckpointCallback`` of the config's ``checkpoint`` node."""
+    if not isinstance(fabric, Fabric):
+        ckpt_cfg = fabric["checkpoint"]
+        callback = CheckpointCallback(
+            keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
+        )
+        fabric, cfg = Fabric.for_device(device, fabric["fabric"]["precision"], [callback]), fabric
+    callback = next((cb for cb in fabric.callbacks if isinstance(cb, CheckpointCallback)), None)
+    if callback is None:
+        raise ValueError("fabric.callbacks holds no CheckpointCallback: the run could not save its checkpoints")
+    return fabric, cfg, callback
+
+
+class EnvLoop:
+    """The env side of the Dreamer-family loop (JAX ``dreamer_v3.py``
+    :847-935; the P2E mains repeat it): each ``step`` takes one action per
+    env (uniform random ones, or the player's on the prepared
+    observations), stores the step in ``rb``, steps the vector env, amends
+    the last stored step of an env restarted after an exception to a
+    truncation, feeds finished episodes to ``aggregator``, stores each done
+    env's terminal transition (the true final observation and a zero
+    action) and restarts its player state."""
+
+    def __init__(
+        self,
+        envs: Any,
+        rb: Any,
+        player: Any,
+        cfg: Dict[str, Any],
+        aggregator: Any,
+        player_gen: torch.Generator,
+        action_rng: np.random.Generator,
+    ) -> None:
+        self.envs, self.rb, self.player, self.aggregator = envs, rb, player, aggregator
+        self.player_gen, self.action_rng = player_gen, action_rng
+        self.action_space = envs.single_action_space
+        self.actions_dim, self.is_continuous = action_dims(self.action_space)
+        self.num_envs = int(cfg["env"]["num_envs"])
+        self.cnn_keys = list(cfg["algo"]["cnn_keys"]["encoder"])
+        self.obs_keys = self.cnn_keys + list(cfg["algo"]["mlp_keys"]["encoder"])
+        self.clip_rewards = bool(cfg["env"].get("clip_rewards", False))
+        self.log_level = int(cfg["metric"]["log_level"])
+        self.step_data: Dict[str, np.ndarray] = {}
+        self.stacked: Dict[str, np.ndarray] = {}
+        self.masks: Dict[str, np.ndarray] = {}
+
+    def _observe(self, obs: Dict[str, np.ndarray]) -> None:
+        self.stacked = {k: obs[k] for k in self.obs_keys}
+        # MineDojo's action masks ride the observation (JAX :847-849)
+        self.masks = {k: obs[k] for k in obs if k.startswith("mask")}
+        prepared = prepare_obs(self.stacked, cnn_keys=self.cnn_keys, num_envs=self.num_envs)
+        for k in self.obs_keys:
+            self.step_data[k] = prepared[k][np.newaxis]
+
+    def reset(self, seed: int) -> None:
+        """Reset the envs and the player's states."""
+        obs, _ = self.envs.reset(seed=seed)
+        self._observe(obs)
+        zeros = np.zeros((1, self.num_envs, 1), np.float32)
+        self.step_data.update(rewards=zeros.copy(), truncated=zeros.copy(), terminated=zeros.copy(), is_first=np.ones_like(zeros))
+        self.player.init_states()
+
+    def step(self, random: bool) -> None:
+        """One env step of every env; ``random`` takes uniform actions."""
+        n, step_data, rb = self.num_envs, self.step_data, self.rb
+        with timer("Time/env_interaction_time"):
+            if random:
+                actions, real_actions = random_actions(self.action_rng, self.action_space, self.actions_dim, n)
+            else:
+                prepared = prepare_obs(self.stacked, cnn_keys=self.cnn_keys, num_envs=n)
+                actions = self.player.get_actions(prepared, self.player_gen, mask=self.masks or None)
+                real_actions = [env_action(a, self.actions_dim, self.is_continuous) for a in actions]
+            step_data["actions"] = np.asarray(actions, np.float32).reshape(1, n, -1)
+            rb.add(step_data)
+
+            next_obs, rewards, terminated, truncated, infos = self.envs.step(
+                np.asarray(real_actions).reshape(n, *self.action_space.shape)
+            )
+            dones = np.logical_or(terminated, truncated)
+
+        step_data["is_first"] = np.zeros((1, n, 1), np.float32)
+        if "restart_on_exception" in infos:
+            for i, roe in enumerate(np.asarray(infos["restart_on_exception"]).reshape(-1)):
+                if roe and not dones[i]:
+                    # the last stored step becomes a truncation and the
+                    # episode restarts (JAX :869-882)
+                    if isinstance(rb, DeviceReplayBuffer):
+                        rb.amend_last(i, terminated=0.0, truncated=1.0, is_first=0.0)
+                    else:
+                        sub = rb.buffer[i]
+                        last_idx = (sub._pos - 1) % sub.buffer_size
+                        sub["terminated"][last_idx] = 0.0
+                        sub["truncated"][last_idx] = 1.0
+                        sub["is_first"][last_idx] = 0.0
+                    step_data["is_first"][0, i] = 1.0
+
+        if self.log_level > 0 and "final_info" in infos:
+            ep = infos["final_info"].get("episode")
+            if ep is not None:
+                for i in np.nonzero(ep.get("_r", []))[0]:
+                    self.aggregator.update("Rewards/rew_avg", float(ep["r"][i]))
+                    self.aggregator.update("Game/ep_len_avg", float(ep["l"][i]))
+
+        self._observe(next_obs)
+        rewards = np.asarray(rewards, np.float32).reshape(1, n, 1)
+        step_data["rewards"] = np.tanh(rewards) if self.clip_rewards else rewards
+        step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, n, 1)
+        step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, n, 1)
+
+        dones_idxes = dones.nonzero()[0].tolist()
+        if dones_idxes:
+            # the terminal transition with the true final obs (SAME_STEP
+            # autoreset keeps it in infos) and a zero action, then the
+            # per-env episode state restarts
+            final = {k: np.stack([infos["final_obs"][i][k] for i in dones_idxes]) for k in self.obs_keys}
+            prepared_final = prepare_obs(final, cnn_keys=self.cnn_keys, num_envs=len(dones_idxes))
+            reset_data = {k: prepared_final[k][np.newaxis] for k in self.obs_keys}
+            for k in ("terminated", "truncated", "rewards"):
+                reset_data[k] = step_data[k][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(self.actions_dim))), np.float32)
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes)
+            for k in ("rewards", "terminated", "truncated"):
+                step_data[k][:, dones_idxes] = 0.0
+            step_data["is_first"][:, dones_idxes] = 1.0
+            self.player.init_states(dones_idxes)
+
+
+@dataclass
+class LoopState:
+    """A Dreamer-family loop's sequence replay, counters, ``Ratio`` and
+    random streams (JAX :584-602, :722-736), fresh or restored from a
+    checkpoint."""
+
+    rb: Any
+    start_step: int
+    policy_step: int
+    last_log: int
+    last_checkpoint: int
+    num_updates: int
+    learning_starts: int
+    batch_size: int
+    ratio: Ratio
+    train_gen: torch.Generator
+    player_gen: torch.Generator
+    # the in-graph replay draw of a fused superstep
+    sample_gen: torch.Generator
+
+
+def loop_state(
+    cfg: Dict[str, Any],
+    device: torch.device,
+    obs_space: Any,
+    actions_dim: Sequence[int],
+    log_dir: str,
+    state: Optional[Mapping[str, Any]],
+    buffer_state: Optional[Mapping[str, Any]] = None,
+) -> LoopState:
+    """The replay where ``buffer.device`` puts it (``buffer_state["rb"]``,
+    of either buffer mode, loaded into it when given) and, from a resumed
+    ``state``, its counters, ``Ratio`` and streams; ``learning_starts``
+    moves past the resume point unless ``buffer.checkpoint`` restored the
+    buffer."""
+    algo, buffer_cfg = cfg["algo"], cfg["buffer"]
+    seed, num_envs = int(cfg["seed"]), int(cfg["env"]["num_envs"])
+    dry_run = bool(cfg.get("dry_run", False))
+    obs_keys = list(algo["cnn_keys"]["encoder"]) + list(algo["mlp_keys"]["encoder"])
+    buffer_size = int(buffer_cfg["size"]) // num_envs if not dry_run else 2
+    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0")
+    rb = make_sequential_replay(cfg, device, obs_space, actions_dim, buffer_size, num_envs, obs_keys, memmap_dir, seed)
+    if buffer_state is not None:
+        ring = isinstance(rb, DeviceReplayBuffer)
+        rb = adapt_restored_buffer(
+            select_buffer(buffer_state["rb"], 0, 1), ring, seed=seed, memmap=bool(buffer_cfg["memmap"]), memmap_dir=memmap_dir, device=device
+        )
+    ls = LoopState(
+        rb=rb,
+        start_step=1,
+        policy_step=0,
+        last_log=0,
+        last_checkpoint=0,
+        num_updates=int(algo["total_steps"]) // num_envs if not dry_run else 1,
+        learning_starts=int(algo["learning_starts"]) // num_envs if not dry_run else 0,
+        batch_size=int(algo["per_rank_batch_size"]),
+        ratio=Ratio(float(algo["replay_ratio"]), pretrain_steps=int(algo["per_rank_pretrain_steps"])),
+        train_gen=torch.Generator(device=device).manual_seed(seed),
+        player_gen=torch.Generator(device=device).manual_seed(stream_seed(seed, 1)),
+        sample_gen=torch.Generator(device=device).manual_seed(stream_seed(seed, SAMPLE_KEY_SALT)),
+    )
+    if state is not None:
+        update = int(state["update"])
+        ls.start_step, ls.policy_step = update + 1, update * num_envs
+        ls.last_log, ls.last_checkpoint = int(state["last_log"]), int(state["last_checkpoint"])
+        ls.batch_size = elastic_per_rank_batch_size(int(state["batch_size"]), 1)
+        if not buffer_cfg["checkpoint"]:
+            ls.learning_starts += ls.start_step
+        ls.ratio.load_state_dict(state["ratio"])
+        restore_generator(ls.train_gen, state["rng_key"], seed, update)
+        restore_generator(ls.player_gen, state["player_rng_key"], seed, update, 1)
+        if "sample_rng_key" in state:
+            restore_generator(ls.sample_gen, state["sample_rng_key"], seed, update, SAMPLE_KEY_SALT)
+    return ls
+
+
+def replay_kind(rb: Any) -> str:
+    """``device`` (the ring), ``memmap`` or ``host``."""
+    return "device" if isinstance(rb, DeviceReplayBuffer) else ("memmap" if all(rb.is_memmap) else "host")
+
+
+class ReplayTrainer:
+    """The train windows of the Dreamer-family loops (JAX :1000-1060). In
+    ``window``, each gradient step is one call of the captured step
+    ``make_fn(inputs)`` (built at the first window) on a batch the ring
+    gathers on the card into ``inputs``, or a pinned prefetcher copies
+    there from the host buffer, with ``refresh(tau)`` of the target critics
+    every ``per_rank_target_network_update_freq`` steps before it (tau 1
+    at step 0). A window (``span``) is the ``Time/train_time`` span, which
+    ends when the card has finished it (through the dispatch fence), and
+    its start and end on the card's clock. Metric vectors stay on the
+    device in ``pending`` until log time. With telemetry on, a window
+    reports its dispatches and marks the run warm, and the step's FLOPs
+    feed MFU."""
+
+    def __init__(self, cfg: Dict[str, Any], rb: Any, batch_size: int, make_fn: Any, refresh: Any, device: torch.device) -> None:
+        algo = cfg["algo"]
+        self.rb, self.batch_size, self.make_fn, self.refresh, self.device = rb, batch_size, make_fn, refresh, device
+        self.sequence_length = int(algo["per_rank_sequence_length"])
+        self.cnn_keys = list(algo["cnn_keys"]["encoder"])
+        self.prefetch = int(cfg["buffer"]["prefetch"])
+        self.ema_every = int(algo["critic"]["per_rank_target_network_update_freq"])
+        self.tau = float(algo["critic"]["tau"])
+        self.keep = int(cfg["metric"]["log_level"]) > 0
+        self.count_flops = get_telemetry() is not None
+        self.fence = DispatchFence(device, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
+        self.fn: Optional[CapturedStep] = None
+        self.prefetcher: Optional[BatchPrefetcher] = None
+        self.pending: List[torch.Tensor] = []
+        self.last: Optional[torch.Tensor] = None
+        self.steps = self.windows = 0
+        self.window_times: List[Tuple[Any, Any]] = []  # each window's (start, end) events or clock times
+
+    @contextlib.contextmanager
+    def span(self) -> Iterator[None]:
+        """One train window."""
+        with timer("Time/train_time"):
+            start = _clock(self.device)
+            yield
+            self.window_times.append((start, _clock(self.device)))
+            self.fence.push()
+            if not timer.disabled:
+                self.fence.drain()
+        self.windows += 1
+
+    def window(self, n_steps: int) -> None:
+        """``n_steps`` gradient steps, one replay each."""
+        ring = isinstance(self.rb, DeviceReplayBuffer)
+        if self.fn is None:
+            inputs = batch_inputs(self.rb, self.sequence_length, self.batch_size, self.cnn_keys, self.device)
+            self.fn = self.make_fn(inputs)
+            self.fn.count_flops = self.count_flops
+            if not ring:
+                self.prefetcher = BatchPrefetcher(self.rb, self.batch_size, self.sequence_length, inputs, self.prefetch, self.fn.done)
+        emas = 0
+        with self.span():
+            if ring:
+                # each batch gathered on the card into the step's inputs,
+                # after the replay before it on the same stream
+                batches = self.rb.sample_batches(self.batch_size, self.sequence_length, n_steps, out=self.fn.inputs)
+            else:
+                batches = self.prefetcher.sampled_batches(n_steps)
+            for _ in batches:
+                if self.steps % self.ema_every == 0:
+                    self.refresh(1.0 if self.steps == 0 else self.tau)
+                    emas += 1
+                self.last = self.fn()
+                self.steps += 1
+                if self.steps == 1:
+                    telemetry_register_flops(lambda: self.fn.flops)
+                if self.keep:
+                    self.pending.append(self.last)
+        # a replay a step, the ring's gather a step, the target refreshes
+        telemetry_train_window(n_steps * (2 if ring else 1) + emas, n_steps)
+        # the first window captured the step: a later capture is a recompile
+        telemetry_mark_warm()
+
+    def finish(self) -> None:
+        """Wait for every dispatched window."""
+        self.fence.drain()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def report(self, order: Sequence[str]) -> Dict[str, Any]:
+        """The gradient steps, the windows' seconds, the last metrics by
+        name, and the replays with the fused-step calls each relaunches."""
+        fn = self.fn
+        window_seconds = [_elapsed(a, b) for a, b in self.window_times]
+        return {
+            "gradient_steps": self.steps,
+            "train_seconds": sum(window_seconds),
+            "train_window_seconds": window_seconds,
+            "metrics": {} if self.last is None else dict(zip(order, self.last.cpu().tolist())),
+            "captured_launches_per_step": 0 if fn is None else fn.captured_launches,
+            "replays": 0 if fn is None else fn.replays,
+        }
+
+
+class LogWindows:
+    """The log windows of the Dreamer-family loops (JAX :1062-1100): the
+    trainer's pending metric vectors (per-step vectors and superstep
+    blocks), fetched in one copy, into ``aggregator``; its means, the
+    replay ratio and the env and train rates to ``logger`` and the means
+    to telemetry."""
+
+    def __init__(self, cfg: Dict[str, Any], logger: Any, aggregator: Any, order: Sequence[str], last_log: int) -> None:
+        metric_cfg = cfg["metric"]
+        self.level, self.every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
+        self.action_repeat = int(cfg["env"].get("action_repeat", 1) or 1)
+        self.logger, self.aggregator, self.order = logger, aggregator, tuple(order)
+        self.last_log, self.last_windows, self.last_steps = last_log, 0, 0
+        self.logged: List[Tuple[int, Dict[str, float]]] = []
+
+    def maybe_log(self, policy_step: int, last_update: bool, trainer: ReplayTrainer) -> None:
+        if self.level <= 0 or not (policy_step - self.last_log >= self.every or last_update):
+            return
+        if trainer.pending:
+            rows = torch.cat([m.reshape(-1, len(self.order)) for m in trainer.pending])
+            for row in rows.cpu().numpy():
+                for name, value in zip(self.order, row):
+                    self.aggregator.update(name, value)
+            trainer.pending.clear()
+        metrics = self.aggregator.compute()
+        self.logger.log_metrics(metrics, policy_step)
+        telemetry_run_metrics(metrics)
+        self.logged.append((policy_step, metrics))
+        self.aggregator.reset()
+        if policy_step > 0:
+            self.logger.log_metrics({"Params/replay_ratio": trainer.steps / policy_step}, policy_step)
+        log_sps_and_heartbeat(
+            self.logger,
+            policy_step=policy_step,
+            env_steps=(policy_step - self.last_log) * self.action_repeat,
+            train_steps=trainer.windows - self.last_windows,
+            train_invocations=trainer.steps - self.last_steps,
+        )
+        self.last_log, self.last_windows, self.last_steps = policy_step, trainer.windows, trainer.steps
+
+
 @register_algorithm()
 def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None) -> Dict[str, Any]:
     """Train Dreamer-V3, called as the CLI calls it, ``main(fabric, cfg)``,
@@ -533,12 +953,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     checkpoint; SIGTERM writes an emergency checkpoint and exits with
     ``PREEMPTED_EXIT_CODE``. With ``algo.run_test``, one test episode follows
     training. Returns the run's counts, seconds and metrics."""
-    ckpt_cfg = (cfg if isinstance(fabric, Fabric) else fabric)["checkpoint"]
-    if not isinstance(fabric, Fabric):
-        callback = CheckpointCallback(
-            keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
-        )
-        fabric, cfg = Fabric.for_device(device, fabric["fabric"]["precision"], [callback]), fabric
+    fabric, cfg, callback = resolve_fabric(fabric, cfg, device)
+    ckpt_cfg = cfg["checkpoint"]
     dev = fabric.device
     algo = cfg["algo"]
     seed = int(cfg["seed"])
@@ -558,18 +974,11 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     logger.log_hyperparams(cfg)
     print(f"Log dir: {log_dir}")
     save_configs(cfg, log_dir)
-    callback = next((cb for cb in fabric.callbacks if isinstance(cb, CheckpointCallback)), None)
-    if callback is None:
-        raise ValueError("fabric.callbacks holds no CheckpointCallback: the run could not save its checkpoints")
     resil = RunResilience(cfg, log_dir, callback)
     envs = build_vector_env(cfg, 0, log_dir, "train", restart_on_exception=True)
-    action_space = envs.single_action_space
     obs_space = envs.single_observation_space
-    actions_dim, is_continuous = action_dims(action_space)
+    actions_dim, is_continuous = action_dims(envs.single_action_space)
     cnn_keys = list(algo["cnn_keys"]["encoder"])
-    mlp_keys = list(algo["mlp_keys"]["encoder"])
-    obs_keys = cnn_keys + mlp_keys
-    clip_rewards = bool(cfg["env"].get("clip_rewards", False))
 
     wm, actor, player = build_agent(actions_dim, is_continuous, cfg, obs_space, device=dev)
     critic, target_critic = build_critic(cfg, wm.latent_state_size, device=dev)
@@ -579,54 +988,14 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         load_checkpoint_state(state, wm, actor, critic, target_critic, opts, moments)
     train_step = make_train_step(wm, actor, critic, target_critic, *opts, cfg, is_continuous)
 
-    dry_run = bool(cfg.get("dry_run", False))
     buffer_cfg = cfg["buffer"]
-    buffer_size = int(buffer_cfg["size"]) // num_envs if not dry_run else 2
-    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0")
-    rb = make_sequential_replay(cfg, dev, obs_space, actions_dim, buffer_size, num_envs, obs_keys, memmap_dir, seed)
+    # a checkpoint of either buffer mode resumes into this run's mode
+    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state, state if buffer_cfg["checkpoint"] else None)
+    rb, ratio, batch_size = ls.rb, ls.ratio, ls.batch_size
+    policy_step, last_log, last_checkpoint = ls.policy_step, ls.last_log, ls.last_checkpoint
     use_device_rb = isinstance(rb, DeviceReplayBuffer)
-    if state is not None and buffer_cfg["checkpoint"]:
-        # a checkpoint of either buffer mode resumes into this run's mode
-        rb = adapt_restored_buffer(
-            select_buffer(state["rb"], 0, 1),
-            use_device_rb,
-            seed=seed,
-            memmap=bool(buffer_cfg["memmap"]),
-            memmap_dir=memmap_dir,
-            device=dev,
-        )
-
-    # counters (JAX :584-602)
-    start_step = int(state["update"]) + 1 if state is not None else 1
-    policy_step = int(state["update"]) * num_envs if state is not None else 0
-    last_log = int(state["last_log"]) if state is not None else 0
-    last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
-    num_updates = int(algo["total_steps"]) // num_envs if not dry_run else 1
-    learning_starts = int(algo["learning_starts"]) // num_envs if not dry_run else 0
-    batch_size = int(algo["per_rank_batch_size"])
     sequence_length = int(algo["per_rank_sequence_length"])
-    ratio = Ratio(float(algo["replay_ratio"]), pretrain_steps=int(algo["per_rank_pretrain_steps"]))
-    if state is not None:
-        batch_size = elastic_per_rank_batch_size(int(state["batch_size"]), 1)
-        if not buffer_cfg["checkpoint"]:
-            learning_starts += start_step
-        ratio.load_state_dict(state["ratio"])
-    critic_cfg = algo["critic"]
-    ema_every = int(critic_cfg["per_rank_target_network_update_freq"])
     fused_k = int(algo.get("fused_gradient_steps", 0) or 0)
-
-    # the train stream, the player stream (JAX :722-736) and the stream of
-    # the in-graph replay draw of a fused superstep
-    train_gen = torch.Generator(device=dev).manual_seed(seed)
-    player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
-    sample_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, SAMPLE_KEY_SALT))
-    if state is not None:
-        update0 = int(state["update"])
-        restore_generator(train_gen, state["rng_key"], seed, update0)
-        restore_generator(player_gen, state["player_rng_key"], seed, update0, 1)
-        if "sample_rng_key" in state:
-            restore_generator(sample_gen, state["sample_rng_key"], seed, update0, SAMPLE_KEY_SALT)
-    action_rng = np.random.default_rng(seed)
 
     def ckpt_state_fn(completed_update: int) -> Dict[str, Any]:
         return {
@@ -636,9 +1005,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             "batch_size": batch_size,
             "last_log": last_log,
             "last_checkpoint": last_checkpoint,
-            "rng_key": train_gen.get_state().numpy(),
-            "player_rng_key": player_gen.get_state().numpy(),
-            "sample_rng_key": sample_gen.get_state().numpy(),
+            "rng_key": ls.train_gen.get_state().numpy(),
+            "player_rng_key": ls.player_gen.get_state().numpy(),
+            "sample_rng_key": ls.sample_gen.get_state().numpy(),
         }
 
     def ckpt_path_fn(step: int) -> str:
@@ -655,27 +1024,21 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         load_checkpoint_state(restored, wm, actor, critic, target_critic, opts, moments)
         ratio.load_state_dict(restored["ratio"])
         if "rng_key" in restored:
-            restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
+            restore_generator(ls.train_gen, restored["rng_key"], seed, int(restored["update"]))
         if "sample_rng_key" in restored:
-            restore_generator(sample_gen, restored["sample_rng_key"], seed, int(restored["update"]), SAMPLE_KEY_SALT)
-        resil.resalt_key(train_gen)
-        resil.resalt_key(sample_gen)
-        pending.clear()  # the poisoned window must not reach the log
+            restore_generator(ls.sample_gen, restored["sample_rng_key"], seed, int(restored["update"]), SAMPLE_KEY_SALT)
+        resil.resalt_key(ls.train_gen)
+        resil.resalt_key(ls.sample_gen)
+        trainer.pending.clear()  # the poisoned window must not reach the log
 
-    step_data: Dict[str, np.ndarray] = {}
-    obs, _ = envs.reset(seed=seed)
-    stacked = {k: obs[k] for k in obs_keys}
-    # MineDojo's action masks ride the observation (JAX :847-849)
-    masks = {k: obs[k] for k in obs if k.startswith("mask")}
-    prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
-    for k in obs_keys:
-        step_data[k] = prepared[k][np.newaxis]
-    zeros = np.zeros((1, num_envs, 1), np.float32)
-    step_data.update(rewards=zeros.copy(), truncated=zeros.copy(), terminated=zeros.copy(), is_first=np.ones_like(zeros))
-    player.init_states()
-
-    train_fn: Optional[CapturedStep] = None
-    prefetcher: Optional[BatchPrefetcher] = None
+    trainer = ReplayTrainer(
+        cfg,
+        rb,
+        batch_size,
+        lambda inputs: make_train_fn(train_step, wm, actor, critic, opts, moments, inputs, ls.train_gen),
+        lambda tau: ema_(critic, target_critic, tau),
+        dev,
+    )
     # one superstep graph per distinct chunk length, and for the host buffer
     # the prefetcher of its [n, T, B, ...] stacks
     fused_fns: Dict[int, CapturedStep] = {}
@@ -687,15 +1050,15 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             if use_device_rb:
                 # the ring's static tensors: the graph reads them in place
                 bufs, pos, full = rb.superstep_inputs(sequence_length)
-                gather = lambda ctx, i: draw_sequence_batch(bufs, pos, full, sample_gen, batch_size, sequence_length)  # noqa: E731
-                stack, gens = None, (train_gen, sample_gen)
+                gather = lambda ctx, i: draw_sequence_batch(bufs, pos, full, ls.sample_gen, batch_size, sequence_length)  # noqa: E731
+                stack, gens = None, (ls.train_gen, ls.sample_gen)
             else:
-                gather, gens = pregathered, (train_gen,)
+                gather, gens = pregathered, (ls.train_gen,)
                 stack = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev, stack=n)
             fn = fused_fns[n] = make_fused_train_fn(
                 train_step, wm, actor, critic, target_critic, opts, moments, cfg, gather, n, stack, gens
             )
-            fn.count_flops = count_flops
+            fn.count_flops = trainer.count_flops
             if len(fused_fns) == 1:
                 # a replay runs n gradient steps
                 telemetry_register_flops(lambda: fn.flops, scale=1.0 / n)
@@ -710,7 +1073,6 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         """The train window as ceil(n_steps / K) superstep replays, K steps
         each and the remainder last (JAX :938-1000); returns their [chunk]
         finite vectors."""
-        nonlocal gradient_steps, metrics
         finite = []
         for n, count in ((fused_k, n_steps // fused_k), (n_steps % fused_k, int(n_steps % fused_k > 0))):
             if count == 0:
@@ -720,29 +1082,21 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             for _ in feeds:
                 if use_device_rb:
                     rb.superstep_inputs(sequence_length)
-                fn.inputs["counter"].fill_(gradient_steps)
+                fn.inputs["counter"].fill_(trainer.steps)
                 block, chunk_finite = fn()
-                gradient_steps += n
+                trainer.steps += n
                 finite.append(chunk_finite)
-                metrics = block[-1]
-                if log_level > 0:
-                    pending.append(block)
+                trainer.last = block[-1]
+                if trainer.keep:
+                    trainer.pending.append(block)
         return finite
 
-    fence = DispatchFence(dev, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
-    metric_cfg = cfg["metric"]
-    log_level, log_every = int(metric_cfg["log_level"]), int(metric_cfg["log_every"])
     aggregator = build_aggregator(cfg, AGGREGATOR_KEYS)
-    action_repeat = int(cfg["env"].get("action_repeat", 1) or 1)
-    count_flops = get_telemetry() is not None
-    train_windows = last_train = last_grad_steps = 0
-    pending: List[torch.Tensor] = []  # device metric vectors, fetched at log time
-    logged: List[Tuple[int, Dict[str, float]]] = []
-    windows: List[Tuple[Any, Any]] = []  # each train window's (start, end) events or clock times
-    gradient_steps = 0
-    metrics: Optional[torch.Tensor] = None
+    env_loop = EnvLoop(envs, rb, player, cfg, aggregator, ls.player_gen, np.random.default_rng(seed))
+    env_loop.reset(seed)
+    logs = LogWindows(cfg, logger, aggregator, METRIC_ORDER, last_log)
     preempted = False
-    update = start_step
+    update = ls.start_step
     resil.arm_crash_guard(
         path_fn=lambda: ckpt_path_fn(policy_step),
         state_fn=lambda: ckpt_state_fn(update - 1),
@@ -750,177 +1104,45 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     )
     t_start = time.perf_counter()
     try:
-        for update in range(start_step, num_updates + 1):
+        for update in range(ls.start_step, ls.num_updates + 1):
             telemetry_advance(policy_step)
             if resil.preempt_requested():
-                fence.drain()
+                trainer.fence.drain()
                 last_checkpoint = policy_step
                 resil.emergency_checkpoint(ckpt_path_fn(policy_step), ckpt_state_fn(update - 1), buffer_to_save())
                 preempted = True
                 break
             policy_step += num_envs
-            with timer("Time/env_interaction_time"):
-                if update <= learning_starts and state is None:
-                    actions, real_actions = random_actions(action_rng, action_space, actions_dim, num_envs)
-                else:
-                    actions = player.get_actions(
-                        prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs), player_gen, mask=masks or None
-                    )
-                    real_actions = [env_action(a, actions_dim, is_continuous) for a in actions]
-                step_data["actions"] = np.asarray(actions, np.float32).reshape(1, num_envs, -1)
-                rb.add(step_data)
-
-                next_obs, rewards, terminated, truncated, infos = envs.step(
-                    np.asarray(real_actions).reshape(num_envs, *action_space.shape)
-                )
-                dones = np.logical_or(terminated, truncated)
-
-            step_data["is_first"] = np.zeros((1, num_envs, 1), np.float32)
-            if "restart_on_exception" in infos:
-                for i, roe in enumerate(np.asarray(infos["restart_on_exception"]).reshape(-1)):
-                    if roe and not dones[i]:
-                        # the last stored step becomes a truncation and the
-                        # episode restarts (JAX :869-882)
-                        if use_device_rb:
-                            rb.amend_last(i, terminated=0.0, truncated=1.0, is_first=0.0)
-                        else:
-                            sub = rb.buffer[i]
-                            last_idx = (sub._pos - 1) % sub.buffer_size
-                            sub["terminated"][last_idx] = 0.0
-                            sub["truncated"][last_idx] = 1.0
-                            sub["is_first"][last_idx] = 0.0
-                        step_data["is_first"][0, i] = 1.0
-
-            if log_level > 0 and "final_info" in infos:
-                ep = infos["final_info"].get("episode")
-                if ep is not None:
-                    for i in np.nonzero(ep.get("_r", []))[0]:
-                        aggregator.update("Rewards/rew_avg", float(ep["r"][i]))
-                        aggregator.update("Game/ep_len_avg", float(ep["l"][i]))
-
-            stacked = {k: next_obs[k] for k in obs_keys}
-            masks = {k: next_obs[k] for k in next_obs if k.startswith("mask")}
-            prepared = prepare_obs(stacked, cnn_keys=cnn_keys, num_envs=num_envs)
-            for k in obs_keys:
-                step_data[k] = prepared[k][np.newaxis]
-            rewards = np.asarray(rewards, np.float32).reshape(1, num_envs, 1)
-            step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
-            step_data["terminated"] = np.asarray(terminated, np.float32).reshape(1, num_envs, 1)
-            step_data["truncated"] = np.asarray(truncated, np.float32).reshape(1, num_envs, 1)
-
-            dones_idxes = dones.nonzero()[0].tolist()
-            if dones_idxes:
-                # the terminal transition with the true final obs (SAME_STEP
-                # autoreset keeps it in infos) and a zero action, then the
-                # per-env episode state restarts
-                final = {k: np.stack([infos["final_obs"][i][k] for i in dones_idxes]) for k in obs_keys}
-                prepared_final = prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(dones_idxes))
-                reset_data = {k: prepared_final[k][np.newaxis] for k in obs_keys}
-                for k in ("terminated", "truncated", "rewards"):
-                    reset_data[k] = step_data[k][:, dones_idxes]
-                reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(actions_dim))), np.float32)
-                reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-                rb.add(reset_data, dones_idxes)
-                for k in ("rewards", "terminated", "truncated"):
-                    step_data[k][:, dones_idxes] = 0.0
-                step_data["is_first"][:, dones_idxes] = 1.0
-                player.init_states(dones_idxes)
+            env_loop.step(random=update <= ls.learning_starts and state is None)
 
             # ---------------- training ---------------- #
-            if update >= learning_starts:
-                n_steps = ratio(policy_step)
-                if n_steps > 0 and fused_k > 0:
-                    with timer("Time/train_time"):
-                        start = _clock(dev)
-                        replays_before = sum(fn.replays for fn in fused_fns.values())
-                        finite = superstep_window(n_steps)
-                        windows.append((start, _clock(dev)))
-                        fence.push()
-                        if not timer.disabled:
-                            # the span ends when the card has finished the window
-                            fence.drain()
-                    train_windows += 1
-                    telemetry_train_window(sum(fn.replays for fn in fused_fns.values()) - replays_before, n_steps)
-                    # the first window captured the step: a later capture is a recompile
-                    telemetry_mark_warm()
-                    # one fetch a window: the finite vectors the supersteps
-                    # computed in their graphs
-                    if resil.finite_checks and not resil.window_ok(bool(torch.cat(finite).all()), update):
-                        nan_rollback(update)
-                        continue
-                elif n_steps > 0:
-                    if train_fn is None:
-                        inputs = batch_inputs(rb, sequence_length, batch_size, cnn_keys, dev)
-                        train_fn = make_train_fn(train_step, wm, actor, critic, opts, moments, inputs, train_gen)
-                        train_fn.count_flops = count_flops
-                        if not use_device_rb:
-                            prefetcher = BatchPrefetcher(
-                                rb, batch_size, sequence_length, inputs, int(buffer_cfg["prefetch"]), train_fn.done
-                            )
-                    with timer("Time/train_time"):
-                        start = _clock(dev)
-                        if use_device_rb:
-                            # each batch gathered on the card into the step's inputs,
-                            # after the replay before it on the same stream
-                            batches = rb.sample_batches(batch_size, sequence_length, n_steps, out=train_fn.inputs)
-                        else:
-                            batches = prefetcher.sampled_batches(n_steps)
-                        emas = 0
-                        for _ in batches:
-                            if gradient_steps % ema_every == 0:
-                                ema_(critic, target_critic, 1.0 if gradient_steps == 0 else float(critic_cfg["tau"]))
-                                emas += 1
-                            metrics = train_fn()
-                            gradient_steps += 1
-                            if gradient_steps == 1:
-                                telemetry_register_flops(lambda: train_fn.flops)
-                            if log_level > 0:
-                                pending.append(metrics)
-                        windows.append((start, _clock(dev)))
-                        fence.push()
-                        if not timer.disabled:
-                            # the span ends when the card has finished the window
-                            fence.drain()
-                    train_windows += 1
-                    # a replay a step, the ring's gather a step, the target refreshes
-                    telemetry_train_window(n_steps * (2 if use_device_rb else 1) + emas, n_steps)
-                    telemetry_mark_warm()
-                    # the window's last metric vector: a NaN in the params
-                    # reaches every later loss (JAX :1047-1055)
-                    if resil.finite_checks and not resil.check_finite(metrics.cpu().numpy(), update):
-                        nan_rollback(update)
-                        continue
+            n_steps = ratio(policy_step) if update >= ls.learning_starts else 0
+            if n_steps > 0 and fused_k > 0:
+                replays_before = sum(fn.replays for fn in fused_fns.values())
+                with trainer.span():
+                    finite = superstep_window(n_steps)
+                telemetry_train_window(sum(fn.replays for fn in fused_fns.values()) - replays_before, n_steps)
+                telemetry_mark_warm()
+                # one fetch a window: the finite vectors the supersteps
+                # computed in their graphs
+                if resil.finite_checks and not resil.window_ok(bool(torch.cat(finite).all()), update):
+                    nan_rollback(update)
+                    continue
+            elif n_steps > 0:
+                trainer.window(n_steps)
+                # the window's last metric vector: a NaN in the params
+                # reaches every later loss (JAX :1047-1055)
+                if resil.finite_checks and not resil.check_finite(trainer.last.cpu().numpy(), update):
+                    nan_rollback(update)
+                    continue
 
             # ---------------- logging ---------------- #
-            if log_level > 0 and (policy_step - last_log >= log_every or update == num_updates):
-                if pending:
-                    # per-step vectors and superstep blocks, in one copy
-                    rows = torch.cat([m.reshape(-1, len(METRIC_ORDER)) for m in pending])
-                    for row in rows.cpu().numpy():
-                        for name, value in zip(METRIC_ORDER, row):
-                            aggregator.update(name, value)
-                    pending.clear()
-                metrics_dict = aggregator.compute()
-                logger.log_metrics(metrics_dict, policy_step)
-                telemetry_run_metrics(metrics_dict)
-                logged.append((policy_step, metrics_dict))
-                aggregator.reset()
-                if policy_step > 0:
-                    logger.log_metrics({"Params/replay_ratio": gradient_steps / policy_step}, policy_step)
-                log_sps_and_heartbeat(
-                    logger,
-                    policy_step=policy_step,
-                    env_steps=(policy_step - last_log) * action_repeat,
-                    train_steps=train_windows - last_train,
-                    train_invocations=gradient_steps - last_grad_steps,
-                )
-                last_log = policy_step
-                last_train = train_windows
-                last_grad_steps = gradient_steps
+            logs.maybe_log(policy_step, update == ls.num_updates, trainer)
+            last_log = logs.last_log
 
             # ---------------- checkpoint ---------------- #
             if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
-                update == num_updates and ckpt_cfg["save_last"]
+                update == ls.num_updates and ckpt_cfg["save_last"]
             ):
                 last_checkpoint = policy_step
                 callback.on_checkpoint_coupled(ckpt_path_fn(policy_step), ckpt_state_fn(update), buffer_to_save())
@@ -931,9 +1153,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         logger.finalize()
         envs.close()
         raise
-    fence.drain()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    trainer.finish()
     seconds = time.perf_counter() - t_start
     envs.close()
     test_reward, test_steps = None, 0
@@ -943,30 +1163,25 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     resil.close()
     if preempted:
         resil.exit_preempted()
-    last = {} if metrics is None else dict(zip(METRIC_ORDER, metrics.cpu().tolist()))
     # (steps a replay, captured graph) of the run: the per-step graph, or
     # the superstep graphs by chunk length
-    graphs = sorted(fused_fns.items()) if fused_k > 0 else ([(1, train_fn)] if train_fn is not None else [])
-    window_seconds = [_elapsed(a, b) for a, b in windows]
+    graphs = sorted(fused_fns.items()) if fused_k > 0 else ([(1, trainer.fn)] if trainer.fn is not None else [])
     return {
         "log_dir": log_dir,
-        "start_update": start_step,
+        "start_update": ls.start_step,
         "env_steps": policy_step,
-        "gradient_steps": gradient_steps,
         "seconds": seconds,
-        "train_seconds": sum(window_seconds),
-        "train_window_seconds": window_seconds,
-        "metrics": last,
-        "log": logged,
+        "log": logs.logged,
         "moments": (float(moments.low), float(moments.high)),
         "rollbacks": resil.rollbacks,
         "last_checkpoint": last_checkpoint,
+        **trainer.report(METRIC_ORDER),
         # fused_gru launches of the replayed steps: the captured calls a
         # replay relaunches, and the replays
         "captured_launches_per_step": graphs[0][1].captured_launches // graphs[0][0] if graphs else 0,
         "replays": sum(fn.replays for _, fn in graphs),
         "graphs": [{"steps": n, "captured_launches": fn.captured_launches, "replays": fn.replays} for n, fn in graphs],
-        "replay_buffer": "device" if use_device_rb else ("memmap" if all(rb.is_memmap) else "host"),
+        "replay_buffer": replay_kind(rb),
         # the episode played after training (algo.run_test), on the player
         "test_cumulative_reward": test_reward,
         "test_steps": test_steps,

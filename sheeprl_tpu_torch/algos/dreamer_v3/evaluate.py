@@ -21,8 +21,19 @@ from sheeprl_tpu_torch.utils.registry import register_evaluation
 def evaluate(
     fabric: Any, cfg: Optional[Dict[str, Any]] = None, state: Optional[Dict[str, Any]] = None, device: DeviceLike = None
 ) -> Tuple[float, int]:
-    """Rebuild the agent from ``state["world_model"]`` and ``state["actor"]``
-    and play one greedy episode. Called as ``cli_eval`` calls it,
+    """:func:`evaluate_actor` of the Dreamer-V3 actor, ``state["actor"]``."""
+    return evaluate_actor(fabric, cfg, state, device)
+
+
+def evaluate_actor(
+    fabric: Any,
+    cfg: Optional[Dict[str, Any]] = None,
+    state: Optional[Dict[str, Any]] = None,
+    device: DeviceLike = None,
+    actor_key: str = "actor",
+) -> Tuple[float, int]:
+    """Rebuild the agent from ``state["world_model"]`` and ``state[actor_key]``
+    (``evaluate``: ``"actor"``) and play one greedy episode. Called as ``cli_eval`` calls it,
     ``evaluate(fabric, cfg, state)`` with a loaded checkpoint (the JAX
     layout), on the Fabric's device with the run's logger in a new
     ``version_N`` directory; or as ``evaluate(cfg, state, device=...)`` with
@@ -36,7 +47,7 @@ def evaluate(
         logger = fabric.logger = get_logger(cfg, log_dir)
         device = fabric.device
         # a checkpoint holds the JAX layout (the port's and the JAX package's)
-        state = {"world_model": world_model_from_flax(state["world_model"]), "actor": actor_from_flax(state["actor"])}
+        state = {"world_model": world_model_from_flax(state["world_model"]), "actor": actor_from_flax(state[actor_key])}
     else:
         fabric, cfg, state = None, fabric, cfg
     env = make_env(cfg, cfg["seed"], 0, log_dir, "test")()

@@ -34,11 +34,18 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac",
     "sheeprl_tpu_torch.algos.droq",
     "sheeprl_tpu_torch.algos.sac_ae",
+    "sheeprl_tpu_torch.algos.p2e_dv3",
 )
 # JAX algorithms whose port is queued, by the ROADMAP item that holds it
 UNPORTED_ALGORITHMS = {
     "ppo_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
     "sac_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
+    "dreamer_v1": "Dreamer-V1 is queued under ROADMAP A6.2",
+    "dreamer_v2": "Dreamer-V2 is queued under ROADMAP A6.2",
+    "p2e_dv1_exploration": "P2E over Dreamer-V1 is queued under ROADMAP A6.3",
+    "p2e_dv1_finetuning": "P2E over Dreamer-V1 is queued under ROADMAP A6.3",
+    "p2e_dv2_exploration": "P2E over Dreamer-V2 is queued under ROADMAP A6.3",
+    "p2e_dv2_finetuning": "P2E over Dreamer-V2 is queued under ROADMAP A6.3",
 }
 
 
@@ -90,13 +97,19 @@ def resume_from_checkpoint(cfg: dotdict, cli_overrides: Optional[List[str]] = No
     return merged
 
 
+def refuse_unported(name: str) -> None:
+    """``NotImplementedError`` naming the ROADMAP item of a JAX algorithm
+    whose port is queued."""
+    if name in UNPORTED_ALGORITHMS:
+        raise NotImplementedError(f"algo.name={name!r} is not ported to sheeprl_tpu_torch yet: {UNPORTED_ALGORITHMS[name]}")
+
+
 def check_configs(cfg: dotdict) -> None:
     """Config sanity checks: a registered algorithm, and an aggregator when
     logging is on."""
     if cfg.algo.name is None:
         raise ValueError("algo.name must be set")
-    if cfg.algo.name in UNPORTED_ALGORITHMS:
-        raise NotImplementedError(f"algo.name={cfg.algo.name!r} is not ported to sheeprl_tpu_torch yet: {UNPORTED_ALGORITHMS[cfg.algo.name]}")
+    refuse_unported(cfg.algo.name)
     _register_algorithms()
     find_algorithm(cfg.algo.name)
     if cfg.metric.log_level > 0 and not cfg.metric.get("aggregator"):
@@ -133,12 +146,18 @@ def run_algorithm(cfg: dotdict) -> None:
     for k in [k for k in metrics if k not in keys]:
         metrics.pop(k)
 
+    # P2E finetuning: the exploration run's config, its env keys forced
+    # onto this run (JAX cli.py:137-167); its main requires it
+    kwargs = {}
+    if "finetuning" in cfg.algo.name and "p2e" in entry["module"]:
+        kwargs["exploration_cfg"] = importlib.import_module(entry["module"]).exploration_config(cfg)
+
     configure_telemetry(cfg, log_dir=run_base_dir(cfg), device=fabric.device)
     # auto-resume resolution ran before telemetry existed: flush its events
     emit_pending_resilience_events()
     outcome, error = "completed", None
     try:
-        entrypoint(fabric, cfg)
+        entrypoint(fabric, cfg, **kwargs)
     except SystemExit as err:
         outcome = "preempted" if err.code == PREEMPTED_EXIT_CODE else "crashed"
         error = None if outcome == "preempted" else repr(err)
@@ -183,6 +202,7 @@ def eval_algorithm(cfg: dotdict) -> None:
     from sheeprl_tpu_torch.parallel.fabric import Fabric
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
+    refuse_unported(cfg.algo.name)
     _register_algorithms()
     entry = find_evaluation(cfg.algo.name)
     evaluate_fn = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])

@@ -162,6 +162,23 @@ def test_profiler_is_refused(tmp_path):
         cli.run(TINY + ["metric.profiler.enabled=True", f"log_base_dir={tmp_path}"])
 
 
+# the Dreamer-family names still queued in ROADMAP A6 (drop each as it lands)
+UNPORTED_A6 = ("dreamer_v1", "dreamer_v2", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
+
+
+@pytest.mark.parametrize("name", UNPORTED_A6)
+def test_unported_dreamer_family_names_are_refused(name, tmp_path):
+    """Each queued A6 name raises ``NotImplementedError`` naming its ROADMAP
+    item in ``cli`` and in ``cli_eval`` (before the evaluation lookup)."""
+    # a finetuning exp composes only with its exploration checkpoint set
+    argv = [f"exp={name}", "fabric=cpu"] + (["checkpoint.exploration_ckpt_path=x"] if "finetuning" in name else [])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A6\.[23]"):
+        cli.run(argv + [f"log_base_dir={tmp_path}"])
+    cfg = dotdict(compose("config", argv))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A6\.[23]"):
+        cli.eval_algorithm(cfg)
+
+
 def test_an_unregistered_algorithm_is_refused_with_the_registrys_error():
     cfg = dotdict(compose("config", TINY + ["algo.name=nope"]))
     with pytest.raises(ValueError, match="unknown algorithm 'nope'; registered algorithms: .*dreamer_v3"):

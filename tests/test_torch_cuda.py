@@ -5,7 +5,9 @@ continuous actor's gradient through the kernel's backward), and the train
 step captured as a CUDA graph (sheeprl_tpu_torch/ops/graph.py: replays
 against eager steps, fresh noise each replay, a capture refusing a host
 sync, Adam's count on the device); the PPO, A2C and recurrent PPO updates
-and fused rollouts captured against eager.
+and fused rollouts captured against eager; the Plan2Explore exploration
+step captured against eager, B1 launched in its scan and both
+imaginations.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so with ``--noconftest``
@@ -1309,3 +1311,73 @@ def test_cuda_serve_swap_under_load_never_mixes_versions(cuda, tmp_path):
         other_w, other_b = expect[300 - step]
         np.testing.assert_allclose(out, vector @ w + b, rtol=1e-5, atol=1e-5)
         assert not np.allclose(out, vector @ other_w + other_b, rtol=1e-3, atol=1e-3)
+
+
+# --------------------------------------------------------------------------- #
+# Plan2Explore on Dreamer-V3: the exploration step
+# --------------------------------------------------------------------------- #
+
+
+def _p2e(continuous, state=None, precision="bf16-mixed"):
+    """The P2E agent at SMALL_TRAIN widths on the card (seeded, or
+    ``state``'s models), its optimizers, Moments and exploration step."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as expl
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.algos.p2e_dv3.convert import load_checkpoint_state
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.math import init_moments
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    env = "dummy_continuous" if continuous else "dummy_discrete"
+    overrides = {**SMALL_TRAIN, "fabric.precision": precision, "seed": 3, "algo.horizon": 4, "algo.ensembles.n": 4}
+    argv = ["exp=p2e_dv3_exploration", "env=dummy", f"env.id={env}", "algo.mlp_keys.encoder=[state]"]
+    cfg = dotdict(compose("config", argv + [f"{k}={v}" for k, v in overrides.items()]))
+    space = spaces.Dict(
+        {"rgb": spaces.Box(0, 255, (16, 16, 3), np.uint8), "state": spaces.Box(-20, 20, (5,), np.float32)}
+    )
+    agent = build_agent((2,) if continuous else (3,), continuous, cfg, space, device="cuda")
+    if state is not None:
+        load_checkpoint_state(state, agent)
+    opts = expl.build_optimizers(cfg, agent)
+    dev = torch.device("cuda")
+    moments = (init_moments(dev), {k: init_moments(dev) for k in agent.critics_exploration})
+    return agent, opts, moments, expl.make_train_step(agent, opts, cfg, continuous)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_p2e_exploration_replays_match_eager_steps(cuda, smooth, monkeypatch, continuous):
+    """Three graph replays of the exploration step (world model, ensemble,
+    both imaginations through the fused step, seven optimizers) against
+    three eager steps from the same weights and batches, at bf16-mixed:
+    metrics, every trained parameter and every Moments. B1 is called
+    T + 2 (horizon + 1) times a step, captured once."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as expl
+    from sheeprl_tpu_torch.algos.p2e_dv3.convert import checkpoint_state
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    graphed, gopts, (gmt, gme), gstep = _p2e(continuous)
+    eager, _, (emt, eme), estep = _p2e(continuous, checkpoint_state(graphed, gopts, gmt, gme))
+    batches = [_batch(8, 4, continuous, seed=s) for s in range(3)]
+    tgru.reset_launch_count()
+    metrics = estep(emt, eme, batches[0])
+    assert tgru.launch_count == tgru.bf16_x_launch_count == 8 + 2 * 5
+    eager, _, (emt, eme), estep = _p2e(continuous, checkpoint_state(graphed, gopts, gmt, gme))
+    fn = expl.make_train_fn(gstep, graphed, gopts, gmt, gme, {k: torch.empty_like(v) for k, v in batches[0].items()}, None)
+    for b in batches:
+        for k, v in b.items():
+            fn.inputs[k].copy_(v)
+        got = fn()
+        want = estep(emt, eme, b)
+        assert torch.isfinite(got).all() and got.shape == metrics.shape
+        assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    assert fn.replays == 3 and fn.captured_launches == 8 + 2 * 5
+    for a, b in zip(
+        [p for m in expl.trained_modules(graphed) for p in m.parameters()],
+        [p for m in expl.trained_modules(eager) for p in m.parameters()],
+    ):
+        assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)
+    for a, b in [(gmt, emt)] + [(gme[k], eme[k]) for k in gme]:
+        torch.testing.assert_close(a.high, b.high, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
