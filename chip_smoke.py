@@ -271,6 +271,30 @@ which exits non-zero:
    c.train_cfg("pixel_catcher"), 80); c.phase_p2e_step(torch, np, fg, rb,
    s, a, k); c.phase_p2e_cli(torch, np, fg, tempfile.mkdtemp())'`` (TF32
    off first).
+17. Placement, PPO's overlapped collection and Dreamer-V2, bf16-mixed:
+   (a) ``dispatch_roundtrip_seconds()`` and what ``auto`` resolves to for
+   the player and for PPO's update (the card); ``exp=ppo`` (CartPole-v1,
+   the MLP) with ``algo.player_device=cpu``, then ``algo.train_device=cpu``,
+   and ``exp=dreamer_v3`` at S on PixelCatcher with the player on the host
+   for two train windows: env-steps/s and each run's devices, B1 launched by
+   the learner only (the host player's calls counted apart: none), the
+   player's copy bit-equal to the learner's after the flush before the
+   test; (b) ``exp=ppo``'s host loop with ``algo.overlap_collection`` off
+   and on, the same seed and updates: env-steps/s, the share of
+   ``Time/train_wait_time``, the params that collected each rollout (with
+   overlap, those after update N-2), each overlapped update replayed alone
+   from its recorded inputs and state bit for bit; (c) Dreamer-V2 at
+   ``exp=dreamer_v2``'s widths on PixelCatcher: its captured step against
+   eager on phase 6's replay (B=16, T=50, horizon 15), ms a replay, the
+   idle share and top kernels, no B1 launch; ``exp=dreamer_v2`` through
+   ``cli.run`` with ``buffer.type=sequential`` and with ``episode`` and
+   ``prioritize_ends``, then ``cli_eval``. Alone on the card: ``python -c 'import chip_smoke as c, numpy as np,
+   torch, tempfile; from sheeprl_tpu_torch.ops import fused_gru as fg;
+   fg.load_library(); rb, s, a, k = c.filled_replay(np,
+   c.train_cfg("pixel_catcher"), 80); c.phase_placement(torch, np, fg,
+   tempfile.mkdtemp()); c.phase_overlap(torch, np); c.phase_dv2_step(torch,
+   np, fg, rb, s, a, k); c.phase_dv2_cli(torch, np, fg,
+   tempfile.mkdtemp())'`` (TF32 off first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -4406,6 +4430,353 @@ def phase_p2e_cli(torch, np, fg, tmp: str):
     return launches, bf16_launches, report
 
 
+
+# --------------------------------------------------------------------------- #
+# phase 17: placement, PPO's overlapped collection, Dreamer-V2
+# --------------------------------------------------------------------------- #
+
+# 17(a): exp=ppo (CartPole-v1, the 64 x 2 MLP, 4 sync envs) for
+# PLACE_PPO_UPDATES updates (from 128) at each placement; Dreamer-V3 S on
+# PixelCatcher with the player on the host, cut to the two train windows
+# after learning_starts (from 5M env steps, 1024 and a 1M buffer), its
+# episodes (the test's too, which the host player plays) to EVAL_CAP steps
+PLACE_PPO_UPDATES = 3
+PLACE_DV3_CUTS = {"algo.total_steps": 260, "algo.learning_starts": 256, "buffer.size": 4096, "algo.run_test": True, "env.max_episode_steps": EVAL_CAP}
+# 17(b): the same exp=ppo host loop, overlap off and on, for
+# OVERLAP_UPDATES updates each (from 128)
+OVERLAP_UPDATES = 6
+# 17(c): Dreamer-V2 at exp=dreamer_v2's widths on PixelCatcher (its
+# env=gym pixels need pygame, ROADMAP A1): the step on phase 6's replay
+# (B=16, T=50, horizon 15), and the CLI runs cut from 5M env steps, 1000
+# learning_starts and a 5M buffer; the episode buffer's windows are 24
+# long (from 50): a PixelCatcher episode ends at its first miss, 31 steps
+# or more, and the buffer refuses episodes shorter than a window
+DV2_T = 50
+DV2_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096, "algo.run_test": True}
+DV2_EPISODE_T = 24
+
+
+def ppo_cli_recording(torch, tmp: str, run_name: str, overrides: list, record=None) -> tuple:
+    """``cli.run`` of ``exp=ppo`` with ``overrides``, PPO's ``main`` kept
+    for its report and given ``record``; returns (report, seconds)."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    out = {}
+    real_main = ppo.main
+    argv = [*overrides, f"seed={SEED}", "env.capture_video=False", f"log_base_dir={tmp}/logs", f"metric.telemetry.runs_jsonl={tmp}/RUNS.jsonl", f"run_name={run_name}"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(ppo, "main", lambda fabric, cfg: out.update(real_main(fabric, cfg, record=record))), contextlib.redirect_stdout(buf):
+        cli.run(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_placement(torch, np, fg, tmp: str) -> tuple:
+    """17(a) the round trip of one tiny op on the card and what ``auto``
+    resolves to for the player and for training (the card); ``exp=ppo``
+    with ``algo.player_device=cpu``, then ``algo.train_device=cpu``;
+    Dreamer-V3 S with ``algo.player_device=cpu``: env-steps/s, the
+    player's device, B1's launches in training (all in the learner: the
+    host player's calls launch none) and, after the flush before the test,
+    the player's copy equal to the learner's bit for bit. Returns B1's
+    launches and the report."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import agent as dv3_agent
+    from sheeprl_tpu_torch.parallel import fabric as pf
+
+    cuda = torch.device("cuda")
+    report = {"card": card_line()}
+    rtt = pf.dispatch_roundtrip_seconds(cuda)
+    mlp = [torch.zeros(4 * 64 + 64 * 64 + 64 * 2 + 64 * 64 + 64)]
+    report["probe"] = {
+        "dispatch_roundtrip_seconds": rtt,
+        "threshold_seconds": pf._RTT_PROBE_THRESHOLD_S,
+        "player_auto": str(pf.resolve_player_device("auto", cuda) or cuda),
+        "train_auto_ppo_mlp": str(pf.resolve_train_device("auto", mlp, 1, cuda) or cuda),
+    }
+    print("phase 17(a) placement_probe " + json.dumps(report["probe"]), flush=True)
+    if report["probe"]["player_auto"] != "cuda" or report["probe"]["train_auto_ppo_mlp"] != "cuda":
+        raise AssertionError(f"auto placed the player or the update off a local card: {report['probe']}")
+    base = ["exp=ppo", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={128 * 4 * PLACE_PPO_UPDATES}"]
+    report["ppo"] = {}
+    for name, key, want in (("player_cpu", "algo.player_device=cpu", ("cpu", "cuda")), ("train_cpu", "algo.train_device=cpu", ("cuda", "cpu"))):
+        out, seconds = ppo_cli_recording(torch, tmp, f"ppo_{name}", [*base, key])
+        row = {**ppo_run_report(out, seconds), "player_device": out["player_device"], "train_device": out["train_device"]}
+        report["ppo"][name] = row
+        print(f"phase 17(a) ppo_{name} " + json.dumps(row), flush=True)
+        if (out["player_device"].split(":")[0], out["train_device"].split(":")[0]) != want or out["updates"] != PLACE_PPO_UPDATES:
+            raise AssertionError(f"17(a) exp=ppo {key}: {row}")
+    # Dreamer-V3 S: each player call counted with B1's launches inside it
+    calls = {"player_calls": 0, "player_b1_launches": 0, "params_match_after_flush": None}
+    real_get, real_flush = dv3_agent.PlayerDV3.get_actions, dv3_agent.PlayerDV3.flush_params
+
+    def get_actions(self, *a, **kw):
+        before = fg.launch_count
+        out = real_get(self, *a, **kw)
+        calls["player_calls"] += 1
+        calls["player_b1_launches"] += fg.launch_count - before
+        return out
+
+    def flush_params(self):
+        real_flush(self)
+        calls["params_match_after_flush"] = self.params_match()
+        calls["player_device"] = str(self.device)
+
+    argv = cli_argv(tmp, "dv3_player_cpu", telemetry=False, **{**PLACE_DV3_CUTS, "algo.player_device": "cpu"})
+    with mock.patch.object(dv3_agent.PlayerDV3, "get_actions", get_actions), mock.patch.object(dv3_agent.PlayerDV3, "flush_params", flush_params):
+        out, wrapper_calls, bf16_calls, seconds = cli_in_process(torch, fg, argv)
+    captured = out["captured_launches_per_step"]
+    launches = wrapper_calls - captured + captured * out["replays"]
+    bf16_launches = bf16_calls - captured + captured * out["replays"]
+    row = {
+        "env_steps": out["env_steps"],
+        "gradient_steps": out["gradient_steps"],
+        "train_windows": len(out["train_window_seconds"]),
+        "env_steps_per_s": out["env_steps"] / out["seconds"],
+        "run_seconds": seconds,
+        "player_device": out["player_device"],
+        "fused_gru_wrapper_calls": wrapper_calls,
+        "fused_gru_captured_per_step": captured,
+        "replays": out["replays"],
+        "fused_gru_launches": launches,
+        "fused_gru_bf16_x_launches": bf16_launches,
+        **calls,
+    }
+    report["dreamer_v3_player_cpu"] = row
+    print("phase 17(a) dv3_player_cpu " + json.dumps(row), flush=True)
+    if (
+        row["player_device"] != "cpu"
+        or row["train_windows"] != 2
+        or row["player_calls"] <= 0
+        or row["player_b1_launches"] != 0
+        or launches <= 0
+        or captured != SCAN_CALLS + IMAGINE_CALLS
+        or row["params_match_after_flush"] is not True
+        or bf16_calls != wrapper_calls
+    ):
+        raise AssertionError(f"17(a) Dreamer-V3 with the player on the host: {row}")
+    return launches, report
+
+
+def phase_overlap(torch, np) -> dict:
+    """17(b) ``exp=ppo``'s host loop at bf16-mixed with
+    ``algo.overlap_collection`` off and on, the same seed and
+    OVERLAP_UPDATES updates: env-steps/s, the share of the run spent in
+    ``Time/train_wait_time``, which params collected each rollout (with
+    overlap, rollout N those after update N-2), and each overlapped update
+    replayed alone from its recorded inputs, state and train stream
+    through a CUDA graph of its own on the default stream: bit for bit the
+    same metrics, params and optimizer state."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.envs.spaces import Box, Dict as SpaceDict
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+    from sheeprl_tpu_torch.ops.optim import build_optimizer
+
+    report = {"card": card_line()}
+    base = ["exp=ppo", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={128 * 4 * OVERLAP_UPDATES}"]
+    record = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for overlap in (False, True):
+            out, seconds = ppo_cli_recording(torch, tmp, f"overlap_{overlap}", [*base, f"algo.overlap_collection={overlap}"], record if overlap else None)
+            lag = 2 if overlap else 1
+            row = {
+                **ppo_run_report(out, seconds),
+                "overlap_collection": out["overlap_collection"],
+                "train_wait_seconds": out["train_wait_seconds"],
+                "train_wait_share": out["train_wait_seconds"] / out["seconds"],
+                "collected_with": out["collected_with"],
+            }
+            report["overlap" if overlap else "no_overlap"] = row
+            print(f"phase 17(b) ppo_overlap_{overlap} " + json.dumps(row), flush=True)
+            want = [[n, max(0, n - lag)] for n in range(1, OVERLAP_UPDATES + 1)]
+            if out["overlap_collection"] is not overlap or [list(c) for c in out["collected_with"]] != want or out["updates"] != OVERLAP_UPDATES:
+                raise AssertionError(f"17(b) overlap_collection={overlap}: {row}")
+    cfg = ppo_cfg(*base)
+    space = SpaceDict({"state": Box(-np.inf, np.inf, (4,), np.float32)})
+    agent, _ = build_agent((2,), False, cfg, space, device="cuda")
+    opt = build_optimizer(list(agent.parameters()), cfg.algo.optimizer, float(cfg.algo.max_grad_norm))
+    gen = torch.Generator(device="cuda")
+    n_local = int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
+    update = ppo.make_update_fn(agent, ppo.make_local_train(agent, opt, cfg, ["state"], n_local, gen), cfg, ["state"])
+    tensors = ppo.opt_state_tensors(agent, opt)
+    fn = CapturedStep(update, {k: v.clone() for k, v in record[0]["inputs"].items()}, tensors, gen)
+    equal = []
+    for r in record:
+        with torch.no_grad():
+            for t, s in zip(tensors, r["state_before"]):
+                t.copy_(s)
+            for k, v in r["inputs"].items():
+                fn.inputs[k].copy_(v)
+        gen.set_state(r["generator"])
+        got = fn()
+        torch.cuda.synchronize()
+        equal.append(bool(torch.equal(got, r["metrics"])) and all(torch.equal(t, s) for t, s in zip(tensors, r["state_after"])))
+    report["updates_bit_equal_alone"] = equal
+    print("phase 17(b) overlapped_updates_replayed_alone_bit_equal " + json.dumps(equal), flush=True)
+    if len(equal) != OVERLAP_UPDATES or not all(equal):
+        raise AssertionError(f"17(b) an overlapped update differs from the same update run alone: {equal}")
+    return report
+
+
+def dv2_cfg(*argv, **overrides):
+    """``exp=dreamer_v2`` at its widths on PixelCatcher, bf16-mixed."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    args = {"seed": SEED, "fabric.precision": BF16, **overrides}
+    return dotdict(compose("config", ["exp=dreamer_v2", "env=pixel_catcher", "env.id=pixel_catcher", *argv] + [f"{k}={v}" for k, v in args.items()]))
+
+
+@contextlib.contextmanager
+def dv2_deterministic():
+    """The smooth samplers where Dreamer-V2's modules look them up."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2 import agent, dreamer_v2
+
+    def actions(actor, state, generator=None, greedy=False):
+        dists = agent.actor_dists(actor, actor(state))
+        if actor.is_continuous:
+            return dists[0].mean
+        return torch.cat([d.mode + d.probs - d.probs.detach() for d in dists], -1)
+
+    with mock.patch.object(agent, "compute_stochastic_state", smooth_state), mock.patch.object(dreamer_v2, "sample_actor_actions", actions):
+        yield
+
+
+def dv2_models(torch, cfg, obs_space, actions_dim, is_continuous, state=None):
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2.convert import load_checkpoint_state
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers
+
+    wm, actor, critic, target, _ = build_agent(actions_dim, is_continuous, cfg, obs_space, device="cuda")
+    opts = build_optimizers(cfg, wm, actor, critic)
+    if state is not None:
+        load_checkpoint_state(state, wm, actor, critic, target, opts)
+    return (wm, actor, critic, target), opts, dv2.make_train_step(wm, actor, critic, target, *opts, cfg)
+
+
+def phase_dv2_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous) -> dict:
+    """17(c) one Dreamer-V2 gradient step at exp=dreamer_v2's widths
+    (dense 400, 4 layers, ELU, CNN 48, recurrent 600, 32 x 32, horizon 15),
+    bf16-mixed, on REPLAYED_STEPS batches of phase 6's PixelCatcher replay
+    (B=16, T=50): replays of its CUDA graph against as many eager steps
+    from the same weights, smooth samplers and cuDNN's deterministic
+    algorithms (metrics and every parameter within REPLAY_BOUND); ms a
+    replay, a profiler window (idle share, top kernels) and B1 launched by
+    none of it (Dreamer-V2's recurrent model is the plain GRU cell)."""
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.convert import checkpoint_state
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    dev = torch.device("cuda")
+    batches = [to_batch(rb.sample(TRAIN_B, sequence_length=DV2_T), ["rgb"], dev) for _ in range(REPLAYED_STEPS)]
+    cfg = dv2_cfg()
+    report = {"B": TRAIN_B, "T": DV2_T, "horizon": int(cfg.algo.horizon), "precision": BF16, "replay_bound": REPLAY_BOUND}
+    fg.reset_launch_count()
+    with cudnn_deterministic(torch), dv2_deterministic():
+        graphed, gopts, gstep = dv2_models(torch, cfg, obs_space, actions_dim, is_continuous)
+        state = checkpoint_state(*graphed, gopts)
+        eager, _, estep = dv2_models(torch, cfg, obs_space, actions_dim, is_continuous, state)
+        fn = dv2.make_train_fn(gstep, *graphed[:3], gopts, {k: v.clone() for k, v in batches[0].items()}, None)
+        metric_errs = []
+        for b in batches:
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            dv2.hard_copy_(graphed[2], graphed[3])
+            dv2.hard_copy_(eager[2], eager[3])
+            got = fn()
+            want = estep(b, None)
+            metric_errs.append(rel_err(torch, got, want))
+        torch.cuda.synchronize()
+        params = lambda models: [p for m in models[:3] for p in m.parameters()]  # noqa: E731
+        param_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(params(graphed), params(eager)))
+        report["replayed_vs_eager"] = {
+            "metric_max_rel_err_per_step": metric_errs,
+            "param_max_rel_err": param_err,
+            "metrics": dict(zip(dv2.METRIC_ORDER, got.tolist())),
+            "replays": fn.replays,
+        }
+        if max(metric_errs + [param_err]) > REPLAY_BOUND or not torch.isfinite(got).all():
+            raise AssertionError(f"17(c) the Dreamer-V2 step replayed against eager: {report['replayed_vs_eager']}")
+        del graphed, eager, estep, fn
+    torch.cuda.empty_cache()
+    models, opts, step = dv2_models(torch, cfg, obs_space, actions_dim, is_continuous)
+    fn = dv2.make_train_fn(step, *models[:3], opts, {k: v.clone() for k, v in batches[0].items()}, torch.Generator(device="cuda").manual_seed(SEED))
+    fn()
+    report["ms_per_replay"] = [step_ms(torch, fn), step_ms(torch, fn)]
+    report["profile"] = profile_replays(torch, fn, replays=2, top=12)
+    report["fused_gru_launches"] = fg.launch_count
+    report["card"] = card_line()
+    print("phase 17(c) dv2_step " + json.dumps(report), flush=True)
+    if fg.launch_count != 0 or report["profile"]["gru_step_kernels_per_replay"] != 0:
+        raise AssertionError(f"17(c) the Dreamer-V2 step launched B1: {fg.launch_count} calls")
+    del models, fn
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_dv2_cli(torch, np, fg, tmp: str) -> dict:
+    """17(c) ``exp=dreamer_v2 env=pixel_catcher`` through ``cli.run`` cut
+    to DV2_CUTS, once with ``buffer.type=sequential`` (the ring
+    ``buffer.device`` picks) and once with ``buffer.type=episode
+    buffer.prioritize_ends=True`` (windows of DV2_EPISODE_T), each with
+    its test episode, then ``cli_eval`` on the episode run's checkpoint:
+    env-steps/s, gradient steps, the replay and no B1 launch."""
+    import glob
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+
+    common = {**DV2_CUTS, "seed": SEED, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}
+    report = {"card": card_line(), "cuts": {**DV2_CUTS, "episode_buffer.algo.per_rank_sequence_length": DV2_EPISODE_T}, "runs": {}}
+    ckpt = None
+    for name, extra in (
+        ("sequential", ["buffer.type=sequential"]),
+        ("episode", ["buffer.type=episode", "buffer.prioritize_ends=True", f"algo.per_rank_sequence_length={DV2_EPISODE_T}"]),
+    ):
+        argv = ["exp=dreamer_v2", "env=pixel_catcher", "env.id=pixel_catcher", f"run_name=dv2_{name}", *extra] + [f"{k}={v}" for k, v in common.items()]
+        out, calls, _, seconds = cli_in_process(torch, fg, argv, dv2)
+        ckpts = sorted(glob.glob(f"{out['log_dir']}/checkpoint/*.ckpt"))
+        row = {
+            "env_steps": out["env_steps"],
+            "gradient_steps": out["gradient_steps"],
+            "replays": out["replays"],
+            "env_steps_per_s": out["env_steps"] / out["seconds"],
+            "run_seconds": seconds,
+            "train_seconds": out["train_seconds"],
+            "replay_buffer": out["replay_buffer"],
+            "episodes": out["episodes"],
+            "player_device": out["player_device"],
+            "fused_gru_calls": calls,
+            "test_steps": out["test_steps"],
+            "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+        }
+        report["runs"][name] = row
+        print(f"phase 17(c) dv2_cli_{name} " + json.dumps(row), flush=True)
+        if out["env_steps"] != DV2_CUTS["algo.total_steps"] or out["gradient_steps"] <= 0 or out["replays"] != out["gradient_steps"] or calls != 0 or not row["last_metrics_finite"] or not ckpts or out["test_steps"] <= 0:
+            raise AssertionError(f"17(c) exp=dreamer_v2 buffer.type={name}: {row}")
+        ckpt = ckpts[-1]
+    buf = io.StringIO()
+    fg.reset_launch_count()
+    with contextlib.redirect_stdout(buf):
+        cli.evaluation([f"checkpoint_path={ckpt}", f"env.max_episode_steps={EVAL_CAP}"])
+    torch.cuda.synchronize()
+    report["cli_eval"] = {"episode_played": "Test - Reward:" in buf.getvalue(), "fused_gru_launches": fg.launch_count}
+    records = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")]
+    report["records"] = [[r["kind"], r["algo"], r["outcome"]] for r in records]
+    print("phase 17(c) dv2_cli " + json.dumps({k: report[k] for k in ("cli_eval", "records", "cuts")}), flush=True)
+    if not report["cli_eval"]["episode_played"] or fg.launch_count != 0 or report["records"] != [["train", "dreamer_v2", "completed"]] * 2 + [["eval", "dreamer_v2", "completed"]]:
+        raise AssertionError(f"17(c) Dreamer-V2 cli_eval or run records: {report['cli_eval']}, {report['records']}")
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4580,6 +4951,18 @@ def main() -> int:
         p2e_launches, p2e_bf16_launches, p2e_cli = phase_p2e_cli(torch, np, fg, tmp)
     phase_took("16")
 
+    # phase 17: (a) the placement probe and runs with the player or the
+    # update on the host, (b) PPO's overlapped collection, (c) Dreamer-V2:
+    # its step replayed against eager and timed, exp=dreamer_v2 with each
+    # buffer type through the CLI, then cli_eval
+    with tempfile.TemporaryDirectory() as tmp:
+        placement_launches, placement = phase_placement(torch, np, fg, tmp)
+    overlap = phase_overlap(torch, np)
+    dv2_step = phase_dv2_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    with tempfile.TemporaryDirectory() as tmp:
+        dv2_cli = phase_dv2_cli(torch, np, fg, tmp)
+    phase_took("17")
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -4590,10 +4973,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()),
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()) + placement_launches,
             # every launch of the bf16-mixed and bf16-true paths read a bf16 x
             # (checked there; P2E's counted in its runs)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()),
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()) + placement["dreamer_v3_player_cpu"]["fused_gru_bf16_x_launches"],
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -4607,6 +4990,7 @@ def main() -> int:
                 "env_pipeline_cli_loops": env_launches,
                 "dv3_bf16_true_and_mixed_steps": bf16_true_launches,
                 "p2e_dv3": p2e_launches,
+                "dv3_player_on_host": placement_launches,
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -4684,6 +5068,26 @@ def main() -> int:
                 "b1_vs_plain_metric_max_rel_err": p2e_step["b1_vs_plain"]["metric_max_rel_err"],
                 "env_steps_per_s": {name: r["env_steps_per_s"] for name, r in p2e_cli["runs"].items()},
                 "finetuning_switched_to_task_actor_at": p2e_cli["runs"]["finetuning"]["player_switched_to_task_actor_at_policy_step"],
+            },
+            # phase 17: the placements (B1 launched by the learner only),
+            # PPO's overlap and Dreamer-V2 (which reaches no TPU kernel)
+            "placement": {
+                "dispatch_roundtrip_seconds": placement["probe"]["dispatch_roundtrip_seconds"],
+                "auto": {k: placement["probe"][k] for k in ("player_auto", "train_auto_ppo_mlp")},
+                "ppo_env_steps_per_s": {k: r["env_steps_per_s"] for k, r in placement["ppo"].items()},
+                "dv3_player_cpu_env_steps_per_s": placement["dreamer_v3_player_cpu"]["env_steps_per_s"],
+                "dv3_player_cpu_b1_launches_by_player": placement["dreamer_v3_player_cpu"]["player_b1_launches"],
+            },
+            "ppo_overlap": {
+                "env_steps_per_s": {k: overlap[k]["env_steps_per_s"] for k in ("no_overlap", "overlap")},
+                "train_wait_share": {k: overlap[k]["train_wait_share"] for k in ("no_overlap", "overlap")},
+                "updates_bit_equal_alone": all(overlap["updates_bit_equal_alone"]),
+            },
+            "dreamer_v2": {
+                "b1_launches": 0,
+                "ms_per_replay": dv2_step["ms_per_replay"],
+                "device_idle_share": dv2_step["profile"]["device_idle_share"],
+                "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in dv2_cli["runs"].items()},
             },
             # the SAC family (phase 14) reaches no TPU kernel and launches
             # neither B1 nor B2 (checked)

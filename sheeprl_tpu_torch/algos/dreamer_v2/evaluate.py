@@ -1,0 +1,48 @@
+"""Dreamer-V2 evaluation entry point (port of
+``sheeprl_tpu/algos/dreamer_v2/evaluate.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+from sheeprl_tpu_torch.algos.dreamer_v2.convert import from_flax
+from sheeprl_tpu_torch.algos.dreamer_v2.utils import test
+from sheeprl_tpu_torch.device import DeviceLike
+from sheeprl_tpu_torch.envs.factory import make_env
+from sheeprl_tpu_torch.envs.spaces import action_dims
+from sheeprl_tpu_torch.parallel.fabric import Fabric
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.registry import register_evaluation
+
+
+@register_evaluation(algorithms="dreamer_v2")
+def evaluate(
+    fabric: Any, cfg: Optional[Dict[str, Any]] = None, state: Optional[Dict[str, Any]] = None, device: DeviceLike = None
+) -> Tuple[float, int]:
+    """Rebuild the world model and the actor from a checkpoint (the JAX
+    layout, either package's) and play one greedy episode; called as
+    ``cli_eval`` calls it, ``evaluate(fabric, cfg, state)``, or as
+    ``evaluate(cfg, state, device=...)``. Returns the episode's reward sum
+    and its number of steps."""
+    logger = log_dir = None
+    if isinstance(fabric, Fabric):
+        log_dir = get_log_dir(cfg)
+        logger = fabric.logger = get_logger(cfg, log_dir)
+        device = fabric.device
+    else:
+        fabric, cfg, state = None, fabric, cfg
+    cfg["env"]["screen_size"] = 64
+    cfg["env"]["frame_stack"] = 1
+    env = make_env(cfg, cfg["seed"], 0, log_dir, "test")()
+    actions_dim, is_continuous = action_dims(env.action_space)
+    observation_space = env.observation_space
+    env.close()
+    wm, actor, *_, player = build_agent(actions_dim, is_continuous, cfg, observation_space, device=device)
+    if state:
+        wm.load_state_dict(from_flax(wm, state["world_model"]))
+        actor.load_state_dict(from_flax(actor, state["actor"]))
+    result = test(player, cfg, log_dir, logger=logger)
+    if logger is not None:
+        logger.finalize()
+    return result

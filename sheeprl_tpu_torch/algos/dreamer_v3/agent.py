@@ -54,6 +54,7 @@ from sheeprl_tpu_torch.models.blocks import ConvTranspose2d, Conv2d, Dense, Laye
 from sheeprl_tpu_torch.ops.distributions import Independent, Normal, OneHotCategoricalStraightThrough, TanhNormal
 from sheeprl_tpu_torch.ops.fused_gru import fused_recurrent_step
 from sheeprl_tpu_torch.ops.math import symlog
+from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams
 
 # --------------------------------------------------------------------------- #
 # initialisers (the JAX package's hafner_init, uniform_init and flax's
@@ -816,9 +817,18 @@ def make_critic(cfg_critic: Dict[str, Any], latent_state_size: int, dtype: torch
 # --------------------------------------------------------------------------- #
 
 
-class PlayerDV3:
+class PlayerDV3(HostPlayerParams):
     """Keeps (h, z, previous action) per env on the device and advances them
-    with one observe+act step. Only the action goes back to the host."""
+    with one observe+act step. Only the action goes back to the host.
+    Placed on another device (``place_player``), it acts on its own copy of
+    the world model's acting modules and of the actor, streamed after each
+    train window and landed at the next action; a new actor (P2E's switch)
+    is copied at the assignment."""
+
+    _placed_attrs = ("wm", "actor")
+    _placed_prefixes = {
+        "wm": ("cnn_encoder.", "mlp_encoder.", "recurrent_model.", "representation_model.", "transition_model.", "initial_recurrent_state")
+    }
 
     def __init__(
         self, wm: WorldModel, actor: Actor, actions_dim: Sequence[int], num_envs: int, device: torch.device
@@ -861,6 +871,7 @@ class PlayerDV3:
         the posterior's mode in place of a sample. ``mask`` (the env's
         ``mask*`` keys) is honoured by a ``MinedojoActor`` and ignored by any
         other actor, as in the JAX player (:836-848)."""
+        self.poll_params()
         keys = self.wm.cnn_keys + self.wm.mlp_keys
         obs_t = {k: torch.as_tensor(obs[k]).to(self.device) for k in keys}
         z, h = self.wm.observe_step(self.z, self.h, self.actions, obs_t, generator, sample_state)

@@ -81,6 +81,7 @@ from sheeprl_tpu_torch.data.device_buffer import (
     draw_sequence_batch,
     make_sequential_replay,
 )
+from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
 from sheeprl_tpu_torch.data.prefetch import BatchPrefetcher
 from sheeprl_tpu_torch.device import DeviceLike
 from sheeprl_tpu_torch.envs.factory import build_vector_env
@@ -106,7 +107,7 @@ from sheeprl_tpu_torch.obs.telemetry import (
     telemetry_run_metrics,
     telemetry_train_window,
 )
-from sheeprl_tpu_torch.parallel.fabric import Fabric
+from sheeprl_tpu_torch.parallel.fabric import Fabric, place_player, resolve_player_device
 from sheeprl_tpu_torch.parallel.fence import DispatchFence
 from sheeprl_tpu_torch.resilience.autoresume import emit_pending_resilience_events, resolve_auto_resume
 from sheeprl_tpu_torch.resilience.manager import RunResilience
@@ -490,13 +491,18 @@ def batch_inputs(
     stack: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Static ``[T, B, ...]`` input tensors (``[stack, T, B, ...]`` with
-    ``stack``) for the keys of ``rb``, a host buffer or the device ring:
-    pixels uint8, everything else fp32."""
-    stored = rb.bufs if isinstance(rb, DeviceReplayBuffer) else rb.buffer[0].buffer
+    ``stack``) for the keys of ``rb``, a host buffer, the device ring or an
+    ``EpisodeBuffer`` (by its first episode): pixels uint8, everything else
+    fp32."""
+    if isinstance(rb, EpisodeBuffer):
+        trailing = {k: v.shape[1:] for k, v in rb.buffer[0].items()}
+    else:
+        stored = rb.bufs if isinstance(rb, DeviceReplayBuffer) else rb.buffer[0].buffer
+        trailing = {k: v.shape[2:] for k, v in stored.items()}
     lead = (sequence_length, batch_size) if stack is None else (stack, sequence_length, batch_size)
     return {
-        k: torch.zeros((*lead, *v.shape[2:]), dtype=torch.uint8 if k in cnn_keys else torch.float32, device=device)
-        for k, v in stored.items()
+        k: torch.zeros((*lead, *shape), dtype=torch.uint8 if k in cnn_keys else torch.float32, device=device)
+        for k, shape in trailing.items()
     }
 
 
@@ -739,19 +745,24 @@ def loop_state(
     log_dir: str,
     state: Optional[Mapping[str, Any]],
     buffer_state: Optional[Mapping[str, Any]] = None,
+    player_device: Optional[torch.device] = None,
+    rb: Any = None,
 ) -> LoopState:
     """The replay where ``buffer.device`` puts it (``buffer_state["rb"]``,
     of either buffer mode, loaded into it when given) and, from a resumed
-    ``state``, its counters, ``Ratio`` and streams; ``learning_starts``
-    moves past the resume point unless ``buffer.checkpoint`` restored the
-    buffer."""
+    ``state``, its counters, ``Ratio`` and streams (the player's on
+    ``player_device``, by default ``device``); ``learning_starts`` moves
+    past the resume point unless ``buffer.checkpoint`` restored the
+    buffer. A given ``rb`` (Dreamer-V2's episode buffer) replaces the
+    sequence replay."""
     algo, buffer_cfg = cfg["algo"], cfg["buffer"]
     seed, num_envs = int(cfg["seed"]), int(cfg["env"]["num_envs"])
     dry_run = bool(cfg.get("dry_run", False))
     obs_keys = list(algo["cnn_keys"]["encoder"]) + list(algo["mlp_keys"]["encoder"])
     buffer_size = int(buffer_cfg["size"]) // num_envs if not dry_run else 2
     memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0")
-    rb = make_sequential_replay(cfg, device, obs_space, actions_dim, buffer_size, num_envs, obs_keys, memmap_dir, seed)
+    if rb is None:
+        rb = make_sequential_replay(cfg, device, obs_space, actions_dim, buffer_size, num_envs, obs_keys, memmap_dir, seed)
     if buffer_state is not None:
         ring = isinstance(rb, DeviceReplayBuffer)
         rb = adapt_restored_buffer(
@@ -768,7 +779,7 @@ def loop_state(
         batch_size=int(algo["per_rank_batch_size"]),
         ratio=Ratio(float(algo["replay_ratio"]), pretrain_steps=int(algo["per_rank_pretrain_steps"])),
         train_gen=torch.Generator(device=device).manual_seed(seed),
-        player_gen=torch.Generator(device=device).manual_seed(stream_seed(seed, 1)),
+        player_gen=torch.Generator(device=player_device or device).manual_seed(stream_seed(seed, 1)),
         sample_gen=torch.Generator(device=device).manual_seed(stream_seed(seed, SAMPLE_KEY_SALT)),
     )
     if state is not None:
@@ -784,6 +795,15 @@ def loop_state(
         if "sample_rng_key" in state:
             restore_generator(ls.sample_gen, state["sample_rng_key"], seed, update, SAMPLE_KEY_SALT)
     return ls
+
+
+def place_dreamer_player(player: Any, cfg: Mapping[str, Any], device: torch.device) -> Any:
+    """The player on ``algo.player_device`` (JAX ``agent.py:982``): on the
+    host, it acts on its own copy of the acting modules."""
+    target = resolve_player_device(cfg["algo"].get("player_device", "auto"), device) or device
+    place_player(player, target)
+    print(f"Dreamer player on {player.device}, training on {device}")
+    return player
 
 
 def replay_kind(rb: Any) -> str:
@@ -812,7 +832,8 @@ class ReplayTrainer:
         self.cnn_keys = list(algo["cnn_keys"]["encoder"])
         self.prefetch = int(cfg["buffer"]["prefetch"])
         self.ema_every = int(algo["critic"]["per_rank_target_network_update_freq"])
-        self.tau = float(algo["critic"]["tau"])
+        # a hard copy (Dreamer-V2) has no tau
+        self.tau = float(algo["critic"].get("tau", 1.0))
         self.keep = int(cfg["metric"]["log_level"]) > 0
         self.count_flops = get_telemetry() is not None
         self.fence = DispatchFence(device, depth=int(algo.get("dispatch_fence_depth", 4) or 4))
@@ -986,11 +1007,12 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     moments = init_moments(dev)
     if state is not None:
         load_checkpoint_state(state, wm, actor, critic, target_critic, opts, moments)
+    place_dreamer_player(player, cfg, dev)
     train_step = make_train_step(wm, actor, critic, target_critic, *opts, cfg, is_continuous)
 
     buffer_cfg = cfg["buffer"]
     # a checkpoint of either buffer mode resumes into this run's mode
-    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state, state if buffer_cfg["checkpoint"] else None)
+    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state, state if buffer_cfg["checkpoint"] else None, player.device)
     rb, ratio, batch_size = ls.rb, ls.ratio, ls.batch_size
     policy_step, last_log, last_checkpoint = ls.policy_step, ls.last_log, ls.last_checkpoint
     use_device_rb = isinstance(rb, DeviceReplayBuffer)
@@ -1030,6 +1052,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         resil.resalt_key(ls.train_gen)
         resil.resalt_key(ls.sample_gen)
         trainer.pending.clear()  # the poisoned window must not reach the log
+        player.sync_params()
 
     trainer = ReplayTrainer(
         cfg,
@@ -1135,6 +1158,9 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                 if resil.finite_checks and not resil.check_finite(trainer.last.cpu().numpy(), update):
                     nan_rollback(update)
                     continue
+            if n_steps > 0:
+                # a placed player's copy lands at a later action (JAX :1075)
+                player.stream_params()
 
             # ---------------- logging ---------------- #
             logs.maybe_log(policy_step, update == ls.num_updates, trainer)
@@ -1157,6 +1183,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     seconds = time.perf_counter() - t_start
     envs.close()
     test_reward, test_steps = None, 0
+    player.flush_params()
     if algo.get("run_test", False) and not preempted:
         test_reward, test_steps = test(player, cfg, log_dir, greedy=False, logger=logger)
     logger.finalize()
@@ -1182,6 +1209,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         "replays": sum(fn.replays for _, fn in graphs),
         "graphs": [{"steps": n, "captured_launches": fn.captured_launches, "replays": fn.replays} for n, fn in graphs],
         "replay_buffer": replay_kind(rb),
+        "player_device": str(player.device),
         # the episode played after training (algo.run_test), on the player
         "test_cumulative_reward": test_reward,
         "test_steps": test_steps,

@@ -49,6 +49,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
     imagination_start,
     imagine,
     loop_state,
+    place_dreamer_player,
     policy_loss,
     replay_kind,
     resolve_fabric,
@@ -362,7 +363,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             aggregator.add(name, "mean")
 
     buffer_cfg = cfg["buffer"]
-    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state, state if buffer_cfg["checkpoint"] else None)
+    place_dreamer_player(agent.player, cfg, dev)
+    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state, state if buffer_cfg["checkpoint"] else None, agent.player.device)
     rb, ratio = ls.rb, ls.ratio
     policy_step, last_log, last_checkpoint = ls.policy_step, ls.last_log, ls.last_checkpoint
 
@@ -398,6 +400,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             n_steps = ratio(policy_step) if update >= ls.learning_starts else 0
             if n_steps > 0:
                 trainer.window(n_steps)
+                # a placed player's copy lands at a later action (JAX :859-860)
+                agent.player.stream_params()
             logs.maybe_log(policy_step, update == ls.num_updates, trainer)
             last_log = logs.last_log
             if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
@@ -415,6 +419,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     envs.close()
     # the task actor's zero-shot test (JAX :950-952)
     test_reward, test_steps = None, 0
+    agent.player.flush_params()
     if algo.get("run_test", False):
         agent.player.actor = agent.actor_task
         test_reward, test_steps = test(agent.player, cfg, log_dir, "zero-shot", greedy=False, logger=logger)

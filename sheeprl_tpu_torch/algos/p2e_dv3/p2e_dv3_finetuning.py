@@ -28,7 +28,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_critic, init_weights, make_actor
 from sheeprl_tpu_torch.algos.dreamer_v3.convert import actor_from_flax, actor_to_flax
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import EnvLoop, LogWindows, ReplayTrainer, ema_, loop_state, replay_kind, resolve_fabric
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import EnvLoop, LogWindows, ReplayTrainer, ema_, loop_state, place_dreamer_player, replay_kind, resolve_fabric
 from sheeprl_tpu_torch.algos.p2e_dv3.convert import TASK_KEYS
 from sheeprl_tpu_torch.algos.p2e_dv3.utils import AGGREGATOR_KEYS_FINETUNING, test
 from sheeprl_tpu_torch.config.compose import load_config_file
@@ -161,7 +161,8 @@ def main(
     # a resumed run keeps its counters; the buffer comes from the resumed
     # checkpoint (buffer.checkpoint) or the exploration one (JAX :159-170)
     restore = (resuming and buffer_cfg["checkpoint"]) or load_buffer
-    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state if resuming else None, state if restore else None)
+    place_dreamer_player(player, cfg, dev)
+    ls = loop_state(cfg, dev, obs_space, actions_dim, log_dir, state if resuming else None, state if restore else None, player.device)
     rb, ratio = ls.rb, ls.ratio
     policy_step, last_log, last_checkpoint = ls.policy_step, ls.last_log, ls.last_checkpoint
 
@@ -206,6 +207,7 @@ def main(
                     player.actor = actor_task
                     switched_at = policy_step + num_envs
                 trainer.window(n_steps)
+                player.stream_params()
             logs.maybe_log(policy_step, update == ls.num_updates, trainer)
             last_log = logs.last_log
             if (int(ckpt_cfg["every"]) > 0 and policy_step - last_checkpoint >= int(ckpt_cfg["every"])) or (
@@ -223,6 +225,7 @@ def main(
     envs.close()
     # the task actor's few-shot test (JAX :446-448)
     test_reward, test_steps = None, 0
+    player.flush_params()
     if algo.get("run_test", False):
         player.actor = actor_task
         test_reward, test_steps = test(player, cfg, log_dir, "few-shot", greedy=False, logger=logger)

@@ -33,6 +33,7 @@ from sheeprl_tpu_torch.device import DeviceLike, Precision, resolve_device
 from sheeprl_tpu_torch.models.blocks import MLP, Dense, NatureCNN
 from sheeprl_tpu_torch.ops.distributions import Categorical, Independent, Normal
 from sheeprl_tpu_torch.ops.graph import CapturedStep
+from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams
 
 
 def _image_channels(shape: Sequence[int]) -> int:
@@ -218,13 +219,16 @@ def rollout_step(
     return actions, real_actions_from_onehot(agent.actions_dim, agent.is_continuous, actions), logprob, values
 
 
-class PPOPlayer:
+class PPOPlayer(HostPlayerParams):
     """The agent on its device for rollouts and evaluation: observations in
     as numpy (pixels stay ``uint8`` across the bus), tensors out. On the
     card ``rollout_actions`` replays one CUDA graph of :func:`rollout_step`
     (captured at the first call, the generator registered with it) over
     static observation tensors, as the JAX player jits it into one
-    program; elsewhere it runs eagerly."""
+    program; elsewhere it runs eagerly. Placed (``place_player``), it acts
+    on its own copy of the agent."""
+
+    _placed_attrs = ("agent",)
 
     def __init__(self, agent: PPOAgent, device: torch.device) -> None:
         self.agent = agent

@@ -36,14 +36,27 @@ shares: an :class:`OnPolicyAlgorithm` names what the two differ in (the
 update, its gradient steps, its metrics, the CNN keys, the truncation
 bootstrap of the host loop).
 
-Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``algo.overlap_collection`` (A4), ``algo.player_device`` and
-``algo.train_device`` other than the card (A4), and ``exp=ppo_decoupled``
-(A10).
+Placement (JAX :339, :373-388): ``algo.player_device`` puts the player on
+the host (its own copy of the agent, synced after each update as one flat
+transfer) and ``algo.train_device`` the update (the agent, its optimizer
+and the eager update; a CUDA graph only on the card), by
+``parallel/fabric.py``'s resolvers; A2C reads both, through this loop.
+
+``algo.overlap_collection`` (PPO only, JAX :693-865): the host loop
+dispatches update N on a side stream and does not wait; rollout N+1 is
+collected meanwhile by the player's snapshot of the params from before
+update N (a copy of its own: the update writes the learner's in place),
+into the other slot of a two-slot ``RolloutStore``. Before dispatching
+N+1 the loop waits on N's metrics (``Time/train_wait_time``), checks them
+(a non-finite update rolls back and the rollout collected against it is
+dropped), and only then syncs the player. The last update is drained
+before the final checkpoint and the test. The fused rollout turns it off.
+``exp=ppo_decoupled`` raises naming ROADMAP A10.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -78,7 +91,7 @@ from sheeprl_tpu_torch.ops.math import gae
 from sheeprl_tpu_torch.ops.optim import Optimizer, build_optimizer
 from sheeprl_tpu_torch.ops.rollout_scan import ENV_STREAM_SALT, init_env_carry, make_onpolicy_superstep_fn
 from sheeprl_tpu_torch.ops.superstep import fused_fallback, reset_fused_fallback_warnings
-from sheeprl_tpu_torch.parallel.fabric import Fabric
+from sheeprl_tpu_torch.parallel.fabric import Fabric, place_player, resolve_player_device, resolve_train_device
 from sheeprl_tpu_torch.resilience.autoresume import emit_pending_resilience_events, resolve_auto_resume
 from sheeprl_tpu_torch.resilience.manager import RunResilience
 from sheeprl_tpu_torch.utils.callback import CheckpointCallback
@@ -293,22 +306,6 @@ def resolve_fused_rollout_spec(
     return spec
 
 
-def _check_ported(cfg: Mapping[str, Any]) -> None:
-    algo = cfg["algo"]
-    if bool(algo.get("overlap_collection", False)):
-        raise NotImplementedError(
-            "algo.overlap_collection=True (collection overlapped with the update on one-update-stale params, "
-            "with a two-slot RolloutStore) is not ported to sheeprl_tpu_torch yet (ROADMAP A4)"
-        )
-    for key in ("player_device", "train_device"):
-        value = str(algo.get(key, "auto") or "auto").lower()
-        if value not in ("auto", "accelerator"):
-            raise NotImplementedError(
-                f"algo.{key}={value!r}: the port runs the player and the update on the run's device; a separate "
-                f"{key.split('_')[0]} device is not ported to sheeprl_tpu_torch yet (ROADMAP A4)"
-            )
-
-
 class RunStart(NamedTuple):
     fabric: Fabric
     cfg: Dict[str, Any]
@@ -322,7 +319,7 @@ class RunStart(NamedTuple):
 def start_run(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike, vector_only: bool = False) -> RunStart:
     """The opening of PPO's, A2C's and recurrent PPO's ``main``: the
     Fabric (the CLI's, or one on ``device`` with a checkpoint callback when
-    called as ``main(cfg, device=...)``), the unported options refused, the
+    called as ``main(cfg, device=...)``), the
     CNN keys dropped with a warning when ``vector_only`` (A2C), the
     checkpoint to resume (``auto`` resolved) loaded, the log dir, logger
     and saved config, and the resilience plane over the callback."""
@@ -332,7 +329,6 @@ def start_run(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike, ve
             keep_last=ckpt_cfg["keep_last"], backend=ckpt_cfg["backend"], async_save=ckpt_cfg["async_save"]
         )
         fabric, cfg = Fabric.for_device(device, fabric["fabric"]["precision"], [callback]), fabric
-    _check_ported(cfg)
     algo = cfg["algo"]
     if vector_only and algo["cnn_keys"]["encoder"]:
         warnings.warn(f"{algo['name']} is vector-only; the CNN keys will be ignored")
@@ -360,8 +356,8 @@ class OnPolicyAlgorithm:
     update over the flat rollout, returning ``metric_order``'s values),
     ``gradient_steps(cfg, n_local)`` (optimizer steps an update), the
     aggregator's keys, whether the agent reads vectors only (A2C drops the
-    CNN keys with a warning) and whether the host loop bootstraps truncated
-    episodes."""
+    CNN keys with a warning), whether the host loop bootstraps truncated
+    episodes and whether it reads ``algo.overlap_collection`` (PPO)."""
 
     make_local_train: Callable[..., Callable[..., torch.Tensor]]
     gradient_steps: Callable[[Mapping[str, Any], int], int]
@@ -369,6 +365,7 @@ class OnPolicyAlgorithm:
     aggregator_keys: FrozenSet[str]
     vector_only: bool = False
     bootstrap_truncated: bool = True
+    overlap: bool = False
 
 
 def _ppo_gradient_steps(cfg: Mapping[str, Any], n_local: int) -> int:
@@ -376,25 +373,55 @@ def _ppo_gradient_steps(cfg: Mapping[str, Any], n_local: int) -> int:
     return int(algo["update_epochs"]) * max(1, n_local // int(algo["per_rank_batch_size"]))
 
 
-PPO = OnPolicyAlgorithm(make_local_train, _ppo_gradient_steps, METRIC_ORDER, frozenset(AGGREGATOR_KEYS))
+PPO = OnPolicyAlgorithm(make_local_train, _ppo_gradient_steps, METRIC_ORDER, frozenset(AGGREGATOR_KEYS), overlap=True)
 
 
 @register_algorithm()
-def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None) -> Dict[str, Any]:
+def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike = None, record: Optional[List[Dict[str, Any]]] = None) -> Dict[str, Any]:
     """Train PPO, called as the CLI calls it, ``main(fabric, cfg)``, on the
     Fabric's device, or as ``main(cfg, device=...)`` on ``device`` (the CUDA
     card unless ``device="cpu"``), for ``algo.total_steps`` env steps (one
     update with ``dry_run``), as the JAX ``main`` runs it on one device.
-    Returns the run's counts, seconds, metrics and graph replays."""
-    return train_onpolicy(fabric, cfg, device, PPO)
+    Returns the run's counts, seconds, metrics and graph replays. A
+    ``record`` list receives, for each host-loop update, its inputs and the
+    update's state before and after (:class:`_Recorder`)."""
+    return train_onpolicy(fabric, cfg, device, PPO, record)
 
 
-def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLike, algorithm: OnPolicyAlgorithm) -> Dict[str, Any]:
+class _Recorder:
+    """Each host-loop update's inputs, train-stream state and update state
+    (params and optimizer) before, and its metrics and update state after,
+    cloned on the stream that runs the update."""
+
+    def __init__(self, out: List[Dict[str, Any]], tensors: Sequence[torch.Tensor], generator: torch.Generator) -> None:
+        self.out, self.tensors, self.generator = out, list(tensors), generator
+        self.current: Dict[str, Any] = {}
+
+    def before(self, update: int, inputs: Mapping[str, torch.Tensor]) -> None:
+        self.current = {
+            "update": update,
+            "inputs": {k: v.clone() for k, v in inputs.items()},
+            "state_before": [t.detach().clone() for t in self.tensors],
+            "generator": self.generator.get_state(),
+        }
+
+    def after(self, metrics: torch.Tensor) -> None:
+        self.current.update(metrics=metrics.clone(), state_after=[t.detach().clone() for t in self.tensors])
+        self.out.append(self.current)
+
+
+def train_onpolicy(
+    fabric: Any,
+    cfg: Optional[Dict[str, Any]],
+    device: DeviceLike,
+    algorithm: OnPolicyAlgorithm,
+    record: Optional[List[Dict[str, Any]]] = None,
+) -> Dict[str, Any]:
     """The on-policy loop of PPO and A2C (``main``'s contract), with what
     differs taken from ``algorithm``."""
     fabric, cfg, state, log_dir, logger, callback, resil = start_run(fabric, cfg, device, algorithm.vector_only)
     ckpt_cfg = cfg["checkpoint"]
-    dev = fabric.device
+    run_dev = fabric.device
     algo = cfg["algo"]
     seed = int(cfg["seed"])
 
@@ -424,8 +451,14 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
             obs_widened = True
 
     agent, player = build_agent(
-        actions_dim, is_continuous, cfg, observation_space, agent_from_flax(state["agent"]) if state else None, device=dev
+        actions_dim, is_continuous, cfg, observation_space, agent_from_flax(state["agent"]) if state else None, device=run_dev
     )
+    # the update's device (JAX :373-388): the agent, its optimizer and every
+    # tensor the update reads live there
+    dev = resolve_train_device(algo.get("train_device", "auto"), agent, 1, run_dev) or run_dev
+    if dev != run_dev:
+        agent.to(dev)
+        player = PPOPlayer(agent, dev)
     num_envs = int(cfg["env"]["num_envs"])
     rollout_steps = int(algo["rollout_steps"])
     policy_steps_per_update = num_envs * rollout_steps
@@ -460,11 +493,18 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
             "env.variants requires the fused rollout path; set algo.fused_rollout=True (if it is set, the "
             "fused_fallback telemetry event names the gate that failed)"
         )
+    # the fused rollout has no host collection to overlap (JAX :433)
+    overlap = algorithm.overlap and bool(algo.get("overlap_collection", False)) and fused_spec is None
+    # the player's device (JAX :339); under overlap it acts on a snapshot
+    # of its own, which the in-flight update does not write
+    place_player(player, resolve_player_device(algo.get("player_device", "auto"), run_dev) or run_dev, snapshot=overlap)
+    print(f"PPO-family placement: player on {player.device}, update on {dev}, overlap_collection={overlap}")
 
     # the train stream (permutations), the player stream and the env stream
     # of the fused rollout (JAX :464-480, :610)
     train_gen = torch.Generator(device=dev).manual_seed(seed)
-    player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
+    # the fused rollout's policy draws run in its graph on the update's device
+    player_gen = torch.Generator(device=dev if fused_spec is not None else player.device).manual_seed(stream_seed(seed, 1))
     env_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, ENV_STREAM_SALT))
     start_update = int(state["update"]) + 1 if state is not None else 1
     policy_step = int(state["update"]) * policy_steps_per_update if state is not None else 0
@@ -485,7 +525,16 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
     count_flops = get_telemetry() is not None
     gamma = float(algo["gamma"])
 
+    # overlap on the card: each update runs on a stream of its own
+    train_stream = torch.cuda.Stream(dev) if overlap and dev.type == "cuda" else None
+
+    def settle() -> None:
+        # reads of the learner's state after a dispatched update wait for it
+        if train_stream is not None:
+            torch.cuda.current_stream(dev).wait_stream(train_stream)
+
     def ckpt_state_fn(completed_update: int) -> Dict[str, Any]:
+        settle()
         return {
             "agent": agent_to_flax(agent.state_dict()),
             "opt_state": optimizer_to_optax(opt, param_names, agent_to_flax),
@@ -504,6 +553,7 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
     def rollback(at_update: int) -> None:
         # the params and the optimizer back to the newest committed
         # checkpoint, in place (a captured graph keeps reading them)
+        nonlocal player_version
         restored = resil.rollback(update=at_update)
         sd = agent_from_flax(restored["agent"])
         for name, p in agent.named_parameters():
@@ -512,6 +562,8 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
         if "rng_key" in restored:
             restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
         resil.resalt_key(train_gen)
+        player.sync_params()
+        player_version = int(restored["update"])
 
     def on_episode(env: int, ret: float, length: int, t: int) -> None:
         # policy_step is the step count before the rollout
@@ -521,7 +573,10 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
             print(f"Rank-0: policy_step={policy_step + (t + 1) * num_envs}, reward_env_{env}={ret}")
 
     update_fn: Optional[CapturedStep] = None
-    store = RolloutStore(rollout_steps, device=dev)
+    # two slots under overlap: rollout N+1 is written while update N copies
+    # slot N into the graph's inputs on its stream (JAX :710)
+    store = RolloutStore(rollout_steps, device=dev, slots=2 if overlap else 1)
+    recorder = _Recorder(record, opt_state_tensors(agent, opt), train_gen) if record is not None else None
     next_obs: Dict[str, np.ndarray] = {}
     env_carry: Dict[str, torch.Tensor] = {}
     if fused_spec is not None:
@@ -566,19 +621,86 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
     windows: List[Tuple[Any, Any]] = []
     wall: List[float] = []  # host seconds of each update, rollout included
     env_seconds = 0.0
+    # the completed updates in the params the player holds, by rollout
+    player_version = start_update - 1
+    collected_with: List[Tuple[int, int]] = []
+    # overlap: (metrics, update, event) of the update in flight
+    pending: Optional[Tuple[torch.Tensor, int, Any]] = None
+    wait_seconds = 0.0
+
+    def log_losses(metrics_np: np.ndarray) -> None:
+        if log_level > 0:
+            for name, value in zip(algorithm.metric_order, metrics_np):
+                aggregator.update(name, float(value))
+
+    def finalize_pending() -> bool:
+        # the overlap loop's one wait (JAX :700-723): the in-flight update's
+        # metrics, the finite check, and only then the player's params
+        nonlocal pending, train_windows, player_version, wait_seconds
+        if pending is None:
+            return True
+        pending_metrics, pending_update, event = pending
+        pending = None
+        t_wait = time.perf_counter()
+        with timer("Time/train_wait_time"):
+            if event is not None:
+                event.synchronize()
+            metrics_np = pending_metrics.cpu().numpy()
+        wait_seconds += time.perf_counter() - t_wait
+        train_windows += 1
+        if resil.finite_checks and not resil.check_finite(metrics_np, pending_update):
+            rollback(pending_update)
+            return False
+        player.sync_params()
+        player_version = pending_update
+        log_losses(metrics_np)
+        return True
+
+    def dispatch(update: int, buf: RolloutBuffer) -> torch.Tensor:
+        # the slot, the observation after the rollout and the coefficients
+        # into the graph's inputs, then the update, on the update's stream
+        nonlocal update_fn
+        if update_fn is None:
+            inputs = {k: (v.clone() if overlap else v) for k, v in buf.arrays().items()}
+            for k in obs_keys:
+                inputs[f"next/{k}"] = torch.zeros_like(inputs[k][0])
+            inputs["coefs"] = coefs
+            update_fn = CapturedStep(make_update_fn(agent, local_train, cfg, obs_keys), inputs, opt_state_tensors(agent, opt), train_gen)
+            update_fn.count_flops = count_flops
+        stream = contextlib.nullcontext()
+        if train_stream is not None:
+            train_stream.wait_stream(torch.cuda.current_stream(dev))
+            stream = torch.cuda.stream(train_stream)
+        with stream:
+            coefs.copy_(torch.tensor([clip_coef, ent_coef]), non_blocking=True)
+            if overlap:
+                for k, v in buf.arrays().items():
+                    update_fn.inputs[k].copy_(v, non_blocking=True)
+            for k in obs_keys:
+                update_fn.inputs[f"next/{k}"].copy_(torch.from_numpy(next_obs[k]), non_blocking=True)
+            if recorder is not None:
+                recorder.before(update, update_fn.inputs)
+            start = _clock(dev)
+            out = update_fn()
+            windows.append((start, _clock(dev)))
+            if recorder is not None:
+                recorder.after(out)
+        return out
+
     resil.arm_crash_guard(path_fn=lambda: ckpt_path_fn(policy_step), state_fn=lambda: ckpt_state_fn(update - 1))
     t_start = time.perf_counter()
     try:
         for update in range(start_update, num_updates + 1):
             telemetry_advance(policy_step)
             if resil.preempt_requested():
+                finalize_pending()
                 last_checkpoint = policy_step
                 resil.emergency_checkpoint(ckpt_path_fn(policy_step), ckpt_state_fn(update - 1))
                 preempted = True
                 break
             t_update = time.perf_counter()
-            coefs.copy_(torch.tensor([clip_coef, ent_coef]), non_blocking=True)
             if fused_spec is not None:
+                coefs.copy_(torch.tensor([clip_coef, ent_coef]), non_blocking=True)
                 with timer("Time/env_interaction_time"):
                     start = _clock(dev)
                     metrics, ep_done, ep_ret, ep_len = update_fn()
@@ -595,45 +717,49 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
             else:
                 buf = store.begin(update)
                 t_env = time.perf_counter()
+                collected_with.append((update, player_version))
                 with timer("Time/env_interaction_time"):
                     next_obs = collect_rollout(
                         player, envs, buf, next_obs, player_gen, rollout_steps, gamma, cnn_keys, on_episode, algorithm.bootstrap_truncated
                     )
                 policy_step += policy_steps_per_update
                 env_seconds += time.perf_counter() - t_env
-                if update_fn is None:
-                    inputs = dict(buf.arrays())
-                    for k in obs_keys:
-                        inputs[f"next/{k}"] = torch.zeros_like(inputs[k][0])
-                    inputs["coefs"] = coefs
-                    update_fn = CapturedStep(
-                        make_update_fn(agent, local_train, cfg, obs_keys), inputs, opt_state_tensors(agent, opt), train_gen
-                    )
-                    update_fn.count_flops = count_flops
-                for k in obs_keys:
-                    update_fn.inputs[f"next/{k}"].copy_(torch.from_numpy(next_obs[k]), non_blocking=True)
-                with timer("Time/train_time"):
-                    start = _clock(dev)
-                    metrics = update_fn()
-                    windows.append((start, _clock(dev)))
-                    metrics_np = metrics.cpu().numpy()
                 # T policy calls and copies, the critic, GAE and the update in one replay
                 telemetry_train_window(rollout_steps + 1, steps_per_update)
+                if overlap and not finalize_pending():
+                    # the in-flight update rolled back: the rollout collected
+                    # against it is dropped too (JAX :817-820)
+                    wall.append(time.perf_counter() - t_update)
+                    continue
+                with timer("Time/train_time"):
+                    metrics = dispatch(update, buf)
+                    if not overlap:
+                        metrics_np = metrics.cpu().numpy()
             wall.append(time.perf_counter() - t_update)
             if update == start_update:
                 telemetry_register_flops(lambda: update_fn.flops, scale=1.0 / steps_per_update)
                 telemetry_mark_warm()
-            train_windows += 1
-            if resil.finite_checks and not resil.check_finite(metrics_np, update):
-                rollback(update)
-                if fused_spec is not None:
-                    # fresh episodes: poisoned params may have driven the env state non-finite too
-                    for k, v in init_env_carry(fused_spec, num_envs, env_gen, env_carry.get("theta")).items():
-                        update_fn.inputs[k].copy_(v)
-                continue
-            if log_level > 0:
-                for name, value in zip(algorithm.metric_order, metrics_np):
-                    aggregator.update(name, float(value))
+            if overlap:
+                # not waited on: the next rollout runs on the params from
+                # before this update; the last one is drained before the
+                # final checkpoint and the test
+                pending = (metrics, update, None if train_stream is None else torch.cuda.Event())
+                if train_stream is not None:
+                    pending[2].record(train_stream)
+                if update == num_updates:
+                    finalize_pending()
+            else:
+                train_windows += 1
+                if resil.finite_checks and not resil.check_finite(metrics_np, update):
+                    rollback(update)
+                    if fused_spec is not None:
+                        # fresh episodes: poisoned params may have driven the env state non-finite too
+                        for k, v in init_env_carry(fused_spec, num_envs, env_gen, env_carry.get("theta")).items():
+                            update_fn.inputs[k].copy_(v)
+                    continue
+                player.sync_params()
+                player_version = update
+                log_losses(metrics_np)
             if log_level > 0 and (policy_step - last_log >= log_every or update == num_updates):
                 metrics_dict = aggregator.compute()
                 logger.log_metrics(metrics_dict, policy_step)
@@ -658,6 +784,7 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
             ):
                 last_checkpoint = policy_step
                 callback.on_checkpoint_coupled(ckpt_path_fn(policy_step), ckpt_state_fn(update))
+        finalize_pending()
     except BaseException as err:
         if isinstance(err, Exception):
             resil.crash_checkpoint(err)
@@ -665,10 +792,12 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
         logger.finalize()
         envs.close()
         raise
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if dev.type == "cuda" or run_dev.type == "cuda":
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t_start
     envs.close()
+    # the fused loop never played: the test plays the final params
+    player.sync_params()
     test_reward, test_steps = None, 0
     if algo.get("run_test", True) and not preempted:
         if obs_widened:
@@ -697,4 +826,11 @@ def train_onpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLik
         "replays": 0 if update_fn is None else update_fn.replays,
         "test_cumulative_reward": test_reward,
         "test_steps": test_steps,
+        "player_device": str(player.device),
+        "train_device": str(dev),
+        "overlap_collection": overlap,
+        # (update, completed updates in the params that collected its rollout)
+        "collected_with": collected_with,
+        # host seconds spent waiting on in-flight updates (Time/train_wait_time)
+        "train_wait_seconds": wait_seconds,
     }

@@ -43,6 +43,7 @@ from sheeprl_tpu_torch.algos.ppo.agent import (
 from sheeprl_tpu_torch.device import DeviceLike, Precision, resolve_device
 from sheeprl_tpu_torch.models.blocks import MLP, Dense, LSTMCell
 from sheeprl_tpu_torch.ops.graph import CapturedStep
+from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -222,14 +223,17 @@ def recurrent_rollout_step(
     return actions, real, logprob, values, new_hx, new_cx
 
 
-class RecurrentPPOPlayer:
+class RecurrentPPOPlayer(HostPlayerParams):
     """The agent on its device for rollouts and evaluation; the caller owns
     the recurrent state. Observations come as numpy ``[E, ...]`` (pixels
     stay ``uint8`` across the bus), ``prev_actions [E, A]``, ``hx`` and
     ``cx [E, H]`` as tensors on the device; outputs drop the time axis. On
     the card ``rollout_actions`` replays one CUDA graph of
     :func:`recurrent_rollout_step` (captured at the first call, the
-    generator registered with it); elsewhere it runs eagerly."""
+    generator registered with it); elsewhere it runs eagerly. Placed
+    (``place_player``), it acts on its own copy of the agent."""
+
+    _placed_attrs = ("agent",)
 
     def __init__(self, agent: RecurrentPPOAgent, device: torch.device) -> None:
         self.agent = agent

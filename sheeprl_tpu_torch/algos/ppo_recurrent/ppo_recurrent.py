@@ -84,6 +84,7 @@ from sheeprl_tpu_torch.ops.rollout_scan import (
     make_recurrent_onpolicy_superstep_fn,
 )
 from sheeprl_tpu_torch.ops.superstep import fused_fallback, reset_fused_fallback_warnings
+from sheeprl_tpu_torch.parallel.fabric import place_player, resolve_player_device
 from sheeprl_tpu_torch.utils.metric import build_aggregator
 from sheeprl_tpu_torch.utils.prealloc import RolloutStore
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -448,8 +449,10 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             "fused_fallback telemetry event names the gate that failed)"
         )
 
+    # the player's device (JAX :324); recurrent PPO reads no train_device
+    place_player(player, resolve_player_device(algo.get("player_device", "auto"), dev) or dev)
     train_gen = torch.Generator(device=dev).manual_seed(seed)
-    player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
+    player_gen = torch.Generator(device=dev if fused_spec is not None else player.device).manual_seed(stream_seed(seed, 1))
     env_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, ENV_STREAM_SALT))
     start_update = int(state["update"]) + 1 if state is not None else 1
     policy_step = int(state["update"]) * policy_steps_per_update if state is not None else 0
@@ -495,6 +498,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
         if "rng_key" in restored:
             restore_generator(train_gen, restored["rng_key"], seed, int(restored["update"]))
         resil.resalt_key(train_gen)
+        player.sync_params()
 
     def on_episode(env: int, ret: float, length: int, t: int) -> None:
         if log_level > 0:
@@ -510,9 +514,10 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     env_carry: Dict[str, torch.Tensor] = {}
     next_obs: Dict[str, np.ndarray] = {}
     hidden = agent.lstm_hidden_size
-    hx = torch.zeros(num_envs, hidden, device=dev)
-    cx = torch.zeros(num_envs, hidden, device=dev)
-    prev_actions = torch.zeros(num_envs, n_actions, device=dev)
+    # the host loop's recurrent carry lives with the player
+    hx = torch.zeros(num_envs, hidden, device=player.device)
+    cx = torch.zeros(num_envs, hidden, device=player.device)
+    prev_actions = torch.zeros(num_envs, n_actions, device=player.device)
     if fused_spec is not None:
         thetas = None
         if isinstance(fused_spec, ScenarioFamily):
@@ -556,8 +561,8 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
             inputs = dict(buf_arrays)
             for k in obs_keys:
                 inputs[f"next/{k}"] = torch.zeros_like(inputs[k][0])
-            inputs["next/prev_actions"] = torch.zeros_like(prev_actions)
-            inputs["next/hx"], inputs["next/cx"] = torch.zeros_like(hx), torch.zeros_like(cx)
+            inputs["next/prev_actions"] = torch.zeros_like(prev_actions, device=dev)
+            inputs["next/hx"], inputs["next/cx"] = torch.zeros_like(hx, device=dev), torch.zeros_like(cx, device=dev)
             inputs["seq/index"] = torch.zeros(seq_len, n_pad, dtype=torch.int64, device=dev)
             inputs["seq/mask"] = torch.zeros(seq_len, n_pad, 1, device=dev)
             inputs["seq/start"] = torch.zeros(n_pad, dtype=torch.int64, device=dev)
@@ -641,6 +646,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
                     for k, v in fresh.items():
                         fused_fn.inputs[k].copy_(v)
                 continue
+            player.sync_params()
             if log_level > 0:
                 for name, value in zip(METRIC_ORDER, metrics_np):
                     aggregator.update(name, float(value))
@@ -679,6 +685,7 @@ def main(fabric: Any, cfg: Optional[Dict[str, Any]] = None, device: DeviceLike =
     seconds = time.perf_counter() - t_start
     envs.close()
     test_reward, test_steps = None, 0
+    player.sync_params()
     if algo.get("run_test", True) and not preempted:
         if obs_widened:
             warnings.warn("skipping run_test: env.variants widened the observation past the host env's")

@@ -34,6 +34,7 @@ from sheeprl_tpu_torch.algos.sac.convert import LOG_ALPHA, StackedDense, Stacked
 from sheeprl_tpu_torch.device import DeviceLike, Precision, resolve_device
 from sheeprl_tpu_torch.envs.spaces import Box
 from sheeprl_tpu_torch.models.blocks import Dense
+from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams
 
 LOG_STD_MAX = 2.0
 LOG_STD_MIN = -5.0
@@ -203,10 +204,13 @@ def _frozen_copy(module: nn.Module) -> nn.Module:
     return target
 
 
-class SACPlayer:
+class SACPlayer(HostPlayerParams):
     """The acting policy over the agent's own actor (JAX ``SACPlayer``
-    :145-173): on one device the player reads the live parameters, so
-    there is nothing to stream."""
+    :145-173): on the learner's device the player reads the live
+    parameters; placed on another (``place_player``), its copy of the actor
+    is streamed after each train window and lands at the next action."""
+
+    _placed_attrs = ("actor",)
 
     def __init__(self, actor: SACActor, device: torch.device) -> None:
         self.actor = actor
@@ -214,6 +218,7 @@ class SACPlayer:
 
     @torch.no_grad()
     def get_actions(self, obs: np.ndarray, generator: Optional[torch.Generator] = None, greedy: bool = False) -> np.ndarray:
+        self.poll_params()
         x = torch.as_tensor(np.asarray(obs, np.float32), device=self.device)
         if greedy:
             return actor_greedy_action(self.actor, x).cpu().numpy()

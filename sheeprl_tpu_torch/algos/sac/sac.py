@@ -63,6 +63,7 @@ from sheeprl_tpu_torch.envs.spaces import Box
 from sheeprl_tpu_torch.obs.heartbeat import log_sps_and_heartbeat
 from sheeprl_tpu_torch.obs.telemetry import telemetry_advance, telemetry_run_metrics, telemetry_train_window
 from sheeprl_tpu_torch.ops.graph import CapturedStep
+from sheeprl_tpu_torch.parallel.fabric import place_player, resolve_player_device
 from sheeprl_tpu_torch.ops.optim import Adam, build_optimizer
 from sheeprl_tpu_torch.ops.superstep import SAMPLE_KEY_SALT, fused_fallback, reset_fused_fallback_warnings
 from sheeprl_tpu_torch.utils.checkpoint import elastic_per_rank_batch_size, select_buffer
@@ -481,6 +482,9 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
         fused_k = 0
 
     trainer, player = algorithm.build(cfg, observation_space, action_space, state, dev, batch_size, fused_k)
+    # the player's device (JAX ``agent.py:245``, SAC-AE :442): on another,
+    # its copy streams after each train window (JAX :595-597)
+    place_player(player, resolve_player_device(algo.get("player_device", "auto"), dev) or dev)
     step_data_fn = algorithm.step_data(cfg)
     player_obs = algorithm.player_obs(cfg)
 
@@ -494,7 +498,7 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
     if state is not None and not buffer_cfg["checkpoint"]:
         learning_starts += start_step
     ratio = Ratio(float(algo["replay_ratio"]), pretrain_steps=int(algo["per_rank_pretrain_steps"]))
-    player_gen = torch.Generator(device=dev).manual_seed(stream_seed(seed, 1))
+    player_gen = torch.Generator(device=player.device).manual_seed(stream_seed(seed, 1))
     if state is not None:
         trainer.load_state(state)
         ratio.load_state_dict(state["ratio"])
@@ -530,6 +534,7 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
         if "rng_key" in restored:
             restore_generator(trainer.train_gen, restored["rng_key"], seed, int(restored["update"]))
         resil.resalt_key(trainer.train_gen)
+        player.sync_params()
 
     obs, _ = envs.reset(seed=seed)
     update = start_step
@@ -590,6 +595,7 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
                         rollback(update)
                         wall.append(time.perf_counter() - t_update)
                         continue
+                    player.stream_params()
                     if log_level > 0:
                         for name, value in zip(trainer.metric_names, window_metrics):
                             aggregator.update(name, float(value))
@@ -628,6 +634,8 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
     probe.finish(policy_step, sync=(lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None, work=gradient_steps)
     envs.close()
     test_reward, test_steps = None, 0
+    # the test plays the last window's params (JAX :641)
+    player.flush_params()
     if algo.get("run_test", True) and not preempted:
         test_reward, test_steps = test(player, cfg, lambda o: player_obs(o, 1), log_dir, logger=logger)
     logger.finalize()
@@ -657,6 +665,7 @@ def train_offpolicy(fabric: Any, cfg: Optional[Dict[str, Any]], device: DeviceLi
         "fused_gradient_steps": trainer.fused_k,
         "captures": trainer.captures,
         "replays": trainer.replays,
+        "player_device": str(player.device),
         "h2d_bytes": trainer.h2d_bytes,
         "test_cumulative_reward": test_reward,
         "test_steps": test_steps,

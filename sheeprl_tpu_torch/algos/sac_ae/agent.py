@@ -33,6 +33,7 @@ from sheeprl_tpu_torch.algos.sac.convert import LOG_ALPHA, flax_init_, load_, to
 from sheeprl_tpu_torch.device import DeviceLike, resolve_device
 from sheeprl_tpu_torch.envs.spaces import Box
 from sheeprl_tpu_torch.models.blocks import Conv2d, ConvTranspose2d, Dense, LayerNorm, get_activation
+from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams
 
 LOG_STD_MAX = 2.0
 LOG_STD_MIN = -10.0
@@ -254,9 +255,13 @@ def encoder_inputs(batch: Mapping[str, torch.Tensor], cnn_keys: Sequence[str], m
     return obs
 
 
-class SACAEPlayer:
+class SACAEPlayer(HostPlayerParams):
     """The acting policy: the agent's encoder and actor on raw observations
-    (JAX ``SACAEPlayer`` :282-325)."""
+    (JAX ``SACAEPlayer`` :282-325); placed (``place_player``), on its own
+    copy of the two, streamed after each train window."""
+
+    _placed_attrs = ("agent",)
+    _placed_prefixes = {"agent": ("encoder.", "actor.")}
 
     def __init__(self, agent: SACAEAgent, device: torch.device) -> None:
         self.agent = agent
@@ -264,6 +269,7 @@ class SACAEPlayer:
 
     @torch.no_grad()
     def get_actions(self, obs: Mapping[str, np.ndarray], generator: Optional[torch.Generator] = None, greedy: bool = False) -> np.ndarray:
+        self.poll_params()
         enc = self.agent.encoder
         batch = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in obs.items()}
         feat = enc(encoder_inputs(batch, enc.cnn_keys, enc.mlp_keys))

@@ -1,6 +1,6 @@
 """Host replay buffers in numpy (port of ``sheeprl_tpu/data/buffers.py``:
-``ReplayBuffer`` :79, ``SequentialReplayBuffer`` :308-395 and
-``EnvIndependentReplayBuffer`` :397-529).
+``ReplayBuffer`` :79, ``SequentialReplayBuffer`` :308-395,
+``EnvIndependentReplayBuffer`` :397-529 and ``EpisodeBuffer`` :531-790).
 
 Storage is a dict of ``[buffer_size, n_envs, ...]`` arrays, in RAM or, with
 ``memmap=True``, in files under ``memmap_dir`` (``data/memmap.py``; one
@@ -20,8 +20,10 @@ sequential buffers ``[n_samples, seq_len, batch_size, ...]``.
 from __future__ import annotations
 
 import os
+import shutil
+import uuid
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Type
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
@@ -373,3 +375,247 @@ class EnvIndependentReplayBuffer:
             if bs > 0
         ]
         return {k: np.concatenate([s[k] for s in per_buf], axis=self._concat_along_axis) for k in per_buf[0]}
+
+
+class EpisodeBuffer:
+    """Whole episodes, one list of them for the buffer, each a dict of
+    ``[episode_length, ...]`` arrays (JAX :531-790; Dreamer-V1/V2's
+    ``buffer.type=episode``). ``add`` routes each env's steps into its open
+    episode and stores it when a step ends it (terminated or truncated); an
+    episode shorter than ``minimum_episode_length`` or longer than
+    ``buffer_size`` raises. The oldest whole episodes make room for a new
+    one. ``sample`` returns ``[n_samples, sequence_length, batch_size, ...]``
+    windows that never cross an episode: an episode a window, uniform over
+    the episodes long enough, a start uniform within it, or, with
+    ``prioritize_ends``, uniform over ``sequence_length`` more starts that
+    clip to the last window, so the end of an episode is drawn more often.
+    The draws are the JAX buffer's numpy calls in its order. With
+    ``memmap``, each episode's arrays live in files of their own under
+    ``memmap_dir``, removed when it is evicted; a pickle holds the arrays'
+    contents."""
+
+    batch_axis: int = 2
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: str | os.PathLike | None = None,
+        memmap_mode: str = "r+",
+        seed: Optional[int] = None,
+    ) -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"The sequence length must be greater than zero, got: {minimum_episode_length}")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(
+                f"The sequence length must be lower than the buffer size, got: bs = {buffer_size} and sl = {minimum_episode_length}"
+            )
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._buffer_size = buffer_size
+        self._minimum_episode_length = minimum_episode_length
+        self._prioritize_ends = bool(prioritize_ends)
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, Any]] = []
+        self._rng = np.random.default_rng(seed)
+        self._memmap = bool(memmap)
+        self._memmap_mode = memmap_mode
+        self._memmap_dir = _memmap_dir(memmap_dir, memmap_mode) if memmap else None
+        if self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+
+    @property
+    def prioritize_ends(self) -> bool:
+        return self._prioritize_ends
+
+    @prioritize_ends.setter
+    def prioritize_ends(self, value: bool) -> None:
+        self._prioritize_ends = bool(value)
+
+    @property
+    def buffer(self) -> Sequence[Dict[str, Any]]:
+        return self._buf
+
+    @property
+    def obs_keys(self) -> Sequence[str]:
+        return self._obs_keys
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def minimum_episode_length(self) -> int:
+        return self._minimum_episode_length
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
+    @property
+    def full(self) -> bool:
+        return self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size if self._buf else False
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def __getstate__(self) -> Dict[str, Any]:
+        state = self.__dict__.copy()
+        state["_buf"] = [{k: np.array(v) for k, v in ep.items()} for ep in self._buf]
+        state["_memmap"] = False
+        state["_memmap_dir"] = None
+        return state
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
+        """Route ``[seq_len, n_envs, ...]`` steps (of the envs
+        ``env_idxes``, by default all) into the envs' open episodes; a step
+        that ends an episode stores it (JAX :620-664)."""
+        if validate_args:
+            if data is None:
+                raise ValueError("The data must be not None")
+            _validate_add_data(data)
+            if "terminated" not in data or "truncated" not in data:
+                raise RuntimeError(f"The episode must contain the `terminated` and the `truncated` keys, got: {list(data.keys())}")
+            if env_idxes is not None and (np.asarray(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"The indices of the environment must be integers in [0, {self._n_envs}), given {env_idxes}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for data_idx, env in enumerate(env_idxes):
+            env_data = {k: np.asarray(v)[:, data_idx] for k, v in data.items()}
+            done = np.logical_or(env_data["terminated"], env_data["truncated"]).reshape(-1)
+            ends = done.nonzero()[0].tolist()
+            if not ends:
+                self._open_episodes[env].append(env_data)
+                continue
+            ends.append(len(done))
+            start = 0
+            for stop in ends:
+                chunk = {k: v[start : stop + 1] for k, v in env_data.items()}
+                if len(chunk["terminated"]) > 0:
+                    self._open_episodes[env].append(chunk)
+                start = stop + 1
+                last = self._open_episodes[env][-1] if self._open_episodes[env] else None
+                if last is not None and bool(np.logical_or(last["terminated"][-1], last["truncated"][-1])):
+                    self._save_episode(self._open_episodes[env])
+                    self._open_episodes[env] = []
+
+    def _save_episode(self, chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        if len(chunks) == 0:
+            raise RuntimeError("Invalid episode, an empty sequence is given. You must pass a non-empty sequence.")
+        episode = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0].keys()}
+        ends = np.logical_or(episode["terminated"], episode["truncated"]).reshape(-1)
+        ep_len = ends.shape[0]
+        if len(ends.nonzero()[0]) != 1 or not ends[-1]:
+            raise RuntimeError(f"The episode must contain exactly one done, got: {len(ends.nonzero()[0])}")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"Episode too short (at least {self._minimum_episode_length} steps), got: {ep_len} steps")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"Episode too long (at most {self._buffer_size} steps), got: {ep_len} steps")
+        # the oldest whole episodes go until the new one fits (JAX :686-698)
+        if self.full or len(self) + ep_len > self._buffer_size:
+            cum = np.array(self._cum_lengths)
+            keep_from = int(((len(self) - cum + ep_len) <= self._buffer_size).argmax())
+            evicted, self._buf = self._buf[: keep_from + 1], self._buf[keep_from + 1 :]
+            for ep in evicted:
+                self._remove_files(ep)
+            cum = cum[keep_from + 1 :] - cum[keep_from]
+            self._cum_lengths = cum.tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        if self._memmap:
+            episode_dir = self._memmap_dir / f"episode_{uuid.uuid4()}"
+            episode_dir.mkdir(parents=True, exist_ok=True)
+            episode = {
+                k: MemmapArray.from_array(v, mode=self._memmap_mode, filename=episode_dir / f"{k}.memmap") for k, v in episode.items()
+            }
+        self._buf.append(episode)
+
+    @staticmethod
+    def _remove_files(episode: Dict[str, Any]) -> None:
+        files = [v.filename for v in episode.values() if isinstance(v, MemmapArray)]
+        episode.clear()
+        if files:
+            shutil.rmtree(os.path.dirname(str(files[0])), ignore_errors=True)
+
+    def episode_lengths(self) -> np.ndarray:
+        return np.array(self._cum_lengths) - np.array([0] + self._cum_lengths[:-1])
+
+    def sample_indices(
+        self, batch_size: int, n_samples: int = 1, sequence_length: int = 1, sample_next_obs: bool = False
+    ) -> Tuple[List[int], List[np.ndarray]]:
+        """The draws of :meth:`sample` (JAX :720-758): the stored episodes
+        each window reads (ascending, with repeats grouped) and, for each
+        episode drawn, the ``[n, sequence_length]`` step indices of its
+        windows."""
+        if batch_size <= 0:
+            raise ValueError(f"Batch size must be greater than 0, got: {batch_size}")
+        if n_samples <= 0:
+            raise ValueError(f"The number of samples must be greater than 0, got: {n_samples}")
+        min_len = sequence_length + 1 if sample_next_obs else sequence_length
+        valid = [i for i, n in enumerate(self.episode_lengths()) if n >= min_len]
+        if len(valid) == 0:
+            raise RuntimeError(
+                "No valid episodes has been added to the buffer. Please add at least one episode of length greater "
+                f"than or equal to {sequence_length} calling `self.add()`"
+            )
+        offsets = np.arange(sequence_length, dtype=np.intp)[None, :]
+        n_per_ep = np.bincount(self._rng.integers(0, len(valid), (batch_size * n_samples,)), minlength=len(valid))
+        episodes, idxes = [], []
+        for i, n in enumerate(n_per_ep):
+            if n == 0:
+                continue
+            ep_len = np.asarray(self._buf[valid[i]]["terminated"]).shape[0] - (1 if sample_next_obs else 0)
+            upper = ep_len - sequence_length + 1
+            if self._prioritize_ends:
+                upper += sequence_length
+            starts = np.minimum(self._rng.integers(0, upper, size=(n, 1)), ep_len - sequence_length).astype(np.intp)
+            episodes.append(valid[i])
+            idxes.append(starts + offsets)
+        return episodes, idxes
+
+    def gather(
+        self, episodes: Sequence[int], idxes: Sequence[np.ndarray], batch_size: int, n_samples: int = 1, sample_next_obs: bool = False
+    ) -> Dict[str, np.ndarray]:
+        """The ``[n_samples, sequence_length, batch_size, ...]`` windows of
+        the draws ``(episodes, idxes)``, in their order."""
+        keys = list(self._buf[episodes[0]].keys())
+        chunks: Dict[str, List[np.ndarray]] = {k: [] for k in keys}
+        if sample_next_obs:
+            chunks.update({f"next_{k}": [] for k in self._obs_keys})
+        for e, idx in zip(episodes, idxes):
+            n, length = idx.shape
+            for k in keys:
+                arr = np.asarray(self._buf[e][k])
+                chunks[k].append(arr[idx.reshape(-1)].reshape(n, length, *arr.shape[1:]))
+                if sample_next_obs and k in self._obs_keys:
+                    chunks[f"next_{k}"].append(arr[(idx + 1).reshape(-1)].reshape(n, length, *arr.shape[1:]))
+        out: Dict[str, np.ndarray] = {}
+        for k, v in chunks.items():
+            if v:
+                stacked = np.concatenate(v, axis=0).reshape(n_samples, batch_size, v[0].shape[1], *v[0].shape[2:])
+                out[k] = np.ascontiguousarray(np.moveaxis(stacked, 2, 1))
+        return out
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        n_samples: int = 1,
+        clone: bool = False,
+        sequence_length: int = 1,
+        **kwargs: Any,
+    ) -> Dict[str, np.ndarray]:
+        """``[n_samples, sequence_length, batch_size, ...]`` windows from
+        within the stored episodes (JAX :700-772)."""
+        episodes, idxes = self.sample_indices(batch_size, n_samples, sequence_length, sample_next_obs)
+        return self.gather(episodes, idxes, batch_size, n_samples, sample_next_obs)

@@ -1,5 +1,5 @@
 """Distributions (port of ``sheeprl_tpu/ops/distributions.py``: ``Normal``,
-``Independent``, ``TanhNormal`` :201-241, ``Categorical`` :243-268,
+``Independent``, ``TruncatedNormal`` :132-200, ``TanhNormal`` :201-241, ``Categorical`` :243-268,
 ``OneHotCategorical`` and
 ``OneHotCategoricalStraightThrough`` :272-336, the Dreamer-V3 heads
 ``SymlogDistribution``, ``MSEDistribution``, ``TwoHotEncodingDistribution``
@@ -57,6 +57,82 @@ class Normal:
 
     def entropy(self) -> torch.Tensor:
         return _LOG_SQRT_2PI_E + torch.log(self.scale)
+
+
+def _std_normal_pdf(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-0.5 * x.square()) / _math.sqrt(2 * _math.pi)
+
+
+def _std_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.erf(x / _math.sqrt(2.0)))
+
+
+def _std_normal_icdf(p: torch.Tensor) -> torch.Tensor:
+    return _math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)
+
+
+class TruncatedNormal:
+    """The normal ``N(loc, scale)`` truncated to the finite ``[low, high]``
+    in closed form (JAX ``ops/distributions.py:132-200``; the Dreamer-V1/V2
+    continuous actors): ``rsample`` through the inverse CDF of a uniform
+    draw in ``[eps, 1 - eps]``, which ``uniform`` (the caller's noise) can
+    replace."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: torch.Tensor, high: torch.Tensor) -> None:
+        self.loc, self.scale, self.low, self.high = loc, scale, low, high
+
+    @property
+    def _a(self) -> torch.Tensor:
+        return (self.low - self.loc) / self.scale
+
+    @property
+    def _b(self) -> torch.Tensor:
+        return (self.high - self.loc) / self.scale
+
+    @property
+    def _Z(self) -> torch.Tensor:
+        eps = torch.finfo(self.loc.dtype).eps
+        return torch.clamp_min(_std_normal_cdf(self._b) - _std_normal_cdf(self._a), eps)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        num = _std_normal_pdf(self._b) - _std_normal_pdf(self._a)
+        return self.loc + self.scale * (-num / self._Z)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.minimum(torch.maximum(self.loc, self.low), self.high)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        z = (value - self.loc) / self.scale
+        return _LOG_INV_SQRT_2PI - torch.log(self._Z) - 0.5 * z.square() - torch.log(self.scale)
+
+    def icdf(self, p: torch.Tensor) -> torch.Tensor:
+        std = _std_normal_icdf(_std_normal_cdf(self._a) + p * self._Z)
+        return self.loc + self.scale * std
+
+    def uniform(self, generator: Optional[torch.Generator] = None, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """The ``[*sample_shape, *batch]`` uniform draw ``rsample`` maps."""
+        shape = tuple(sample_shape) + tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+        eps = torch.finfo(self.loc.dtype).eps
+        u = torch.rand(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        return eps + u * (1 - 2 * eps)
+
+    def rsample(
+        self, generator: Optional[torch.Generator] = None, sample_shape: Tuple[int, ...] = (), uniform: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        return self.icdf(self.uniform(generator, sample_shape) if uniform is None else uniform)
+
+    def sample(
+        self, generator: Optional[torch.Generator] = None, sample_shape: Tuple[int, ...] = (), uniform: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        with torch.no_grad():
+            return self.rsample(generator, sample_shape, uniform)
+
+    def entropy(self) -> torch.Tensor:
+        a, b, Z = self._a, self._b, self._Z
+        t1 = (b * _std_normal_pdf(b) - a * _std_normal_pdf(a)) / Z
+        return _LOG_SQRT_2PI_E + torch.log(Z) - 0.5 * t1 + torch.log(self.scale)
 
 
 class Independent:

@@ -99,6 +99,29 @@ def compute_lambda_values(
     return torch.stack(out[::-1])
 
 
+def compute_lambda_values_bootstrap(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    continues: torch.Tensor,
+    bootstrap: Optional[torch.Tensor] = None,
+    lmbda: float = 0.95,
+) -> torch.Tensor:
+    """TD(lambda) returns with an explicit bootstrap, the Dreamer-V1/V2
+    recurrence (JAX ``ops/math.py:129-153``), time-major ``[T, ...]``:
+    ``R_t = r_t + c_t * [(1 - lambda) * v_{t+1} + lambda * R_{t+1}]`` with
+    ``R_T = bootstrap`` (``[1, ...]``, zeros by default)."""
+    if bootstrap is None:
+        bootstrap = torch.zeros_like(values[-1:])
+    next_values = torch.cat([values[1:], bootstrap], 0)
+    interm = rewards + continues * next_values * (1 - lmbda)
+    carry = bootstrap[0]
+    out = []
+    for t in reversed(range(rewards.shape[0])):
+        carry = interm[t] + continues[t] * lmbda * carry
+        out.append(carry)
+    return torch.stack(out[::-1])
+
+
 def normalize(x: torch.Tensor, eps: float = 1e-8, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Standardise ``x`` by its mean and unbiased std (over ``mask``'s
     positions where given); keeps the shape."""

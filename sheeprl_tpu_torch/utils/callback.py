@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayBuffer
 from sheeprl_tpu_torch.obs.span import span
 from sheeprl_tpu_torch.obs.telemetry import telemetry_ckpt_commit, telemetry_ckpt_skipped
@@ -103,10 +103,14 @@ class CheckpointCallback:
 
     @staticmethod
     def _ckpt_rb(rb: Any) -> Any:
-        """Flag each env's last stored step truncated; returns the flags it
-        overwrote."""
+        """Flag each env's last stored step truncated (an ``EpisodeBuffer``
+        saves without its open episodes); returns what it overwrote."""
         if rb is None:
             return None
+        if isinstance(rb, EpisodeBuffer):
+            saved = rb._open_episodes
+            rb._open_episodes = [[] for _ in range(rb.n_envs)]
+            return saved
         if isinstance(rb, DeviceReplayBuffer):
             return rb.flag_last_truncated()
         if isinstance(rb, ReplayBuffer):
@@ -130,6 +134,9 @@ class CheckpointCallback:
             return
         if isinstance(rb, DeviceReplayBuffer):
             rb.restore_last_truncated(saved)
+            return
+        if isinstance(rb, EpisodeBuffer):
+            rb._open_episodes = saved
             return
         if isinstance(rb, ReplayBuffer):
             rb.buffer["truncated"][(rb._pos - 1) % rb.buffer_size] = saved

@@ -21,7 +21,7 @@ unpickling them by default would import optax and, with it, JAX. Here:
 - the port's own stand-ins and replay buffers (the host buffers and the
   device ring, both pickled as host arrays) are allowed;
 - the JAX package's replay buffers (``ReplayBuffer``,
-  ``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer``, the device
+  ``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer``, ``EpisodeBuffer``, the device
   ring) and its ``MemmapArray`` load as the port's classes of the same
   name, whose pickled state has the same fields: the host buffers' arrays
   and cursors, the ring's host arrays and cursors, a numpy generator each.
@@ -113,6 +113,7 @@ _JAX_CLASSES = {
         "sheeprl_tpu_torch.data.buffers",
         "EnvIndependentReplayBuffer",
     ),
+    ("sheeprl_tpu.data.buffers", "EpisodeBuffer"): ("sheeprl_tpu_torch.data.buffers", "EpisodeBuffer"),
     ("sheeprl_tpu.data.device_buffer", "DeviceReplayBuffer"): ("sheeprl_tpu_torch.data.device_buffer", "DeviceReplayBuffer"),
     ("sheeprl_tpu.data.memmap", "MemmapArray"): ("sheeprl_tpu_torch.data.memmap", "MemmapArray"),
 }
@@ -120,7 +121,7 @@ _JAX_CLASSES = {
 _PATHS = frozenset(("PosixPath", "PurePosixPath", "WindowsPath", "PureWindowsPath"))
 _PORT_CLASSES = {
     "sheeprl_tpu_torch.utils.checkpoint": frozenset(OPTAX_STAND_INS),
-    "sheeprl_tpu_torch.data.buffers": frozenset(("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer")),
+    "sheeprl_tpu_torch.data.buffers": frozenset(("ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer", "EpisodeBuffer")),
     "sheeprl_tpu_torch.data.device_buffer": frozenset(("DeviceReplayBuffer",)),
     "sheeprl_tpu_torch.data.memmap": frozenset(("MemmapArray",)),
 }

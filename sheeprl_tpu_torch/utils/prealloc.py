@@ -8,9 +8,9 @@ the copy). On the card the buffer is where the rollout lives: the values
 the player computed there are copied there, the env's numpy values cross
 the bus once, and a captured update reads the same tensors at every replay.
 
-``RolloutStore`` keeps one slot: the two-slot overlap that
-``algo.overlap_collection`` needs is not ported (ROADMAP A4; the loop
-raises on the option).
+``RolloutStore`` keeps ``slots`` buffers, the window of update N in slot
+``N % slots``: two under ``algo.overlap_collection``, where rollout N+1 is
+written while update N still reads slot N.
 """
 
 from __future__ import annotations
@@ -46,12 +46,15 @@ class RolloutBuffer:
 
 
 class RolloutStore:
-    """The buffer of each update's window: one slot (the JAX store's second
-    slot serves ``algo.overlap_collection``, which is not ported)."""
+    """The buffers of the updates' windows, ``slots`` of them (JAX
+    ``RolloutStore``)."""
 
-    def __init__(self, length: int, device: Optional[torch.device] = None) -> None:
-        self._buffer = RolloutBuffer(length, device)
+    def __init__(self, length: int, device: Optional[torch.device] = None, slots: int = 1) -> None:
+        if int(slots) < 1:
+            raise ValueError(f"slots must be at least 1, got {slots}")
+        self.slots = int(slots)
+        self._buffers = [RolloutBuffer(length, device) for _ in range(self.slots)]
 
     def begin(self, update: int) -> RolloutBuffer:
-        """The buffer for this update's window."""
-        return self._buffer
+        """The buffer for this update's window: slot ``update % slots``."""
+        return self._buffers[update % self.slots]

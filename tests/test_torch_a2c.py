@@ -4,7 +4,7 @@ over the vector keys), the losses, one whole update through
 fp32 and bf16-mixed), the fused superstep against the port's host loop,
 and ``python -m sheeprl_tpu_torch exp=a2c`` end to end: the dummy envs,
 checkpoints, resumes (the port's and the JAX package's), ``cli_eval``, a
-CLI dry run and the options that stay unported.
+CLI dry run.
 
 Weights come from the JAX init, shifted by seeded noise, carried across
 with PPO's ``convert``; inputs are numpy draws from a seed. A2C's update
@@ -314,10 +314,3 @@ def test_cli_dry_run_checkpoints_resumes_and_evaluates(tmp_path):
     assert load_checkpoint(ckpt)["update"] == 1
     cli.run(argv + [f"checkpoint.resume_from={ckpt}"])
     cli.evaluation([f"checkpoint_path={ckpt}"])
-
-
-# exp=a2c composes no overlap_collection key: the first case adds it
-@pytest.mark.parametrize("override", ["+algo.overlap_collection=True", "algo.player_device=cpu", "algo.train_device=cpu"])
-def test_unported_options_raise_naming_a4(tmp_path, override):
-    with pytest.raises(NotImplementedError, match="A4"):
-        _run(tmp_path, [override], "u")

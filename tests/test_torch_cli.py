@@ -163,7 +163,7 @@ def test_profiler_is_refused(tmp_path):
 
 
 # the Dreamer-family names still queued in ROADMAP A6 (drop each as it lands)
-UNPORTED_A6 = ("dreamer_v1", "dreamer_v2", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
+UNPORTED_A6 = ("dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
 
 
 @pytest.mark.parametrize("name", UNPORTED_A6)

@@ -7,7 +7,9 @@ against eager steps, fresh noise each replay, a capture refusing a host
 sync, Adam's count on the device); the PPO, A2C and recurrent PPO updates
 and fused rollouts captured against eager; the Plan2Explore exploration
 step captured against eager, B1 launched in its scan and both
-imaginations.
+imaginations; a placed player's copy across the bus, PPO's update on a side
+stream beside the player's snapshot, and Dreamer-V2's step captured
+against eager.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports neither JAX nor the JAX package, so with ``--noconftest``
@@ -1381,3 +1383,170 @@ def test_cuda_p2e_exploration_replays_match_eager_steps(cuda, smooth, monkeypatc
         assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)
     for a, b in [(gmt, emt)] + [(gme[k], eme[k]) for k in gme]:
         torch.testing.assert_close(a.high, b.high, atol=REPLAY_BOUND, rtol=REPLAY_BOUND)
+
+
+# --------------------------------------------------------------------------- #
+# placement, PPO's overlapped collection and Dreamer-V2
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+def test_cuda_placed_player_copy_is_bit_equal(cuda, stream):
+    """A player on the host copies the learner's card modules in one flat
+    transfer a dtype (pinned, on a side stream with ``stream``): stale
+    until landed, bit-equal after; a player on the card over a learner on
+    the host (``train_device=cpu``) alike."""
+    from sheeprl_tpu_torch.parallel.fabric import HostPlayerParams, place_player
+
+    class Player(HostPlayerParams):
+        _placed_attrs = ("agent",)
+
+        def __init__(self, agent, device):
+            self.agent, self.device = agent, device
+
+    for learner, target in ((cuda, torch.device("cpu")), (torch.device("cpu"), cuda)):
+        agent = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.LayerNorm(256), torch.nn.Linear(256, 4)).to(learner)
+        agent[2].to(torch.bfloat16)
+        player = place_player(Player(agent, learner), target)
+        assert player.device == target and player.params_match()
+        with torch.no_grad():
+            for p in agent.parameters():
+                p.add_(1.0)
+        assert not player.params_match()
+        if stream:
+            player.stream_params()
+            player.flush_params()
+        else:
+            player.sync_params()
+        assert player.params_match()
+        for a, b in zip(agent.parameters(), player.agent.parameters()):
+            assert b.device.type == target.type and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_overlapped_update_leaves_the_player_snapshot_untouched(cuda):
+    """PPO's update replayed on a side stream while the player's snapshot,
+    refreshed only by ``sync_params`` after the update's event, acts on the
+    default stream: the snapshot holds the params from before the update
+    until then, and the update equals the same update replayed alone."""
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.ops.graph import CapturedStep
+    from sheeprl_tpu_torch.ops.optim import build_optimizer
+    from sheeprl_tpu_torch.parallel.fabric import place_player
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    cfg = dotdict(compose("config", ["exp=ppo", "env.capture_video=False", "seed=5"]))
+    space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (4,), np.float32)})
+    rng = np.random.default_rng(0)
+    T, E = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    inputs = {
+        "state": torch.from_numpy(rng.standard_normal((T, E, 4)).astype(np.float32)).cuda(),
+        "dones": torch.from_numpy((rng.uniform(size=(T, E, 1)) < 0.05).astype(np.float32)).cuda(),
+        "values": torch.from_numpy(rng.standard_normal((T, E, 1)).astype(np.float32)).cuda(),
+        "actions": torch.from_numpy(np.eye(2, dtype=np.float32)[rng.integers(0, 2, (T, E))]).cuda(),
+        "logprobs": torch.from_numpy(-rng.uniform(0.5, 1.0, (T, E, 1)).astype(np.float32)).cuda(),
+        "rewards": torch.ones(T, E, 1, device="cuda"),
+        "next/state": torch.zeros(E, 4, device="cuda"),
+        "coefs": torch.tensor([0.2, 0.0], device="cuda"),
+    }
+    outs = []
+    for overlapped in (True, False):
+        agent, player = build_agent((2,), False, cfg, space, device="cuda")
+        opt = build_optimizer(list(agent.parameters()), cfg.algo.optimizer, float(cfg.algo.max_grad_norm))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        n = T * E
+        fn = CapturedStep(ppo.make_update_fn(agent, ppo.make_local_train(agent, opt, cfg, ["state"], n, gen), cfg, ["state"]), inputs, ppo.opt_state_tensors(agent, opt), gen)
+        place_player(player, cuda, snapshot=True)
+        before = [p.clone() for p in player.agent.parameters()]
+        obs = {"state": rng.standard_normal((E, 4)).astype(np.float32)}
+        # the player's rollout graph is captured before any update, as in main()
+        pg = torch.Generator(device="cuda").manual_seed(2)
+        player.rollout_actions(obs, pg)
+        torch.cuda.synchronize()
+        if overlapped:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                metrics = fn()
+                done = torch.cuda.Event()
+                done.record(side)
+            for _ in range(8):  # the player acts while the update runs
+                player.rollout_actions(obs, pg)
+            done.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(player.agent.parameters(), before))
+            assert not all(torch.equal(a, b) for a, b in zip(agent.parameters(), before))
+            player.sync_params()
+            assert player.params_match()
+        else:
+            metrics = fn()
+        torch.cuda.synchronize()
+        outs.append((metrics, [p.detach().clone() for p in agent.parameters()]))
+    assert torch.equal(outs[0][0], outs[1][0]) and all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_dreamer_v2_replays_match_eager_steps(cuda, monkeypatch, continuous):
+    """Three graph replays of Dreamer-V2's step against three eager steps
+    from the same weights and batches at bf16-mixed, the hard target copy
+    before each, smooth samplers: metrics and every parameter within
+    REPLAY_BOUND; B1 never launched."""
+    import chip_smoke
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2.convert import checkpoint_state, load_checkpoint_state
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    env = "dummy_continuous" if continuous else "dummy_discrete"
+    small = ["algo.dense_units=64", "algo.mlp_layers=2", "algo.world_model.encoder.cnn_channels_multiplier=4", "algo.world_model.recurrent_model.recurrent_state_size=64", "algo.world_model.stochastic_size=8", "algo.world_model.discrete_size=8", "algo.horizon=4"]
+    cfg = dotdict(compose("config", ["exp=dreamer_v2", "env=dummy", f"env.id={env}", "algo.mlp_keys.encoder=[state]", "seed=3", "algo.world_model.use_continues=True", *small]))
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8), "state": spaces.Box(-20, 20, (5,), np.float32)})
+    adim = (2,) if continuous else (3,)
+
+    def models(state=None):
+        wm, actor, critic, target, _ = build_agent(adim, continuous, cfg, space, device="cuda")
+        opts = build_optimizers(cfg, wm, actor, critic)
+        if state is not None:
+            load_checkpoint_state(state, wm, actor, critic, target, opts)
+        return (wm, actor, critic, target), opts, dv2.make_train_step(wm, actor, critic, target, *opts, cfg)
+
+    rng = np.random.default_rng(0)
+
+    def batch():
+        d = {
+            "rgb": rng.integers(0, 256, (8, 4, 64, 64, 3)).astype(np.uint8),
+            "state": rng.standard_normal((8, 4, 5)).astype(np.float32),
+            "actions": (rng.uniform(-1, 1, (8, 4, 2)) if continuous else np.eye(3)[rng.integers(0, 3, (8, 4))]).astype(np.float32),
+            "rewards": rng.standard_normal((8, 4, 1)).astype(np.float32),
+            "terminated": (rng.uniform(size=(8, 4, 1)) < 0.05).astype(np.float32),
+            "is_first": (rng.uniform(size=(8, 4, 1)) < 0.05).astype(np.float32),
+        }
+        return {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+
+    batches = [batch() for _ in range(3)]
+    with chip_smoke.dv2_deterministic():
+        graphed, gopts, gstep = models()
+        eager, _, estep = models(checkpoint_state(*graphed, gopts))
+        fn = dv2.make_train_fn(gstep, *graphed[:3], gopts, {k: torch.empty_like(v) for k, v in batches[0].items()}, None)
+        tgru.reset_launch_count()
+        for b in batches:
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            dv2.hard_copy_(graphed[2], graphed[3])
+            dv2.hard_copy_(eager[2], eager[3])
+            got = fn()
+            want = estep(b)
+            assert torch.isfinite(got).all() and got.shape == (13,)
+            assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    assert fn.replays == 3 and tgru.launch_count == 0
+    for a, b in zip([p for m in graphed[:3] for p in m.parameters()], [p for m in eager[:3] for p in m.parameters()]):
+        assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)

@@ -414,9 +414,6 @@ def test_a_twinless_env_falls_back_with_one_event(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ("algo.overlap_collection=True", "A4"),
-        ("algo.player_device=cpu", "A4"),
-        ("algo.train_device=cpu", "A4"),
         ("env.id=Acrobot-v1", "A1"),
         ("algo.cnn_keys.encoder=[rgb]", "A1"),
     ],

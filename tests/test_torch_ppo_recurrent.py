@@ -6,8 +6,8 @@ sequence update (episode chunks and fixed windows) against the JAX
 ``local_train`` with its permutations injected, the fused recurrent
 superstep against the port's host loop, and ``python -m sheeprl_tpu_torch
 exp=ppo_recurrent`` end to end: the dummy envs, checkpoints, resumes (the
-port's and the JAX package's), ``cli_eval``, a CLI dry run, the fused
-gate's fallbacks and the options that stay unported.
+port's and the JAX package's), ``cli_eval``, a CLI dry run and the fused
+gate's fallbacks.
 
 Weights come from the JAX init, shifted by seeded noise, carried across
 with ``convert``; inputs are numpy draws from a seed.
@@ -535,9 +535,3 @@ def test_cli_dry_run_checkpoints_resumes_and_evaluates(tmp_path):
     assert load_checkpoint(ckpt)["update"] == 1
     cli.run(argv + [f"checkpoint.resume_from={ckpt}"])
     cli.evaluation([f"checkpoint_path={ckpt}"])
-
-
-@pytest.mark.parametrize("override", ["algo.overlap_collection=True", "algo.player_device=cpu", "algo.train_device=cpu"])
-def test_unported_options_raise_naming_a4(tmp_path, override):
-    with pytest.raises(NotImplementedError, match="A4"):
-        _run(tmp_path, [override], "u")
