@@ -295,6 +295,22 @@ which exits non-zero:
    tempfile.mkdtemp()); c.phase_overlap(torch, np); c.phase_dv2_step(torch,
    np, fg, rb, s, a, k); c.phase_dv2_cli(torch, np, fg,
    tempfile.mkdtemp())'`` (TF32 off first).
+18. Dreamer-V1, then Plan2Explore over Dreamer-V2 and V1, at
+   each exp's widths, bf16-mixed: (a) the Dreamer-V1 step (dense 400 x 4,
+   ELU, CNN 32, recurrent 200, stochastic 30, horizon 15) and (b) the
+   P2E-DV2 and P2E-DV1 exploration steps (10 ensemble members) on phase 6's
+   PixelCatcher replay (B x T of ``FAMILY_STEPS``): replays of each CUDA
+   graph against eager steps from the same weights within
+   ``REPLAY_BOUND``, ms a replay, a profiler window, no B1 or B2 launch;
+   (c) ``exp=dreamer_v1``, both explorations and each finetuning from its
+   exploration run's checkpoint through ``cli.run``, cut to
+   ``FAMILY_CUTS``, with env-steps/s (overall and steady) and the run
+   records, then ``cli_eval`` of each. Alone on the card, from a file
+   with a ``__main__`` guard (the async envs spawn): ``fg.load_library();
+   rb, s, a, k = c.filled_replay(np, c.train_cfg("pixel_catcher"), 80);
+   [c.phase_family_step(torch, np, fg, rb, s, a, k, e) for e in
+   c.FAMILY_STEPS]; c.phase_family_cli(torch, np, fg, tempfile.mkdtemp())``
+   (TF32 off first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -3360,7 +3376,8 @@ def phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous):
 
 # exp=a2c at full width (64 x 2 tanh, 5 steps x 4 envs on CartPole-v1)
 A2C_MODELS = {"a2c_cartpole": (["exp=a2c"], {"state": ((4,), "float32")}, 2)}
-A2C_CLI_UPDATES = 250  # of 20 env steps each (exp=a2c: 1250)
+# of 20 env steps each (exp=a2c: 1250; 250 until phase 18 needed the time)
+A2C_CLI_UPDATES = 125
 # exp=ppo_recurrent at full width: LSTM 64, 16 envs x 512 steps, sequences
 # of 16, 8 minibatches, 8 epochs; one seeded rollout with episodes of about
 # 1 / RPPO_DONE_RATE steps
@@ -3466,7 +3483,7 @@ def phase_a2c_cli(torch, tmp: str):
     base = ["exp=a2c", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={20 * A2C_CLI_UPDATES}"]
     for fused in (False, True):
         out, fallbacks, seconds = ppo_cli(torch, tmp, f"a2c_fused_{fused}", [*base, f"algo.fused_rollout={fused}"], a2c)
-        # 250 updates: their ranges, not every update's numbers
+        # A2C_CLI_UPDATES updates: their ranges, not every update's numbers
         row = {k: v for k, v in ppo_run_report(out, seconds).items() if k not in ("update_wall_s", "ms_per_update")}
         row["ms_per_update_range"] = [min(out["update_seconds"]) * 1e3, max(out["update_seconds"]) * 1e3]
         row["fused_fallback"] = fallbacks
@@ -4440,7 +4457,7 @@ def phase_p2e_cli(torch, np, fg, tmp: str):
 # PixelCatcher with the player on the host, cut to the two train windows
 # after learning_starts (from 5M env steps, 1024 and a 1M buffer), its
 # episodes (the test's too, which the host player plays) to EVAL_CAP steps
-PLACE_PPO_UPDATES = 3
+PLACE_PPO_UPDATES = 2  # 3 until phase 18 needed the time
 PLACE_DV3_CUTS = {"algo.total_steps": 260, "algo.learning_starts": 256, "buffer.size": 4096, "algo.run_test": True, "env.max_episode_steps": EVAL_CAP}
 # 17(b): the same exp=ppo host loop, overlap off and on, for
 # OVERLAP_UPDATES updates each (from 128)
@@ -4777,6 +4794,249 @@ def phase_dv2_cli(torch, np, fg, tmp: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: Dreamer-V1, then Plan2Explore over Dreamer-V2 and Dreamer-V1
+# --------------------------------------------------------------------------- #
+
+# 18(a), (b): each exp's own widths, bf16-mixed, on batches of phase 6's
+# PixelCatcher replay (B, T): exp=dreamer_v1 and exp=p2e_dv1_exploration
+# 50 x 50, exp=p2e_dv2_exploration 16 x 50, both explorations with their 10
+# ensemble members
+FAMILY_STEPS = {"dreamer_v1": (50, 50), "p2e_dv2_exploration": (16, 50), "p2e_dv1_exploration": (50, 50)}
+# 18(c): each entry point through the CLI, cut as 17(c) cuts Dreamer-V2
+# (from 5M or 1M env steps, learning_starts 5000, 1000 or 16384, and a 5M
+# buffer); each finetuning run starts from its exploration run's checkpoint
+FAMILY_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096, "algo.run_test": True}
+FAMILY_RUNS = ("dreamer_v1", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration", "p2e_dv1_finetuning")
+
+
+def family_cfg(exp: str, *argv, **overrides):
+    """``exp`` at its widths on PixelCatcher, bf16-mixed."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    args = {"seed": SEED, "fabric.precision": BF16, **overrides}
+    return dotdict(compose("config", [f"exp={exp}", "env=pixel_catcher", "env.id=pixel_catcher", *argv] + [f"{k}={v}" for k, v in args.items()]))
+
+
+@contextlib.contextmanager
+def family_deterministic():
+    """The smooth samplers where the Dreamer-V1 and V2 modules look them up:
+    Dreamer-V2's (``dv2_deterministic``), a fixed pattern for Dreamer-V1's
+    Gaussian draw, and the actor's smooth action in Dreamer-V1's
+    imagination."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v1 import agent as dv1_agent
+    from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1
+    from sheeprl_tpu_torch.algos.dreamer_v2 import agent as dv2_agent
+
+    def noise(like, generator=None):
+        idx = torch.arange(like.numel(), device=like.device, dtype=torch.float32)
+        return (0.5 * torch.sin(0.7 * idx + 0.3)).reshape(like.shape).to(like.dtype)
+
+    def actions(actor, state, generator=None, greedy=False):
+        dists = dv2_agent.actor_dists(actor, actor(state))
+        if actor.is_continuous:
+            return dists[0].mean
+        return torch.cat([d.mode + d.probs - d.probs.detach() for d in dists], -1)
+
+    with dv2_deterministic(), mock.patch.object(dv1_agent, "gaussian_noise", noise), mock.patch.object(dreamer_v1, "sample_actor_actions", actions):
+        yield
+
+
+def family_models(torch, exp: str, cfg, obs_space, actions_dim, is_continuous, state=None):
+    """``exp``'s models on the card, a seeded init or ``state`` (a
+    checkpoint state): the trained modules, ``state()`` their checkpoint
+    state, the eager ``step``, ``make_fn(inputs, generator)`` its captured
+    step and ``refresh()`` of the target critics (a no-op without)."""
+    import types
+
+    from sheeprl_tpu_torch.algos.dreamer_v1 import convert as dv1_convert
+    from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as dv1
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent as dv1_build
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import build_optimizers
+    from sheeprl_tpu_torch.algos.p2e_dv1 import agent as p2e_dv1_agent
+    from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration
+    from sheeprl_tpu_torch.algos.p2e_dv2 import agent as p2e_dv2_agent
+    from sheeprl_tpu_torch.algos.p2e_dv2 import convert as p2e_convert
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration
+
+    if exp == "dreamer_v1":
+        wm, actor, critic, _ = dv1_build(actions_dim, is_continuous, cfg, obs_space, device="cuda")
+        opts = build_optimizers(cfg, wm, actor, critic)
+        if state is not None:
+            dv1_convert.load_checkpoint_state(state, wm, actor, critic, opts)
+        step = dv1.make_train_step(wm, actor, critic, *opts, cfg)
+        return types.SimpleNamespace(
+            modules=[wm, actor, critic],
+            state=lambda: dv1_convert.checkpoint_state(wm, actor, critic, opts),
+            step=step,
+            make_fn=lambda inputs, gen: dv2.make_train_fn(step, wm, actor, critic, opts, inputs, gen),
+            refresh=lambda: None,
+            order=dv1.METRIC_ORDER,
+        )
+    family = {"p2e_dv2_exploration": (p2e_dv2_agent, p2e_dv2_exploration), "p2e_dv1_exploration": (p2e_dv1_agent, p2e_dv1_exploration)}
+    agent_mod, expl = family[exp]
+    agent = agent_mod.build_agent(actions_dim, is_continuous, cfg, obs_space, device="cuda")
+    models = p2e_dv2_agent.models_of(agent)
+    opts = p2e_dv2_exploration.build_optimizers(cfg, agent)
+    if state is not None:
+        p2e_convert.load_checkpoint_state(state, models, opts)
+    step = expl.make_train_step(agent, opts, cfg, is_continuous)
+    return types.SimpleNamespace(
+        modules=[getattr(agent, k) for k in p2e_dv2_exploration.TRAINED],
+        state=lambda: p2e_convert.checkpoint_state(models, opts),
+        step=step,
+        make_fn=lambda inputs, gen: p2e_dv2_exploration.make_train_fn(step, agent, opts, inputs, gen),
+        refresh=(lambda: p2e_dv2_exploration.refresh_targets(agent)) if exp == "p2e_dv2_exploration" else (lambda: None),
+        order=expl.METRIC_ORDER,
+    )
+
+
+def phase_family_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous, exp: str) -> dict:
+    """18(a), (b) one gradient step of ``exp`` at its widths, bf16-mixed, on
+    REPLAYED_STEPS batches of phase 6's PixelCatcher replay
+    (``FAMILY_STEPS``): replays of its CUDA graph against as many eager
+    steps from the same weights, smooth samplers and cuDNN's deterministic
+    algorithms (metrics and every trained parameter within REPLAY_BOUND;
+    P2E-DV2's targets hard-copied before each step on both sides); ms a
+    replay, a profiler window (idle share, kernel count, top kernels), and
+    neither B1 nor B2 launched by any of it (the recurrent models are
+    flax's plain GRU cells)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import to_batch
+
+    dev = torch.device("cuda")
+    B, T = FAMILY_STEPS[exp]
+    batches = [to_batch(rb.sample(B, sequence_length=T), ["rgb"], dev) for _ in range(REPLAYED_STEPS)]
+    cfg = family_cfg(exp)
+    report = {"exp": exp, "B": B, "T": T, "horizon": int(cfg.algo.horizon), "precision": BF16, "replay_bound": REPLAY_BOUND}
+    if "ensembles" in cfg.algo:
+        report["ensemble_members"] = int(cfg.algo.ensembles.n)
+    fg.reset_launch_count()
+    with cudnn_deterministic(torch), family_deterministic():
+        graphed = family_models(torch, exp, cfg, obs_space, actions_dim, is_continuous)
+        eager = family_models(torch, exp, cfg, obs_space, actions_dim, is_continuous, graphed.state())
+        fn = graphed.make_fn({k: v.clone() for k, v in batches[0].items()}, None)
+        metric_errs = []
+        for b in batches:
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            graphed.refresh()
+            eager.refresh()
+            got = fn()
+            want = eager.step(b, None)
+            metric_errs.append(rel_err(torch, got, want))
+        torch.cuda.synchronize()
+        params = lambda ns: [p for m in ns.modules for p in m.parameters()]  # noqa: E731
+        param_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(params(graphed), params(eager)))
+        report["replayed_vs_eager"] = {
+            "metric_max_rel_err_per_step": metric_errs,
+            "param_max_rel_err": param_err,
+            "metrics": dict(zip(graphed.order, got.tolist())),
+            "replays": fn.replays,
+        }
+        if max(metric_errs + [param_err]) > REPLAY_BOUND or not torch.isfinite(got).all():
+            raise AssertionError(f"18 the {exp} step replayed against eager: {report['replayed_vs_eager']}")
+        del graphed, eager, fn
+    torch.cuda.empty_cache()
+    models = family_models(torch, exp, cfg, obs_space, actions_dim, is_continuous)
+    fn = models.make_fn({k: v.clone() for k, v in batches[0].items()}, torch.Generator(device="cuda").manual_seed(SEED))
+    fn()
+    report["ms_per_replay"] = [step_ms(torch, fn), step_ms(torch, fn)]
+    report["profile"] = profile_replays(torch, fn, replays=2, top=12)
+    report["fused_gru_launches"] = fg.launch_count
+    report["sharded_proj_launches"] = fg.proj_launch_count
+    report["card"] = card_line()
+    print(f"phase 18 {exp}_step " + json.dumps(report), flush=True)
+    if fg.launch_count != 0 or fg.proj_launch_count != 0 or report["profile"]["gru_step_kernels_per_replay"] != 0:
+        raise AssertionError(f"18 the {exp} step launched B1 {fg.launch_count} and B2 {fg.proj_launch_count} times")
+    del models, fn
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_family_cli(torch, np, fg, tmp: str) -> dict:
+    """18(c) ``exp=dreamer_v1``, ``exp=p2e_dv2_exploration`` then
+    ``exp=p2e_dv2_finetuning`` from its checkpoint, and the same two for
+    P2E-DV1, on ``env=pixel_catcher`` through ``cli.run``, each cut to
+    FAMILY_CUTS with its test episode, then ``cli_eval`` of each run's
+    checkpoint: env-steps/s over the loop and steady (the updates after
+    the first train window, which captured the step), gradient steps, the
+    replay, the finetuning player's switch to the task actor, the run
+    records, and neither B1 nor B2 launched."""
+    import glob
+    import importlib
+    import io
+
+    from sheeprl_tpu_torch import cli
+
+    common = {**FAMILY_CUTS, "seed": SEED, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}
+    report = {"card": card_line(), "cuts": FAMILY_CUTS, "runs": {}}
+    ckpts = {}
+    for name in FAMILY_RUNS:
+        pkg = "p2e_" + name.split("_")[1] if name.startswith("p2e") else name
+        module = importlib.import_module(f"sheeprl_tpu_torch.algos.{pkg}.{name}")
+        extra = [f"checkpoint.exploration_ckpt_path={ckpts[name.replace('finetuning', 'exploration')]}"] if "finetuning" in name else []
+        argv = [f"exp={name}", "env=pixel_catcher", "env.id=pixel_catcher", f"run_name={name}", *extra] + [f"{k}={v}" for k, v in common.items()]
+        out, calls, _, seconds = cli_in_process(torch, fg, argv, module)
+        found = sorted(glob.glob(f"{out['log_dir']}/checkpoint/*.ckpt"))
+        num_envs = int(family_cfg(name, *extra).env.num_envs)
+        later = out["update_seconds"][FAMILY_CUTS["algo.learning_starts"] // num_envs :]
+        row = {
+            "env_steps": out["env_steps"],
+            "gradient_steps": out["gradient_steps"],
+            "replays": out["replays"],
+            "env_steps_per_s": out["env_steps"] / out["seconds"],
+            "env_steps_per_s_steady": num_envs * len(later) / sum(later) if later else None,
+            "run_seconds": seconds,
+            "loop_seconds": out["seconds"],
+            "train_seconds": out["train_seconds"],
+            "replay_buffer": out["replay_buffer"],
+            "player_device": out["player_device"],
+            "fused_gru_calls": calls,
+            # cli_in_process set the counts to 0 just before the run
+            "sharded_proj_calls": fg.proj_launch_count,
+            "test_steps": out["test_steps"],
+            "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+        }
+        if "finetuning" in name:
+            row["player_switched_to_task_actor_at_policy_step"] = out["switched_at"]
+        report["runs"][name] = row
+        print(f"phase 18(c) {name}_cli " + json.dumps(row), flush=True)
+        if (
+            out["env_steps"] != FAMILY_CUTS["algo.total_steps"]
+            or out["gradient_steps"] <= 0
+            or out["replays"] != out["gradient_steps"]
+            or calls != 0
+            or row["sharded_proj_calls"] != 0
+            or not row["last_metrics_finite"]
+            or not found
+            or out["test_steps"] <= 0
+            or ("finetuning" in name and out["switched_at"] != FAMILY_CUTS["algo.learning_starts"] + num_envs)
+        ):
+            raise AssertionError(f"18(c) exp={name}: {row}")
+        ckpts[name] = found[-1]
+    evals = {}
+    fg.reset_launch_count()
+    for name in FAMILY_RUNS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.evaluation([f"checkpoint_path={ckpts[name]}", f"env.max_episode_steps={EVAL_CAP}"])
+        torch.cuda.synchronize()
+        evals[name] = {"episode_played": "Test - Reward:" in buf.getvalue(), "seconds": time.perf_counter() - t0}
+    report["cli_eval"] = {"runs": evals, "fused_gru_launches": fg.launch_count, "sharded_proj_launches": fg.proj_launch_count}
+    records = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")]
+    report["records"] = [[r["kind"], r["algo"], r["outcome"]] for r in records]
+    print("phase 18(c) family_cli " + json.dumps({k: report[k] for k in ("cli_eval", "records", "cuts")}), flush=True)
+    want = [["train", n, "completed"] for n in FAMILY_RUNS] + [["eval", n, "completed"] for n in FAMILY_RUNS]
+    if not all(e["episode_played"] for e in evals.values()) or fg.launch_count != 0 or fg.proj_launch_count != 0 or report["records"] != want:
+        raise AssertionError(f"18(c) cli_eval or run records: {report['cli_eval']}, {report['records']}")
+    return report
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4799,11 +5059,20 @@ def main() -> int:
 
     t_smoke = t_phase = time.perf_counter()
 
+    t_part = t_smoke
+
     def phase_took(name: str) -> None:
-        nonlocal t_phase
+        nonlocal t_phase, t_part
         now = time.perf_counter()
         print(f"phase {name} took {now - t_phase:.1f} s (smoke {now - t_smoke:.1f} s)", flush=True)
-        t_phase = now
+        t_phase = t_part = now
+
+    def part_took(name: str) -> None:
+        # a phase's parts, so that a slow host's time can be placed
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"part {name} took {now - t_part:.1f} s", flush=True)
+        t_part = now
 
     # phase 1: card and build
     print(card_line(), flush=True)
@@ -4843,13 +5112,16 @@ def main() -> int:
         "XL_mp16_bf16_B1024": (1024, 4096, 1024, 768, bf16),
     }
     proj_err, proj_rows = phase_proj(torch, fg, proj_shapes)
+    part_took("4a")
     proj_launches = phase_sharded_step(torch, np, fg)
     phase_took("4")
 
     # phase 6: training, (a) fused against plain and (b) launches a step,
     # (c) time an eager step, (d) the short loop (replayed steps)
     step_launches, rb, obs_space, actions_dim, is_continuous = phase_train_parity(torch, np, fg)
+    part_took("6a")
     timing = phase_train_timing(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    part_took("6c")
     with tempfile.TemporaryDirectory() as tmp:
         loop_launches, loop = phase_train_loop(torch, np, fg, tmp)
     phase_took("6")
@@ -4857,7 +5129,9 @@ def main() -> int:
     # phase 7: the captured step, (a) replayed against eager, (b) fresh
     # noise, (c) time a replayed step, (d) rollback and resume on main()
     phase_replay_parity(torch, np, rb, obs_space, actions_dim, is_continuous)
+    part_took("7a")
     replay = phase_replay_timing(torch, rb, obs_space, actions_dim, is_continuous)
+    part_took("7c")
     with tempfile.TemporaryDirectory() as tmp:
         phase_drill(torch, np, tmp)
     phase_took("7")
@@ -4866,11 +5140,14 @@ def main() -> int:
     # the eager step against plain and fp32, (c) replayed against eager, (d)
     # ms a replayed step with a profile, (e) the short loop, (f) the player
     bf16_err, bf16_rows = phase_bf16_kernel(torch, fg, BF16_KERNEL_SHAPES)
+    part_took("8a")
     phase_bf16_train(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     print("bf16_replay_parity " + json.dumps(replay_against_eager(torch, np, rb, obs_space, actions_dim, is_continuous, BF16)), flush=True)
     bf16_timing = phase_bf16_timing(torch, rb, obs_space, actions_dim, is_continuous)
+    part_took("8bcd")
     with tempfile.TemporaryDirectory() as tmp:
         bf16_loop_launches, bf16_loop = phase_train_loop(torch, np, fg, tmp, BF16, "bf16_train_loop")
+        part_took("8e")
     bf16_player_launches, bf16_player = phase_bf16_player(torch, np, fg)
     phase_took("8")
 
@@ -4878,10 +5155,14 @@ def main() -> int:
     # ring on the card, (b) a superstep against single replays, (c) the four
     # replay paths timed, (d) main() three ways and the drill across modes
     phase_ring(torch, np)
+    part_took("9a")
     superstep = phase_superstep_parity(torch, np, rb, obs_space, actions_dim, is_continuous)
+    part_took("9b")
     paths = phase_replay_paths(torch, np, rb, obs_space, actions_dim, is_continuous)
+    part_took("9c")
     with tempfile.TemporaryDirectory() as tmp:
         ring_loop_launches, ring_loops = phase_ring_loops(torch, np, fg, tmp)
+        part_took("9d_loops")
         phase_ring_drill(torch, np, tmp)
     phase_took("9")
 
@@ -4902,9 +5183,11 @@ def main() -> int:
     # on the host loop, (c) the fused rollout at 4 and 64 envs, (d) NatureCNN
     # on PixelCatcher; (e) Dreamer-V3 S at bf16-true against bf16-mixed
     ppo_update = phase_ppo_update(torch, np)
+    part_took("12a")
     # phase 15 serves these runs' checkpoints: the directory lives until then
     ppo_tmp = tempfile.TemporaryDirectory()
     ppo_runs = phase_ppo_cli(torch, ppo_tmp.name)
+    part_took("12bcd")
     bf16_true_launches = phase_bf16_true(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
     phase_took("12")
 
@@ -4914,9 +5197,12 @@ def main() -> int:
     # exp=ppo_recurrent on the host loop and fused. Neither reaches B1 or B2
     b1_before, b2_before = fg.launch_count, fg.proj_launch_count
     a2c_update = phase_a2c_update(torch, np)
+    part_took("13a")
     with tempfile.TemporaryDirectory() as tmp:
         a2c_runs = phase_a2c_cli(torch, tmp)
+        part_took("13b")
     rppo_update = phase_rppo_update(torch, np)
+    part_took("13c")
     with tempfile.TemporaryDirectory() as tmp:
         rppo_runs = phase_rppo_cli(torch, tmp)
     if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
@@ -4928,6 +5214,7 @@ def main() -> int:
     # (SAC fused too), (c) cli_eval; (d) neither B1 nor B2 launched
     b1_before, b2_before = fg.launch_count, fg.proj_launch_count
     sac_update = phase_sac_update(torch, np)
+    part_took("14a")
     with tempfile.TemporaryDirectory() as tmp:
         sac_runs = phase_sac_cli(torch, np, tmp)
     if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
@@ -4947,6 +5234,7 @@ def main() -> int:
     # time and profile, (b) exploration and finetuning through the CLI,
     # then cli_eval
     p2e_step = phase_p2e_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    part_took("16a")
     with tempfile.TemporaryDirectory() as tmp:
         p2e_launches, p2e_bf16_launches, p2e_cli = phase_p2e_cli(torch, np, fg, tmp)
     phase_took("16")
@@ -4957,11 +5245,24 @@ def main() -> int:
     # buffer type through the CLI, then cli_eval
     with tempfile.TemporaryDirectory() as tmp:
         placement_launches, placement = phase_placement(torch, np, fg, tmp)
+        part_took("17a")
     overlap = phase_overlap(torch, np)
+    part_took("17b")
     dv2_step = phase_dv2_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous)
+    part_took("17c_step")
     with tempfile.TemporaryDirectory() as tmp:
         dv2_cli = phase_dv2_cli(torch, np, fg, tmp)
     phase_took("17")
+
+    # phase 18: (a) the Dreamer-V1 step and (b) the P2E-DV2 and P2E-DV1
+    # exploration steps, each replayed against eager, timed and profiled;
+    # (c) exp=dreamer_v1 and both P2E explorations and finetunings through
+    # the CLI, then cli_eval of each. None launches B1 or B2 (checked)
+    family_steps = {exp: phase_family_step(torch, np, fg, rb, obs_space, actions_dim, is_continuous, exp) for exp in FAMILY_STEPS}
+    part_took("18ab")
+    with tempfile.TemporaryDirectory() as tmp:
+        family_cli = phase_family_cli(torch, np, fg, tmp)
+    phase_took("18")
 
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
@@ -5088,6 +5389,15 @@ def main() -> int:
                 "ms_per_replay": dv2_step["ms_per_replay"],
                 "device_idle_share": dv2_step["profile"]["device_idle_share"],
                 "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in dv2_cli["runs"].items()},
+            },
+            # phase 18: Dreamer-V1 and P2E over Dreamer-V2 and V1 reach no
+            # TPU kernel and launch neither B1 nor B2 (checked)
+            "dreamer_v1_p2e_dv1_dv2": {
+                "b1_b2_launches": 0,
+                "ms_per_replay": {k: r["ms_per_replay"] for k, r in family_steps.items()},
+                "device_idle_share": {k: r["profile"]["device_idle_share"] for k, r in family_steps.items()},
+                "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in family_cli["runs"].items()},
+                "env_steps_per_s_steady": {k: r["env_steps_per_s_steady"] for k, r in family_cli["runs"].items()},
             },
             # the SAC family (phase 14) reaches no TPU kernel and launches
             # neither B1 nor B2 (checked)

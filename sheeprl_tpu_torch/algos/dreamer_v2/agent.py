@@ -573,6 +573,43 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+def make_actor(cfg: Mapping[str, Any], latent_state_size: int, actions_dim: Sequence[int], is_continuous: bool, layer_norm: Optional[bool] = None) -> ActorDV2:
+    """The actor of ``cfg`` (JAX :738-753), at its precision; LayerNorm by
+    ``algo.actor.layer_norm`` unless ``layer_norm`` is given (Dreamer-V1's
+    is off)."""
+    actor_cfg = cfg["algo"]["actor"]
+    return ActorDV2(
+        latent_state_size=latent_state_size,
+        actions_dim=actions_dim,
+        is_continuous=is_continuous,
+        distribution=str((cfg.get("distribution") or {}).get("type", "auto")),
+        init_std=float(actor_cfg["init_std"]),
+        min_std=float(actor_cfg["min_std"]),
+        dense_units=int(actor_cfg["dense_units"]),
+        mlp_layers=int(actor_cfg["mlp_layers"]),
+        act=str(actor_cfg["dense_act"]),
+        layer_norm=bool(actor_cfg["layer_norm"]) if layer_norm is None else layer_norm,
+        expl_amount=float(actor_cfg.get("expl_amount", 0.0) or 0.0),
+        expl_decay=float(actor_cfg.get("expl_decay", 0.0) or 0.0),
+        expl_min=float(actor_cfg.get("expl_min", 0.0) or 0.0),
+        dtype=compute_dtype(cfg["fabric"]["precision"]),
+    )
+
+
+def make_critic(cfg: Mapping[str, Any], latent_state_size: int, layer_norm: Optional[bool] = None) -> CriticDV2:
+    """A critic of ``cfg`` (JAX :754-761), at its precision; LayerNorm as
+    :func:`make_actor`'s."""
+    critic_cfg = cfg["algo"]["critic"]
+    return CriticDV2(
+        latent_state_size,
+        mlp_layers=int(critic_cfg["mlp_layers"]),
+        dense_units=int(critic_cfg["dense_units"]),
+        act=str(critic_cfg["dense_act"]),
+        layer_norm=bool(critic_cfg["layer_norm"]) if layer_norm is None else layer_norm,
+        dtype=compute_dtype(cfg["fabric"]["precision"]),
+    )
+
+
 def build_agent(
     actions_dim: Sequence[int],
     is_continuous: bool,
@@ -591,7 +628,7 @@ def build_agent(
     dev = resolve_device(device)
     dtype = compute_dtype(cfg["fabric"]["precision"])
     algo = cfg["algo"]
-    wm_cfg, actor_cfg, critic_cfg = algo["world_model"], algo["actor"], algo["critic"]
+    wm_cfg = algo["world_model"]
     cnn_keys = tuple(algo["cnn_keys"]["encoder"])
     mlp_keys = tuple(algo["mlp_keys"]["encoder"])
     wm = WorldModelDV2(
@@ -626,31 +663,9 @@ def build_agent(
         layer_norm=bool(algo["layer_norm"]),
         dtype=dtype,
     )
-    actor = ActorDV2(
-        latent_state_size=wm.latent_state_size,
-        actions_dim=actions_dim,
-        is_continuous=is_continuous,
-        distribution=str((cfg.get("distribution") or {}).get("type", "auto")),
-        init_std=float(actor_cfg["init_std"]),
-        min_std=float(actor_cfg["min_std"]),
-        dense_units=int(actor_cfg["dense_units"]),
-        mlp_layers=int(actor_cfg["mlp_layers"]),
-        act=str(actor_cfg["dense_act"]),
-        layer_norm=bool(actor_cfg["layer_norm"]),
-        expl_amount=float(actor_cfg.get("expl_amount", 0.0) or 0.0),
-        expl_decay=float(actor_cfg.get("expl_decay", 0.0) or 0.0),
-        expl_min=float(actor_cfg.get("expl_min", 0.0) or 0.0),
-        dtype=dtype,
-    )
-    critic_kwargs = dict(
-        mlp_layers=int(critic_cfg["mlp_layers"]),
-        dense_units=int(critic_cfg["dense_units"]),
-        act=str(critic_cfg["dense_act"]),
-        layer_norm=bool(critic_cfg["layer_norm"]),
-        dtype=dtype,
-    )
-    critic = CriticDV2(wm.latent_state_size, **critic_kwargs)
-    target_critic = CriticDV2(wm.latent_state_size, **critic_kwargs)
+    actor = make_actor(cfg, wm.latent_state_size, actions_dim, is_continuous)
+    critic = make_critic(cfg, wm.latent_state_size)
+    target_critic = make_critic(cfg, wm.latent_state_size)
     generator = torch.Generator().manual_seed(int(cfg["seed"]))
     for module, state in ((wm, world_model_state), (actor, actor_state), (critic, critic_state)):
         if state is None:

@@ -96,6 +96,59 @@ METRIC_ORDER = (
 TrainStep = Callable[..., torch.Tensor]
 
 
+def world_model_step(wm: WorldModelDV2, world_opt: Adam, data: Dict[str, torch.Tensor], cfg: Dict[str, Any], generator: Optional[torch.Generator], detach_heads: bool = False):
+    """The world model's loss over the batch and its Adam step (JAX
+    :151-205); ``detach_heads`` feeds the reward and continue heads detached
+    latents, as P2E does. Returns ``(hs, zs, metrics [8], grad norm,
+    grads)``, ``metrics`` the first eight of ``METRIC_ORDER``."""
+    algo = cfg["algo"]
+    wmc = algo["world_model"]
+    cnn_keys, mlp_keys = tuple(algo["cnn_keys"]["encoder"]), tuple(algo["mlp_keys"]["encoder"])
+    cnn_dec, mlp_dec = tuple(algo["cnn_keys"]["decoder"]), tuple(algo["mlp_keys"]["decoder"])
+    kl_args = (float(wmc["kl_balancing_alpha"]), float(wmc["kl_free_nats"]), bool(wmc["kl_free_avg"]), float(wmc["kl_regularizer"]))
+    is_first = data["is_first"].clone()
+    is_first[0] = 1.0
+    obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in cnn_dec}
+    obs_targets.update({k: data[k].float() for k in mlp_dec})
+    embedded = wm.encode({k: data[k] for k in cnn_keys + mlp_keys})
+    hs, zs, post_logits, prior_logits = rssm_scan(wm, embedded, data["actions"], is_first, generator)
+    latents = torch.cat([zs, hs], -1)
+    recon = wm.decode(latents)
+    po = {k: Independent(Normal(recon[k], torch.ones_like(recon[k])), 3 if k in cnn_dec else 1) for k in cnn_dec + mlp_dec}
+    head_in = latents.detach() if detach_heads else latents
+    reward_mean = wm.reward_mean(head_in)
+    pr = Independent(Normal(reward_mean, torch.ones_like(reward_mean)), 1)
+    pc = continue_targets = None
+    if bool(wmc["use_continues"]):
+        pc = Independent(Bernoulli(wm.continue_logits(head_in)), 1)
+        continue_targets = (1 - data["terminated"]) * float(algo["gamma"])
+    rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+        po, obs_targets, pr, data["rewards"], prior_logits, post_logits, *kl_args, pc, continue_targets, float(wmc["discount_scale_factor"])
+    )
+    grads = _grads(rec_loss, list(wm.parameters()))
+    gnorm = world_opt.step(grads)
+    with torch.no_grad():
+        post_ent = Independent(OneHotCategorical(post_logits.detach()), 1).entropy().mean()
+        prior_ent = Independent(OneHotCategorical(prior_logits.detach()), 1).entropy().mean()
+    return hs, zs, [rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, post_ent, prior_ent], gnorm, grads
+
+
+def imagine(wm: WorldModelDV2, actor: ActorDV2, start_z: torch.Tensor, start_h: torch.Tensor, horizon: int, generator: Optional[torch.Generator]):
+    """Imagination from ``(start_z, start_h)`` (JAX :213-232): ``horizon
+    + 1`` latents ``[H+1, N, L]``, the start first, and the actions that
+    led to each (a zero action before the start) ``[H+1, N, A]``."""
+    z, h = start_z, start_h
+    lat = torch.cat([z, h], -1)
+    lats, acts = [lat], [torch.zeros(lat.shape[0], sum(actor.actions_dim), device=lat.device)]
+    for _ in range(horizon):
+        action = sample_actor_actions(actor, lat.detach(), generator)
+        z, h = wm.imagination(z, h, action, generator)
+        lat = torch.cat([z, h], -1)
+        lats.append(lat)
+        acts.append(action)
+    return torch.stack(lats), torch.stack(acts)
+
+
 def make_train_step(
     wm: WorldModelDV2,
     actor: ActorDV2,
@@ -113,61 +166,20 @@ def make_train_step(
     ``grads_out``, a dict, receives each model's gradients before clipping
     (``world_model``, ``actor``, ``critic``)."""
     algo = cfg["algo"]
-    wmc = algo["world_model"]
-    cnn_keys, mlp_keys = tuple(algo["cnn_keys"]["encoder"]), tuple(algo["mlp_keys"]["encoder"])
-    cnn_dec, mlp_dec = tuple(algo["cnn_keys"]["decoder"]), tuple(algo["mlp_keys"]["decoder"])
     horizon, gamma, lmbda = int(algo["horizon"]), float(algo["gamma"]), float(algo["lmbda"])
     ent_coef, mix = float(algo["actor"]["ent_coef"]), float(algo["actor"]["objective_mix"])
-    kl_args = (
-        float(wmc["kl_balancing_alpha"]),
-        float(wmc["kl_free_nats"]),
-        bool(wmc["kl_free_avg"]),
-        float(wmc["kl_regularizer"]),
-    )
-    discount_scale = float(wmc["discount_scale_factor"])
-    use_continues = bool(wmc["use_continues"])
+    use_continues = bool(algo["world_model"]["use_continues"])
 
     def train_step(
         data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None, grads_out: Optional[Dict[str, List[torch.Tensor]]] = None
     ) -> torch.Tensor:
         T, B = data["rewards"].shape[:2]
-        is_first = data["is_first"].clone()
-        is_first[0] = 1.0
-        obs_targets = {k: data[k].float() / 255.0 - 0.5 for k in cnn_dec}
-        obs_targets.update({k: data[k].float() for k in mlp_dec})
-
-        # the world model (JAX :151-205)
-        embedded = wm.encode({k: data[k] for k in cnn_keys + mlp_keys})
-        hs, zs, post_logits, prior_logits = rssm_scan(wm, embedded, data["actions"], is_first, generator)
-        latents = torch.cat([zs, hs], -1)
-        recon = wm.decode(latents)
-        po = {k: Independent(Normal(recon[k], torch.ones_like(recon[k])), 3 if k in cnn_dec else 1) for k in cnn_dec + mlp_dec}
-        reward_mean = wm.reward_mean(latents)
-        pr = Independent(Normal(reward_mean, torch.ones_like(reward_mean)), 1)
-        pc = continue_targets = None
-        if use_continues:
-            pc = Independent(Bernoulli(wm.continue_logits(latents)), 1)
-            continue_targets = (1 - data["terminated"]) * gamma
-        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
-            po, obs_targets, pr, data["rewards"], prior_logits, post_logits, *kl_args, pc, continue_targets, discount_scale
-        )
-        wm_grads = _grads(rec_loss, list(wm.parameters()))
-        wm_gnorm = world_opt.step(wm_grads)
+        hs, zs, wm_metrics, wm_gnorm, wm_grads = world_model_step(wm, world_opt, data, cfg, generator)
 
         # behaviour: imagination from every posterior with the updated world
         # model (JAX :213-262); the dynamics term needs its gradient
-        start_z, start_h = zs.detach().reshape(T * B, -1), hs.detach().reshape(T * B, -1)
         with torch.set_grad_enabled(mix != 1.0):
-            z, h = start_z, start_h
-            lat = torch.cat([z, h], -1)
-            lats, acts = [lat], [torch.zeros(T * B, sum(actor.actions_dim), device=lat.device)]
-            for _ in range(horizon):
-                action = sample_actor_actions(actor, lat.detach(), generator)
-                z, h = wm.imagination(z, h, action, generator)
-                lat = torch.cat([z, h], -1)
-                lats.append(lat)
-                acts.append(action)
-            trajectories, imagined_actions = torch.stack(lats), torch.stack(acts)
+            trajectories, imagined_actions = imagine(wm, actor, zs.detach().reshape(T * B, -1), hs.detach().reshape(T * B, -1), horizon, generator)
             target_values = target_critic(trajectories)
             rewards = wm.reward_mean(trajectories)
             if use_continues:
@@ -195,28 +207,9 @@ def make_train_step(
         critic_grads = _grads(value_loss, list(critic.parameters()))
         critic_gnorm = critic_opt.step(critic_grads)
 
-        with torch.no_grad():
-            post_ent = Independent(OneHotCategorical(post_logits.detach()), 1).entropy().mean()
-            prior_ent = Independent(OneHotCategorical(prior_logits.detach()), 1).entropy().mean()
         if grads_out is not None:
             grads_out.update(world_model=wm_grads, actor=actor_grads, critic=critic_grads)
-        return torch.stack(
-            [
-                rec_loss,
-                observation_loss,
-                reward_loss,
-                state_loss,
-                continue_loss,
-                kl,
-                post_ent,
-                prior_ent,
-                policy_loss,
-                value_loss,
-                wm_gnorm,
-                actor_gnorm,
-                critic_gnorm,
-            ]
-        ).detach()
+        return torch.stack([*wm_metrics, policy_loss, value_loss, wm_gnorm, actor_gnorm, critic_gnorm]).detach()
 
     return train_step
 
@@ -252,9 +245,21 @@ class EnvLoopDV2:
     with exploration noise), steps the envs and stores the row of the
     observation it returned (the true final one of an ended episode) with
     that action; an ended episode's env then stores its reset observation as
-    the next episode's first row and its player state restarts."""
+    the next episode's first row and its player state restarts. Dreamer-V1
+    and the P2E loops over Dreamer-V1/V2 run it too, with
+    ``close_first_in_dry_run=False``."""
 
-    def __init__(self, envs: Any, rb: Any, player: Any, cfg: Dict[str, Any], aggregator: Any, player_gen: torch.Generator, action_rng: np.random.Generator) -> None:
+    def __init__(
+        self,
+        envs: Any,
+        rb: Any,
+        player: Any,
+        cfg: Dict[str, Any],
+        aggregator: Any,
+        player_gen: torch.Generator,
+        action_rng: np.random.Generator,
+        close_first_in_dry_run: bool = True,
+    ) -> None:
         self.envs, self.rb, self.player, self.aggregator = envs, rb, player, aggregator
         self.player_gen, self.action_rng = player_gen, action_rng
         self.action_space = envs.single_action_space
@@ -266,6 +271,7 @@ class EnvLoopDV2:
         self.clip_rewards = bool(cfg["env"].get("clip_rewards", False))
         self.log_level = int(cfg["metric"]["log_level"])
         self.dry_run = bool(cfg.get("dry_run", False))
+        self.close_first_in_dry_run = close_first_in_dry_run
         self.episode = isinstance(rb, EpisodeBuffer)
         self.validate = bool(cfg["buffer"].get("validate_args", False))
         self.step_data: Dict[str, np.ndarray] = {}
@@ -284,9 +290,9 @@ class EnvLoopDV2:
         obs, _ = self.envs.reset(seed=seed)
         self.obs = obs
         self.step_data = self._first_rows(obs, self.num_envs)
-        if self.dry_run:
+        if self.dry_run and self.close_first_in_dry_run:
             # a length-1 episode closes at once, so the episode buffer can
-            # sample (JAX :570-573)
+            # sample (JAX :570-573; not in Dreamer-V1's loop or P2E's)
             self.step_data["truncated"] += 1
             self.step_data["terminated"] += 1
         self.rb.add(self.step_data, validate_args=self.validate)

@@ -818,9 +818,10 @@ class ReplayTrainer:
     gathers on the card into ``inputs``, or a pinned prefetcher copies
     there from the host buffer, with ``refresh(tau)`` of the target critics
     every ``per_rank_target_network_update_freq`` steps before it (tau 1
-    at step 0). A window (``span``) is the ``Time/train_time`` span, which
-    ends when the card has finished it (through the dispatch fence), and
-    its start and end on the card's clock. Metric vectors stay on the
+    at step 0; none with ``refresh=None``). A window (``span``) is the
+    ``Time/train_time`` span, which ends when the card has finished it
+    (through the dispatch fence), and its start and end on the card's
+    clock. Metric vectors stay on the
     device in ``pending`` until log time. With telemetry on, a window
     reports its dispatches and marks the run warm, and the step's FLOPs
     feed MFU."""
@@ -831,7 +832,8 @@ class ReplayTrainer:
         self.sequence_length = int(algo["per_rank_sequence_length"])
         self.cnn_keys = list(algo["cnn_keys"]["encoder"])
         self.prefetch = int(cfg["buffer"]["prefetch"])
-        self.ema_every = int(algo["critic"]["per_rank_target_network_update_freq"])
+        # no refresh (Dreamer-V1's critic has no target): 0
+        self.ema_every = int(algo["critic"].get("per_rank_target_network_update_freq", 0) or 0) if refresh is not None else 0
         # a hard copy (Dreamer-V2) has no tau
         self.tau = float(algo["critic"].get("tau", 1.0))
         self.keep = int(cfg["metric"]["log_level"]) > 0
@@ -874,7 +876,7 @@ class ReplayTrainer:
             else:
                 batches = self.prefetcher.sampled_batches(n_steps)
             for _ in batches:
-                if self.steps % self.ema_every == 0:
+                if self.ema_every and self.steps % self.ema_every == 0:
                     self.refresh(1.0 if self.steps == 0 else self.tau)
                     emas += 1
                 self.last = self.fn()

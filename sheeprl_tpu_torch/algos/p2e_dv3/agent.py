@@ -23,7 +23,6 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
@@ -40,6 +39,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent as dv3_build_ag
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_critic
 from sheeprl_tpu_torch.algos.sac.convert import StackedDense, StackedLayerNorm
 from sheeprl_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
+from sheeprl_tpu_torch.models.blocks import get_activation
 
 # {name: {"weight": float, "reward_type": "intrinsic" | "task", "critic": Critic, "target": Critic}}
 ExplorationCritics = Dict[str, Dict[str, Any]]
@@ -60,10 +60,13 @@ class P2EAgent(NamedTuple):
 
 
 class Ensemble(nn.Module):
-    """``n`` members from ``[..., in]`` to ``[n, ..., output_dim]``, each an
-    ``_LNMLP`` of ``mlp_layers`` x ``dense_units`` computing in ``dtype``
-    (LayerNorm statistics in fp32, cast back) and an fp32 output Dense, all
-    members in one batched product per layer."""
+    """``n`` members from ``[..., in]`` to ``[n, ..., output_dim]``, each
+    ``mlp_layers`` x (Dense of ``dense_units`` (+ LayerNorm) + ``act``)
+    computing in ``dtype`` (LayerNorm statistics in fp32, cast back) and an
+    fp32 output Dense, all members in one batched product per layer:
+    Dreamer-V3's ``_LNMLP`` members (SiLU, LayerNorm with eps 1e-3) by
+    default, Dreamer-V1's and V2's ELU ``_MLPBlock`` members with ``act``
+    and ``use_layer_norm``."""
 
     def __init__(
         self,
@@ -75,9 +78,10 @@ class Ensemble(nn.Module):
         use_layer_norm: bool = True,
         dtype: torch.dtype = torch.float32,
         eps: float = 1e-3,
+        act: str = "silu",
     ) -> None:
         super().__init__()
-        self.n, self.dtype = int(n), dtype
+        self.n, self.dtype, self.act = int(n), dtype, get_activation(act)
         dims = [in_features] + [dense_units] * mlp_layers
         self.linears = nn.ModuleList(StackedDense(n, a, b, compute_dtype=dtype) for a, b in zip(dims[:-1], dims[1:]))
         self.norms = nn.ModuleList(StackedLayerNorm(n, dense_units, eps=eps) for _ in range(mlp_layers if use_layer_norm else 0))
@@ -90,7 +94,7 @@ class Ensemble(nn.Module):
             h = linear(h)
             if len(self.norms):
                 h = self.norms[i](h).to(self.dtype)
-            h = F.silu(h)
+            h = self.act(h)
         return self.head(h).reshape(self.n, *lead, -1)
 
 

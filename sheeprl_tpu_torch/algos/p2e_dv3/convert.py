@@ -6,7 +6,8 @@ package's vmapped param tree (``_LNMLP_0/Dense_i``,
 ``_LNMLP_0/LayerNorm_i/LayerNorm_0`` and the output ``Dense_0``, every leaf
 with a leading ``[N]`` axis) is the stacked module's state as it is
 (``kernel [N, in, out]``, ``bias [N, out]``, LayerNorm ``scale``/``bias``
-``[N, units]``).
+``[N, units]``); the Dreamer-V1 and V2 members' trunk is ``_MLPBlock_0``
+(``trunk=``).
 
 ``checkpoint_state`` writes the exploration run's models, optimizers and
 Moments in the JAX checkpoint layout (JAX ``p2e_dv3_exploration.py``
@@ -61,16 +62,22 @@ OPTIMIZED = {
     "actor_exploration_optimizer": "actor_exploration",
 }
 
-_ENSEMBLE_RULES = (
-    (r"linears\.(\d+)\.(kernel|bias)", r"_LNMLP_0/Dense_\1/\2"),
-    (r"norms\.(\d+)\.(scale|bias)", r"_LNMLP_0/LayerNorm_\1/LayerNorm_0/\2"),
-    (r"head\.(kernel|bias)", r"Dense_0/\1"),
-)
-_ENSEMBLE_BACK = (
-    (r"_LNMLP_0/Dense_(\d+)/(kernel|bias)", r"linears.\1.\2"),
-    (r"_LNMLP_0/LayerNorm_(\d+)/LayerNorm_0/(scale|bias)", r"norms.\1.\2"),
-    (r"Dense_0/(kernel|bias)", r"head.\1"),
-)
+
+def _ensemble_rules(trunk: str) -> Tuple[Tuple[Tuple[str, str], ...], Tuple[Tuple[str, str], ...]]:
+    """The port's ensemble names to the flax paths of the vmapped tree, and
+    back; ``trunk`` is the members' MLP scope (``_LNMLP_0`` in Dreamer-V3,
+    ``_MLPBlock_0`` in Dreamer-V1 and V2)."""
+    to = (
+        (r"linears\.(\d+)\.(kernel|bias)", trunk + r"/Dense_\1/\2"),
+        (r"norms\.(\d+)\.(scale|bias)", trunk + r"/LayerNorm_\1/LayerNorm_0/\2"),
+        (r"head\.(kernel|bias)", r"Dense_0/\1"),
+    )
+    back = (
+        (trunk + r"/Dense_(\d+)/(kernel|bias)", r"linears.\1.\2"),
+        (trunk + r"/LayerNorm_(\d+)/LayerNorm_0/(scale|bias)", r"norms.\1.\2"),
+        (r"Dense_0/(kernel|bias)", r"head.\1"),
+    )
+    return to, back
 
 
 def _rename(name: str, rules: Tuple[Tuple[str, str], ...]) -> Optional[str]:
@@ -80,24 +87,26 @@ def _rename(name: str, rules: Tuple[Tuple[str, str], ...]) -> Optional[str]:
     return None
 
 
-def ensemble_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def ensemble_from_flax(tree: Mapping[str, Any], trunk: str = "_LNMLP_0") -> Dict[str, torch.Tensor]:
     """State dict of the port's ``Ensemble`` from the JAX vmapped ensemble
     tree; a leaf with no port counterpart raises."""
+    back = _ensemble_rules(trunk)[1]
     out: Dict[str, torch.Tensor] = {}
     for path, a in _params(tree).items():
-        name = _rename(path, _ENSEMBLE_BACK)
+        name = _rename(path, back)
         if name is None:
             raise KeyError(f"ensemble leaf with no port counterpart: {path!r}")
         out[name] = torch.from_numpy(np.array(a, dtype=np.float32))
     return out
 
 
-def ensemble_to_flax(sd: Mapping[str, Any]) -> Dict[str, Any]:
+def ensemble_to_flax(sd: Mapping[str, Any], trunk: str = "_LNMLP_0") -> Dict[str, Any]:
     """The JAX vmapped ensemble tree of a port ``Ensemble`` state dict (or
     of a tree keyed as one)."""
+    to = _ensemble_rules(trunk)[0]
 
     def path_of(name: str) -> Optional[Tuple[str, str]]:
-        path = _rename(name, _ENSEMBLE_RULES)
+        path = _rename(name, to)
         return None if path is None else (path, "copy")
 
     return _to_flax(sd, path_of, "ensemble")

@@ -36,16 +36,14 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac_ae",
     "sheeprl_tpu_torch.algos.p2e_dv3",
     "sheeprl_tpu_torch.algos.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v1",
+    "sheeprl_tpu_torch.algos.p2e_dv2",
+    "sheeprl_tpu_torch.algos.p2e_dv1",
 )
 # JAX algorithms whose port is queued, by the ROADMAP item that holds it
 UNPORTED_ALGORITHMS = {
     "ppo_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
     "sac_decoupled": "the decoupled player/trainer processes are queued under ROADMAP A10",
-    "dreamer_v1": "Dreamer-V1 is queued under ROADMAP A6.2",
-    "p2e_dv1_exploration": "P2E over Dreamer-V1 is queued under ROADMAP A6.3",
-    "p2e_dv1_finetuning": "P2E over Dreamer-V1 is queued under ROADMAP A6.3",
-    "p2e_dv2_exploration": "P2E over Dreamer-V2 is queued under ROADMAP A6.3",
-    "p2e_dv2_finetuning": "P2E over Dreamer-V2 is queued under ROADMAP A6.3",
 }
 
 

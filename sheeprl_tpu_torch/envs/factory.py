@@ -14,8 +14,8 @@ algorithm main: env ``i`` of process ``rank`` gets seed
 ``RestartOnException``, behind ``env.backend``:
 
 - ``sync``: ``envs/vector.py::SyncVectorEnv`` (in-process),
-- ``async``: ``envs/vector.py::AsyncVectorEnv`` (one spawned process per
-  env),
+- ``async``: ``envs/vector.py::AsyncVectorEnv`` (one CPU process per
+  env, forked by a fork server),
 - ``pool``: not ported (ROADMAP A10),
 
 with ``env.sync_env`` kept as the deprecated alias (``backend`` null →

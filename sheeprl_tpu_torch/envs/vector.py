@@ -14,10 +14,15 @@ over the envs with a boolean ``_key`` mask, dicts recursively, so
 Observations are batched on a leading axis (a dict of arrays for a
 ``Dict`` space), rewards are float64, the flags bool.
 
-``AsyncVectorEnv`` runs each env in its own ``spawn``ed process and talks
-to it over a pipe. The workers run on the CPU: they start with
-``CUDA_VISIBLE_DEVICES`` empty and ``OMP_NUM_THREADS=1``, and a worker
-whose env imported torch sets it to one thread.
+``AsyncVectorEnv`` runs each env in its own process and talks to it over
+a pipe. The processes fork from one ``forkserver`` process a program
+starts at its first async vector env, which imports the env factory (and
+torch with it) once: a fresh interpreter, so no CUDA state crosses into a
+worker, and a new vector env starts in milliseconds where ``spawn``
+imported torch again in each worker (seconds a run). The workers run on
+the CPU: the server starts with ``CUDA_VISIBLE_DEVICES`` empty and
+``OMP_NUM_THREADS=1``, which every worker inherits, and a worker whose env
+imported torch sets it to one thread.
 """
 
 from __future__ import annotations
@@ -178,6 +183,8 @@ def _worker(index: int, env_fn: Callable[[], Any], pipe: Any, parent_pipe: Any) 
 
 # the environment of a worker process: no CUDA card, one OpenMP thread
 _WORKER_ENVIRON = {"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+# imported once by the fork server, so that its workers start warm
+_FORKSERVER_PRELOAD = ["sheeprl_tpu_torch.envs.factory"]
 
 
 @contextlib.contextmanager
@@ -197,11 +204,14 @@ def _cpu_only_children() -> Iterator[None]:
 
 
 class AsyncVectorEnv(VectorEnv):
-    """Each env in a ``spawn``ed process of its own, over a pipe. The env
-    thunks must pickle (``make_env`` returns ones that do)."""
+    """Each env in a process of its own (forked by the fork server), over
+    a pipe. The env thunks must pickle (``make_env`` returns ones that
+    do)."""
 
     def __init__(self, env_fns: Sequence[Callable[[], Any]], timeout: float = 300.0) -> None:
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver")
+        # read when the server starts, at the first process started below
+        ctx.set_forkserver_preload(_FORKSERVER_PRELOAD)
         self.num_envs = len(env_fns)
         self.timeout = timeout
         self.closed = False

@@ -1,8 +1,8 @@
 """Network blocks (port of ``sheeprl_tpu/models/blocks.py``: ``LayerNorm``
 at lines 68-85, ``MLP`` at :115, ``NatureCNN`` at :268 and
-``LayerNormGRUCell`` at lines 296-338), flax's ``OptimizedLSTMCell`` (the
-recurrent PPO agent's LSTM), and the dense and convolution layers of the
-port with flax's compute dtype.
+``LayerNormGRUCell`` at lines 296-338), flax's ``GRUCell`` (Dreamer-V1's
+recurrence) and ``OptimizedLSTMCell`` (the recurrent PPO agent's LSTM), and
+the dense and convolution layers of the port with flax's compute dtype.
 
 The port's images are NCHW where flax's are NHWC. ``NatureCNN`` flattens
 its last conv map in CHW order where flax flattens in HWC order, so the
@@ -131,6 +131,56 @@ class LayerNormGRUCell(nn.Module):
         cand = torch.tanh(torch.sigmoid(reset) * cand)
         update = torch.sigmoid(update - 1)
         return update * cand + (1 - update) * h
+
+
+class GRUCell(nn.Module):
+    """flax ``nn.GRUCell`` (``features=hidden_size``)::
+
+        r = sigmoid(ir(x) + hr(h))
+        z = sigmoid(iz(x) + hz(h))
+        n = tanh(in(x) + r * hn(h))
+        h' = (1 - z) * n + z * h
+
+    Six :class:`Dense` layers named as flax names them: ``ir``, ``iz`` and
+    ``in`` with biases, ``hr`` and ``hz`` without, ``hn`` with one (so
+    ``algos/dreamer_v2/convert.py``'s dense rule carries each kernel).
+    ``torch.nn.GRUCell`` has biases on ``hr`` and ``hz`` and no flax cast
+    points. Every product, sum and gate computes in ``compute_dtype``, as
+    flax's ``promote_dtype`` casts the inputs, kernels and biases; ``h'``
+    is in that dtype too."""
+
+    GATES = ("ir", "iz", "in", "hr", "hz", "hn")
+
+    def __init__(self, input_size: int, hidden_size: int, compute_dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.input_size, self.hidden_size = int(input_size), int(hidden_size)
+        self.compute_dtype = compute_dtype
+        for name in self.GATES:
+            fan_in = self.input_size if name[0] == "i" else self.hidden_size
+            setattr(self, name, Dense(fan_in, self.hidden_size, bias=name not in ("hr", "hz"), compute_dtype=compute_dtype))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's initialisers: lecun normal input kernels (a normal
+        truncated at two standard deviations, variance 1 / in), orthogonal
+        hidden kernels, zero biases."""
+        std = (1.0 / self.input_size) ** 0.5 / 0.87962566103423978
+        for name in self.GATES:
+            layer = getattr(self, name)
+            if name[0] == "i":
+                nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            else:
+                nn.init.orthogonal_(layer.weight, generator=generator)
+            if layer.bias is not None:
+                layer.bias.zero_()
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        h = h.to(self.compute_dtype)
+        r = torch.sigmoid(self.ir(x) + self.hr(h))
+        z = torch.sigmoid(self.iz(x) + self.hz(h))
+        n = torch.tanh(getattr(self, "in")(x) + r * self.hn(h))
+        return (1.0 - z) * n + z * h
 
 
 class LSTMCell(nn.Module):

@@ -1,6 +1,7 @@
 """Numeric transforms (port of ``sheeprl_tpu/ops/math.py``: ``symlog`` and
 ``symexp`` :21-29, ``two_hot_encoder``/``two_hot_decoder`` :31-64,
-``gae`` :65-104, ``compute_lambda_values`` :107-127, ``normalize`` :183 and the Moments
+``gae`` :65-104, ``compute_lambda_values`` :107-127,
+``compute_lambda_values_dv1`` :156-180, ``normalize`` :183 and the Moments
 return normaliser :208-242).
 
 The reverse-time recurrence is a Python loop where the JAX package scans.
@@ -117,6 +118,22 @@ def compute_lambda_values_bootstrap(
     carry = bootstrap[0]
     out = []
     for t in reversed(range(rewards.shape[0])):
+        carry = interm[t] + continues[t] * lmbda * carry
+        out.append(carry)
+    return torch.stack(out[::-1])
+
+
+def compute_lambda_values_dv1(rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor, lmbda: float = 0.95) -> torch.Tensor:
+    """Dreamer-V1's lambda targets (JAX ``ops/math.py:156-180``): over an
+    ``H``-step imagination (time-major ``[H, ...]``), ``H - 1`` targets
+    ``R_t = r_t + c_t * (1 - lambda) * v_{t+1} + lambda * c_t * R_{t+1}``,
+    the last one bootstrapped with the full last value,
+    ``R_{H-2} = r_{H-2} + c_{H-2} * v_{H-1}``."""
+    next_values = torch.cat([values[1:-1] * (1 - lmbda), values[-1:]], 0)
+    interm = rewards[:-1] + continues[:-1] * next_values
+    carry = torch.zeros_like(values[-1])
+    out = []
+    for t in reversed(range(interm.shape[0])):
         carry = interm[t] + continues[t] * lmbda * carry
         out.append(carry)
     return torch.stack(out[::-1])

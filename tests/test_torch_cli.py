@@ -162,21 +162,34 @@ def test_profiler_is_refused(tmp_path):
         cli.run(TINY + ["metric.profiler.enabled=True", f"log_base_dir={tmp_path}"])
 
 
-# the Dreamer-family names still queued in ROADMAP A6 (drop each as it lands)
-UNPORTED_A6 = ("dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
+# the Dreamer-family names ported from ROADMAP A6.2 and A6.3
+DREAMER_FAMILY = ("dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
 
 
-@pytest.mark.parametrize("name", UNPORTED_A6)
-def test_unported_dreamer_family_names_are_refused(name, tmp_path):
-    """Each queued A6 name raises ``NotImplementedError`` naming its ROADMAP
-    item in ``cli`` and in ``cli_eval`` (before the evaluation lookup)."""
-    # a finetuning exp composes only with its exploration checkpoint set
-    argv = [f"exp={name}", "fabric=cpu"] + (["checkpoint.exploration_ckpt_path=x"] if "finetuning" in name else [])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6\.[23]"):
-        cli.run(argv + [f"log_base_dir={tmp_path}"])
-    cfg = dotdict(compose("config", argv))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6\.[23]"):
-        cli.eval_algorithm(cfg)
+@pytest.mark.parametrize("name", DREAMER_FAMILY)
+def test_dreamer_family_names_are_registered(name):
+    """Each of the last five Dreamer-family names has a training entry
+    point in ``cli`` and an evaluation in ``cli_eval``, in the module the
+    JAX registry names, and is no longer refused."""
+    assert name not in cli.UNPORTED_ALGORITHMS
+    cli.refuse_unported(name)
+    cli._register_algorithms()
+    pkg = "p2e_" + name.split("_")[1] if name.startswith("p2e") else name
+    train, evaluate = registry.find_algorithm(name), registry.find_evaluation(name)
+    assert (train["module"], train["entrypoint"], train["decoupled"]) == (f"sheeprl_tpu_torch.algos.{pkg}.{name}", "main", False)
+    assert (evaluate["module"], evaluate["entrypoint"]) == (f"sheeprl_tpu_torch.algos.{pkg}.evaluate", "evaluate")
+
+
+@pytest.mark.parametrize("name", ["ppo_decoupled", "sac_decoupled"])
+def test_decoupled_names_are_refused_naming_a10(name, tmp_path):
+    """The decoupled player/trainer entry points stay refused, with
+    ``NotImplementedError`` naming ROADMAP A10, in ``cli`` and in
+    ``cli_eval``; nothing else is."""
+    assert set(cli.UNPORTED_ALGORITHMS) == {"ppo_decoupled", "sac_decoupled"}
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A10"):
+        cli.run([f"exp={name}", "fabric=cpu", f"log_base_dir={tmp_path}"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A10"):
+        cli.eval_algorithm(dotdict(compose("config", [f"exp={name}", "fabric=cpu"])))
 
 
 def test_an_unregistered_algorithm_is_refused_with_the_registrys_error():

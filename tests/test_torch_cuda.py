@@ -1550,3 +1550,55 @@ def test_cuda_dreamer_v2_replays_match_eager_steps(cuda, monkeypatch, continuous
     assert fn.replays == 3 and tgru.launch_count == 0
     for a, b in zip([p for m in graphed[:3] for p in m.parameters()], [p for m in eager[:3] for p in m.parameters()]):
         assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp", ["dreamer_v1", "p2e_dv2_exploration", "p2e_dv1_exploration"])
+def test_cuda_dreamer_v1_and_p2e_replays_match_eager_steps(cuda, monkeypatch, exp):
+    """Three graph replays of the Dreamer-V1 step and of the P2E-DV2 and
+    P2E-DV1 exploration steps against three eager steps from the same
+    weights and batches at bf16-mixed (P2E-DV2's targets hard-copied before
+    each), smooth samplers: metrics and every trained parameter within
+    REPLAY_BOUND; neither B1 nor B2 launched."""
+    import chip_smoke
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    small = ["algo.dense_units=64", "algo.mlp_layers=2", "algo.world_model.encoder.cnn_channels_multiplier=4", "algo.world_model.recurrent_model.recurrent_state_size=64", "algo.world_model.stochastic_size=8", "algo.horizon=4"]
+    small += ["algo.world_model.discrete_size=8", "algo.ensembles.n=4"] if exp == "p2e_dv2_exploration" else ["algo.ensembles.n=4"] if exp.startswith("p2e") else []
+    cfg = dotdict(compose("config", [f"exp={exp}", "env=dummy", "env.id=dummy_discrete", "algo.mlp_keys.encoder=[state]", "seed=3", "algo.world_model.use_continues=True", *small]))
+    space = spaces.Dict({"rgb": spaces.Box(0, 255, (64, 64, 3), np.uint8), "state": spaces.Box(-20, 20, (5,), np.float32)})
+    rng = np.random.default_rng(0)
+
+    def batch():
+        d = {
+            "rgb": rng.integers(0, 256, (8, 4, 64, 64, 3)).astype(np.uint8),
+            "state": rng.standard_normal((8, 4, 5)).astype(np.float32),
+            "actions": np.eye(3)[rng.integers(0, 3, (8, 4))].astype(np.float32),
+            "rewards": rng.standard_normal((8, 4, 1)).astype(np.float32),
+            "terminated": (rng.uniform(size=(8, 4, 1)) < 0.05).astype(np.float32),
+            "is_first": (rng.uniform(size=(8, 4, 1)) < 0.05).astype(np.float32),
+        }
+        return {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+
+    batches = [batch() for _ in range(3)]
+    tgru.reset_launch_count()
+    with chip_smoke.family_deterministic():
+        graphed = chip_smoke.family_models(torch, exp, cfg, space, (3,), False)
+        eager = chip_smoke.family_models(torch, exp, cfg, space, (3,), False, graphed.state())
+        fn = graphed.make_fn({k: torch.empty_like(v) for k, v in batches[0].items()}, None)
+        for b in batches:
+            for k, v in b.items():
+                fn.inputs[k].copy_(v)
+            graphed.refresh()
+            eager.refresh()
+            got = fn()
+            want = eager.step(b)
+            assert torch.isfinite(got).all() and got.shape == (len(graphed.order),)
+            assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= REPLAY_BOUND
+    assert fn.replays == 3 and tgru.launch_count == 0 and tgru.proj_launch_count == 0
+    for a, b in zip([p for m in graphed.modules for p in m.parameters()], [p for m in eager.modules for p in m.parameters()]):
+        assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)

@@ -118,6 +118,28 @@ SERVE_SLICE = (
 )
 
 
+# the modules of the Dreamer-V1 and P2E-DV1/DV2 slice
+DREAMER_SLICE = (
+    "algos/dreamer_v1/agent.py",
+    "algos/dreamer_v1/convert.py",
+    "algos/dreamer_v1/dreamer_v1.py",
+    "algos/dreamer_v1/evaluate.py",
+    "algos/dreamer_v1/loss.py",
+    "algos/dreamer_v1/utils.py",
+    "algos/p2e_dv1/agent.py",
+    "algos/p2e_dv1/evaluate.py",
+    "algos/p2e_dv1/p2e_dv1_exploration.py",
+    "algos/p2e_dv1/p2e_dv1_finetuning.py",
+    "algos/p2e_dv1/utils.py",
+    "algos/p2e_dv2/agent.py",
+    "algos/p2e_dv2/convert.py",
+    "algos/p2e_dv2/evaluate.py",
+    "algos/p2e_dv2/p2e_dv2_exploration.py",
+    "algos/p2e_dv2/p2e_dv2_finetuning.py",
+    "algos/p2e_dv2/utils.py",
+)
+
+
 def test_the_scan_covers_the_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(PPO_SLICE) <= scanned
@@ -138,6 +160,11 @@ def test_the_scan_covers_the_serving_slice():
     assert set(SERVE_SLICE) <= scanned
 
 
+def test_the_scan_covers_the_dreamer_v1_and_p2e_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(DREAMER_SLICE) <= scanned
+
+
 # every registered entry point, and the pixel env of those that need one
 ENTRY_POINTS = {
     "dreamer_v3": ["env=pixel_catcher", "env.id=pixel_catcher"],
@@ -147,6 +174,7 @@ ENTRY_POINTS = {
     "sac": [],
     "droq": [],
     "sac_ae": ["env=pixel_pendulum", "env.id=PixelPendulum-v0"],
+    "dreamer_v1": ["env=pixel_catcher", "env.id=pixel_catcher"],
 }
 
 

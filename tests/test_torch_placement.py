@@ -22,6 +22,7 @@ import torch
 
 from sheeprl_tpu.parallel import fabric as jfabric
 from sheeprl_tpu_torch.algos.a2c import a2c as ta2c
+from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as tdv1
 from sheeprl_tpu_torch.algos.dreamer_v2 import agent as tdv2_agent
 from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as tdv2
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent as tdv3_agent
@@ -29,6 +30,8 @@ from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as tdv3
 from sheeprl_tpu_torch.algos.droq import droq as tdroq
 from sheeprl_tpu_torch.algos.ppo import agent as tppo_agent
 from sheeprl_tpu_torch.algos.ppo import ppo as tppo
+from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration as tp2e_dv1
+from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as tp2e_dv2
 from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as trppo
 from sheeprl_tpu_torch.algos.sac import agent as tsac_agent
 from sheeprl_tpu_torch.algos.sac import sac as tsac
@@ -38,9 +41,13 @@ from sheeprl_tpu_torch.parallel import fabric as tfabric
 from sheeprl_tpu_torch.utils.utils import dotdict
 from tests.test_torch_a2c import A2C
 from tests.test_torch_cli import TINY as DV3_TINY
+from tests.test_torch_dreamer_v1 import CLI as DV1_CLI
+from tests.test_torch_dreamer_v1 import TINY as DV1_TINY
 from tests.test_torch_dreamer_v2 import CLI as DV2_CLI
 from tests.test_torch_dreamer_v2 import dv2_cfg, obs_space
 from tests.test_torch_droq import DROQ
+from tests.test_torch_p2e_dv2 import CLI as P2E_DV2_CLI
+from tests.test_torch_p2e_dv2 import cli_args as p2e_cli_args
 from tests.test_torch_ppo import PPO
 from tests.test_torch_ppo_recurrent import RPPO
 from tests.test_torch_sac import SAC
@@ -150,6 +157,9 @@ FAMILIES = {
     "droq": (tdroq, DROQ + ["algo.total_steps=10"], {"player_device"}),
     "dreamer_v3": (tdv3, DV3_TINY + ["env.backend=sync"], {"player_device"}),
     "dreamer_v2": (tdv2, DV2_CLI, {"player_device"}),
+    "dreamer_v1": (tdv1, DV1_CLI, {"player_device"}),
+    "p2e_dv2": (tp2e_dv2, ["exp=p2e_dv2_exploration", "dry_run=True", *P2E_DV2_CLI], {"player_device"}),
+    "p2e_dv1": (tp2e_dv1, ["exp=p2e_dv1_exploration", "dry_run=True", *p2e_cli_args(DV1_TINY)], {"player_device"}),
 }
 
 
