@@ -311,6 +311,30 @@ which exits non-zero:
    [c.phase_family_step(torch, np, fg, rb, s, a, k, e) for e in
    c.FAMILY_STEPS]; c.phase_family_cli(torch, np, fg, tempfile.mkdtemp())``
    (TF32 off first).
+19. The replica fleet (``serve.fleet.enabled``) over phase 12's exp=ppo
+   MLP checkpoint at bf16-mixed: two device replica slots on the card (each
+   its own stream, graphs and pinned staging), one CPU-spill slot and a
+   standby slot (``max_replicas`` 3, ``FLEET_NODE``): (a) every captured
+   slot's rungs bit-equal to the same rung run eagerly and equal to the
+   plain forward on the slot's device (the card's, the CPU's for the spill
+   slot), the standby slot not captured; (b) ``serve ...
+   serve.fleet.enabled=true serve.load.enabled=true`` through ``cli.run``, a
+   closed loop (``FLEET_LOAD_S``) and a 5-step ramp (``FLEET_RAMP``): QPS,
+   p50/p95 against ``slo_ms``, knee and ``max_good_qps``, hedges,
+   re-routes, sheds, the hedge scan's lag, the ``variant: fleet`` record;
+   (c) the drills: replica 0 killed mid-ramp (nothing dropped or expired,
+   p95 within the SLO), ``router_blackhole`` rescued by the scan, autoscale
+   up (the standby slot captured first, the pause printed, its rungs held
+   as in (a)) and down, ``batch`` traffic on the spill slot, a hot swap
+   across every slot under mixed load (every answer equal to the plain
+   forward of its stamped version); no B1 or B2 launch. Its numbers ride in
+   the kernels line under ``fused_gru``'s ``serve_fleet``, beside phase
+   15's single server. Alone on the card (phase 12's runs and phase 15
+   first): ``python -c 'import chip_smoke as c, numpy as np, torch,
+   tempfile, time; from sheeprl_tpu_torch.ops import fused_gru as fg; d =
+   tempfile.mkdtemp(); c.phase_ppo_cli(torch, d); s = c.phase_serve(torch,
+   np, fg, d); c.phase_fleet(torch, np, fg, d, s, print)'`` (TF32 off
+   first).
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -3834,7 +3858,8 @@ def serve_model(torch, np, ckpt_dir: str) -> dict:
     """A PPO run's newest committed checkpoint as ``cli_serve`` builds it on
     the card (the stored config resolved, ``build_served_policy``), with the plain
     forward: the training player's greedy actions (``PPOPlayer.get_actions``,
-    what the test episode runs) on the same weights, as env indices."""
+    what the test episode runs) on the same weights, as env indices, on the
+    card (or on ``device``: the CPU a fleet's spill slot serves on)."""
     import os
 
     from sheeprl_tpu_torch.algos.ppo.agent import build_agent, real_actions_from_onehot
@@ -3857,8 +3882,8 @@ def serve_model(torch, np, ckpt_dir: str) -> dict:
     space = env.observation_space
     env.close()
 
-    def plain(agent_state):
-        _, player = build_agent(dims, continuous, cfg, space, agent_from_flax(agent_state), device="cuda")
+    def plain(agent_state, device="cuda"):
+        _, player = build_agent(dims, continuous, cfg, space, agent_from_flax(agent_state), device=device)
 
         def actions(obs_list):
             batch = {k: np.stack([o[k] for o in obs_list]) for k in policy.obs_spec}
@@ -4147,8 +4172,10 @@ def phase_serve_drills(torch, np, served: dict) -> dict:
         "request_swap_s": swap_s,
         # the version's 8 graphs, captured while serving paused
         "swap_capture_s": [info["capture_s"] for kind, info in events if kind == "swap"],
-        # the gate held alone: for the captures, then for the flip
+        # the gate held alone: for each slot's captures, then for the flip;
+        # pause_s the longest of them
         "swap_pause_s": [info["pause_s"] for kind, info in events if kind == "swap"],
+        "swap_pauses_s": [info["pauses_s"] for kind, info in events if kind == "swap"],
         "serving_step": snap["serving_step"],
         "swaps": snap["swaps"],
     }
@@ -5037,6 +5064,408 @@ def phase_family_cli(torch, np, fg, tmp: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: the replica fleet (serve.fleet.enabled) over phase 12's exp=ppo
+# MLP checkpoint, bf16-mixed
+# --------------------------------------------------------------------------- #
+
+# two device replicas on the card, one CPU-spill replica, one standby slot
+# the autoscaler may activate; the drills' fast scans (tests/test_serve's
+# DRILL_FLEET cadences)
+FLEET_NODE = {"enabled": True, "num_replicas": 2, "min_replicas": 2, "max_replicas": 3, "cpu_spill_replicas": 1, "hedge_scan_ms": 2.0, "autoscale_interval_s": 0.05}
+FLEET_LOAD_S = 3.0  # the CLI's closed loop
+# the CLI's ramp: 500..8000 Hz, 1 s a step, 32 open-loop clients (8 of
+# them offered at most about 1900 requests/s from an H100 machine's host)
+FLEET_RAMP = {"ramp_steps": 5, "ramp_start_hz": 500.0, "ramp_factor": 2.0, "duration_s": 5.0, "concurrency": 32}
+FLEET_KILL_RATES = (250.0, 500.0, 1000.0)  # the kill drill's ramp, replica 0 killed as step 1 begins
+FLEET_KILL_STEP_S = 1.0
+FLEET_BURST = 96  # requests of the autoscale drill's burst
+FLEET_SWAP_TRAFFIC_S = 1.0  # traffic before and after the hot swap
+FLEET_BUDGET_S = 60.0  # what phase 19 may add to the smoke
+
+
+def fleet_config(**fleet):
+    """``serve_config`` (phase 15's ladder and cadences) with the fleet on:
+    ``FLEET_NODE`` under the keys given; a ``serve`` key's dict merges into
+    the serve node."""
+    serve = fleet.pop("serve", {})
+    return serve_config(fleet={**FLEET_NODE, **fleet}, **serve)
+
+
+def fleet_server(served: dict, cfg, on_event=None):
+    """A started fleet over ``served``; the smoke's heap (earlier phases'
+    garbage) is collected first, so a full collection does not land inside
+    a drill's timed window."""
+    import gc
+
+    from sheeprl_tpu_torch.serve.fleet import FleetServer
+
+    gc.collect()
+    ckpt = served["ckpt"]
+    return FleetServer(served["policy"], cfg, step=ckpt.step, path=ckpt.path, on_event=on_event).start()
+
+
+def fleet_slot_parity(np, server, plain_card, plain_cpu, slots) -> dict:
+    """Each of ``slots``' rungs held to the same rung run eagerly (bit for
+    bit) and to the plain forward on the slot's device (equal): the card's
+    for a device slot, the CPU's for the spill slot; for the spill slot the
+    rows equal to the card's plain forward are counted too."""
+    rows = {}
+    for index in slots:
+        slot, ladder = server.slots[index], server.store.current.ladders[index]
+        row = {"kind": slot.kind, "device": str(slot.device), "rungs": {}}
+        for b in SERVE_LADDER:
+            obs = serve_obs(np, server.policy, b, seed=100 + b)
+            rung = ladder.rung(b)
+            got, eager = rung.run(obs), rung.eager(obs)
+            want = (plain_cpu if slot.kind == "cpu_spill" else plain_card)(obs)
+            if not (np.array_equal(got, eager) and np.array_equal(got.astype(want.dtype), want)):
+                raise AssertionError(f"19(a) slot {index} ({slot.kind}) rung {b}: replay {got} eager {eager} plain {want}")
+            row["rungs"][b] = {"bit_equal_to_eager": True, "equal_to_plain": True}
+            if slot.kind == "cpu_spill":
+                card = plain_card(obs)
+                row["rungs"][b]["rows_equal_to_card_plain"] = int((got.astype(card.dtype) == card).all(axis=-1).sum())
+        rows[index] = row
+    return rows
+
+
+def fleet_run_checks(label: str, report: dict, snap: dict, slo_ms: float) -> None:
+    """Zero admitted requests dropped or expired, no client error, and the
+    fleet's p95 within the SLO."""
+    steps = report.get("steps", [report])
+    expired, errors = sum(s["expired"] for s in steps), sum(s["errors"] for s in steps)
+    if expired or errors or snap["shed_expired"] or snap["failed"] or snap["p95_ms"] is None or snap["p95_ms"] > slo_ms:
+        seen = {k: snap[k] for k in ("shed_expired", "failed", "p95_ms")}
+        raise AssertionError(f"19 {label}: expired {expired} errors {errors} {seen}")
+
+
+def equal_to_a_plain(np, plains, obs: list, got) -> int:
+    """Rows of ``got`` equal to one of ``plains`` (plain forwards, each on
+    its device) over ``obs`` at one of the ladder's batch sizes: a slot's
+    rung pads its batch, and a row is computed within that batch."""
+    ok = np.zeros(len(obs), dtype=bool)
+    for fn in plains:
+        for b in reversed(SERVE_LADDER):  # the widest first: the fewest forwards
+            todo = np.flatnonzero(~ok)
+            if not len(todo):
+                return len(obs)
+            want = plain_at(np, fn, [obs[i] for i in todo], b)
+            ok[todo] |= (got[todo].astype(want.dtype) == want).all(axis=-1)
+    return int(ok.sum())
+
+
+def phase_fleet_cli(torch, tmp: str, ckpt_dir: str) -> dict:
+    """19(b) ``serve ckpt_dir=... serve.fleet.enabled=true
+    serve.load.enabled=true`` through ``cli.run``: a closed loop at
+    concurrency 8 for ``FLEET_LOAD_S``, then a stepped ramp (``FLEET_RAMP``):
+    QPS, p50/p95 against ``slo_ms``, the knee and ``max_good_qps``, hedges,
+    re-routes and sheds, the hedge scan's lag, the ``variant: fleet`` run
+    record."""
+    fleet = [f"serve.fleet.{k}={str(v).lower() if isinstance(v, bool) else v}" for k, v in FLEET_NODE.items()]
+    report = {"card": card_line()}
+    runs = {
+        "closed_loop": (f"serve.load.duration_s={FLEET_LOAD_S}",),
+        "ramp": tuple(f"serve.load.{k}={v}" for k, v in FLEET_RAMP.items()),
+    }
+    import gc
+
+    for run, extra in runs.items():
+        gc.collect()  # as fleet_server does
+        out = serve_cli(tmp, ckpt_dir, f"fleet_{run}", *fleet, *extra)
+        snap, load = out["snap"], out["snap"]["load_report"]
+        router = snap["fleet"]["router"]
+        row = {
+            "qps": snap["qps"] if run == "ramp" else load["qps"],
+            "p50_ms": snap["p50_ms"] if run == "ramp" else load["p50_ms"],
+            "p95_ms": snap["p95_ms"] if run == "ramp" else load["p95_ms"],
+            "slo_ms": load["slo_ms"],
+            "mean_batch": snap["mean_batch"],
+            "completed": snap["completed"],
+            "shed_overloaded": snap["shed_overloaded"],
+            "shed_expired": snap["shed_expired"],
+            **{k: router[k] for k in ("routed", "hedged", "hedged_won", "rerouted_requests", "spilled", "hedge_threshold_ms", "scan_lag_ms")},
+            "warmup_s": snap["warmup_s"],
+            "record_kind": out["record"]["kind"],
+            "record_variant": out["record"].get("variant"),
+            "record_outcome": out["record"]["outcome"],
+            "banner": out["banner"],
+            "process_seconds": out["seconds"],
+        }
+        if run == "ramp":
+            row.update({k: load[k] for k in ("offered_rates_hz", "knee_rate_hz", "max_good_qps", "saturated")})
+            row["steps"] = [{k: s[k] for k in ("offered_rate_hz", "qps", "p50_ms", "p95_ms", "ok", "shed", "expired", "errors", "goodput_frac", "slo_met")} for s in load["steps"]]
+        else:
+            row.update({k: load[k] for k in ("ok", "shed", "expired", "errors", "slo_met", "client_retries")})
+        report[run] = row
+        print(f"phase 19(b) fleet_cli_{run} " + json.dumps(row), flush=True)
+        # a ramp offers past the knee, where sheds and expiries are its
+        # finding; any other client error, or a closed loop's expiry, fails
+        steps = load.get("steps", [load])
+        lost = sum(st["errors"] for st in steps) + (0 if run == "ramp" else load["expired"])
+        if (row["record_kind"], row["record_variant"], row["record_outcome"]) != ("serve", "fleet", "completed") or snap["completed"] <= 0 or lost:
+            raise AssertionError(f"19(b) fleet CLI {run}: {row}")
+        if run == "ramp" and (row["knee_rate_hz"] is None or row["max_good_qps"] <= 0):
+            raise AssertionError(f"19(b) fleet ramp found no knee: {row}")
+    return report
+
+
+def phase_fleet_drills(torch, np, served: dict, plain_card, plain_cpu, part_took) -> dict:
+    """19(c) the drills, each on a fleet of its own over the same weights:
+    (1) replica 0 killed as the second step of an open-loop ramp begins
+    (``FLEET_KILL_RATES``, the fleet pinned at two device replicas, no
+    restart budget): zero admitted requests dropped or expired and the
+    survivors' p95 within the SLO; (2) ``router_blackhole`` for 50 ms from
+    the 10th request: every request served, rescued by the hedge scan; (3)
+    autoscale: a burst of ``FLEET_BURST`` requests over slowed replicas
+    activates the standby slot (its graphs captured first, the serving
+    pause printed, its rungs then held as in (a)), and the idle fleet
+    retires it, no request expiring; (4) ``batch`` traffic with the spill
+    tier open (``spill_depth`` 0) and hedging off, served by the CPU-spill
+    slot, its answers equal to the plain forward on the CPU; (5) a hot swap under mixed load
+    (interactive threads on the device slots, ``batch`` threads on the
+    spill slot): nothing dropped, every answer equal to the plain forward
+    of the version stamped on it (on the slot's device), every slot's
+    graphs serving the new version after the flip."""
+    import threading
+
+    from sheeprl_tpu_torch.serve.config import LoadConfig
+    from sheeprl_tpu_torch.serve.loadgen import random_obs, run_load, run_ramp
+
+    policy = served["policy"]
+    spill = FLEET_NODE["max_replicas"]  # spill slots follow the device slots
+    report = {}
+
+    # (1) kill mid-ramp
+    server = fleet_server(served, fleet_config(num_replicas=2, min_replicas=2, max_replicas=2, max_pending=10_000, serve={"max_restarts": 0, "restart_refund_s": None}))
+    killed = []
+    try:
+        ramp = run_ramp(
+            server,
+            LoadConfig(enabled=True, concurrency=8, max_retries=5, seed=0),
+            rates_hz=list(FLEET_KILL_RATES),
+            step_duration_s=FLEET_KILL_STEP_S,
+            on_step=lambda step, rate: killed.append(server.kill_replica(0)) if step == 1 else None,
+        )
+        time.sleep(0.1)
+        snap = server.snapshot()
+    finally:
+        server.close()
+    router = snap["fleet"]["router"]
+    report["kill_mid_ramp"] = {
+        "killed": killed,
+        "replicas_alive": snap["replicas_alive"],
+        "steps": [{k: s[k] for k in ("offered_rate_hz", "qps", "p50_ms", "p95_ms", "ok", "shed", "expired", "errors", "slo_met")} for s in ramp["steps"]],
+        "knee_rate_hz": ramp["knee_rate_hz"],
+        "p95_ms": snap["p95_ms"],
+        "slo_ms": snap["slo_ms"],
+        **{k: router[k] for k in ("rerouted_requests", "hedged", "shed", "scan_lag_ms")},
+        "events": snap["events"],
+    }
+    print("phase 19(c) fleet_kill_mid_ramp " + json.dumps(report["kill_mid_ramp"]), flush=True)
+    fleet_run_checks("kill mid-ramp", ramp, snap, snap["slo_ms"])
+    if killed != [True] or snap["replicas_alive"] != 2:  # the survivor and the spill slot
+        raise AssertionError(f"19(c) kill mid-ramp: {report['kill_mid_ramp']}")
+    part_took("19c_kill")
+
+    # (2) router blackhole (device slots only: every answer from the card)
+    cfg = fleet_config(cpu_spill_replicas=0, serve={"fault_injection": {"enabled": True, "faults": [{"kind": "router_blackhole", "at_request": 10, "duration_s": 0.05}]}})
+    server = fleet_server(served, cfg)
+    try:
+        obs = serve_obs(np, policy, 40, seed=3)
+        reqs = [server.submit(o) for o in obs]
+        out = np.stack([server.wait(r) for r in reqs])
+        snap = server.snapshot()
+    finally:
+        server.close()
+    router = snap["fleet"]["router"]
+    report["router_blackhole"] = {"requests": len(obs), "completed": snap["completed"], "blackholed": router["blackholed"], "rescued": snap["events"].get("router_rescue", 0), "equal_to_plain": equal_to_a_plain(np, [plain_card], obs, out) == len(obs), "failed": snap["failed"]}
+    print("phase 19(c) fleet_router_blackhole " + json.dumps(report["router_blackhole"]), flush=True)
+    row = report["router_blackhole"]
+    # the scan also places requests that found every pool full
+    if row["completed"] != len(obs) or not row["blackholed"] or row["rescued"] < row["blackholed"] or row["failed"] or not row["equal_to_plain"]:
+        raise AssertionError(f"19(c) router_blackhole: {row}")
+    part_took("19c_blackhole")
+
+    # (3) autoscale up under pressure, then down when idle
+    slow = [{"kind": "slow_inference", "replica": r, "at_batch": 0, "duration_s": 0.01, "for_batches": 12} for r in (0, 1)]
+    cfg = fleet_config(cpu_spill_replicas=0, backlog_per_replica=64, max_pending=10_000, scale_up_depth=4.0, scale_down_depth=0.5, scale_patience=1, autoscale_interval_s=0.02, serve={"fault_injection": {"enabled": True, "faults": slow}})
+    server = fleet_server(served, cfg)
+    try:
+        standby_before = server.store.has_graphs(2)
+        obs = serve_obs(np, policy, FLEET_BURST, seed=4)
+        reqs = [server.submit(o) for o in obs]
+        out = np.stack([server.wait(r) for r in reqs])
+        deadline = time.monotonic() + 10.0
+        while server.scale_downs < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        snap = server.snapshot()
+        activated = fleet_slot_parity(np, server, plain_card, plain_cpu, [2]) if server.store.has_graphs(2) else {}
+    finally:
+        server.close()
+    report["autoscale"] = {
+        "standby_captured_before": standby_before,
+        "scale_ups": snap["fleet"]["scale_ups"],
+        "scale_downs": snap["fleet"]["scale_downs"],
+        "active_device_replicas_after": snap["fleet"]["active_device_replicas"],
+        "slot_captures": snap["fleet"]["slot_captures"],
+        "completed": snap["completed"],
+        "shed_expired": snap["shed_expired"],
+        "failed": snap["failed"],
+        "p95_ms": snap["p95_ms"],
+        "equal_to_plain": equal_to_a_plain(np, [plain_card], obs, out) == len(obs),
+        "activated_slot": activated,
+    }
+    print("phase 19(c) fleet_autoscale " + json.dumps(report["autoscale"]), flush=True)
+    row = report["autoscale"]
+    if standby_before or row["scale_ups"] < 1 or row["scale_downs"] < 1 or row["active_device_replicas_after"] != 2 or not row["slot_captures"] or row["shed_expired"] or row["failed"] or row["completed"] != FLEET_BURST or not row["equal_to_plain"] or not activated:
+        raise AssertionError(f"19(c) autoscale: {row}")
+    part_took("19c_autoscale")
+
+    # (4) batch traffic on the spill slot
+    # no hedging here: a hedge twin would take a request to a device slot
+    server = fleet_server(served, fleet_config(spill_depth=0, backlog_per_replica=64, hedge_max=0))
+    try:
+        obs = serve_obs(np, policy, 32, seed=5)
+        reqs = [server.submit(o, priority="batch") for o in obs]
+        out = np.stack([server.wait(r) for r in reqs])
+        placements = [r.placements for r in reqs]
+        load = run_load(server, LoadConfig(enabled=True, duration_s=1.0, concurrency=4, seed=5), priority="batch")
+        snap = server.snapshot()
+    finally:
+        server.close()
+    router = snap["fleet"]["router"]
+    report["cpu_spill"] = {
+        "requests": len(obs),
+        "on_spill_slot": sum(p == [spill] for p in placements),
+        "equal_to_cpu_plain": equal_to_a_plain(np, [plain_cpu], obs, out) == len(obs),
+        "load_ok": load["ok"],
+        "load_qps": load["qps"],
+        "load_p50_ms": load["p50_ms"],
+        "load_p95_ms": load["p95_ms"],
+        "spilled": router["spilled"],
+        "routed": router["routed"],
+        "spill_slot_requests": snap["fleet"]["replicas"][spill]["requests"],
+    }
+    print("phase 19(c) fleet_cpu_spill " + json.dumps(report["cpu_spill"]), flush=True)
+    row = report["cpu_spill"]
+    if row["on_spill_slot"] != len(obs) or not row["equal_to_cpu_plain"] or not row["spilled"] == row["routed"] == row["spill_slot_requests"] or load["errors"] or load["ok"] <= 0:
+        raise AssertionError(f"19(c) cpu spill: {row}")
+    part_took("19c_spill")
+
+    # (5) hot swap across every slot under mixed load
+    new_step = served["ckpt"].step + 2000
+    new_path, new_state = commit_perturbed(np, served, new_step)
+    plains = {
+        served["ckpt"].step: (plain_card, plain_cpu),
+        new_step: (served["plain"](new_state["agent"]), served["plain"](new_state["agent"], device="cpu")),
+    }
+    events = []
+    server = fleet_server(served, fleet_config(spill_depth=0), on_event=lambda kind, info: events.append((kind, info)))
+    stop = threading.Event()
+    records, failures = [], []
+
+    def traffic(seed: int, priority: str) -> None:
+        make, rng = random_obs(policy.obs_spec), np.random.default_rng(2000 + seed)
+        while not stop.is_set():
+            o = make(rng)
+            try:
+                req = server.submit(o, priority=priority)
+                out = server.wait(req)
+                records.append((o, out, req.served_step, priority))
+            except Exception as err:  # the drill counts every failure
+                failures.append(repr(err))
+
+    threads = [threading.Thread(target=traffic, args=(i, "batch" if i % 2 else "interactive"), daemon=True) for i in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(FLEET_SWAP_TRAFFIC_S)
+        t0 = time.perf_counter()
+        server.request_swap(new_path)
+        swap_s = time.perf_counter() - t0
+        time.sleep(FLEET_SWAP_TRAFFIC_S)
+        stop.set()
+        for t in threads:
+            t.join(10.0)
+        snap = server.snapshot()
+        probe = serve_obs(np, policy, 1, seed=6)
+        after = {i: np.stack(lad.run(probe)) for i, lad in enumerate(server.store.current.ladders) if lad is not None}
+    finally:
+        stop.set()
+        server.close()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("19(c) hot swap: a traffic thread did not stop")
+    matches, by_version = 0, {}
+    for step, fns in plains.items():
+        idx = [i for i, r in enumerate(records) if r[2] == step]
+        by_version[step] = len(idx)
+        if idx:
+            matches += equal_to_a_plain(np, fns, [records[i][0] for i in idx], np.stack([records[i][1] for i in idx]))
+    new_card, new_cpu = plains[new_step]
+    slots_on_new = {i: bool(np.array_equal(out.astype(int), (new_cpu if server.slots[i].kind == "cpu_spill" else new_card)(probe).astype(int))) for i, out in after.items()}
+    report["hot_swap"] = {
+        "requests": len(records),
+        "batch_priority_requests": sum(r[3] == "batch" for r in records),
+        "failures": len(failures),
+        "answers_by_version": by_version,
+        "equal_to_plain_of_stamped_version": matches,
+        "request_swap_s": swap_s,
+        "swap_capture_s": [info["capture_s"] for kind, info in events if kind == "swap"],
+        "swap_pause_s": [info["pause_s"] for kind, info in events if kind == "swap"],
+        "swap_pauses_s": [info["pauses_s"] for kind, info in events if kind == "swap"],
+        "slots_serving_new_version": slots_on_new,
+        "shed_expired": snap["shed_expired"],
+        "failed": snap["failed"],
+        "serving_step": snap["serving_step"],
+        "p95_ms": snap["p95_ms"],
+    }
+    print("phase 19(c) fleet_hot_swap " + json.dumps(report["hot_swap"]), flush=True)
+    row = report["hot_swap"]
+    # every captured slot: the two device slots and the spill slot, and the
+    # standby slot too when the autoscaler activated it under this load
+    if failures or snap["shed_expired"] or snap["failed"] or matches != len(records) or not all(by_version.values()) or snap["serving_step"] != new_step or not all(slots_on_new.values()) or not {0, 1, spill} <= set(slots_on_new) or not row["batch_priority_requests"]:
+        raise AssertionError(f"19(c) hot swap across every slot: {row} {failures[:3]}")
+    part_took("19c_swap")
+    return report
+
+
+def phase_fleet(torch, np, fg, tmp: str, serve: dict, part_took) -> dict:
+    """Phase 19: (a) every slot's rungs, (b) the CLI's closed loop and ramp,
+    (c) the drills, beside phase 15's single-server figures; the fleet
+    launches neither B1 nor B2 (checked)."""
+    b1_before, b2_before = fg.launch_count, fg.proj_launch_count
+    t0 = time.perf_counter()
+    report = {"card": card_line()}
+    ckpt_dir = serve_ckpt_dir(tmp, SERVE_RUNS["mlp_cartpole"])
+    served = serve_model(torch, np, ckpt_dir)
+    plain_card = served["plain"](served["state"]["agent"])
+    plain_cpu = served["plain"](served["state"]["agent"], device="cpu")
+    server = fleet_server(served, fleet_config())
+    try:
+        report["slots"] = fleet_slot_parity(np, server, plain_card, plain_cpu, [0, 1, FLEET_NODE["max_replicas"]])
+        report["warmup_s"] = dict(server.warmup_s)
+        report["standby_captured_at_start"] = server.store.has_graphs(2)
+    finally:
+        server.close()
+    print("phase 19(a) fleet_slots " + json.dumps(report["slots"]), flush=True)
+    if report["standby_captured_at_start"]:
+        raise AssertionError("19(a) the standby slot was captured before its activation")
+    part_took("19a")
+    report["cli"] = phase_fleet_cli(torch, tmp, ckpt_dir)
+    part_took("19b")
+    report["drills"] = phase_fleet_drills(torch, np, served, plain_card, plain_cpu, part_took)
+    if (fg.launch_count, fg.proj_launch_count) != (b1_before, b2_before):
+        raise AssertionError(f"phase 19 launched B1 {fg.launch_count - b1_before} and B2 {fg.proj_launch_count - b2_before} times, want 0")
+    single = {k: serve["cli"]["closed_loop"][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "mean_batch")}
+    fleet = {k: report["cli"]["closed_loop"][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "mean_batch")}
+    print(f"phase 19 {report['card']} closed loop, concurrency 8: fleet " + json.dumps(fleet) + " single server (phase 15) " + json.dumps(single), flush=True)
+    print("phase 19 b1_b2_launches 0", flush=True)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"phase 19 took {report['seconds']:.1f} s of its {FLEET_BUDGET_S:.0f} s budget", flush=True)
+    return report
+
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5225,8 +5654,7 @@ def main() -> int:
     # phase 15: the serving tier over phase 12's PPO checkpoints, (a) the
     # ladder of CUDA graphs (MLP and NatureCNN), (b) the CLI's load runs,
     # (c) the drills; neither B1 nor B2 launched
-    with ppo_tmp:
-        serve = phase_serve(torch, np, fg, ppo_tmp.name)
+    serve = phase_serve(torch, np, fg, ppo_tmp.name)
     phase_took("15")
 
     # phase 16: Plan2Explore on Dreamer-V3 at S, bf16-mixed, (a) the
@@ -5263,6 +5691,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         family_cli = phase_family_cli(torch, np, fg, tmp)
     phase_took("18")
+
+    # phase 19: the replica fleet over phase 12's exp=ppo MLP checkpoint,
+    # (a) every slot's rungs, (b) the CLI's closed loop and ramp, (c) the
+    # drills; neither B1 nor B2 launched
+    with ppo_tmp:
+        fleet = phase_fleet(torch, np, fg, ppo_tmp.name, serve, part_took)
+    phase_took("19")
 
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
@@ -5358,6 +5793,18 @@ def main() -> int:
                 "host_ms_per_request_b1": {m: {k: row[k] for k in ("host_ms_per_request_b1_window_0", "host_ms_per_request_b1_window_default")} for m, row in serve["ladder"].items()},
                 **{run: {k: serve["cli"][run][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "slo_met", "mean_batch", "shed", "client_retries")} for run in ("closed_loop", "open_loop")},
                 "hot_swap": {k: serve["drills"]["hot_swap"][k] for k in ("slo_ms", "shed_expired", "failed", "latency_ms_max_across_swap", "request_swap_s", "swap_pause_s")},
+            },
+            # the replica fleet (phase 19) reaches no TPU kernel and launches
+            # neither B1 nor B2 (checked)
+            "serve_fleet": {
+                "b1_b2_launches": 0,
+                "closed_loop": {k: fleet["cli"]["closed_loop"][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "mean_batch", "hedged", "rerouted_requests", "shed_overloaded", "scan_lag_ms")},
+                "single_server_closed_loop": {k: serve["cli"]["closed_loop"][k] for k in ("qps", "p50_ms", "p95_ms", "slo_ms", "mean_batch")},
+                "ramp": {k: fleet["cli"]["ramp"][k] for k in ("offered_rates_hz", "knee_rate_hz", "max_good_qps", "hedged", "rerouted_requests", "shed_overloaded", "shed_expired", "scan_lag_ms")},
+                "kill_mid_ramp": {k: fleet["drills"]["kill_mid_ramp"][k] for k in ("p95_ms", "slo_ms", "rerouted_requests", "hedged")},
+                "standby_capture": fleet["drills"]["autoscale"]["slot_captures"],
+                "cpu_spill_load": {k: fleet["drills"]["cpu_spill"][k] for k in ("load_qps", "load_p50_ms", "load_p95_ms")},
+                "hot_swap": {k: fleet["drills"]["hot_swap"][k] for k in ("requests", "swap_capture_s", "swap_pause_s", "request_swap_s")},
             },
             # Plan2Explore on Dreamer-V3 (phase 16) runs B1 in its scan and
             # both imaginations of an exploration step

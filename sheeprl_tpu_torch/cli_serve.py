@@ -25,9 +25,17 @@ Otherwise the server runs until SIGTERM/SIGINT, emitting ``serve_stats``
 every ``serve.stats_interval_s``. Either way the run appends a
 ``kind: "serve"`` record to ``RUNS.jsonl``.
 
-Not ported, each raising ``NotImplementedError``: the replica fleet
-(``serve.fleet.enabled``, ROADMAP A7.1), remote replicas
-(``serve.fleet.remote_agents``, A10) and the executable cache
+With ``serve.fleet.enabled=true`` the replica fleet serves
+(:class:`~sheeprl_tpu_torch.serve.fleet.FleetServer`: N replica slots
+behind one router, hedging, autoscaling, CPU spill), the run record carries
+``variant: fleet``, and with ``serve.load.ramp_steps > 0`` the load
+generator walks a stepped ramp to the saturation knee. The process names
+its trace track ``serve`` (the trace plane's handshake), so with telemetry
+on ``tools/trace.py`` merges its request chains from the record's
+``telemetry_files``.
+
+Not ported, each raising ``NotImplementedError``: remote replicas
+(``serve.fleet.remote_agents``, ROADMAP A10) and the executable cache
 (``serve.aot_cache_dir``, A10).
 """
 
@@ -66,11 +74,6 @@ def _apply_kv_overrides(cfg: Any, kv: Dict[str, str], skip: tuple = ()) -> Any:
 
 
 def _refuse_unported(serve_cfg: Any) -> None:
-    if serve_cfg.fleet.enabled:
-        raise NotImplementedError(
-            "serve.fleet.enabled=True: the replica fleet (router, slots, CPU spill, autoscaling) is not ported "
-            "to sheeprl_tpu_torch yet (ROADMAP.md A7.1); the single PolicyServer serves"
-        )
     if serve_cfg.fleet.remote_agents:
         raise NotImplementedError(
             "serve.fleet.remote_agents: remote replicas need the network plane, which is not ported to "
@@ -132,7 +135,13 @@ def serving(args: Optional[List[str]] = None) -> None:
     if isinstance(cfg.get("env"), dict):
         cfg.env["capture_video"] = False
 
-    from sheeprl_tpu_torch.obs import configure_telemetry, shutdown_telemetry, telemetry_serve_event, telemetry_serve_stats
+    from sheeprl_tpu_torch.obs import (
+        configure_telemetry,
+        set_trace_role,
+        shutdown_telemetry,
+        telemetry_serve_event,
+        telemetry_serve_stats,
+    )
     from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
     from sheeprl_tpu_torch.serve.loadgen import run_load, run_ramp
     from sheeprl_tpu_torch.serve.policy import build_served_policy, serve_device
@@ -144,6 +153,7 @@ def serving(args: Optional[List[str]] = None) -> None:
     device = serve_device(cfg)  # the CUDA card unless fabric.accelerator=cpu
     run_dir = os.path.dirname(cfg_path)
     configure_telemetry(cfg, log_dir=run_dir, device=device)
+    set_trace_role("serve")  # the trace handshake carries the serving role
 
     state = load_checkpoint(ckpt_path)
     policy = build_served_policy(cfg, state, device)
@@ -152,17 +162,29 @@ def serving(args: Optional[List[str]] = None) -> None:
     def on_event(kind: str, info: Dict[str, Any]) -> None:
         telemetry_serve_event(kind, **info)
 
-    server = PolicyServer(policy, serve_cfg, step=int(man["step"]), path=ckpt_path, ckpt_dir=ckpt_dir, on_event=on_event)
+    fleet = serve_cfg.fleet
+    if fleet.enabled:
+        from sheeprl_tpu_torch.serve.fleet import FleetServer
+
+        server: Any = FleetServer(policy, serve_cfg, step=int(man["step"]), path=ckpt_path, ckpt_dir=ckpt_dir, on_event=on_event)
+        slots = fleet.num_replicas + fleet.cpu_spill_replicas
+        tier = (
+            f"fleet replicas={fleet.num_replicas} (min={fleet.min_replicas} max={fleet.max_replicas} "
+            f"spill={fleet.cpu_spill_replicas}) pending<={fleet.resolved_max_pending(serve_cfg)} "
+            f"hedge@p{fleet.hedge_quantile * 100:.0f}"
+        )
+    else:
+        server = PolicyServer(policy, serve_cfg, step=int(man["step"]), path=ckpt_path, ckpt_dir=ckpt_dir, on_event=on_event)
+        slots = serve_cfg.num_replicas
+        tier = f"gather={serve_cfg.gather_window_s * 1e3:.1f}ms queue<={serve_cfg.max_queue} replicas={serve_cfg.num_replicas}"
     t0 = time.perf_counter()
     server.start()
     warm = ", ".join(f"b{b}={dt * 1e3:.0f}ms" for b, dt in sorted(server.warmup_s.items()))
     route = "CUDA graphs" if device.type == "cuda" else "eager forwards on the CPU"
     print(
         f"serving {policy.name} step={man['step']} from {ckpt_path} on {device}\n"
-        f"batch ladder ({route}, {serve_cfg.num_replicas} replica slots) ready in "
-        f"{time.perf_counter() - t0:.2f}s ({warm}); slo={serve_cfg.slo_ms:.0f}ms "
-        f"gather={serve_cfg.gather_window_s * 1e3:.1f}ms queue<={serve_cfg.max_queue} "
-        f"replicas={serve_cfg.num_replicas}"
+        f"batch ladder ({route}, {slots} replica slots) ready in "
+        f"{time.perf_counter() - t0:.2f}s ({warm}); slo={serve_cfg.slo_ms:.0f}ms {tier}"
     )
 
     stop = threading.Event()
@@ -203,7 +225,10 @@ def serving(args: Optional[List[str]] = None) -> None:
         # section (run_summary folds in the last serve_stats snapshot)
         from sheeprl_tpu_torch.obs.registry import register_run
 
-        register_run(cfg, kind="serve", outcome=outcome, error=error, checkpoint=ckpt_path, serve_stats=final_snap)
+        # fleet runs get their own cell (`variant: fleet`), apart from the
+        # single server's history
+        extra: Dict[str, Any] = {"variant": "fleet"} if fleet.enabled else {}
+        register_run(cfg, kind="serve", outcome=outcome, error=error, checkpoint=ckpt_path, serve_stats=final_snap, **extra)
         shutdown_telemetry()
 
 

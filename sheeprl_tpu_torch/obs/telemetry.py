@@ -10,8 +10,9 @@ from ``cfg.metric.telemetry`` and torn down by :func:`shutdown_telemetry`
 ``process_index``. The kinds written here: ``run_start``, ``span``,
 ``compile``, ``device_poll``, ``heartbeat``, ``ckpt_committed``,
 ``ckpt_skipped``, ``nan_rollback``, ``preempt``, ``crash_checkpoint``,
-``resume_fallback``, ``serve_stats``, ``serve_event`` and ``run_end``, with
-the JAX package's field names.
+``resume_fallback``, ``serve_stats``, ``serve_event``, ``trace_handshake``
+and ``trace`` (the trace plane, ``obs/trace.py``) and ``run_end``, with the
+JAX package's field names.
 
 What differs from the TPU package:
 
@@ -48,6 +49,7 @@ from sheeprl_tpu_torch.ops import graph
 _FLUSH_EVERY_EVENTS = 64
 _FLUSH_EVERY_SECONDS = 5.0
 _FLIGHTREC_EVENTS = 256
+_TRACE_PATH_RESERVOIR = 8192  # request critical-path rows kept for the rollup
 
 # dense peaks by card name and precision, FLOP/s (NVIDIA data sheet, H100
 # SXM: 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s fp32 outside them)
@@ -56,6 +58,14 @@ PEAK_FLOPS: Dict[str, Dict[str, float]] = {
 }
 
 _active_telemetry: Optional["RunTelemetry"] = None
+
+
+def _pct(values: list, q: float) -> Optional[float]:
+    """Nearest-rank percentile (q in [0, 1]); ``None`` for no values."""
+    if not values:
+        return None
+    ordered = sorted(values)
+    return float(ordered[min(len(ordered) - 1, max(0, int(round(q * (len(ordered) - 1)))))])
 
 
 class TelemetryWriter:
@@ -222,6 +232,12 @@ class RunTelemetry:
         # snapshot; supervision/swap events counted by kind
         self._serve_last_stats: Optional[Dict[str, Any]] = None
         self._serve_events: Dict[str, int] = {}
+        # trace-plane rollups: declared child trace files and the fleet's
+        # per-request critical-path decompositions (queue, assembly, compute)
+        self._child_files: List[str] = []
+        self._req_paths: List[tuple] = []
+        self._req_hedged = 0
+        self._req_rerouted = 0
 
     # -- core event plumbing -------------------------------------------------
 
@@ -476,8 +492,66 @@ class RunTelemetry:
         self.emit("serve_event", kind=kind, **fields)
 
     def _serve_section(self) -> Dict[str, Any]:
-        """The run_end/run_summary ``serve`` section."""
-        return {"stats": self._serve_last_stats or {}, "events": dict(self._serve_events)}
+        """The run_end/run_summary ``serve`` section; a fleet run's last
+        snapshot also gives its ``fleet`` sub-section (router counters,
+        scale events, per-replica rows) at a stable path."""
+        section: Dict[str, Any] = {"stats": self._serve_last_stats or {}, "events": dict(self._serve_events)}
+        fleet = (self._serve_last_stats or {}).get("fleet")
+        if fleet:
+            section["fleet"] = fleet
+        return section
+
+    # -- trace-plane rollups -------------------------------------------------
+
+    def record_child_file(self, path: str) -> None:
+        """Declare another telemetry/trace file of this run (a standalone
+        trace recorder's): it lands in ``run_summary()['telemetry_files']``
+        so the trace merger finds the run's whole file set."""
+        p = str(path)
+        if p not in self._child_files:
+            self._child_files.append(p)
+
+    def record_request_path(
+        self,
+        *,
+        queue_wait_ms: float,
+        assembly_ms: float,
+        compute_ms: float,
+        hedged: bool = False,
+        rerouted: bool = False,
+    ) -> None:
+        """One completed request's critical-path decomposition, in
+        milliseconds: enqueue→dispatch queue wait, batch assembly (staging)
+        and compute. Hedged and re-routed requests are counted so the rollup
+        can attribute fault and hedge overhead."""
+        if len(self._req_paths) < _TRACE_PATH_RESERVOIR:
+            self._req_paths.append((float(queue_wait_ms), float(assembly_ms), float(compute_ms)))
+        if hedged:
+            self._req_hedged += 1
+        if rerouted:
+            self._req_rerouted += 1
+
+    def _request_path_section(self) -> Dict[str, Any]:
+        rows = self._req_paths
+        if not rows and not (self._req_hedged or self._req_rerouted):
+            return {}
+        totals = [q + a + c for q, a, c in rows]
+        queue = [q for q, _, _ in rows]
+        assembly = [a for _, a, _ in rows]
+        compute = [c for _, _, c in rows]
+        return {
+            "samples": len(rows),
+            "p50_ms": _pct(totals, 0.50),
+            "p95_ms": _pct(totals, 0.95),
+            "queue_wait_p50_ms": _pct(queue, 0.50),
+            "queue_wait_p95_ms": _pct(queue, 0.95),
+            "assembly_p50_ms": _pct(assembly, 0.50),
+            "assembly_p95_ms": _pct(assembly, 0.95),
+            "compute_p50_ms": _pct(compute, 0.50),
+            "compute_p95_ms": _pct(compute, 0.95),
+            "hedged": self._req_hedged,
+            "rerouted": self._req_rerouted,
+        }
 
     # -- run-registry rollup -------------------------------------------------
 
@@ -530,15 +604,25 @@ class RunTelemetry:
             summary["final_metrics"] = dict(self._final_metrics)
         if self._serve_last_stats is not None or self._serve_events:
             summary["serve"] = self._serve_section()
+        req_path = self._request_path_section()
+        if req_path:
+            summary["request_critical_path"] = req_path
         summary["telemetry_jsonl"] = self.writer.path
         summary["telemetry_segments"] = [os.path.basename(p) for p in self.writer.segments()]
-        summary["telemetry_files"] = list(self.writer.segments())
+        # the run's whole file set (this stream's segments, oldest first,
+        # then declared trace files): what the trace merger reads
+        summary["telemetry_files"] = list(self.writer.segments()) + list(self._child_files)
         return summary
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self, run_info: Optional[Mapping[str, Any]] = None) -> None:
         self.emit("run_start", **dict(run_info or {}))
+        # the trace handshake: role, pid and the monotonic-to-epoch offset
+        # the merger (tools/trace.py) aligns this stream's t_mono stamps with
+        from sheeprl_tpu_torch.obs.trace import clock_offset, current_role
+
+        self.emit("trace_handshake", role=current_role(), pid=os.getpid(), clock_offset=clock_offset(), t_mono=time.monotonic())
         self.maybe_poll_devices(force=True)
 
     def close(self) -> None:
@@ -547,6 +631,10 @@ class RunTelemetry:
         extra_fields: Dict[str, Any] = {}
         if self._serve_last_stats is not None or self._serve_events:
             extra_fields["serve"] = self._serve_section()
+        # likewise the request critical-path rollup: fleet runs only
+        req_path = self._request_path_section()
+        if req_path:
+            extra_fields["request_critical_path"] = req_path
         self.emit(
             "run_end",
             compiles_total=self.watchdog.compiles,
@@ -718,3 +806,32 @@ def telemetry_serve_event(kind: str, **fields: Any) -> None:
     tel = _active_telemetry
     if tel is not None:
         tel.record_serve_event(kind, **fields)
+
+
+def telemetry_child_file(path: str) -> None:
+    """Declare another trace file of this run for the registry record (see
+    :meth:`RunTelemetry.record_child_file`); no-op when telemetry is off."""
+    tel = _active_telemetry
+    if tel is not None:
+        tel.record_child_file(path)
+
+
+def telemetry_request_path(
+    *,
+    queue_wait_ms: float,
+    assembly_ms: float,
+    compute_ms: float,
+    hedged: bool = False,
+    rerouted: bool = False,
+) -> None:
+    """Record one completed request's critical-path decomposition (see
+    :meth:`RunTelemetry.record_request_path`); no-op when telemetry is off."""
+    tel = _active_telemetry
+    if tel is not None:
+        tel.record_request_path(
+            queue_wait_ms=queue_wait_ms,
+            assembly_ms=assembly_ms,
+            compute_ms=compute_ms,
+            hedged=hedged,
+            rerouted=rerouted,
+        )

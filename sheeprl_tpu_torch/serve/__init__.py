@@ -1,17 +1,20 @@
 """Fault-tolerant policy-serving tier (``python -m sheeprl_tpu_torch serve``;
-port of ``sheeprl_tpu/serve``, the single server).
+port of ``sheeprl_tpu/serve``).
 
 Turns a committed training checkpoint into an inference service: a batch
 ladder captured as one CUDA graph a rung before any traffic, SLO-bounded
 micro-batching, a bounded queue with typed load shedding, supervised
 replicas with budgeted restarts and degraded N-1 mode, circuit breaking,
-and validated hot checkpoint swap with rollback.
+and validated hot checkpoint swap with rollback. With
+``serve.fleet.enabled`` the replica fleet serves instead
+(:mod:`~sheeprl_tpu_torch.serve.fleet`): slot pools with continuous
+batching (``slots``), a router with fleet-wide admission, health-weighted
+routing and hedged retries (``router``), autoscaling and a CPU-spill tier.
 
 The package root re-exports the torch-free surface (batching, config,
 errors, fault injection); the modules that build or run the model are
-imported from their own modules. The replica fleet (``serve.fleet``: the
-router, slots, CPU spill and autoscaling) is ROADMAP A7.1; remote replicas
-and the executable cache are A10.
+imported from their own modules. Remote replicas and the executable cache
+are ROADMAP A10.
 """
 
 from __future__ import annotations

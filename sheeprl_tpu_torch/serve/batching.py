@@ -27,7 +27,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable, Deque, List, Optional
 
 from sheeprl_tpu_torch.serve.errors import DeadlineExceeded, Overloaded, ServerClosed
@@ -38,7 +38,7 @@ _REQUEST_IDS = itertools.count()
 class Request:
     """One in-flight inference request: observation + deadline + Future."""
 
-    __slots__ = ("obs", "enqueue_t", "deadline_t", "future", "rid", "attempts", "served_step")
+    __slots__ = ("obs", "enqueue_t", "deadline_t", "future", "rid", "attempts", "trace_id", "t_dispatch", "served_step")
 
     def __init__(self, obs: Any, enqueue_t: float, deadline_t: float) -> None:
         self.obs = obs
@@ -47,6 +47,13 @@ class Request:
         self.future: Future = Future()
         self.rid = next(_REQUEST_IDS)
         self.attempts = 0  # inference attempts (re-queues after replica failures)
+        # trace-plane context (obs/trace.py): the causal id minted at the
+        # fleet router's admission (0 = untraced; the single server never
+        # mints one) and the monotonic first-dispatch stamp. Both live on the
+        # shared request object, so one causal chain survives hedging,
+        # re-route-at-front and requeue (every copy is the same object)
+        self.trace_id = 0
+        self.t_dispatch: Optional[float] = None
         # checkpoint step of the version whose graphs computed this request's
         # batch (stamped by the replica that completes it; -1 until then)
         self.served_step: int = -1
@@ -56,9 +63,12 @@ class Request:
 
     def fail_expired(self, now: float) -> None:
         if not self.future.done():
-            self.future.set_exception(
-                DeadlineExceeded(now - self.enqueue_t, self.deadline_t - self.enqueue_t)
-            )
+            try:
+                self.future.set_exception(
+                    DeadlineExceeded(now - self.enqueue_t, self.deadline_t - self.enqueue_t)
+                )
+            except InvalidStateError:
+                pass  # a fleet's hedge twin delivered between the check and here
 
 
 class MicroBatcher:

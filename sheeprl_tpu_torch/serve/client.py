@@ -28,7 +28,10 @@ from sheeprl_tpu_torch.serve.server import PolicyServer
 
 class ServeClient:
     """One logical caller. Counts its retries so drills can assert that
-    shedding produced *backoff* (client-side), not just rejections. (The
+    shedding produced *backoff* (client-side), not just rejections.
+    ``priority`` (``"interactive"`` or ``"batch"``) rides every request to a
+    fleet's router, which spills ``batch`` traffic to its CPU replicas; left
+    ``None`` the call is the plain facade's, which either tier serves. (The
     JAX client's ``experience_sink``, the online-learning tap, belongs to
     the online plane, ROADMAP A10.)"""
 
@@ -40,8 +43,10 @@ class ServeClient:
         timeout_s: Optional[float] = None,
         backoff_multiplier: float = 2.0,
         seed: int = 0,
+        priority: Optional[str] = None,
     ) -> None:
         self.server = server
+        self.priority = priority
         self.max_retries = int(max_retries)
         self.timeout_s = timeout_s
         self.backoff_multiplier = float(backoff_multiplier)
@@ -60,7 +65,9 @@ class ServeClient:
                 deadline_s = (
                     max(1e-3, deadline - time.monotonic()) if deadline is not None else None
                 )
-                return self.server.infer(obs, deadline_s=deadline_s)
+                if self.priority is None:
+                    return self.server.infer(obs, deadline_s=deadline_s)
+                return self.server.infer(obs, deadline_s=deadline_s, priority=self.priority)
             except Overloaded as err:
                 self.rejected += 1
                 attempt += 1

@@ -5,8 +5,8 @@ Everything lives under top-level ``serve`` (``configs/config.yaml``) so CLI
 overrides read ``serve.slo_ms=50``; a checkpoint written before the node
 existed composes to all-defaults (``serve_config_from_cfg({})`` is valid).
 The ``fleet`` node and ``aot_cache_dir`` are parsed as the JAX package
-parses them, and served nowhere yet: ``cli_serve`` refuses a fleet, remote
-agents and an executable cache (ROADMAP A7.1, A10).
+parses them; ``cli_serve`` refuses remote agents and an executable cache
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ class LoadConfig:
 class FleetConfig:
     """Replica-fleet knobs (``serve.fleet.*``): router admission/hedging,
     elastic scaling bounds and the CPU spill tier. Disabled by default — the
-    single :class:`PolicyServer` stays the small-deployment path, and the
-    only one the port serves (the fleet is ROADMAP A7.1)."""
+    single :class:`PolicyServer` stays the small-deployment path."""
 
     enabled: bool = False
     num_replicas: int = 4  # initially-active device replicas

@@ -2,7 +2,8 @@
 (port of ``sheeprl_tpu/serve/loadgen.py``, the same report keys).
 
 Runs ``concurrency`` client threads against a started
-:class:`~sheeprl_tpu_torch.serve.server.PolicyServer` for ``duration_s``:
+:class:`~sheeprl_tpu_torch.serve.server.PolicyServer` or
+:class:`~sheeprl_tpu_torch.serve.fleet.FleetServer` for ``duration_s``:
 
 - **closed-loop** (default, ``rate_hz == 0``): each client fires its next
   request as soon as the previous one resolves — the classic
@@ -13,7 +14,9 @@ Runs ``concurrency`` client threads against a started
 Each client is a :class:`~sheeprl_tpu_torch.serve.client.ServeClient` (retry +
 backoff on ``Overloaded``), observations are drawn per-request from a seeded
 RNG, and the run report is a plain dict (ok/shed/expired counts, retries,
-qps, p50/p95, ``slo_met``) that the CLI prints and the tests read.
+qps, p50/p95, ``slo_met``) that the CLI prints and the tests read. A fleet
+run may tag its traffic with a router ``priority`` (``batch`` spills to the
+CPU replicas).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ class _Worker(threading.Thread):
         stop: threading.Event,
         obs_factory: Callable[[np.random.Generator], Any],
         interval_s: float,
+        priority: Optional[str] = None,
     ) -> None:
         super().__init__(name=f"loadgen-{wid}", daemon=True)
         self.client = ServeClient(
@@ -62,6 +66,7 @@ class _Worker(threading.Thread):
             max_retries=cfg.max_retries,
             timeout_s=(cfg.timeout_ms / 1e3) if cfg.timeout_ms else None,
             seed=cfg.seed * 10_000 + wid,
+            priority=priority,
         )
         self._halt = stop
         self._obs_factory = obs_factory
@@ -105,13 +110,15 @@ def run_load(
     cfg: LoadConfig,
     *,
     obs_factory: Optional[Callable[[np.random.Generator], Any]] = None,
+    priority: Optional[str] = None,
 ) -> Dict[str, Any]:
-    """Drive the load shape described by ``cfg``; returns the run report."""
+    """Drive the load shape described by ``cfg`` (each request tagged with
+    the fleet router's ``priority`` when given); returns the run report."""
     factory = obs_factory or random_obs(server.policy.obs_spec)
     interval_s = cfg.concurrency / cfg.rate_hz if cfg.rate_hz > 0 else 0.0
     stop = threading.Event()
     workers = [
-        _Worker(i, server, cfg, stop, factory, interval_s) for i in range(cfg.concurrency)
+        _Worker(i, server, cfg, stop, factory, interval_s, priority) for i in range(cfg.concurrency)
     ]
     t0 = time.monotonic()
     for w in workers:
@@ -171,6 +178,7 @@ def run_ramp(
     step_duration_s: Optional[float] = None,
     obs_factory: Optional[Callable[[np.random.Generator], Any]] = None,
     on_step: Optional[Callable[[int, float], None]] = None,
+    priority: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Stepped open-loop ramp that walks the offered rate up until the
     server stops meeting its SLO — the saturation-knee finder.
@@ -193,7 +201,7 @@ def run_ramp(
         if on_step is not None:
             on_step(k, rate)
         step_cfg = dataclasses.replace(cfg, rate_hz=float(rate), duration_s=float(per_step))
-        report = run_load(server, step_cfg, obs_factory=obs_factory)
+        report = run_load(server, step_cfg, obs_factory=obs_factory, priority=priority)
         report["step"] = k
         report["offered_rate_hz"] = float(rate)
         attempts = report["ok"] + report["shed"] + report["expired"] + report["errors"]

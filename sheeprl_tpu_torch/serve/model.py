@@ -21,6 +21,13 @@ params as a call argument. So:
   runs a slot's graphs (:meth:`ModelStore.infer` holds the slot's lock):
   a replica abandoned as hung may still wake inside them, and its
   replacement is started only once it has left (``ModelStore.slot_busy``);
+- a slot has a device (``slot_devices``). The replica fleet's device slots
+  all sit on the card; its CPU-spill slots sit on ``torch.device("cpu")``
+  by configuration, and there a rung runs the eager forward on the
+  version's params copied to the CPU once a version (a hot swap re-places
+  them with the rest of the version). A standby slot (``standby``) is
+  captured only when :meth:`ModelStore.capture_slot` activates it, before
+  it takes traffic;
 - each :class:`ModelVersion` owns a graph set captured over its own
   weights: a hot swap captures the candidate's set and then flips the
   current version, so a batch is computed by exactly one version, whose
@@ -30,11 +37,14 @@ params as a call argument. So:
   replicas replaying beside it, does not hold either: such a capture can be
   invalidated). Captures therefore happen only while nothing
   serves: at :class:`ModelStore` construction (before the replicas start)
-  and, for a swap, under the :class:`ServingGate` held exclusively, which
-  waits for the batches in flight and pauses the next ones. Without a full
-  collection first, a set of captures pauses serving for about a tenth of
-  a second (``pause_s`` in the swap event). Freeing a version's graphs (a
-  flip or a rollback dropping one) also happens under the gate.
+  and, for a swap or a standby slot's activation, under the
+  :class:`ServingGate` held exclusively, which waits for the batches in
+  flight and pauses the next ones, one slot's set at a time with serving
+  resumed in between (a fleet's three slots captured under one pause held
+  requests past a 400 ms deadline). Without a full collection first, a
+  slot's set pauses serving for a few hundredths of a second (``pauses_s``
+  in the swap event, ``pause_s`` the longest). Freeing a version's graphs
+  (a flip or a rollback dropping one) also happens under the gate.
 
 **Hot swap.** Promotion is validate-then-promote; a candidate must pass ALL
 of:
@@ -57,13 +67,14 @@ from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.obs.trace import trace_event
 from sheeprl_tpu_torch.ops.graph import CapturedStep, collector_paused
 from sheeprl_tpu_torch.resilience.manifest import CommittedCheckpoint, committed_checkpoints, tree_digest
 from sheeprl_tpu_torch.resilience.sentinel import all_finite, host_all_finite
@@ -111,7 +122,8 @@ class ModelVersion(NamedTuple):
     step: int
     path: str
     params: Params
-    ladders: Tuple["CompiledLadder", ...]  # one a replica slot
+    # one a replica slot; None for a standby slot not captured yet
+    ladders: Tuple[Optional["CompiledLadder"], ...]
 
 
 def stack_obs(obs_spec: ObsSpec, obs_list: Sequence[Any], batch: int, out: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
@@ -161,6 +173,11 @@ class _Rung:
     def run(self, obs_list: Sequence[Any]) -> np.ndarray:
         """The rung's ``[batch, ...]`` actions (a copy) for ``obs_list``."""
         stack_obs(self.obs_spec, obs_list, self.batch, out=self.host_np)
+        return self.run_staged()
+
+    def run_staged(self) -> np.ndarray:
+        """The rung's ``[batch, ...]`` actions (a copy) for what is staged
+        in ``host_np`` already (the slot pool's assembly writes there)."""
         if self.step is None:
             with torch.inference_mode():
                 return self.forward(self.host).numpy().copy()
@@ -183,18 +200,26 @@ class _Rung:
 
 class CompiledLadder:
     """One CUDA graph a batch rung, over one version's weights, for one
-    replica slot, captured at construction (each rung's seconds in
-    ``compile_s``). Replays run on the slot's ``stream``. On the CPU a rung
-    runs the eager forward."""
+    replica slot on ``device`` (default: the policy's), captured at
+    construction (each rung's seconds in ``compile_s``). Replays run on the
+    slot's ``stream``. On the CPU a rung runs the eager forward."""
 
-    def __init__(self, policy: ServedPolicy, ladder: Sequence[int], forward: Forward, stream: Optional[Any] = None) -> None:
+    def __init__(
+        self,
+        policy: ServedPolicy,
+        ladder: Sequence[int],
+        forward: Forward,
+        stream: Optional[Any] = None,
+        device: Optional[torch.device] = None,
+    ) -> None:
         self.policy = policy
+        self.device = torch.device(device) if device is not None else policy.device
         self.rungs = sorted({int(b) for b in ladder})
         self.compile_s: Dict[int, float] = {}
         self._rungs: Dict[int, _Rung] = {}
         for b in self.rungs:
             t0 = time.perf_counter()
-            self._rungs[b] = _Rung(forward, policy.obs_spec, b, policy.device, stream)
+            self._rungs[b] = _Rung(forward, policy.obs_spec, b, self.device, stream)
             self.compile_s[b] = time.perf_counter() - t0
 
     @property
@@ -221,24 +246,34 @@ class CompiledLadder:
 class ServingGate:
     """Replicas serve under the gate together (:meth:`shared`); a capture,
     a version flip or a rollback holds it alone (:meth:`exclusive`), after
-    the batches in flight and before the next ones. A waiting exclusive holder goes
-    first, so traffic cannot starve a swap; it gives up with
-    ``TimeoutError`` after ``timeout_s``. A replica waiting to enter calls
-    ``beat`` every ``BEAT_S`` (paused, not hung)."""
+    the batches in flight and before the next ones. A waiting exclusive
+    holder goes first, so traffic cannot starve a swap; it gives up with
+    ``TimeoutError`` after ``timeout_s``. Pauses taken one after another (a
+    fleet's swap captures one slot at a time) each let the replicas the
+    previous pause held back in first, so serving runs between them. A
+    replica waiting to enter calls ``beat`` every ``BEAT_S`` (paused, not
+    hung)."""
 
     def __init__(self) -> None:
         self._cond = threading.Condition()
         self._readers = 0
         self._writer = False
         self._waiting = 0
+        self._held_back = 0  # replicas waiting out a pause
 
     @contextmanager
     def shared(self, beat: Optional[Callable[[], None]] = None) -> Iterator[None]:
         with self._cond:
-            while self._writer or self._waiting:
-                self._cond.wait(BEAT_S)
-                if beat is not None:
-                    beat()
+            if self._writer or self._waiting:
+                self._held_back += 1
+                try:
+                    while self._writer or self._waiting:
+                        self._cond.wait(BEAT_S)
+                        if beat is not None:
+                            beat()
+                finally:
+                    self._held_back -= 1
+                    self._cond.notify_all()
             self._readers += 1
         try:
             yield
@@ -252,6 +287,12 @@ class ServingGate:
     def exclusive(self, timeout_s: float = PAUSE_TIMEOUT_S) -> Iterator[None]:
         deadline = time.monotonic() + timeout_s
         with self._cond:
+            # the replicas the last pause held back enter before this one
+            while self._held_back and not self._writer:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"{self._held_back} paused replicas did not resume within {timeout_s:.1f}s")
+                self._cond.wait(remaining)
             self._waiting += 1
             try:
                 while self._writer or self._readers:
@@ -275,8 +316,11 @@ class ModelStore:
     """The atomically-swappable current model version, with one graph set a
     replica slot for it.
 
-    ``on_event(kind, info)`` (kinds ``swap`` / ``swap_rejected`` /
-    ``rollback``) is the stats hook; exceptions from it are swallowed.
+    ``slot_devices`` places each slot (default: every slot on the policy's
+    device); the slots in ``standby`` are not captured until
+    :meth:`capture_slot`. ``on_event(kind, info)`` (kinds ``swap`` /
+    ``swap_rejected`` / ``rollback`` / ``slot_capture``) is the stats hook;
+    exceptions from it are swallowed.
     """
 
     def __init__(
@@ -287,6 +331,8 @@ class ModelStore:
         step: int,
         path: str,
         slots: int = 1,
+        slot_devices: Optional[Sequence[Any]] = None,
+        standby: Sequence[int] = (),
         fault_schedule: Optional[ServeFaultSchedule] = None,
         on_event: Optional[Callable[[str, Dict[str, Any]], None]] = None,
     ) -> None:
@@ -295,27 +341,94 @@ class ModelStore:
         self._faults = fault_schedule
         self._on_event = on_event
         self.gate = ServingGate()
-        # serialises swaps and rollbacks: one capturing thread at a time
+        # serialises swaps, rollbacks and slot captures: one capturing thread
+        # at a time
         self._swap_lock = threading.Lock()
-        cuda = policy.device.type == "cuda"
-        self._streams = [torch.cuda.Stream(policy.device) if cuda else None for _ in range(int(slots))]
+        devices = [policy.device] * int(slots) if slot_devices is None else list(slot_devices)
+        self.slot_devices = [torch.device(d) for d in devices]
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in self.slot_devices]
         # one owner a slot: its graphs' static buffers and pinned staging
-        self._slot_locks = [threading.Lock() for _ in range(int(slots))]
+        self._slot_locks = [threading.Lock() for _ in self.slot_devices]
+        self._captured = [i not in set(standby) for i in range(len(self.slot_devices))]
         self._current = self._build_version(int(step), str(path), policy.params)
         self._previous: Optional[ModelVersion] = None
-        self.warmup_s = {b: sum(lad.compile_s[b] for lad in self._current.ladders) for b in self.rungs}
+        self.warmup_s = {b: sum(lad.compile_s[b] for lad in self._current.ladders if lad is not None) for b in self.rungs}
         self.swap_attempts = 0
         self.swaps = 0
         self.swap_rejects = 0
         self.rollbacks = 0
 
-    def _build_version(self, step: int, path: str, params: Params) -> ModelVersion:
-        forward = self.policy.bind(params)
-        # the collector stays off through the set's captures; no full
-        # collection first, which would lengthen the swap's pause
+    def _ladder(self, slot: int, params: Params, forwards: Dict[torch.device, Forward]) -> "CompiledLadder":
+        """``slot``'s graph set over ``params``: bound once a device within
+        a version, on a copy of the params where the slot's device is not
+        theirs (a CPU-spill slot). A failed placement or capture raises."""
+        device = self.slot_devices[slot]
+        if device not in forwards:
+            placed = params if device == self.policy.device else {k: v.to(device) for k, v in params.items()}
+            forwards[device] = self.policy.bind(placed)
+        return CompiledLadder(self.policy, self.rungs, forwards[device], self._streams[slot], device)
+
+    def _build_version(self, step: int, path: str, params: Params, pauses: Optional[List[Tuple[float, float]]] = None) -> ModelVersion:
+        """A version over ``params`` with a graph set for each captured slot.
+        While replicas serve (``pauses`` given), each slot's set is captured
+        under the gate held alone, one slot at a time, and each pause is
+        appended as ``(pause_s, capture_s)``: serving resumes between slots,
+        so no request waits out more than one slot's captures."""
+        forwards: Dict[torch.device, Forward] = {}
+        ladders: List[Optional[CompiledLadder]] = []
+        for i, captured in enumerate(self._captured):
+            if not captured:
+                ladders.append(None)
+                continue
+            t0 = time.perf_counter()
+            with self.gate.exclusive() if pauses is not None else nullcontext():
+                t1 = time.perf_counter()
+                # the collector stays off through the captures; no full
+                # collection first, which would lengthen the pause
+                with collector_paused(collect=False):
+                    ladders.append(self._ladder(i, params, forwards))
+                t2 = time.perf_counter()
+            if pauses is not None:
+                pauses.append((time.perf_counter() - t0, t2 - t1))
+        return ModelVersion(step, path, params, tuple(ladders))
+
+    def _with_slot(self, version: ModelVersion, slot: int) -> ModelVersion:
+        """``version`` with ``slot``'s graph set captured (the gate held)."""
+        if version.ladders[slot] is not None:
+            return version
+        ladders = list(version.ladders)
         with collector_paused(collect=False):
-            ladders = tuple(CompiledLadder(self.policy, self.rungs, forward, stream) for stream in self._streams)
-        return ModelVersion(step, path, params, ladders)
+            ladders[slot] = self._ladder(slot, version.params, {})
+        return version._replace(ladders=tuple(ladders))
+
+    def has_graphs(self, slot: int) -> bool:
+        return self._captured[slot]
+
+    def capture_slot(self, slot: int) -> Dict[str, Any]:
+        """Capture standby ``slot``'s graph set for the serving version (and
+        the one a rollback would restore) before it takes traffic. Captures
+        run while nothing serves (the gate held alone, once a version), so
+        the pauses are counted: ``capture_s`` (their captures in all),
+        ``pauses_s`` and ``pause_s`` (the longest), also in the
+        ``slot_capture`` event. A failed capture raises and leaves the slot
+        on standby."""
+        with self._swap_lock:
+            if self._captured[slot]:
+                return {"capture_s": 0.0, "pause_s": 0.0, "pauses_s": []}
+            capture_s, pauses = 0.0, []
+            for which in ("_current", "_previous"):
+                if getattr(self, which) is None:
+                    continue
+                t0 = time.perf_counter()
+                with self.gate.exclusive():
+                    t1 = time.perf_counter()
+                    setattr(self, which, self._with_slot(getattr(self, which), slot))
+                    capture_s += time.perf_counter() - t1
+                pauses.append(time.perf_counter() - t0)
+            self._captured[slot] = True
+            info = {"capture_s": capture_s, "pause_s": max(pauses), "pauses_s": pauses}
+        self._emit("slot_capture", {"replica": slot, **info})
+        return info
 
     # ---------------------------------------------------------------- serving
     @property
@@ -332,6 +445,33 @@ class ModelStore:
             version = self._current
             try:
                 return version.ladders[slot].run(obs_list), version.step
+            finally:
+                del version  # no reference outlives the gate (see the module doc)
+
+    def infer_staged(
+        self,
+        slot: int,
+        n: int,
+        stage: Callable[[Dict[str, np.ndarray], int], Any],
+        beat: Optional[Callable[[], None]] = None,
+    ) -> Tuple[List[np.ndarray], int, float]:
+        """Serve ``n`` requests on ``slot``'s graphs of the current version,
+        ``stage(host, rung)`` writing their observations into the chosen
+        rung's host staging (``host``: key -> ``[rung, ...]`` array, the
+        pinned buffers the rung's graph copies from). Returns the ``n``
+        actions, the step of the version that computed them and the
+        monotonic time at which staging ended."""
+        with self._slot_locks[slot], self.gate.shared(beat):
+            version = self._current
+            try:
+                ladder = version.ladders[slot]
+                if ladder is None:
+                    raise RuntimeError(f"replica slot {slot} has no graphs: it was never captured")
+                rung = ladder.rung(ladder.rung_for(n))
+                stage(rung.host_np, rung.batch)
+                t_staged = time.monotonic()
+                out = rung.run_staged()
+                return [out[i] for i in range(n)], version.step, t_staged
             finally:
                 del version  # no reference outlives the gate (see the module doc)
 
@@ -396,17 +536,13 @@ class ModelStore:
             if not bool(all_finite(list(params.values()))):
                 return self._reject(candidate, "non-finite weights (poisoned checkpoint)")
 
-            t0 = time.perf_counter()
+            pauses: List[Tuple[float, float]] = []
             try:
-                with self.gate.exclusive():
-                    t1 = time.perf_counter()
-                    version = self._build_version(candidate.step, candidate.path, params)
-                    capture_s = time.perf_counter() - t1
+                version = self._build_version(candidate.step, candidate.path, params, pauses)
             except Exception as err:
                 return self._reject(candidate, f"graph capture failed: {err!r}")
-            pause_s = time.perf_counter() - t0
             try:
-                smoke = version.ladders[0].run([_zero_obs(self.policy.obs_spec)])
+                smoke = next(lad for lad in version.ladders if lad is not None).run([_zero_obs(self.policy.obs_spec)])
                 if not host_all_finite(smoke):
                     return self._reject(candidate, "smoke inference produced non-finite outputs")
             except Exception as err:
@@ -417,11 +553,19 @@ class ModelStore:
                 # the version two swaps back is freed here, where no replay runs
                 self._previous, self._current = self._current, version
                 self.swaps += 1
-            pause_s += time.perf_counter() - t0
+            pauses_s = [p for p, _ in pauses] + [time.perf_counter() - t0]
             del version
+            trace_event("model_swap", ckpt_step=candidate.step, attempt=attempt)
             self._emit(
                 "swap",
-                {"step": candidate.step, "path": candidate.path, "attempt": attempt, "capture_s": capture_s, "pause_s": pause_s},
+                {
+                    "step": candidate.step,
+                    "path": candidate.path,
+                    "attempt": attempt,
+                    "capture_s": sum(c for _, c in pauses),
+                    "pause_s": max(pauses_s),  # the longest that serving stood still
+                    "pauses_s": pauses_s,  # one a captured slot, then the flip
+                },
             )
             return True, "promoted"
 

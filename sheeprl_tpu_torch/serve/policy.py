@@ -105,8 +105,9 @@ def build_ppo_policy(cfg: Any, state: Dict[str, Any], device: DeviceLike = None)
         spec[k] = (tuple(observation_space[k].shape), np.dtype(np.float32))
 
     def bind(params: Params) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
-        # a module of its own a version, whose parameters ARE these tensors
-        module = copy.deepcopy(agent)
+        # a module of its own a version, whose parameters ARE these tensors,
+        # on their device (the card, or the CPU for a fleet's spill slot)
+        module = copy.deepcopy(agent).to(next(iter(params.values())).device)
         module.load_state_dict(params, assign=True)
 
         def forward(obs: Dict[str, torch.Tensor]) -> torch.Tensor:

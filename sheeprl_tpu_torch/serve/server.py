@@ -129,7 +129,79 @@ class ServeStats:
         return snap
 
 
-class PolicyServer:
+class ServingFacade:
+    """What both tiers (this single server and the replica fleet,
+    ``serve/fleet.py``) do alike behind the facade the client, the load
+    generator and the CLI talk to: waiting out a request, the hot swap and
+    its watcher, counting events. A tier sets ``config``, ``stats``,
+    ``store``, ``ckpt_dir``, ``_closing`` and ``_on_event``, and has
+    ``start``, ``close``, ``submit`` and ``snapshot``."""
+
+    def __enter__(self) -> Any:
+        return self.start()
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+    def wait(self, req: Request) -> Any:
+        """Wait out a submitted request. Bounded: even with zero live
+        replicas this fails by the request's own deadline."""
+        budget = max(0.0, req.deadline_t - time.monotonic()) + 0.25
+        try:
+            out = req.future.result(timeout=budget)
+        except DeadlineExceeded:
+            self.stats.record_failed()
+            raise
+        except (TimeoutError, FutureTimeout):
+            self.stats.record_failed()
+            now = time.monotonic()
+            raise DeadlineExceeded(now - req.enqueue_t, req.deadline_t - req.enqueue_t) from None
+        except Exception:
+            self.stats.record_failed()
+            raise
+        self._completed(time.monotonic() - req.enqueue_t)
+        return out
+
+    def _completed(self, latency_s: float) -> None:
+        self.stats.record_complete(latency_s)
+
+    # ------------------------------------------------------------------- swap
+    def request_swap(self, ckpt_path: str) -> ModelVersion:
+        """Promote ``ckpt_path`` now (on every replica slot at once); raises
+        :class:`SwapRejected` if it does not survive validation
+        (torn/uncommitted, digest mismatch, structure change, poisoned
+        weights)."""
+        if self.store is None:
+            raise ServerClosed("server not started")
+        man = read_manifest(ckpt_path)
+        if man is None:
+            raise SwapRejected(f"checkpoint {ckpt_path} has no commit manifest (torn or foreign write)")
+        return self.store.request_swap(CommittedCheckpoint(int(man["step"]), ckpt_path, man))
+
+    def maybe_swap(self) -> Optional[ModelVersion]:
+        """One scan-and-maybe-promote pass over ``ckpt_dir`` (what the
+        watcher thread runs on its poll cadence)."""
+        if self.store is None or not self.ckpt_dir:
+            return None
+        return self.store.maybe_swap_newest(self.ckpt_dir)
+
+    def _swap_watch(self) -> None:
+        while not self._closing.wait(self.config.swap_poll_s):
+            try:
+                self.maybe_swap()
+            except Exception:
+                pass  # the watcher must outlive any one bad scan
+
+    def _event(self, kind: str, info: Dict[str, Any]) -> None:
+        self.stats.record_event(kind)
+        if self._on_event is not None:
+            try:
+                self._on_event(kind, info)
+            except Exception:
+                pass
+
+
+class PolicyServer(ServingFacade):
     """The serving facade the CLI, tests and load generator talk to."""
 
     def __init__(
@@ -210,12 +282,6 @@ class PolicyServer:
         if self._swap_thread is not None:
             self._swap_thread.join(PAUSE_TIMEOUT_S)
 
-    def __enter__(self) -> "PolicyServer":
-        return self.start()
-
-    def __exit__(self, *exc: Any) -> None:
-        self.close()
-
     # ------------------------------------------------------------ request path
     def submit(self, obs: Any, deadline_s: Optional[float] = None) -> Request:
         """Admit a request (or raise Overloaded/ServerClosed immediately)."""
@@ -233,51 +299,6 @@ class PolicyServer:
         deadline_s = deadline_s or self.config.default_deadline_s
         req = self.submit(obs, deadline_s)
         return self.wait(req)
-
-    def wait(self, req: Request) -> Any:
-        """Wait out a submitted request. Bounded: even with zero live
-        replicas this fails by the request's own deadline."""
-        budget = max(0.0, req.deadline_t - time.monotonic()) + 0.25
-        try:
-            out = req.future.result(timeout=budget)
-        except DeadlineExceeded:
-            self.stats.record_failed()
-            raise
-        except (TimeoutError, FutureTimeout):
-            self.stats.record_failed()
-            now = time.monotonic()
-            raise DeadlineExceeded(now - req.enqueue_t, req.deadline_t - req.enqueue_t) from None
-        except Exception:
-            self.stats.record_failed()
-            raise
-        self.stats.record_complete(time.monotonic() - req.enqueue_t)
-        return out
-
-    # ------------------------------------------------------------------- swap
-    def request_swap(self, ckpt_path: str) -> ModelVersion:
-        """Promote ``ckpt_path`` now; raises :class:`SwapRejected` if it does
-        not survive validation (torn/uncommitted, digest mismatch, structure
-        change, poisoned weights)."""
-        if self.store is None:
-            raise ServerClosed("server not started")
-        man = read_manifest(ckpt_path)
-        if man is None:
-            raise SwapRejected(f"checkpoint {ckpt_path} has no commit manifest (torn or foreign write)")
-        return self.store.request_swap(CommittedCheckpoint(int(man["step"]), ckpt_path, man))
-
-    def maybe_swap(self) -> Optional[ModelVersion]:
-        """One scan-and-maybe-promote pass over ``ckpt_dir`` (what the
-        watcher thread runs on its poll cadence)."""
-        if self.store is None or not self.ckpt_dir:
-            return None
-        return self.store.maybe_swap_newest(self.ckpt_dir)
-
-    def _swap_watch(self) -> None:
-        while not self._closing.wait(self.config.swap_poll_s):
-            try:
-                self.maybe_swap()
-            except Exception:
-                pass  # the watcher must outlive any one bad scan
 
     # ------------------------------------------------------------------ stats
     def snapshot(self) -> Dict[str, Any]:
@@ -297,11 +318,3 @@ class PolicyServer:
             snap["swap_rejects"] = self.store.swap_rejects
             snap["rollbacks"] = self.store.rollbacks
         return snap
-
-    def _event(self, kind: str, info: Dict[str, Any]) -> None:
-        self.stats.record_event(kind)
-        if self._on_event is not None:
-            try:
-                self._on_event(kind, info)
-            except Exception:
-                pass

@@ -144,17 +144,33 @@ def test_serve_is_not_ported(tmp_path):
         ("serve.fleet.remote_agents=[localhost:1]", "A10"),
     ],
 )
-def test_serve_refuses_what_is_not_ported(tmp_path, override, item):
+def test_serve_refuses_what_is_not_ported(tmp_path, capsys, override, item):
+    """Each serve key by its ROADMAP item: the replica fleet (A7.1, ported)
+    composes and serves a short load run, its record ``variant: fleet``;
+    remote agents and the executable cache (A10) raise, naming the item."""
+    from sheeprl_tpu_torch.obs.registry import read_run_records
     from sheeprl_tpu_torch.resilience.manifest import build_manifest
     from sheeprl_tpu_torch.serve.policy import make_linear_state
     from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
 
-    (tmp_path / "config.yaml").write_text(json.dumps({"algo": {"name": "linear"}, "seed": 1}))
+    runs = tmp_path / "RUNS.jsonl"
+    (tmp_path / "config.yaml").write_text(json.dumps({"algo": {"name": "linear"}, "seed": 1, "metric": {"telemetry": {"runs_jsonl": str(runs)}}}))
     state = make_linear_state()
     ckpt = tmp_path / "checkpoint" / "ckpt_5_0.ckpt"
     save_checkpoint(str(ckpt), state, manifest=build_manifest(step=5, backend="pickle", world_size=1, state=state))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        cli.run(["serve", f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", override])
+    argv = ["serve", f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", override]
+    if item == "A10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            cli.run(argv)
+        return
+    cli.run([*argv, "serve.load.enabled=true", "serve.load.duration_s=0.2", "serve.load.concurrency=2"])
+    out = capsys.readouterr().out
+    assert "fleet replicas=4" in out
+    snap = json.loads(out[out.index('{\n  "serve_stats"') :])["serve_stats"]
+    assert snap["load_report"]["ok"] > 0 and snap["load_report"]["errors"] == 0
+    assert snap["fleet"]["active_device_replicas"] == 4 and snap["fleet"]["router"]["routed"] >= snap["load_report"]["ok"]
+    (record,) = read_run_records(str(runs))
+    assert (record["kind"], record["variant"], record["outcome"]) == ("serve", "fleet", "completed")
 
 
 def test_profiler_is_refused(tmp_path):

@@ -1315,6 +1315,102 @@ def test_cuda_serve_swap_under_load_never_mixes_versions(cuda, tmp_path):
         assert not np.allclose(out, vector @ other_w + other_b, rtol=1e-3, atol=1e-3)
 
 
+def _fleet(policy, path, **fleet):
+    from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
+    from sheeprl_tpu_torch.serve.fleet import FleetServer
+
+    node = {"slo_ms": 500.0, "monitor_interval_s": 0.01, "backoff_base_s": 0.01, "fleet": {"enabled": True, "hedge_scan_ms": 2.0, **fleet}}
+    return FleetServer(policy, serve_config_from_cfg({"serve": node}), step=100, path=path)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_captures_each_slot_and_a_standby_at_activation(cuda, tmp_path):
+    """Each device slot of the fleet gets its own graphs on the card (one a
+    rung), the CPU-spill slot none (eager on the CPU), and a standby slot is
+    captured only when activated, before it is routable; every slot answers
+    the linear policy's product."""
+    from sheeprl_tpu_torch.ops import graph
+    from sheeprl_tpu_torch.serve.policy import build_linear_policy
+
+    path, state = _commit_linear(tmp_path, 100, seed=0)
+    policy = build_linear_policy({}, state, cuda)
+    server = _fleet(policy, path, num_replicas=2, min_replicas=1, max_replicas=3, cpu_spill_replicas=1)
+    captures = graph.capture_count
+    server.start()
+    try:
+        assert graph.capture_count - captures == 2 * 4  # two device slots, ladder [1, 2, 4, 8]
+        assert not server.store.has_graphs(2) and server.store.current.ladders[2] is None
+        server._activate(server.slots[2], {"reason": "test"})
+        assert graph.capture_count - captures == 3 * 4 and server.slots[2].alive
+        (capture,) = server.slot_captures
+        assert capture["replica"] == 2 and sum(capture["pauses_s"]) >= capture["capture_s"] > 0
+        assert capture["pause_s"] == max(capture["pauses_s"])
+        w, b = state["agent"]["w"].astype(np.float64), state["agent"]["b"].astype(np.float64)
+        obs = _requests(policy, 8, seed=3)
+        for index in (0, 1, 2, 3):
+            ladder = server.store.current.ladders[index]
+            assert ladder.device.type == ("cpu" if index == 3 else "cuda")
+            for got, o in zip(ladder.run(obs), obs):
+                np.testing.assert_allclose(got, o["vector"] @ w + b, rtol=1e-5, atol=1e-5)
+        reqs = [server.submit(o, priority="batch") for o in obs]
+        for req, o in zip(reqs, obs):
+            np.testing.assert_allclose(server.wait(req), o["vector"] @ w + b, rtol=1e-5, atol=1e-5)
+    finally:
+        server.close()
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_kill_and_swap_under_load(cuda, tmp_path):
+    """Replica 0 killed while clients run, then a swap across every slot:
+    nothing dropped, each answer the product of the version stamped on it."""
+    import threading
+    import time
+
+    from sheeprl_tpu_torch.serve.policy import build_linear_policy
+
+    path, state = _commit_linear(tmp_path, 100, seed=0)
+    new_path, new_state = _commit_linear(tmp_path, 200, seed=1)
+    expect = {s: (st["agent"]["w"].astype(np.float64), st["agent"]["b"].astype(np.float64)) for s, st in ((100, state), (200, new_state))}
+    policy = build_linear_policy({}, state, cuda)
+    server = _fleet(policy, path, num_replicas=2, min_replicas=2, max_replicas=2, cpu_spill_replicas=1, spill_depth=0).start()
+    stop, records, errors = threading.Event(), [], []
+
+    from sheeprl_tpu_torch.serve.loadgen import random_obs
+
+    def client(seed, priority):
+        make, rng = random_obs(policy.obs_spec), np.random.default_rng(seed)
+        while not stop.is_set():
+            obs = make(rng)
+            try:
+                req = server.submit(obs, priority=priority)
+                records.append((obs["vector"], server.wait(req), req.served_step))
+            except Exception as err:  # noqa: BLE001 — the test counts every failure
+                errors.append(err)
+
+    threads = [threading.Thread(target=client, args=(i, "batch" if i % 2 else "interactive"), daemon=True) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        assert server.kill_replica(0)
+        time.sleep(0.3)
+        assert server.request_swap(new_path).step == 200
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(10.0)
+    finally:
+        stop.set()
+        server.close()
+    assert not errors, errors[:3]
+    assert {s for _, _, s in records} == {100, 200}
+    for vector, out, step in records:
+        w, b = expect[step]
+        np.testing.assert_allclose(out, vector @ w + b, rtol=1e-5, atol=1e-5)
+    snap = server.snapshot()
+    assert snap["shed_expired"] == 0 and snap["failed"] == 0 and snap["events"].get("replica_killed") == 1
+
+
 # --------------------------------------------------------------------------- #
 # Plan2Explore on Dreamer-V3: the exploration step
 # --------------------------------------------------------------------------- #

@@ -118,6 +118,17 @@ SERVE_SLICE = (
 )
 
 
+# the modules of the replica-fleet and trace-plane slice
+FLEET_SLICE = (
+    "obs/__init__.py",
+    "obs/telemetry.py",
+    "obs/trace.py",
+    "serve/fleet.py",
+    "serve/router.py",
+    "serve/slots.py",
+)
+
+
 # the modules of the Dreamer-V1 and P2E-DV1/DV2 slice
 DREAMER_SLICE = (
     "algos/dreamer_v1/agent.py",
@@ -158,6 +169,11 @@ def test_the_scan_covers_the_sac_family_slice():
 def test_the_scan_covers_the_serving_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(SERVE_SLICE) <= scanned
+
+
+def test_the_scan_covers_the_fleet_and_trace_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(FLEET_SLICE) <= scanned
 
 
 def test_the_scan_covers_the_dreamer_v1_and_p2e_slice():
@@ -264,6 +280,8 @@ state = make_linear_state()
 ckpt = os.path.join(run, "checkpoint", "ckpt_5_0.ckpt")
 save_checkpoint(ckpt, state, manifest=build_manifest(step=5, backend="pickle", world_size=1, state=state))
 cli.run(["serve", "ckpt_dir=" + os.path.dirname(ckpt), "fabric.accelerator=cpu", "serve.load.enabled=true", "serve.load.duration_s=0.2"])
+# the replica fleet, with a CPU-spill slot and the trace plane on
+cli.run(["serve", "ckpt_dir=" + os.path.dirname(ckpt), "fabric.accelerator=cpu", "serve.fleet.enabled=true", "serve.fleet.num_replicas=1", "serve.fleet.cpu_spill_replicas=1", "metric.telemetry.enabled=true", "serve.load.enabled=true", "serve.load.duration_s=0.2"])
 import chip_smoke
 print("OK")
 """

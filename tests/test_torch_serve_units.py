@@ -211,7 +211,7 @@ def test_serve_config_from_cfg_reads_node_and_defaults(pkg):
 
 def test_both_packages_parse_a_serve_node_alike():
     """One node, every field: the two parsers give the same values (the
-    fleet node included, which the port parses and serves nowhere yet)."""
+    fleet node and the fault specs' ``at_request`` included)."""
     from sheeprl_tpu.serve.config import serve_config_from_cfg as jax_from_cfg
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.serve.config import serve_config_from_cfg
@@ -232,7 +232,7 @@ def test_both_packages_parse_a_serve_node_alike():
         assert getattr(cfg, name) == getattr(jax_cfg, name), name
     assert vars(cfg.load) == vars(jax_cfg.load)
     assert vars(cfg.fleet) == vars(jax_cfg.fleet)
-    assert [vars(f) for f in cfg.faults] == [{k: v for k, v in vars(f).items() if k != "at_request"} for f in jax_cfg.faults]
+    assert [vars(f) for f in cfg.faults] == [vars(f) for f in jax_cfg.faults]
     # the port's composed tree carries the JAX tree's serve node
     composed = serve_config_from_cfg(compose("config", ["exp=ppo"]))
     assert vars(composed.load) == vars(jax_from_cfg(compose("config", ["exp=ppo"])).load)
@@ -258,14 +258,30 @@ def test_fault_spec_validation(pkg):
 
 
 def test_router_blackhole_needs_the_fleet():
-    """The JAX single server ignores the fleet router's fault; the port,
-    which has no fleet, refuses it by name."""
-    from sheeprl_tpu.serve.fault_injection import ServeFaultSpec as JaxSpec
-    from sheeprl_tpu_torch.serve.fault_injection import ServeFaultSpec
+    """``router_blackhole`` acts on the fleet's router (the single server
+    ignores it): the port parses it exactly as the JAX package does — the
+    same specs from the same node, the same validation, and the router's
+    schedule firing each fault once at its ``at_request``."""
+    from sheeprl_tpu.serve import fault_injection as jax_faults
+    from sheeprl_tpu_torch.serve import fault_injection as port_faults
 
-    assert JaxSpec(kind="router_blackhole").kind == "router_blackhole"
-    with pytest.raises(NotImplementedError, match="ROADMAP A7.1"):
-        ServeFaultSpec(kind="router_blackhole")
+    node = [
+        {"kind": "router_blackhole", "at_request": 3, "duration_s": 0.2},
+        {"kind": "ROUTER_BLACKHOLE", "at_request": 7},
+        {"kind": "replica_crash", "replica": 1, "at_batch": 2},
+    ]
+    jax_specs, port_specs = jax_faults.parse_serve_faults(node), port_faults.parse_serve_faults(node)
+    assert [vars(s) for s in port_specs] == [vars(s) for s in jax_specs]
+    for mod in (jax_faults, port_faults):
+        with pytest.raises(ValueError, match="at_request"):
+            mod.ServeFaultSpec(kind="router_blackhole", at_request=-1)
+    fired = []
+    for mod, specs in ((jax_faults, jax_specs), (port_faults, port_specs)):
+        sched = mod.ServeFaultSchedule(specs)
+        fired.append([(i, [vars(f) for f in sched.router_faults(i)]) for i in range(10)])
+        assert sched.batch_faults(0, 5) == [] and [f.kind for f in sched.batch_faults(1, 5)] == ["replica_crash"]
+    assert fired[1] == fired[0]
+    assert [i for i, faults in fired[1] if faults] == [3, 7]
 
 
 def test_schedule_crash_fires_once_and_late(pkg):
