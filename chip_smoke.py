@@ -335,6 +335,27 @@ which exits non-zero:
    tempfile.mkdtemp(); c.phase_ppo_cli(torch, d); s = c.phase_serve(torch,
    np, fg, d); c.phase_fleet(torch, np, fg, d, s, print)'`` (TF32 off
    first).
+20. The flagship's own default configs on the port's classic-control
+   frames, the profilers, model registration and ``cli_agents``: (a)
+   ``exp=dreamer_v3`` through ``cli.run`` as composed (CartPole-v1 pixels
+   drawn by ``envs/render.py``, 64 x 64, S widths, bf16-mixed, 4 async
+   envs) cut to ``PIXEL_CUTS`` (depth only; video capture off, as moviepy
+   is absent), with ``metric.telemetry.profile_windows=[PROFILE_WINDOW]``,
+   a window after the step's capture: B1's launches, the triggered trace
+   and its ``gru_step`` kernels, the traced window's train span beside the
+   untraced ones; (b) ``cli_registration`` of (a)'s last checkpoint: the
+   registry holds ``configs/model_manager/dreamer_v3.yaml``'s five models,
+   each artifact equal to the checkpoint's arrays; (c) ``exp=sac_ae`` as
+   composed (Pendulum-v1 pixels, frame stack 3) cut to ``SAC_AE_PIXEL_CUTS``,
+   no B1; (d) ``metric.profiler.enabled=True`` around a short ``exp=ppo``
+   run: a whole-run trace with CUDA kernel events; (e) ``cli_agents`` lists
+   the 15 registered algorithms; (f) host ms a rendered and resized frame
+   of each env, (a)'s and (c)'s env-steps/s, and whether dm_control and
+   mujoco are installed. Alone on the card, from a file with a
+   ``__main__`` guard (the async envs spawn): ``fg.load_library();
+   c.phase_default_configs(torch, np, fg, tempfile.mkdtemp(), print)``
+   (TF32 off first). ``phase_capture_window``, beside it and not run here,
+   traces the window that captures the step.
 5. The kernels line (JSON), then the device line (JSON) last.
 
 Each phase prints its seconds and the smoke's so far.
@@ -347,6 +368,7 @@ fp32 like the kernels, and the fp32 heads of phase 8 in fp32.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import subprocess
@@ -5466,6 +5488,233 @@ def phase_fleet(torch, np, fg, tmp: str, serve: dict, part_took) -> dict:
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the flagship's own default configs (classic-control pixels), the
+# triggered and whole-run profilers, model registration and cli_agents
+# --------------------------------------------------------------------------- #
+
+# exp=dreamer_v3 and exp=sac_ae as composed, cut in depth only
+PIXEL_CUTS = {"algo.total_steps": 288, "algo.learning_starts": 256, "buffer.size": 4096}
+SAC_AE_PIXEL_CUTS = {"algo.total_steps": 160, "algo.learning_starts": 64, "buffer.size": 20000}
+# the traced window (1-based loop iterations of 4 env steps): after the
+# first train window, iteration 64, which captures the step
+PROFILE_WINDOW = 70
+# the whole-run trace's PPO: 2 updates of 32 x 4 env steps (from 128 x 4:
+# the published rollout's trace held 89756 kernel events, 245 MB of JSON)
+PPO_PROFILED_UPDATES = 2
+PPO_PROFILED_ROLLOUT = 32
+FRAMES_TIMED = 100
+REGISTERED_ALGORITHMS = 15
+
+
+def trace_kernels(path: str) -> list:
+    """The names of a Chrome trace's CUDA kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def tree_equal(np, a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(tree_equal(np, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(tree_equal(np, x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def frame_ms(np, exp: str) -> float:
+    """Host ms an env step of ``exp``'s env as composed: the classic
+    dynamics, the frame drawn and resized to 64 x 64 (and stacked)."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    cfg = dotdict(compose("config", [f"exp={exp}", "env.capture_video=False"]))
+    env = make_env(cfg, SEED)()
+    env.reset(seed=SEED)
+    env.action_space.seed(SEED)
+    env.step(env.action_space.sample())
+    t0 = time.perf_counter()
+    for _ in range(FRAMES_TIMED):
+        _, _, terminated, truncated, _ = env.step(env.action_space.sample())
+        if terminated or truncated:
+            env.reset()
+    ms = (time.perf_counter() - t0) / FRAMES_TIMED * 1e3
+    env.close()
+    return ms
+
+
+def phase_default_configs(torch, np, fg, tmp: str, part_took) -> dict:
+    """Phase 20 (the module docstring's item 20): (a) to (f)."""
+    import glob
+    import io
+    import os
+    import pickle
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.ppo import ppo
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    report = {"card": card_line(), "cuts": {"dreamer_v3": PIXEL_CUTS, "sac_ae": SAC_AE_PIXEL_CUTS}}
+    common = {"seed": SEED, "env.capture_video": False, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}
+
+    # (a) exp=dreamer_v3 as composed, one window traced
+    argv = ["exp=dreamer_v3", "run_name=dv3_pixels", "metric.telemetry.enabled=True", f"metric.telemetry.profile_windows=[{PROFILE_WINDOW}]"]
+    argv += [f"{k}={v}" for k, v in {**PIXEL_CUTS, **common}.items()]
+    out, calls, bf16_calls, seconds = cli_in_process(torch, fg, argv, dv3)
+    launches = main_path_launches(out, calls)
+    captured = out["captured_launches_per_step"]
+    bf16_launches = bf16_calls - captured + captured * out["replays"]
+    record = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")][-1]
+    (capture,) = record.get("profile_captures") or [None]
+    kernels = trace_kernels(f"{capture['trace_dir']}/trace.json") if capture else []
+    spans = [json.loads(line) for line in open(record["telemetry_jsonl"])]
+    train = {e["step"]: e["dur"] for e in spans if e.get("event") == "span" and e.get("name") == "Time/train_time"}
+    # window w's spans carry the policy step at its start, 4 (w - 1); the
+    # untraced windows compared are the later ones after the capture
+    traced_step = (PROFILE_WINDOW - 1) * 4
+    untraced = sorted(d for st, d in train.items() if st >= (PROFILE_WINDOW - 5) * 4 and st != traced_step)
+    row = {
+        "env_steps": out["env_steps"],
+        "gradient_steps": out["gradient_steps"],
+        "replays": out["replays"],
+        "env_steps_per_s": out["env_steps"] / out["seconds"],
+        "run_seconds": seconds,
+        "fused_gru_wrapper_calls": calls,
+        "fused_gru_launches": launches,
+        "fused_gru_bf16_x_launches": bf16_launches,
+        "profile_capture": capture,
+        "profile_failed_starts": record.get("profile_failed_starts", 0),
+        "trace_kernel_events": len(kernels),
+        "trace_gru_step_kernels": sum("gru_step" in k for k in kernels),
+        "traced_window_train_ms": train.get(traced_step, float("nan")) * 1e3,
+        "untraced_window_train_ms_median": untraced[len(untraced) // 2] * 1e3 if untraced else None,
+        "capture_wall_s": capture["t_end"] - capture["t_start"] if capture else None,
+        "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+    }
+    report["dreamer_v3"] = row
+    print("phase 20(a) dreamer_v3_cartpole_pixels " + json.dumps(row), flush=True)
+    if (
+        out["env_steps"] != PIXEL_CUTS["algo.total_steps"]
+        or out["gradient_steps"] <= 0
+        or launches <= 0
+        or bf16_launches != launches
+        or capture is None
+        or capture["windows"] != [PROFILE_WINDOW]
+        or row["trace_gru_step_kernels"] <= 0
+        or row["profile_failed_starts"]
+        or not row["last_metrics_finite"]
+    ):
+        raise AssertionError(f"20(a) exp=dreamer_v3 on CartPole-v1 pixels: {row}")
+    part_took("20a")
+
+    # (b) cli_registration of (a)'s last checkpoint
+    ckpt = max(glob.glob(f"{out['log_dir']}/checkpoint/*.ckpt"), key=lambda p: int(p.rsplit("ckpt_", 1)[1].split("_")[0]))
+    registry = f"{tmp}/models_registry"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.registration([f"checkpoint_path={ckpt}", f"model_manager.registry_dir={registry}"])
+    with open(f"{registry}/registry.json") as f:
+        index = json.load(f)
+    state = load_checkpoint(ckpt)
+    models = ("world_model", "actor", "critic", "target_critic", "moments")
+    exp_name = "dreamer_v3_CartPole-v1"
+    equal = {}
+    for m in models:
+        (rec,) = index[f"{exp_name}_{m}"]
+        with open(rec["artifact"], "rb") as f:
+            equal[m] = tree_equal(np, pickle.load(f), state[m])
+    report["registration"] = {"checkpoint": ckpt.rsplit("/", 1)[-1], "models": sorted(index), "artifacts_equal": equal}
+    print("phase 20(b) registration " + json.dumps(report["registration"]), flush=True)
+    if sorted(index) != sorted(f"{exp_name}_{m}" for m in models) or not all(equal.values()):
+        raise AssertionError(f"20(b) cli_registration: {report['registration']}")
+    part_took("20b")
+
+    # (c) exp=sac_ae as composed: Pendulum-v1 pixels, frame stack 3
+    args = ["exp=sac_ae", *[f"{k}={v}" for k, v in SAC_AE_PIXEL_CUTS.items()]]
+    fg.reset_launch_count()
+    out, fallbacks, seconds = ppo_cli(torch, tmp, "sac_ae_pixels", args, sac_ae)
+    row = sac_run_report(out, seconds)
+    row.update(fused_gru_launches=fg.launch_count, fused_fallback=fallbacks)
+    report["sac_ae"] = row
+    print("phase 20(c) sac_ae_pendulum_pixels " + json.dumps(row), flush=True)
+    if out["env_steps"] != SAC_AE_PIXEL_CUTS["algo.total_steps"] or fg.launch_count != 0 or not all(map(math.isfinite, out["metrics"].values())):
+        raise AssertionError(f"20(c) exp=sac_ae on Pendulum-v1 pixels: {row}")
+    part_took("20c")
+
+    # (d) the whole-run trace around a short exp=ppo
+    trace_dir = f"{tmp}/whole_run_profile"
+    steps = PPO_PROFILED_ROLLOUT * 4 * PPO_PROFILED_UPDATES
+    args = ["exp=ppo", "env.backend=sync", f"algo.rollout_steps={PPO_PROFILED_ROLLOUT}", f"algo.total_steps={steps}", "metric.profiler.enabled=True", f"metric.profiler.trace_dir={trace_dir}"]
+    out, _, seconds = ppo_cli(torch, tmp, "ppo_profiled", args, ppo)
+    kernels = trace_kernels(f"{trace_dir}/trace.json")
+    report["whole_run_trace"] = {
+        "updates": out["updates"],
+        "run_seconds": seconds,
+        "trace_bytes": os.path.getsize(f"{trace_dir}/trace.json"),
+        "trace_kernel_events": len(kernels),
+        "distinct_kernels": len(set(kernels)),
+    }
+    print("phase 20(d) whole_run_trace " + json.dumps(report["whole_run_trace"]), flush=True)
+    if out["updates"] != PPO_PROFILED_UPDATES or not kernels:
+        raise AssertionError(f"20(d) metric.profiler around exp=ppo: {report['whole_run_trace']}")
+    part_took("20d")
+
+    # (e) cli_agents
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.available_agents()
+    lines = buf.getvalue().splitlines()
+    report["cli_agents"] = len(lines)
+    if len(lines) != REGISTERED_ALGORITHMS or not all(line.startswith("sheeprl_tpu_torch.algos.") for line in lines):
+        raise AssertionError(f"20(e) cli_agents printed {lines}")
+
+    # (f) host ms a rendered and resized frame; whether this machine has
+    # dm_control and mujoco (the DMC adapter's packages), without importing them
+    report["host_ms_per_frame"] = {exp: frame_ms(np, exp) for exp in ("dreamer_v3", "sac_ae")}
+    report["dm_control_and_mujoco_installed"] = all(importlib.util.find_spec(m) is not None for m in ("dm_control", "mujoco"))
+    print("phase 20(ef) " + json.dumps({k: report[k] for k in ("cli_agents", "host_ms_per_frame", "dm_control_and_mujoco_installed")}), flush=True)
+    return report
+
+
+def phase_capture_window(torch, np, fg, tmp: str) -> dict:
+    """A probe beside phase 20, not run by ``main``: ``exp=dreamer_v3`` as
+    in 20(a), 272 env steps, with the triggered window the first train
+    window (64), which captures the step as a CUDA graph under the
+    profiler. Reports the window's start-to-trace seconds and kernel
+    events, the graph's replays and the last metrics; fails if the capture
+    or a replay fails or a metric is not finite. Alone on the card, from a
+    file with a ``__main__`` guard: ``fg.load_library();
+    c.phase_capture_window(torch, np, fg, tempfile.mkdtemp())``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    cuts = {**PIXEL_CUTS, "algo.total_steps": 272, "algo.run_test": False}
+    argv = ["exp=dreamer_v3", "run_name=capture_window", "metric.telemetry.enabled=True", "metric.telemetry.profile_windows=[64]"]
+    argv += [f"{k}={v}" for k, v in {**cuts, "seed": SEED, "env.capture_video": False, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}.items()]
+    out, calls, _, seconds = cli_in_process(torch, fg, argv, dv3)
+    record = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")][-1]
+    (capture,) = record["profile_captures"]
+    kernels = trace_kernels(f"{capture['trace_dir']}/trace.json")
+    row = {
+        "card": card_line(),
+        "window": capture["windows"],
+        "capture_wall_s": capture["t_end"] - capture["t_start"],
+        "trace_kernel_events": len(kernels),
+        "trace_gru_step_kernels": sum("gru_step" in k for k in kernels),
+        "graphs": out["graphs"],
+        "gradient_steps": out["gradient_steps"],
+        "run_seconds": seconds,
+        "fused_gru_launches": main_path_launches(out, calls),
+        "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+    }
+    print("capture_window " + json.dumps(row), flush=True)
+    if not row["last_metrics_finite"] or out["replays"] != out["gradient_steps"] or not row["trace_gru_step_kernels"]:
+        raise AssertionError(f"a triggered window across the step's capture: {row}")
+    return row
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5699,6 +5948,14 @@ def main() -> int:
         fleet = phase_fleet(torch, np, fg, ppo_tmp.name, serve, part_took)
     phase_took("19")
 
+    # phase 20: exp=dreamer_v3 and exp=sac_ae as composed (the classic-control
+    # frames), the triggered and whole-run profilers, cli_registration and
+    # cli_agents, the host's ms a frame
+    with tempfile.TemporaryDirectory() as tmp:
+        defaults = phase_default_configs(torch, np, fg, tmp, part_took)
+    pixel_launches = defaults["dreamer_v3"]["fused_gru_launches"]
+    phase_took("20")
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -5709,10 +5966,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()) + placement_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()) + placement_launches + pixel_launches,
             # every launch of the bf16-mixed and bf16-true paths read a bf16 x
             # (checked there; P2E's counted in its runs)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()) + placement["dreamer_v3_player_cpu"]["fused_gru_bf16_x_launches"],
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()) + placement["dreamer_v3_player_cpu"]["fused_gru_bf16_x_launches"] + defaults["dreamer_v3"]["fused_gru_bf16_x_launches"],
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -5727,6 +5984,7 @@ def main() -> int:
                 "dv3_bf16_true_and_mixed_steps": bf16_true_launches,
                 "p2e_dv3": p2e_launches,
                 "dv3_player_on_host": placement_launches,
+                "dreamer_v3_cartpole_pixels_cli": pixel_launches,
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -5845,6 +6103,18 @@ def main() -> int:
                 "device_idle_share": {k: r["profile"]["device_idle_share"] for k, r in family_steps.items()},
                 "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in family_cli["runs"].items()},
                 "env_steps_per_s_steady": {k: r["env_steps_per_s_steady"] for k, r in family_cli["runs"].items()},
+            },
+            # phase 20: the default configs on the classic-control frames;
+            # B1 runs in exp=dreamer_v3's loop, not in exp=sac_ae's
+            "default_configs": {
+                "dreamer_v3_env_steps_per_s": defaults["dreamer_v3"]["env_steps_per_s"],
+                "sac_ae_env_steps_per_s": defaults["sac_ae"]["env_steps_per_s"],
+                "host_ms_per_frame": defaults["host_ms_per_frame"],
+                "triggered_trace_gru_step_kernels": defaults["dreamer_v3"]["trace_gru_step_kernels"],
+                "traced_window_train_ms": defaults["dreamer_v3"]["traced_window_train_ms"],
+                "untraced_window_train_ms_median": defaults["dreamer_v3"]["untraced_window_train_ms_median"],
+                "whole_run_trace_kernel_events": defaults["whole_run_trace"]["trace_kernel_events"],
+                "registered_models": len(defaults["registration"]["models"]),
             },
             # the SAC family (phase 14) reaches no TPU kernel and launches
             # neither B1 nor B2 (checked)

@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import test as _dv3_test
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 AGGREGATOR_KEYS = {
     "Rewards/rew_avg",
@@ -28,7 +29,7 @@ AGGREGATOR_KEYS = {
 }
 MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic"}
 
-__all__ = ["AGGREGATOR_KEYS", "MODELS_TO_REGISTER", "prepare_obs", "test"]
+__all__ = ["AGGREGATOR_KEYS", "MODELS_TO_REGISTER", "log_models_from_checkpoint", "prepare_obs", "test"]
 
 
 def test(
@@ -37,3 +38,5 @@ def test(
     """One frozen-policy episode (Dreamer-V3's ``test``): its reward sum and
     its number of steps."""
     return _dv3_test(player, cfg, log_dir, test_name=test_name, greedy=greedy, logger=logger)
+
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.envs.factory import make_env
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 # the metrics the loop produces: the CLI keeps only these of the composed
 # aggregator, and ``main`` adds a mean for each one it lacks
@@ -96,3 +97,8 @@ def test(
     player.num_envs = saved_num_envs
     env.close()
     return cumulative_rew, steps
+
+
+# the sub-models cli_registration registers from a checkpoint
+MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic", "moments"}
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -2,8 +2,9 @@
 :15-48).
 
 All three P2E generations log the same exploration metric surface; each
-version's ``utils.py`` keeps only its deltas. ``make_log_models`` needs the
-model manager, which waits for ROADMAP A7.2.
+version's ``utils.py`` keeps only its deltas. Their registration hooks
+come from ``utils/model_manager.py::make_log_models``, as every ported
+algorithm's do.
 """
 
 from __future__ import annotations

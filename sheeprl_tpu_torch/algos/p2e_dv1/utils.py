@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import prepare_obs, test  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_common import DREAMER_FINETUNING_KEYS, P2E_EXPLORATION_KEYS
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 AGGREGATOR_KEYS = set(P2E_EXPLORATION_KEYS | DREAMER_FINETUNING_KEYS)
 MODELS_TO_REGISTER = {
@@ -17,4 +18,6 @@ MODELS_TO_REGISTER = {
     "critic_task",
 }
 
-__all__ = ["AGGREGATOR_KEYS", "MODELS_TO_REGISTER", "prepare_obs", "test"]
+__all__ = ["AGGREGATOR_KEYS", "MODELS_TO_REGISTER", "log_models_from_checkpoint", "prepare_obs", "test"]
+
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -12,6 +12,7 @@ from __future__ import annotations
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_KEYS as _DV3_AGGREGATOR_KEYS
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test  # noqa: F401
 from sheeprl_tpu_torch.algos.p2e_common import P2E_EXPLORATION_KEYS
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 AGGREGATOR_KEYS_FINETUNING = set(_DV3_AGGREGATOR_KEYS)
 AGGREGATOR_KEYS = set(P2E_EXPLORATION_KEYS) | AGGREGATOR_KEYS_FINETUNING
@@ -25,4 +26,6 @@ MODELS_TO_REGISTER = {
     "moments_task",
 }
 
-__all__ = ["AGGREGATOR_KEYS", "AGGREGATOR_KEYS_FINETUNING", "MODELS_TO_REGISTER", "prepare_obs", "test"]
+__all__ = ["AGGREGATOR_KEYS", "AGGREGATOR_KEYS_FINETUNING", "MODELS_TO_REGISTER", "log_models_from_checkpoint", "prepare_obs", "test"]
+
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

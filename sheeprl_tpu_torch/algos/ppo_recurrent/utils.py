@@ -11,6 +11,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import env_action
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS, prepare_obs  # noqa: F401  (the recurrent PPO API)
 from sheeprl_tpu_torch.envs.factory import make_env
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 
 def test(player: Any, cfg: Mapping[str, Any], log_dir: Optional[str] = None, logger: Any = None) -> Tuple[float, int]:
@@ -43,3 +44,8 @@ def test(player: Any, cfg: Mapping[str, Any], log_dir: Optional[str] = None, log
         logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
     env.close()
     return cumulative_rew, steps
+
+
+# the sub-models cli_registration registers from a checkpoint
+MODELS_TO_REGISTER = {"agent"}
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -8,6 +8,7 @@ from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 import numpy as np
 
 from sheeprl_tpu_torch.envs.factory import make_env
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 AGGREGATOR_KEYS = {
     "Rewards/rew_avg",
@@ -53,3 +54,6 @@ def test(
     return cumulative_rew, steps
 
 
+# the sub-models cli_registration registers from a checkpoint
+MODELS_TO_REGISTER = {"agent"}
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -10,6 +10,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.sac.utils import AGGREGATOR_KEYS as _SAC_KEYS
 from sheeprl_tpu_torch.algos.sac.utils import test  # noqa: F401  (the SAC-AE API)
+from sheeprl_tpu_torch.utils.model_manager import make_log_models
 
 AGGREGATOR_KEYS = _SAC_KEYS | {"Loss/reconstruction_loss"}
 
@@ -33,3 +34,8 @@ def preprocess_target(x: torch.Tensor, bits: int = 5) -> torch.Tensor:
     bins = 2**bits
     x = torch.floor(x.float() / 2 ** (8 - bits))
     return x / bins + 0.5 / bins - 0.5
+
+
+# the sub-models cli_registration registers from a checkpoint
+MODELS_TO_REGISTER = {"agent", "encoder", "decoder"}
+log_models_from_checkpoint = make_log_models(MODELS_TO_REGISTER)

@@ -8,7 +8,10 @@ cfg)``, with run telemetry and the run registry around it.
 ``python -m sheeprl_tpu_torch.cli_eval checkpoint_path=...`` rebuilds the
 config stored beside a checkpoint (the port's or the JAX package's) and
 runs the registered evaluation; ``python -m sheeprl_tpu_torch serve ...``
-serves one (``cli_serve.py``).
+serves one (``cli_serve.py``); ``python -m sheeprl_tpu_torch.cli_registration
+checkpoint_path=...`` registers a checkpoint's models with the model
+manager; ``python -m sheeprl_tpu_torch.cli_agents`` lists the registered
+algorithms.
 """
 
 from __future__ import annotations
@@ -16,13 +19,23 @@ from __future__ import annotations
 import importlib
 import os
 import sys
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from sheeprl_tpu_torch.config import compose
-from sheeprl_tpu_torch.config.compose import compose_group, load_config_file, resolve
+from sheeprl_tpu_torch.config.compose import (
+    _default_search_path,
+    _find_config_file,
+    _load_yaml,
+    _merge,
+    _resolve_value,
+    compose_group,
+    group_options,
+    load_config_file,
+    resolve,
+)
 from sheeprl_tpu_torch.config.reader import YAMLError
 from sheeprl_tpu_torch.config.reader import load as yaml_load
-from sheeprl_tpu_torch.utils.registry import find_algorithm, find_evaluation
+from sheeprl_tpu_torch.utils.registry import algorithm_registry, find_algorithm, find_evaluation
 from sheeprl_tpu_torch.utils.utils import dotdict, print_config
 
 # the ported algorithm packages: importing one registers its entry points
@@ -112,12 +125,11 @@ def check_configs(cfg: dotdict) -> None:
     find_algorithm(cfg.algo.name)
     if cfg.metric.log_level > 0 and not cfg.metric.get("aggregator"):
         raise ValueError("metric.aggregator must be set when metric.log_level > 0")
-    if (cfg.metric.get("profiler") or {}).get("enabled"):
-        raise NotImplementedError("metric.profiler is not ported to sheeprl_tpu_torch yet: it is queued in ROADMAP.md")
 
 
 def run_algorithm(cfg: dotdict) -> None:
-    """Registry lookup, the Fabric, telemetry, the entry point, then the run
+    """Registry lookup, the Fabric, telemetry, the entry point (inside the
+    whole-run profiler when ``metric.profiler.enabled``), then the run
     record."""
     from sheeprl_tpu_torch.obs import configure_telemetry, register_run, shutdown_telemetry
     from sheeprl_tpu_torch.parallel.fabric import fabric_from_config
@@ -126,6 +138,7 @@ def run_algorithm(cfg: dotdict) -> None:
     from sheeprl_tpu_torch.resilience.autoresume import emit_pending_resilience_events
     from sheeprl_tpu_torch.utils.logger import run_base_dir
     from sheeprl_tpu_torch.utils.metric import MetricAggregator
+    from sheeprl_tpu_torch.utils.profiler import maybe_profile
     from sheeprl_tpu_torch.utils.timer import timer
 
     timer.disabled = bool(cfg.metric.get("disable_timer", False)) or cfg.metric.log_level <= 0
@@ -155,7 +168,9 @@ def run_algorithm(cfg: dotdict) -> None:
     emit_pending_resilience_events()
     outcome, error = "completed", None
     try:
-        entrypoint(fabric, cfg, **kwargs)
+        # the whole-run trace (metric.profiler) lands at <run root>/profile
+        with maybe_profile(cfg, log_dir=run_base_dir(cfg), device=fabric.device):
+            entrypoint(fabric, cfg, **kwargs)
     except SystemExit as err:
         outcome = "preempted" if err.code == PREEMPTED_EXIT_CODE else "crashed"
         error = None if outcome == "preempted" else repr(err)
@@ -237,8 +252,20 @@ def evaluation(args: Optional[List[str]] = None) -> None:
         raise ValueError("checkpoint_path=<file> is required")
     cfg = _stored_config(ckpt_path)
     cfg.checkpoint_path = ckpt_path
+    _apply_overrides(cfg, kv, skip=("checkpoint_path", "env.capture_video"))
+    cfg = dotdict(resolve(cfg))
+    cfg.fabric["devices"] = 1
+    cfg.env.num_envs = 1
+    cfg.env.capture_video = kv.get("env.capture_video", "False").lower() in ("1", "true")
+    eval_algorithm(cfg)
+
+
+def _apply_overrides(cfg: dotdict, kv: Dict[str, str], skip: tuple, create: bool = False) -> None:
+    """``key=value`` overrides on a stored config: ``group=option``
+    re-composes a group, a dotted key sets its node (creating the missing
+    parents when ``create``)."""
     for k, v in kv.items():
-        if k in ("checkpoint_path", "env.capture_video"):
+        if k in skip:
             continue
         value = _value(v)
         if "." not in k and isinstance(cfg.get(k), dict) and isinstance(value, str):
@@ -247,10 +274,80 @@ def evaluation(args: Optional[List[str]] = None) -> None:
         node = cfg
         parts = k.split(".")
         for p in parts[:-1]:
-            node = node[p]
+            node = node.setdefault(p, dotdict({})) if create and isinstance(node, dict) else node[p]
         node[parts[-1]] = value
+
+
+def registration(args: Optional[List[str]] = None) -> None:
+    """``python -m sheeprl_tpu_torch.cli_registration checkpoint_path=...
+    [overrides]``: rebuild the run config stored beside the checkpoint,
+    compose the algorithm's ``model_manager`` group, and register the
+    configured sub-models with the model manager through the algorithm's
+    ``log_models_from_checkpoint``."""
+    from sheeprl_tpu_torch.parallel.fabric import Fabric
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+    from sheeprl_tpu_torch.utils.model_manager import register_model_from_checkpoint
+
+    overrides = list(sys.argv[1:] if args is None else args)
+    kv = dict(o.split("=", 1) for o in overrides if "=" in o and not o.startswith(("+", "~")))
+    ckpt_path = kv.get("checkpoint_path")
+    if not ckpt_path:
+        raise ValueError("checkpoint_path=<file> is required")
+    cfg = _stored_config(ckpt_path)
+    cfg.checkpoint_path = ckpt_path
+    # the stored run may have trained with the model manager disabled:
+    # compose the algorithm's group so the registration targets exist
+    mm_name = cfg.algo.name if cfg.algo.name in group_options("model_manager") else "default"
+    cfg.model_manager = compose_model_manager_group(mm_name, cfg)
+    _apply_overrides(cfg, kv, skip=("checkpoint_path",), create=True)
     cfg = dotdict(resolve(cfg))
-    cfg.fabric["devices"] = 1
-    cfg.env.num_envs = 1
-    cfg.env.capture_video = kv.get("env.capture_video", "False").lower() in ("1", "true")
-    eval_algorithm(cfg)
+    fabric = Fabric(
+        accelerator=str(cfg.fabric.get("accelerator", "auto")), precision=str(cfg.fabric.get("precision", "fp32"))
+    )
+    state = load_checkpoint(ckpt_path)
+    algo_name = cfg.algo.name.replace("_decoupled", "")
+    if algo_name.startswith("p2e_dv"):
+        algo_name = "_".join(algo_name.split("_")[:2])
+    utils_module = importlib.import_module(f"sheeprl_tpu_torch.algos.{algo_name}.utils")
+    register_model_from_checkpoint(fabric, cfg, state, utils_module.log_models_from_checkpoint)
+
+
+def compose_model_manager_group(name: str, cfg: dotdict) -> dotdict:
+    """``configs/model_manager/<name>.yaml`` (with its defaults), its
+    ``${...}`` interpolations resolved against the checkpoint's config,
+    enabled."""
+    merged: Dict[str, Any] = {}
+
+    def load(rel_name: str) -> None:
+        path = _find_config_file(os.path.join("model_manager", rel_name), _default_search_path())
+        if path is None:
+            raise FileNotFoundError(f"no model_manager config {rel_name!r}")
+        content, _ = _load_yaml(path)
+        for entry in content.pop("defaults", []) or []:
+            if isinstance(entry, str) and entry != "_self_":
+                load(entry)
+        _merge(merged, content)
+
+    load(name)
+    root = dict(cfg)
+    root["model_manager"] = merged
+
+    def resolve_node(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: resolve_node(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [resolve_node(v) for v in node]
+        return _resolve_value(root, node, ())
+
+    resolved = resolve_node(merged)
+    resolved["disabled"] = False
+    return dotdict(resolved)
+
+
+def available_agents() -> None:
+    """Print the registered algorithms, one line each: the JAX package's
+    plain-text listing (the port does not use ``rich``)."""
+    _register_algorithms()
+    for module, entries in algorithm_registry.items():
+        for e in entries:
+            print(f"{module}: {e['name']} ({e['entrypoint']}), decoupled={e['decoupled']}")

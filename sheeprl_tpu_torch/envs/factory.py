@@ -23,13 +23,15 @@ with ``env.sync_env`` kept as the deprecated alias (``backend`` null →
 
 ``env.wrapper._target_: gymnasium.make`` builds the port's own host env
 for the ids it has (``envs/classic.py``: ``CartPole-v1`` and
-``Pendulum-v1``, behind gymnasium's ``TimeLimit``), with vector
-observations only.
+``Pendulum-v1``, behind gymnasium's ``TimeLimit``). With cnn keys its
+frames come from ``render()`` (the port's rasterizer, ``envs/render.py``)
+through ``RenderObservation`` under the first cnn key, as the JAX factory
+wraps gymnasium's, then ``ImageTransform`` to ``env.screen_size``.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``gymnasium.make`` of any other id, pixels of the classic-control
-envs, the game adapters (DMC, Atari, Crafter, MineRL, MineDojo, Diambra,
-Mario), and video capture (``RecordVideo`` needs moviepy).
+item: ``gymnasium.make`` of any other id, the game adapters (DMC, Atari,
+Crafter, MineRL, MineDojo, Diambra, Mario), and video capture
+(``RecordVideo`` needs moviepy).
 """
 
 from __future__ import annotations
@@ -150,11 +152,6 @@ def _build_env(cfg: Dict[str, Any], seed: Optional[int], rank: int, run_name: Op
                 f"env.wrapper._target_ 'gymnasium.make' with id {env_id!r}: gymnasium's registry is not ported to "
                 f"sheeprl_tpu_torch (ROADMAP A1); the port's own host envs are {sorted(CLASSIC_ENVS)}"
             )
-        if list(cfg["algo"]["cnn_keys"]["encoder"]):
-            raise NotImplementedError(
-                f"pixel observations of {env_id} (algo.cnn_keys.encoder): gymnasium renders it with pygame, which is "
-                "not ported to sheeprl_tpu_torch yet (ROADMAP A1); use algo.cnn_keys.encoder=[]"
-            )
     else:
         _check_ported(wrapper_cfg)
     if env_cfg.get("capture_video") and rank == 0 and vector_env_idx == 0 and run_name is not None:
@@ -168,7 +165,7 @@ def _build_env(cfg: Dict[str, Any], seed: Optional[int], rank: int, run_name: Op
     if "rank" in wrapper_cfg:
         instantiate_kwargs["rank"] = rank + vector_env_idx
     if classic:
-        env = make_classic_env(env_id, seed=seed)
+        env = make_classic_env(env_id, seed=seed, render_mode=wrapper_cfg.get("render_mode"))
     else:
         env = instantiate(wrapper_cfg, **instantiate_kwargs)
 

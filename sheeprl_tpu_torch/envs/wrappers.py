@@ -479,19 +479,64 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     return w / scale
 
 
+# cv2's bilinear coefficients: 11 fractional bits (INTER_RESIZE_COEF_BITS)
+_COEF_BITS = 11
+_COEF_ONE = 1 << _COEF_BITS
+
+
+def _linear_area_taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """INTER_AREA's taps where it enlarges: for each output index the
+    source index and its two 11-bit weights, from cv2's area-mode
+    coefficients (``fx = (d + 1) - (s + 1) / scale``, fractional part, in
+    float32), clamped at the last source pixel."""
+    inv = dst / src
+    scale = 1.0 / inv  # cv2 inverts the inverse scale
+    d = np.arange(dst, dtype=np.float64)
+    s = np.floor(d * scale).astype(np.int64)
+    fx = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    last = s >= src - 1
+    s = np.where(last, src - 1, s)
+    fx = np.where(last, np.float32(0), fx)
+    w0 = np.rint((np.float32(1) - fx) * np.float32(_COEF_ONE)).astype(np.int64)
+    w1 = np.rint(fx * np.float32(_COEF_ONE)).astype(np.int64)
+    return s, w0, w1
+
+
+def _resize_enlarge(img: np.ndarray, size: int) -> np.ndarray:
+    """``cv2.resize(..., INTER_AREA)`` of a uint8 image when an axis
+    enlarges: cv2's bilinear path in 11-bit fixed point, the horizontal
+    pass exact in int32, the vertical pass rounded as cv2's vector path
+    does, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``, then
+    ``(+2) >> 2``, for every element of a row (cv2 5.0 rounds the rows'
+    tails so too; held to it in ``tests/test_torch_classic_render.py``)."""
+    h, w, c = img.shape
+    sx, a0, a1 = _linear_area_taps(w, size)
+    sy, b0, b1 = _linear_area_taps(h, size)
+    src = img.astype(np.int64)
+    sx1 = np.minimum(sx + 1, w - 1)
+    rows = src[:, sx] * a0[None, :, None] + src[:, sx1] * a1[None, :, None]  # [h, size, c]
+    s0 = rows[sy].reshape(size, size * c)
+    s1 = rows[np.minimum(sy + 1, h - 1)].reshape(size, size * c)
+    bb0, bb1 = b0[:, None], b1[:, None]
+    out = ((((s0 >> 4) * bb0) >> 16) + (((s1 >> 4) * bb1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(size, size, c)
+
+
 def resize_area(img: np.ndarray, size: int) -> np.ndarray:
-    """``cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA)`` for a
-    downscale of an ``[H, W, C]`` image, channels kept. At an integer factor
-    it is cv2's block mean, bit for bit for uint8: a 2x2 block rounds half
-    up (cv2's fast path), any other block rounds ``sum * (1 / area)`` in
-    float32 to nearest even. At a fractional factor it takes fractional
-    area weights and rounds to nearest (within one grey level of cv2's
-    float sums)."""
+    """``cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA)`` of an
+    ``[H, W, C]`` image, channels kept. At an integer downscale it is cv2's
+    block mean, bit for bit for uint8: a 2x2 block rounds half up (cv2's
+    fast path), any other block rounds ``sum * (1 / area)`` in float32 to
+    nearest even. At a fractional downscale it takes fractional area
+    weights and rounds to nearest (within one grey level of cv2's float
+    sums). Where an axis enlarges (a uint8 frame smaller than ``size``),
+    cv2 interpolates bilinearly: :func:`_resize_enlarge`, bit for bit."""
     h, w, c = img.shape
     if size > h or size > w:
-        raise NotImplementedError(
-            f"ImageTransform upscales {h}x{w} to {size}x{size}: INTER_AREA's enlargement (bilinear) is not ported yet"
-        )
+        if img.dtype != np.uint8:
+            raise NotImplementedError(f"ImageTransform upscales a {img.dtype} image: the port enlarges uint8 frames only")
+        return _resize_enlarge(img, size)
     is_int = np.issubdtype(img.dtype, np.integer)
     if h % size == 0 and w % size == 0:
         sy, sx = h // size, w // size
@@ -503,8 +548,10 @@ def resize_area(img: np.ndarray, size: int) -> np.ndarray:
         else:
             out = np.rint(sums.astype(np.float32) * (np.float32(1) / np.float32(sy * sx)))
     else:
+        # rows, then columns, each one BLAS product over contiguous operands
         wy, wx = _area_weights(h, size), _area_weights(w, size)
-        out = (wy @ img.transpose(2, 0, 1).astype(np.float64) @ wx.T).transpose(1, 2, 0)
+        rows = (wy @ img.reshape(h, w * c).astype(np.float64)).reshape(size, w, c)
+        out = np.tensordot(wx, rows, axes=([1], [1])).transpose(1, 0, 2)
         if not is_int:
             return out.astype(img.dtype)
         out = np.rint(out)

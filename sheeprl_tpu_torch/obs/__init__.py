@@ -14,8 +14,10 @@
   standalone recorder, merged by the repo's ``tools/trace.py``.
 
 Everything is inert unless ``metric.telemetry.enabled=True`` (or a
-standalone trace recorder is configured). The triggered profiler and the
-actor-learner, rollout and net records are not ported (ROADMAP.md).
+standalone trace recorder is configured). :mod:`~sheeprl_tpu_torch.obs.profile`
+is the triggered profiler (``torch.profiler`` traces of chosen or slow
+train windows). The actor-learner, rollout and net records are not ported
+(ROADMAP.md).
 """
 
 from sheeprl_tpu_torch.obs.heartbeat import log_sps_and_heartbeat

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 
+from sheeprl_tpu_torch.obs.profile import TriggeredProfiler
 from sheeprl_tpu_torch.ops import graph
 
 _FLUSH_EVERY_EVENTS = 64
@@ -187,6 +188,7 @@ class RunTelemetry:
         poll_interval: float = 30.0,
         max_bytes: int = 0,
         flightrec_events: int = _FLIGHTREC_EVENTS,
+        profiler: Optional[TriggeredProfiler] = None,
     ) -> None:
         self.device = torch.device(device)
         self.precision = precision
@@ -238,6 +240,10 @@ class RunTelemetry:
         self._req_paths: List[tuple] = []
         self._req_hedged = 0
         self._req_rerouted = 0
+        # the triggered profiler: one train window is one advance() (1-based)
+        self.profiler = profiler
+        self.profile_captures: List[Dict[str, Any]] = []
+        self._window_index = 0
 
     # -- core event plumbing -------------------------------------------------
 
@@ -255,6 +261,8 @@ class RunTelemetry:
         if attrs:
             fields["attrs"] = dict(attrs)
         self.emit("span", name=name, **fields)
+        if self.profiler is not None:
+            self.profiler.observe_span(name, dur)
 
     def trace_annotation(self, name: Optional[str]):
         return None if name is None else torch.profiler.record_function(name)
@@ -263,6 +271,9 @@ class RunTelemetry:
 
     def advance(self, step: int) -> None:
         self.step = int(step)
+        self._window_index += 1
+        if self.profiler is not None:
+            self.profiler.on_window(self._window_index)
         self.watchdog.poll()
         self.maybe_poll_devices()
 
@@ -607,12 +618,23 @@ class RunTelemetry:
         req_path = self._request_path_section()
         if req_path:
             summary["request_critical_path"] = req_path
+        captures = self.profile_captures or (self.profiler.captures if self.profiler is not None else [])
+        if captures:
+            summary["profile_captures"] = [dict(c) for c in captures]
+        summary.update(self._profile_failures())
         summary["telemetry_jsonl"] = self.writer.path
         summary["telemetry_segments"] = [os.path.basename(p) for p in self.writer.segments()]
         # the run's whole file set (this stream's segments, oldest first,
         # then declared trace files): what the trace merger reads
         summary["telemetry_files"] = list(self.writer.segments()) + list(self._child_files)
         return summary
+
+    def _profile_failures(self) -> Dict[str, Any]:
+        """The triggered profiler's failed starts and its last error, when
+        a start failed (the JAX package drops them)."""
+        if self.profiler is None or not self.profiler.failed_starts:
+            return {}
+        return {"profile_failed_starts": self.profiler.failed_starts, "profile_last_error": self.profiler.last_error}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -626,6 +648,9 @@ class RunTelemetry:
         self.maybe_poll_devices(force=True)
 
     def close(self) -> None:
+        if self.profiler is not None:
+            # stop a capture straddling the run's end before run_end reports it
+            self.profile_captures = self.profiler.finish()
         self.watchdog.poll()
         # only serving runs grow a `serve` section
         extra_fields: Dict[str, Any] = {}
@@ -652,8 +677,10 @@ class RunTelemetry:
             resume_fallbacks=self._total_resume_fallbacks,
             fused_fallbacks=dict(self._fused_fallbacks),
             deliberate_compiles=dict(self.watchdog.deliberate_compiles),
+            profile_captures=[dict(c) for c in self.profile_captures],
             telemetry_rotations=self.writer.rotations,
             telemetry_segments=[os.path.basename(p) for p in self.writer.segments()],
+            **self._profile_failures(),
             **extra_fields,
         )
         self.writer.close()
@@ -669,9 +696,10 @@ def get_telemetry() -> Optional[RunTelemetry]:
 def configure_telemetry(cfg: Mapping[str, Any], log_dir: Optional[str] = None, device: Any = None) -> Optional[RunTelemetry]:
     """Build the process-wide :class:`RunTelemetry` from
     ``cfg.metric.telemetry`` (``enabled``, ``jsonl``, ``poll_interval``,
-    ``max_bytes``, ``flightrec_events``) for the run on ``device`` (by
-    default the one ``fabric.accelerator`` names); ``None``, and the
-    subsystem inert, unless enabled."""
+    ``max_bytes``, ``flightrec_events``, ``profile_windows``,
+    ``slow_window_factor``, ``slow_window_min_history``) for the run on
+    ``device`` (by default the one ``fabric.accelerator`` names); ``None``,
+    and the subsystem inert, unless enabled."""
     global _active_telemetry
     tel_cfg = ((cfg.get("metric") or {}).get("telemetry")) or {}
     if not bool(tel_cfg.get("enabled", False)):
@@ -684,6 +712,17 @@ def configure_telemetry(cfg: Mapping[str, Any], log_dir: Optional[str] = None, d
     fabric_cfg = cfg.get("fabric") or {}
     device = torch.device(device) if device is not None else accelerator_device(fabric_cfg.get("accelerator", "auto"))
     path = tel_cfg.get("jsonl") or os.path.join(log_dir or ".", "telemetry.jsonl")
+    profiler: Optional[TriggeredProfiler] = None
+    windows = tel_cfg.get("profile_windows") or []
+    slow_factor = float(tel_cfg.get("slow_window_factor", 0.0) or 0.0)
+    if windows or slow_factor > 0.0:
+        profiler = TriggeredProfiler(
+            os.path.join(os.path.dirname(path) or ".", "profile_triggered"),
+            windows=[int(w) for w in windows],
+            slow_factor=slow_factor,
+            slow_min_history=int(tel_cfg.get("slow_window_min_history", 8) or 8),
+            device=device,
+        )
     tel = RunTelemetry(
         path,
         device=device,
@@ -691,6 +730,7 @@ def configure_telemetry(cfg: Mapping[str, Any], log_dir: Optional[str] = None, d
         poll_interval=float(tel_cfg.get("poll_interval", 30.0) or 0.0),
         max_bytes=int(tel_cfg.get("max_bytes", 0) or 0),
         flightrec_events=int(tel_cfg.get("flightrec_events", _FLIGHTREC_EVENTS) or 0),
+        profiler=profiler,
     )
     tel.start(run_info={"backend": device.type, "local_device_count": 1, "process_count": 1})
     _active_telemetry = tel

@@ -87,11 +87,15 @@ def test_make_env_builds_the_host_env_for_gymnasium_make():
 
 @pytest.mark.parametrize(
     "overrides",
-    [["env.id=Acrobot-v1"], ["algo.cnn_keys.encoder=[rgb]"]],
+    [["env.id=Acrobot-v1"], ["env.id=MountainCar-v0", "algo.cnn_keys.encoder=[rgb]"]],
 )
 def test_other_ids_and_pixels_raise_naming_a1(overrides):
+    """An id without a host env raises naming ROADMAP A1, with vector or
+    pixel observations; CartPole-v1's pixels are drawn by the port
+    (``envs/render.py``, held to gymnasium in test_torch_classic_render.py)."""
     cfg = dotdict(compose("config", ["exp=ppo", "env.capture_video=False", *overrides]))
     with pytest.raises(NotImplementedError, match="A1"):
         make_env(cfg, 0, 0, None, "train")()
-    with pytest.raises(NotImplementedError, match="A1"):
-        ClassicControlEnv("CartPole-v1").render()
+    cfg = dotdict(compose("config", ["exp=ppo", "env.capture_video=False", "algo.cnn_keys.encoder=[rgb]"]))
+    obs, _ = make_env(cfg, 0, 0, None, "train")().reset(seed=0)
+    assert obs["rgb"].shape == (64, 64, 3) and obs["state"].shape == (4,)

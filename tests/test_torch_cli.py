@@ -57,10 +57,10 @@ TINY = [
 ]
 
 
-def _run_blocked(module, argv, cwd, runs):
+def _run_blocked(module, argv, cwd, runs, blocked=BLOCKED):
     code = (
         "import runpy, sys\n"
-        f"for name in {BLOCKED!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         f"sys.argv = [{module!r}] + {list(argv)!r}\n"
         f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
@@ -174,8 +174,104 @@ def test_serve_refuses_what_is_not_ported(tmp_path, capsys, override, item):
 
 
 def test_profiler_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.run(TINY + ["metric.profiler.enabled=True", f"log_base_dir={tmp_path}"])
+    """``metric.profiler`` no longer raises: it wraps the run in the
+    whole-run trace, which owns the process's one profiler session, so a
+    triggered window inside the same run is refused (its start fails and is
+    counted in the run record) and the run completes."""
+    runs = tmp_path / "RUNS.jsonl"
+    argv = TINY + ["dry_run=False", "algo.total_steps=8", "metric.profiler.enabled=True", "metric.telemetry.enabled=True"]
+    cli.run(argv + ["metric.telemetry.profile_windows=[2]", f"metric.telemetry.runs_jsonl={runs}", f"log_base_dir={tmp_path}", "run_name=p"])
+    (trace,) = glob.glob(f"{tmp_path}/dreamer_v3/dummy_discrete/p/profile/trace.json")
+    assert os.path.getsize(trace) > 0
+    (record,) = [json.loads(line) for line in runs.read_text().splitlines()]
+    assert record["outcome"] == "completed" and "profile_captures" not in record
+    assert record["profile_failed_starts"] == 1 and "already open" in record["profile_last_error"]
+
+
+# exp=dreamer_v3 as composed (env=gym: CartPole-v1 frames at 64x64) at TINY's
+# widths, 4 windows of 2 envs, the second traced
+PIXELS = [a for a in TINY if a.startswith(("algo.", "fabric", "buffer")) and not a.startswith(("algo.cnn_keys", "algo.mlp_keys"))]
+PIXELS += ["exp=dreamer_v3", "env.capture_video=False", "env.num_envs=2", "env.backend=sync", "algo.total_steps=8"]
+DRAWING = ["pygame", "cv2", "rich", "mlflow"]
+
+
+def test_dreamer_v3_trains_on_cartpole_frames_without_pygame(tmp_path):
+    """The flagship's default config on the port's own CartPole-v1 frames,
+    with JAX, gymnasium, pygame, cv2 and rich blocked: a triggered window
+    traced, then ``cli_registration`` of the run's checkpoint and
+    ``cli_agents``."""
+    runs = tmp_path / "RUNS.jsonl"
+    blocked = BLOCKED + DRAWING
+    argv = PIXELS + ["metric.telemetry.enabled=True", "metric.telemetry.profile_windows=[2]", "run_name=px"]
+    _run_blocked("sheeprl_tpu_torch", argv, tmp_path, runs, blocked)
+    version = tmp_path / "logs" / "runs" / "dreamer_v3" / "CartPole-v1" / "px" / "version_0"
+    stored = json.loads((version / "config.yaml").read_text())
+    assert stored["env"]["id"] == "CartPole-v1" and stored["algo"]["cnn_keys"]["encoder"] == ["rgb"]
+    (record,) = [json.loads(line) for line in runs.read_text().splitlines()]
+    (capture,) = record["profile_captures"]
+    assert capture["windows"] == [2] and capture["trace_dir"].endswith("window_00002")
+    assert os.path.getsize(os.path.join(tmp_path, capture["trace_dir"], "trace.json")) > 0
+    (ckpt,) = glob.glob(str(version / "checkpoint" / "*.ckpt"))
+    _run_blocked("sheeprl_tpu_torch.cli_registration", [f"checkpoint_path={ckpt}", "model_manager.registry_dir=reg"], tmp_path, runs, blocked)
+    index = json.loads((tmp_path / "reg" / "registry.json").read_text())
+    assert sorted(index) == sorted(f"dreamer_v3_CartPole-v1_{m}" for m in ("world_model", "actor", "critic", "target_critic", "moments"))
+    agents = _run_blocked("sheeprl_tpu_torch.cli_agents", [], tmp_path, runs, blocked).splitlines()
+    assert len(agents) == 15
+
+
+def test_cli_agents_prints_the_jax_packages_plain_listing(capsys, monkeypatch):
+    """The JAX package's plain-text branch (``rich`` hidden), its package
+    name mapped to the port's, less the algorithms the port refuses."""
+    from sheeprl_tpu import cli as jax_cli
+
+    for name in ("rich", "rich.console", "rich.table"):
+        monkeypatch.setitem(sys.modules, name, None)
+    jax_cli.available_agents()
+    want = [
+        line.replace("sheeprl_tpu.", "sheeprl_tpu_torch.", 1)
+        for line in capsys.readouterr().out.splitlines()
+        if line.split(": ", 1)[1].split(" ", 1)[0] not in cli.UNPORTED_ALGORITHMS
+    ]
+    cli.available_agents()
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == 15 and sorted(got) == sorted(want)
+
+
+# the default exps that compose env=gym with pixel observations
+PIXEL_EXPS = [
+    "dreamer_v3",
+    "dreamer_v2",
+    "dreamer_v1",
+    "p2e_dv3_exploration",
+    "p2e_dv3_finetuning",
+    "p2e_dv2_exploration",
+    "p2e_dv2_finetuning",
+    "p2e_dv1_exploration",
+    "p2e_dv1_finetuning",
+    "sac_ae",
+]
+
+
+@pytest.mark.parametrize("exp", PIXEL_EXPS)
+def test_pixel_exps_build_their_vector_env(exp):
+    """Each exp as composed builds its vector env (CartPole-v1 or
+    Pendulum-v1 frames, 64x64, SAC-AE's stack of 3) and steps it."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.envs.factory import build_vector_env
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    extra = ["checkpoint.exploration_ckpt_path=unused.ckpt"] if "finetuning" in exp else []
+    cfg = dotdict(compose("config", [f"exp={exp}", "env.capture_video=False", "env.backend=sync", "env.num_envs=2", *extra]))
+    assert cfg.env.wrapper["_target_"] == "gymnasium.make" and cfg.algo.cnn_keys.encoder == ["rgb"]
+    envs = build_vector_env(cfg, 0)
+    obs, _ = envs.reset(seed=0)
+    action = envs.single_action_space.sample()
+    obs, *_ = envs.step(np.stack([action, action]))
+    shape = (2, 3, 64, 64, 3) if exp == "sac_ae" else (2, 64, 64, 3)
+    assert list(obs) == ["rgb"] and obs["rgb"].shape == shape and obs["rgb"].dtype == np.uint8
+    assert 0 < obs["rgb"].mean() < 255  # a drawn frame, not a blank
+    envs.close()
 
 
 # the Dreamer-family names ported from ROADMAP A6.2 and A6.3

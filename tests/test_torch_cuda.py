@@ -1698,3 +1698,91 @@ def test_cuda_dreamer_v1_and_p2e_replays_match_eager_steps(cuda, monkeypatch, ex
     assert fn.replays == 3 and tgru.launch_count == 0 and tgru.proj_launch_count == 0
     for a, b in zip([p for m in graphed.modules for p in m.parameters()], [p for m in eager.modules for p in m.parameters()]):
         assert (a - b).abs().max() <= REPLAY_BOUND * b.abs().max().clamp_min(1e-30)
+
+
+# --------------------------------------------------------------------------- #
+# the profilers on the card, and exp=dreamer_v3 on the port's CartPole frames
+# --------------------------------------------------------------------------- #
+
+
+def _kernel_names(path):
+    import json
+
+    with open(path) as f:
+        return [e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def _gru_calls(cuda, n):
+    args = [torch.tensor(a, device=cuda) for a in _np_args(6, 4, 1027, 512, 512)]
+    for _ in range(n):
+        tgru.fused_recurrent_step(*args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_triggered_window_traces_the_kernels(cuda, tmp_path):
+    """A triggered window's trace holds the CUDA kernels launched in it:
+    B1's two ``gru_step`` launches a call, for the window's calls only."""
+    from sheeprl_tpu_torch.obs.profile import TriggeredProfiler
+
+    prof = TriggeredProfiler(str(tmp_path), windows=[2], device=cuda)
+    for window in (1, 2, 3):
+        prof.on_window(window)
+        _gru_calls(cuda, 3)
+    (capture,) = prof.finish()
+    assert capture["windows"] == [2] and prof.failed_starts == 0
+    assert sum("gru_step" in n for n in _kernel_names(f"{capture['trace_dir']}/trace.json")) == 2 * 3
+
+
+@pytest.mark.cuda
+def test_cuda_whole_run_trace_refuses_a_nested_window(cuda, tmp_path):
+    """``metric.profiler`` owns the process's one profiler session: a
+    triggered window inside it fails to start and is counted, and the
+    whole-run trace keeps every kernel."""
+    from sheeprl_tpu_torch.obs.profile import TriggeredProfiler
+    from sheeprl_tpu_torch.utils.profiler import maybe_profile
+
+    cfg = {"metric": {"profiler": {"enabled": True, "trace_dir": str(tmp_path / "whole")}}}
+    prof = TriggeredProfiler(str(tmp_path / "triggered"), windows=[1], device=cuda)
+    with maybe_profile(cfg, device=cuda) as trace_dir:
+        prof.on_window(1)
+        _gru_calls(cuda, 2)
+        prof.on_window(2)
+    assert prof.failed_starts == 1 and "already open" in prof.last_error and prof.finish() == []
+    assert sum("gru_step" in n for n in _kernel_names(f"{trace_dir}/trace.json")) == 2 * 2
+
+
+@pytest.mark.cuda
+def test_cuda_dreamer_v3_trains_on_cartpole_frames(cuda, tmp_path):
+    """``exp=dreamer_v3`` as composed (CartPole-v1 frames drawn by the port)
+    at small widths on the card: B1 launched, a traced window after the
+    step's capture holding ``gru_step`` kernels, and the checkpoint's
+    models registered."""
+    import glob
+    import json
+    import pickle
+
+    from sheeprl_tpu_torch import cli
+
+    runs = tmp_path / "RUNS.jsonl"
+    argv = [
+        "exp=dreamer_v3", "env.capture_video=False", "env.backend=sync", "env.num_envs=2", "algo.total_steps=48",
+        "algo.learning_starts=32", "buffer.size=64", "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8",
+        "algo.horizon=4", "algo.dense_units=32", "algo.mlp_layers=1", "algo.world_model.encoder.cnn_channels_multiplier=4",
+        "algo.world_model.recurrent_model.recurrent_state_size=32", "algo.world_model.representation_model.hidden_size=32",
+        "algo.world_model.transition_model.hidden_size=32", "algo.world_model.discrete_size=4",
+        "algo.world_model.stochastic_size=4", "algo.run_test=False", "metric.telemetry.enabled=True",
+        "metric.telemetry.profile_windows=[22]", f"metric.telemetry.runs_jsonl={runs}", f"log_base_dir={tmp_path}/logs",
+    ]
+    tgru.reset_launch_count()
+    cli.run(argv)
+    assert tgru.launch_count > 0
+    record = [json.loads(line) for line in open(runs)][-1]
+    (capture,) = record["profile_captures"]
+    assert any("gru_step" in n for n in _kernel_names(f"{capture['trace_dir']}/trace.json"))
+    (ckpt,) = glob.glob(f"{tmp_path}/logs/**/checkpoint/*.ckpt", recursive=True)
+    cli.registration([f"checkpoint_path={ckpt}", f"model_manager.registry_dir={tmp_path}/registry"])
+    index = json.load(open(tmp_path / "registry" / "registry.json"))
+    assert len(index) == 5
+    with open(index["dreamer_v3_CartPole-v1_actor"][0]["artifact"], "rb") as f:
+        assert set(pickle.load(f)) == {"params"}

@@ -374,7 +374,7 @@ def test_make_env_matches_jax(case):
 
 
 def test_make_env_refusals_name_roadmap_items():
-    _, cfg = _cfgs(["env=gym"])
+    _, cfg = _cfgs(["env=gym", "env.id=Acrobot-v1"])
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         tfactory.make_env(cfg, 0)()
     _, cfg = _cfgs(["env=dmc"])

@@ -1,7 +1,7 @@
 """The port stands alone: no module of sheeprl_tpu_torch/ and not
-chip_smoke.py imports JAX, flax, optax, gymnasium, PyYAML, cv2 or sheeprl_tpu, and the
-package imports and runs ``evaluate`` and ``serve`` on the CPU with those
-blocked."""
+chip_smoke.py imports JAX, flax, optax, gymnasium, pygame, PyYAML, cv2,
+rich or sheeprl_tpu, and the package imports and runs ``evaluate``, the
+classic-control frames and ``serve`` on the CPU with those blocked."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "yaml", "cv2", "sheeprl_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "gymnasium", "pygame", "yaml", "cv2", "rich", "sheeprl_tpu"}
 
 
 def _port_files():
@@ -151,6 +151,27 @@ DREAMER_SLICE = (
 )
 
 
+# the modules of the default-configs, profiler and registration slice
+TOOLING_SLICE = (
+    "cli.py",
+    "cli_agents.py",
+    "cli_registration.py",
+    "envs/classic.py",
+    "envs/factory.py",
+    "envs/render.py",
+    "envs/wrappers.py",
+    "obs/profile.py",
+    "obs/telemetry.py",
+    "utils/model_manager.py",
+    "utils/profiler.py",
+)
+
+
+def test_the_scan_covers_the_tooling_and_rendering_slice():
+    scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
+    assert set(TOOLING_SLICE) <= scanned
+
+
 def test_the_scan_covers_the_ppo_slice():
     scanned = {p.relative_to(REPO / "sheeprl_tpu_torch").as_posix() for p in _port_files()[:-1]}
     assert set(PPO_SLICE) <= scanned
@@ -255,6 +276,14 @@ for exp, run in (("a2c", a2c_evaluate), ("ppo_recurrent", rppo_evaluate)):
     cfg = dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False", "env.max_episode_steps=5"]))
     reward, steps = run(cfg, device="cpu")
     assert steps == 5, (exp, steps)
+# exp=dreamer_v3's and exp=sac_ae's own envs: the port draws the classic-control frames
+import numpy as np
+from sheeprl_tpu_torch.envs.factory import make_env
+for exp, shape in (("dreamer_v3", (64, 64, 3)), ("sac_ae", (3, 64, 64, 3))):
+    env = make_env(dotdict(compose_config("config", [f"exp={{exp}}", "env.capture_video=False"])), 0)()
+    env.reset(seed=0)
+    obs = env.step(env.action_space.sample())[0]
+    assert obs["rgb"].shape == shape and 0 < obs["rgb"].mean() < 255, (exp, obs["rgb"].shape)
 # the SAC family: SAC and DroQ on the port's Pendulum-v1, SAC-AE on PixelPendulum
 from sheeprl_tpu_torch.algos.sac.evaluate import evaluate as sac_evaluate
 from sheeprl_tpu_torch.algos.droq.evaluate import evaluate as droq_evaluate

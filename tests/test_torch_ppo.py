@@ -415,12 +415,22 @@ def test_a_twinless_env_falls_back_with_one_event(tmp_path, monkeypatch):
     "override, item",
     [
         ("env.id=Acrobot-v1", "A1"),
-        ("algo.cnn_keys.encoder=[rgb]", "A1"),
+        # CartPole-v1's pixels are drawn by the port now (envs/render.py,
+        # test_ppo_trains_on_cartpole_pixels); those of an id without a host
+        # env are not
+        pytest.param("algo.cnn_keys.encoder=[rgb] env.id=MountainCar-v0", "A1", id="algo.cnn_keys.encoder=[rgb]-A1"),
     ],
 )
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path, override, item):
     with pytest.raises(NotImplementedError, match=item):
-        _run(tmp_path, [override], "u")
+        _run(tmp_path, override.split(), "u")
+
+
+def test_ppo_trains_on_cartpole_pixels(tmp_path):
+    """``algo.cnn_keys.encoder=[rgb]`` on the port's CartPole-v1: the
+    frames (64x64) beside the state, through the CNN encoder."""
+    out = _run(tmp_path, ["algo.cnn_keys.encoder=[rgb]"], "px")
+    assert out["updates"] == 2 and all(np.isfinite(v) for v in out["metrics"].values())
 
 
 def test_ppo_decoupled_raises_naming_a10():
