@@ -356,7 +356,31 @@ which exits non-zero:
    c.phase_default_configs(torch, np, fg, tempfile.mkdtemp(), print)``
    (TF32 off first). ``phase_capture_window``, beside it and not run here,
    traces the window that captures the step.
+21. Three more classic-control ids, SGD, the poll probe and the DMC check:
+   (a) ``exp=dreamer_v3 env.id=MountainCarContinuous-v0`` through
+   ``cli.run`` as composed (its frames drawn on the host, S, bf16-mixed)
+   cut to ``PIXEL_CUTS`` with the host buffer (``buffer.device=False``), so
+   replay gathers through the native kernel (``sheeprl_tpu_torch/native``,
+   counted): env-steps/s, B1's launches (every one with a bf16 ``x``), host
+   ms a frame drawn and resized, and one batch of a host buffer of the
+   env's frames gathered by the kernel bit-equal to numpy's gather of the
+   same draws; (b) ``exp=dreamer_v3 env.id=Acrobot-v1`` cut to
+   ``ACROBOT_CUTS``, metrics finite; (c) ``exp=ppo`` on MountainCar-v0 and
+   on Acrobot-v1 (the latter with ``optim=sgd``): each update captured
+   against eager as 12(a) holds it, then 2 updates of each through the
+   CLI; (d) a ``device_poll`` event with ``rtt_ms`` from (c)'s MountainCar
+   run with ``metric.telemetry.poll_rtt=True``; (e) whether dm_control is
+   installed, and where it is absent that building
+   ``exp=dreamer_v3_dmc_walker_walk``'s env raises ``ModuleNotFoundError``
+   naming it (no DMC run is faked). Alone on the card, from a file with a
+   ``__main__`` guard: ``fg.load_library(); c.phase_more_classic(torch, np,
+   fg, tempfile.mkdtemp(), print)`` (TF32 off first).
 5. The kernels line (JSON), then the device line (JSON) last.
+
+``python3 chip_smoke.py --swap-drills N`` runs, in place of the phases,
+phase 12(b)'s PPO run for a checkpoint and then 19(c)'s hot swap N times
+back to back (``swap_drill_repeats``): each pause of serving by part, and
+a non-zero exit if any run dropped or expired a request.
 
 Each phase prints its seconds and the smoke's so far.
 
@@ -3181,7 +3205,7 @@ def ppo_update_models(torch, np, model: str, precision: str = BF16):
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.ops.optim import build_optimizer
 
-    exp, obs, n_actions = {**PPO_MODELS, **A2C_MODELS}[model]
+    exp, obs, n_actions = {**PPO_MODELS, **A2C_MODELS, **CLASSIC_PPO_MODELS}[model]
     cfg = ppo_cfg(*exp, f"fabric.precision={precision}")
     algo = cfg.algo
     space = spaces.Dict({k: spaces.Box(0, 255, shape, np.dtype(dt)) for k, (shape, dt) in obs.items()})
@@ -3239,7 +3263,8 @@ def captured_against_eager(torch, build, label: str, eager_timed: int = 3) -> di
     prof = profile_replays(torch, fn, 2, top=5)
     row = {
         "param_max_rel_err": max(rel[:n_params]),
-        "optimizer_state_max_rel_err": max(rel[n_params:]),
+        # SGD without momentum keeps no float state
+        "optimizer_state_max_rel_err": max(rel[n_params:], default=0.0),
         "metric_max_rel_err": metric_err,
         "bit_equal": bit_equal,
         "optimizer_steps": int(g_opt.count),
@@ -5375,6 +5400,28 @@ def phase_fleet_drills(torch, np, served: dict, plain_card, plain_cpu, part_took
     part_took("19c_spill")
 
     # (5) hot swap across every slot under mixed load
+    report["hot_swap"] = row = fleet_hot_swap(torch, np, served, plain_card, plain_cpu)
+    print("phase 19(c) fleet_hot_swap " + json.dumps(row), flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"19(c) hot swap across every slot: {row}")
+    part_took("19c_swap")
+    return report
+
+
+def fleet_hot_swap(torch, np, served: dict, plain_card, plain_cpu) -> dict:
+    """19(c)(5) a hot swap across every slot under mixed load, on a fleet of
+    its own; its row, ``ok`` false where a request failed, expired or got
+    an answer other than the plain forward of the version stamped on it,
+    or a slot kept the old version. Each pause is in ``swap_pause_parts``
+    by part (``ModelStore._build_version``), beside the slot captures and
+    scale-ups the autoscaler made, each at its seconds from the swap's
+    request (``events``)."""
+    import threading
+
+    from sheeprl_tpu_torch.serve.loadgen import random_obs
+
+    policy = served["policy"]
+    spill = FLEET_NODE["max_replicas"]  # spill slots follow the device slots
     new_step = served["ckpt"].step + 2000
     new_path, new_state = commit_perturbed(np, served, new_step)
     plains = {
@@ -5382,7 +5429,7 @@ def phase_fleet_drills(torch, np, served: dict, plain_card, plain_cpu, part_took
         new_step: (served["plain"](new_state["agent"]), served["plain"](new_state["agent"], device="cpu")),
     }
     events = []
-    server = fleet_server(served, fleet_config(spill_depth=0), on_event=lambda kind, info: events.append((kind, info)))
+    server = fleet_server(served, fleet_config(spill_depth=0), on_event=lambda kind, info: events.append((kind, info, time.perf_counter())))
     stop = threading.Event()
     records, failures = [], []
 
@@ -5425,30 +5472,86 @@ def phase_fleet_drills(torch, np, served: dict, plain_card, plain_cpu, part_took
             matches += equal_to_a_plain(np, fns, [records[i][0] for i in idx], np.stack([records[i][1] for i in idx]))
     new_card, new_cpu = plains[new_step]
     slots_on_new = {i: bool(np.array_equal(out.astype(int), (new_cpu if server.slots[i].kind == "cpu_spill" else new_card)(probe).astype(int))) for i, out in after.items()}
-    report["hot_swap"] = {
+    swaps = [info for kind, info, _ in events if kind == "swap"]
+    row = {
         "requests": len(records),
         "batch_priority_requests": sum(r[3] == "batch" for r in records),
         "failures": len(failures),
+        "first_failures": failures[:3],
         "answers_by_version": by_version,
         "equal_to_plain_of_stamped_version": matches,
         "request_swap_s": swap_s,
-        "swap_capture_s": [info["capture_s"] for kind, info in events if kind == "swap"],
-        "swap_pause_s": [info["pause_s"] for kind, info in events if kind == "swap"],
-        "swap_pauses_s": [info["pauses_s"] for kind, info in events if kind == "swap"],
+        "swap_capture_s": [info["capture_s"] for info in swaps],
+        "swap_pause_s": [info["pause_s"] for info in swaps],
+        "swap_pauses_s": [info["pauses_s"] for info in swaps],
+        "swap_pause_parts": [info["pause_parts"] for info in swaps],
+        "events": [
+            {"kind": kind, "at_s": at - t0, **{k: v for k, v in info.items() if k in ("replica", "pause_s", "pause_parts")}}
+            for kind, info, at in events
+            if kind in ("slot_capture", "fleet_scale_up", "fleet_scale_down", "swap")
+        ],
         "slots_serving_new_version": slots_on_new,
         "shed_expired": snap["shed_expired"],
         "failed": snap["failed"],
         "serving_step": snap["serving_step"],
         "p95_ms": snap["p95_ms"],
     }
-    print("phase 19(c) fleet_hot_swap " + json.dumps(report["hot_swap"]), flush=True)
-    row = report["hot_swap"]
     # every captured slot: the two device slots and the spill slot, and the
     # standby slot too when the autoscaler activated it under this load
-    if failures or snap["shed_expired"] or snap["failed"] or matches != len(records) or not all(by_version.values()) or snap["serving_step"] != new_step or not all(slots_on_new.values()) or not {0, 1, spill} <= set(slots_on_new) or not row["batch_priority_requests"]:
-        raise AssertionError(f"19(c) hot swap across every slot: {row} {failures[:3]}")
-    part_took("19c_swap")
-    return report
+    row["ok"] = not (
+        failures or snap["shed_expired"] or snap["failed"] or matches != len(records) or not all(by_version.values())
+        or snap["serving_step"] != new_step or not all(slots_on_new.values()) or not {0, 1, spill} <= set(slots_on_new)
+        or not row["batch_priority_requests"]
+    )
+    return row
+
+
+SWAP_DRILLS = 20  # back-to-back runs of 19(c)'s hot swap (``--swap-drills``)
+
+
+def swap_drill_repeats(runs: int = SWAP_DRILLS) -> int:
+    """``python3 chip_smoke.py --swap-drills N``: phase 12(b)'s PPO run for
+    a checkpoint, then 19(c)'s hot swap ``runs`` times back to back, each
+    run's pauses printed by part (each run's whole row in
+    ``chiprun_out/swap_drills.jsonl``); exits non-zero if any run dropped or
+    expired a request. On the card only."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line(), flush=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    tmp = tempfile.mkdtemp()
+    steps = 128 * 4 * PPO_CLI_UPDATES
+    ppo_cli(torch, tmp, SERVE_RUNS["mlp_cartpole"], ["exp=ppo", "env.backend=sync", "metric.log_level=1", f"algo.total_steps={steps}"])
+    served = serve_model(torch, np, serve_ckpt_dir(tmp, SERVE_RUNS["mlp_cartpole"]))
+    plain_card = served["plain"](served["state"]["agent"])
+    plain_cpu = served["plain"](served["state"]["agent"], device="cpu")
+    os.makedirs("chiprun_out", exist_ok=True)
+    failed, longest = [], None
+    with open(os.path.join("chiprun_out", "swap_drills.jsonl"), "w") as out:
+        for run in range(runs):
+            row = fleet_hot_swap(torch, np, served, plain_card, plain_cpu)
+            out.write(json.dumps({"run": run, **row}) + "\n")
+            pauses = [p for e in row["events"] if e["kind"] in ("swap", "slot_capture") for p in e["pause_parts"]]
+            top = max(pauses, key=lambda p: p["pause_s"])
+            if longest is None or top["pause_s"] > longest["pause_s"]:
+                longest = {"run": run, **top}
+            brief = {k: row[k] for k in ("ok", "requests", "failures", "shed_expired", "request_swap_s")}
+            brief["pauses"] = [(p["slot"], round(p["pause_s"], 4), round(p["gate_wait_s"], 4), {k: round(v, 4) for k, v in p["parts"].items()}) for p in pauses]
+            print(f"swap drill {run} " + json.dumps(brief), flush=True)
+            if not row["ok"]:
+                failed.append(run)
+    print("swap drills longest pause " + json.dumps(longest), flush=True)
+    print(f"swap drills: {runs - len(failed)} of {runs} passed; failed runs {failed}; {card_line()}", flush=True)
+    return 1 if failed else 0
 
 
 def phase_fleet(torch, np, fg, tmp: str, serve: dict, part_took) -> dict:
@@ -5522,14 +5625,15 @@ def tree_equal(np, a, b) -> bool:
     return bool(np.array_equal(np.asarray(a), np.asarray(b)))
 
 
-def frame_ms(np, exp: str) -> float:
-    """Host ms an env step of ``exp``'s env as composed: the classic
-    dynamics, the frame drawn and resized to 64 x 64 (and stacked)."""
+def frame_ms(np, exp: str, env_id: str = "") -> float:
+    """Host ms an env step of ``exp``'s env as composed (with ``env.id``
+    ``env_id`` where given): the classic dynamics, the frame drawn and
+    resized to 64 x 64 (and stacked)."""
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs.factory import make_env
     from sheeprl_tpu_torch.utils.utils import dotdict
 
-    cfg = dotdict(compose("config", [f"exp={exp}", "env.capture_video=False"]))
+    cfg = dotdict(compose("config", [f"exp={exp}", "env.capture_video=False", *([f"env.id={env_id}"] if env_id else [])]))
     env = make_env(cfg, SEED)()
     env.reset(seed=SEED)
     env.action_space.seed(SEED)
@@ -5676,6 +5780,175 @@ def phase_default_configs(torch, np, fg, tmp: str, part_took) -> dict:
     report["host_ms_per_frame"] = {exp: frame_ms(np, exp) for exp in ("dreamer_v3", "sac_ae")}
     report["dm_control_and_mujoco_installed"] = all(importlib.util.find_spec(m) is not None for m in ("dm_control", "mujoco"))
     print("phase 20(ef) " + json.dumps({k: report[k] for k in ("cli_agents", "host_ms_per_frame", "dm_control_and_mujoco_installed")}), flush=True)
+    return report
+
+
+# phase 21: Acrobot-v1 and MountainCarContinuous-v0 under exp=dreamer_v3,
+# exp=ppo on MountainCar-v0 and Acrobot-v1 (SGD), the poll probe, DMC
+# learning starts once each of the 4 envs holds a 64-step window, as in 20(a)
+ACROBOT_CUTS = {"algo.total_steps": 272, "algo.learning_starts": 256, "buffer.size": 4096}
+CLASSIC_PPO_MODELS = {
+    "mlp_mountain_car": (["exp=ppo", "env.id=MountainCar-v0"], {"state": ((2,), "float32")}, 3),
+    "mlp_acrobot_sgd": (["exp=ppo", "env.id=Acrobot-v1", "optim=sgd", "~algo.optimizer.eps"], {"state": ((6,), "float32")}, 3),
+}
+GATHER_CHECK = {"size": 512, "batch": 16, "sequence_length": 64, "timed": 20}
+
+
+def native_gather_check(np, env_id: str) -> dict:
+    """One batch of a host ``SequentialReplayBuffer`` holding ``env_id``'s
+    64 x 64 frames (``exp=dreamer_v3``'s pipeline) at the replay's shape
+    (batch 16 of 64 steps), gathered by the native kernel and, from the
+    same seeded draws, by numpy: bit-equal; host ms a batch by each."""
+    from unittest import mock
+
+    from sheeprl_tpu_torch import native
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.buffers import SequentialReplayBuffer
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    env = make_env(dotdict(compose("config", ["exp=dreamer_v3", f"env.id={env_id}", "env.capture_video=False"])), SEED)()
+    obs, _ = env.reset(seed=SEED)
+    env.action_space.seed(SEED)
+    frames = []
+    for _ in range(GATHER_CHECK["size"]):
+        frames.append(obs["rgb"])
+        obs, _, terminated, truncated, _ = env.step(env.action_space.sample())
+        if terminated or truncated:
+            obs, _ = env.reset()
+    env.close()
+    batches, ms = [], []
+    for kernel in (True, False):
+        rb = SequentialReplayBuffer(GATHER_CHECK["size"], n_envs=1, obs_keys=("rgb",), seed=SEED)
+        rb.add({"rgb": np.stack(frames)[:, None]})
+        before = native.launch_count
+        with contextlib.ExitStack() as stack:
+            if not kernel:
+                stack.enter_context(mock.patch.object(native, "gather_sequences", lambda *a, **k: None))
+            batches.append(rb.sample(GATHER_CHECK["batch"], sequence_length=GATHER_CHECK["sequence_length"])["rgb"])
+            # host ms a batch, the same draws' shapes, after the first
+            t0 = time.perf_counter()
+            for _ in range(GATHER_CHECK["timed"]):
+                rb.sample(GATHER_CHECK["batch"], sequence_length=GATHER_CHECK["sequence_length"])
+            ms.append((time.perf_counter() - t0) / GATHER_CHECK["timed"] * 1e3)
+        if (native.launch_count > before) is not kernel:
+            raise AssertionError(f"21(a) the native gather ran {native.launch_count - before} times, want {int(kernel)}")
+    return {
+        "shape": list(batches[0].shape),
+        "bit_equal_to_numpy": bool(np.array_equal(*batches)),
+        "bytes": int(batches[0].nbytes),
+        "host_ms_per_batch_native": ms[0],
+        "host_ms_per_batch_numpy": ms[1],
+    }
+
+
+def phase_more_classic(torch, np, fg, tmp: str, part_took) -> dict:
+    """Phase 21 (the module docstring's item 21): (a) to (e)."""
+    import importlib.util
+
+    from sheeprl_tpu_torch import native
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.ppo import ppo
+
+    report = {"card": card_line(), "cuts": {"MountainCarContinuous-v0": PIXEL_CUTS, "Acrobot-v1": ACROBOT_CUTS}}
+    common = {"seed": SEED, "env.capture_video": False, "log_base_dir": f"{tmp}/logs", "metric.telemetry.runs_jsonl": f"{tmp}/RUNS.jsonl"}
+    launches = 0
+
+    # (a), (b) exp=dreamer_v3 on the new ids' frames, (a) on the host buffer
+    for part, env_id, cuts, extra in (
+        ("21(a)", "MountainCarContinuous-v0", PIXEL_CUTS, {"buffer.device": False}),
+        ("21(b)", "Acrobot-v1", ACROBOT_CUTS, {}),
+    ):
+        # no test episode: MountainCarContinuous-v0's lasts its 999 steps
+        # (20(a) plays the flagship's)
+        extra = {**extra, "algo.run_test": False}
+        argv = ["exp=dreamer_v3", f"env.id={env_id}", f"run_name=dv3_{env_id}"]
+        argv += [f"{k}={v}" for k, v in {**cuts, **extra, **common}.items()]
+        gathers = native.launch_count
+        out, calls, bf16_calls, seconds = cli_in_process(torch, fg, argv, dv3)
+        n = main_path_launches(out, calls)
+        captured = out["captured_launches_per_step"]
+        row = {
+            "env_steps": out["env_steps"],
+            "gradient_steps": out["gradient_steps"],
+            "replays": out["replays"],
+            "replay_buffer": out["replay_buffer"],
+            "env_steps_per_s": out["env_steps"] / out["seconds"],
+            "run_seconds": seconds,
+            "fused_gru_wrapper_calls": calls,
+            "fused_gru_launches": n,
+            "fused_gru_bf16_x_launches": bf16_calls - captured + captured * out["replays"],
+            "native_gathers": native.launch_count - gathers,
+            "last_metrics_finite": bool(out["metrics"]) and all(math.isfinite(v) for v in out["metrics"].values()),
+        }
+        launches += n
+        report[env_id] = row
+        print(f"phase {part} dreamer_v3_{env_id} " + json.dumps(row), flush=True)
+        if (
+            out["env_steps"] != cuts["algo.total_steps"]
+            or out["gradient_steps"] <= 0
+            or n <= 0
+            or row["fused_gru_bf16_x_launches"] != n
+            or not row["last_metrics_finite"]
+            # the host buffer, memmapped as exp=dreamer_v3 composes it
+            or ("buffer.device" in extra and (out["replay_buffer"] not in ("host", "memmap") or row["native_gathers"] <= 0))
+        ):
+            raise AssertionError(f"{part} exp=dreamer_v3 on {env_id} frames: {row}")
+        part_took(part[-2])
+    report["host_ms_per_frame"] = {env_id: frame_ms(np, "dreamer_v3", env_id) for env_id in ("MountainCarContinuous-v0", "Acrobot-v1")}
+    report["native_gather"] = native_gather_check(np, "MountainCarContinuous-v0")
+    print("phase 21(a) frames_and_gather " + json.dumps({k: report[k] for k in ("host_ms_per_frame", "native_gather")}), flush=True)
+    if not report["native_gather"]["bit_equal_to_numpy"]:
+        raise AssertionError(f"21(a) the native gather against numpy: {report['native_gather']}")
+
+    # (c) exp=ppo on MountainCar-v0 and Acrobot-v1 (SGD): each update
+    # captured against eager, then 2 updates through the CLI; (d) the
+    # MountainCar run polls the card with the link probe
+    fg.reset_launch_count()
+    report["ppo"] = {}
+    with cudnn_deterministic(torch):
+        for model, (exp, _, _) in CLASSIC_PPO_MODELS.items():
+            row = captured_against_eager(torch, lambda model=model: ppo_update_models(torch, np, model), f"21(c) {model}")
+            row["optimizer"] = ppo_cfg(*exp).algo.optimizer["_target_"].rsplit(".", 1)[-1]
+            report["ppo"][model] = {"update": row}
+    if [r["update"]["optimizer"] for r in report["ppo"].values()] != ["adam", "sgd"]:
+        raise AssertionError(f"21(c) the optimizers: {report['ppo']}")
+    for model, (exp, _, _) in CLASSIC_PPO_MODELS.items():
+        args = [*exp, "env.backend=sync", "metric.log_level=1", f"algo.total_steps={128 * 4 * PPO_PROFILED_UPDATES}"]
+        if model == "mlp_mountain_car":
+            args += ["metric.telemetry.enabled=True", "metric.telemetry.poll_rtt=True", "metric.telemetry.poll_interval=0"]
+        out, fallbacks, seconds = ppo_cli(torch, tmp, f"ppo_{model}", args, ppo)
+        row = ppo_run_report(out, seconds)
+        report["ppo"][model]["cli"] = row
+        if out["updates"] != PPO_PROFILED_UPDATES or fallbacks or not all(map(math.isfinite, out["metrics"].values())):
+            raise AssertionError(f"21(c) exp=ppo {model}: {row} {fallbacks}")
+        if model == "mlp_mountain_car":
+            record = [json.loads(line) for line in open(f"{tmp}/RUNS.jsonl")][-1]
+            polls = [e for e in map(json.loads, open(record["telemetry_jsonl"])) if e.get("event") == "device_poll"]
+            report["poll_rtt"] = {"device_polls": len(polls), "rtt_ms": [p.get("rtt_ms") for p in polls]}
+    print("phase 21(cd) " + json.dumps({"ppo": report["ppo"], "poll_rtt": report["poll_rtt"]}), flush=True)
+    if fg.launch_count or not report["poll_rtt"]["device_polls"] or not all(r is not None and r > 0 for r in report["poll_rtt"]["rtt_ms"]):
+        raise AssertionError(f"21(cd) B1 launches {fg.launch_count} (want 0); polls {report['poll_rtt']}")
+    part_took("21cd")
+
+    # (e) the DMC adapter: whether dm_control is here; where it is absent,
+    # building the walker exp's env raises naming it
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.factory import make_env
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    installed = importlib.util.find_spec("dm_control") is not None
+    report["dmc"] = {"dm_control_installed": installed}
+    if not installed:
+        cfg = dotdict(compose("config", ["exp=dreamer_v3_dmc_walker_walk", "env.capture_video=False"]))
+        try:
+            make_env(cfg, SEED)()
+        except ModuleNotFoundError as err:
+            report["dmc"]["raised"] = {"type": type(err).__name__, "name": err.name, "message": str(err)[:120]}
+        if report["dmc"].get("raised", {}).get("name") != "dm_control":
+            raise AssertionError(f"21(e) the walker exp's env without dm_control: {report['dmc']}")
+    print("phase 21(e) " + json.dumps(report["dmc"]), flush=True)
+    report["fused_gru_launches"] = launches
     return report
 
 
@@ -5956,6 +6229,14 @@ def main() -> int:
     pixel_launches = defaults["dreamer_v3"]["fused_gru_launches"]
     phase_took("20")
 
+    # phase 21: exp=dreamer_v3 on MountainCarContinuous-v0 (host buffer,
+    # native gather) and Acrobot-v1 frames, exp=ppo on MountainCar-v0 and
+    # Acrobot-v1 (SGD), the poll probe, the DMC adapter's check
+    with tempfile.TemporaryDirectory() as tmp:
+        more = phase_more_classic(torch, np, fg, tmp, part_took)
+    more_launches = more["fused_gru_launches"]
+    phase_took("21")
+
     # phase 5: the kernels line, then the device line
     main_row = next(r for r in rows if r["shape"] == "S_B4")
     big_row = next(r for r in rows if r["shape"] == "S_B1024")
@@ -5966,10 +6247,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/csrc/fused_gru.cu",
             "replaces": "sheeprl_tpu/ops/pallas_gru.py:178",
-            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()) + placement_launches + pixel_launches,
+            "launches": launches + loop_launches + bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_launches.values()) + placement_launches + pixel_launches + more_launches,
             # every launch of the bf16-mixed and bf16-true paths read a bf16 x
             # (checked there; P2E's counted in its runs)
-            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()) + placement["dreamer_v3_player_cpu"]["fused_gru_bf16_x_launches"] + defaults["dreamer_v3"]["fused_gru_bf16_x_launches"],
+            "launches_bf16_x": bf16_loop_launches + bf16_player_launches + sum(ring_loop_launches.values()) + cli_launches + sum(env_launches.values()) + bf16_true_launches + sum(p2e_bf16_launches.values()) + placement["dreamer_v3_player_cpu"]["fused_gru_bf16_x_launches"] + defaults["dreamer_v3"]["fused_gru_bf16_x_launches"] + sum(more[e]["fused_gru_bf16_x_launches"] for e in ("MountainCarContinuous-v0", "Acrobot-v1")),
             "launches_by_path": {
                 "player_and_evaluate": launches,
                 "train_loop": loop_launches,
@@ -5985,6 +6266,7 @@ def main() -> int:
                 "p2e_dv3": p2e_launches,
                 "dv3_player_on_host": placement_launches,
                 "dreamer_v3_cartpole_pixels_cli": pixel_launches,
+                "dreamer_v3_mountain_car_continuous_and_acrobot_pixels_cli": {e: more[e]["fused_gru_launches"] for e in ("MountainCarContinuous-v0", "Acrobot-v1")},
                 "per_gradient_step": step_launches,
                 "per_superstep_replay_by_profiler": superstep["profile"]["gru_step_kernels_per_replay"] / 2,
                 "per_replayed_step_by_profiler": replay["profile_fused"]["gru_step_kernels_per_replay"] / 2,
@@ -6104,6 +6386,18 @@ def main() -> int:
                 "env_steps_per_s": {k: r["env_steps_per_s"] for k, r in family_cli["runs"].items()},
                 "env_steps_per_s_steady": {k: r["env_steps_per_s_steady"] for k, r in family_cli["runs"].items()},
             },
+            # phase 21: the new classic-control ids, SGD, the poll probe,
+            # the native gather and the DMC adapter's check
+            "more_classic": {
+                "dreamer_v3_env_steps_per_s": {e: more[e]["env_steps_per_s"] for e in ("MountainCarContinuous-v0", "Acrobot-v1")},
+                "host_ms_per_frame": more["host_ms_per_frame"],
+                "native_gathers_in_host_buffer_run": more["MountainCarContinuous-v0"]["native_gathers"],
+                "native_gather": more["native_gather"],
+                "ppo_ms_per_update_replayed": {m: r["update"]["ms_per_update_replayed"] for m, r in more["ppo"].items()},
+                "ppo_env_steps_per_s": {m: r["cli"]["env_steps_per_s"] for m, r in more["ppo"].items()},
+                "poll_rtt_ms": more["poll_rtt"]["rtt_ms"],
+                "dm_control_installed": more["dmc"]["dm_control_installed"],
+            },
             # phase 20: the default configs on the classic-control frames;
             # B1 runs in exp=dreamer_v3's loop, not in exp=sac_ae's
             "default_configs": {
@@ -6149,7 +6443,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = swap_drill_repeats(int(sys.argv[2])) if sys.argv[1:2] == ["--swap-drills"] else main()
     except Exception as e:  # any failed phase: report and exit non-zero, no result line
         import traceback
 

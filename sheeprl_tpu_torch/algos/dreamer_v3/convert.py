@@ -27,7 +27,8 @@ go the other way, for checkpoints in the JAX layout: a state dict (or any
 tree keyed as one, such as Adam's moments) becomes the JAX param tree, and
 a key with no flax counterpart raises. ``adam_to_optax`` and
 ``adam_from_optax`` carry an optimizer's state across in optax's chain
-nesting, ``rmsprop_to_optax`` and ``rmsprop_from_optax`` RMSProp's, and
+nesting, ``rmsprop_to_optax`` and ``rmsprop_from_optax`` RMSProp's,
+``sgd_to_optax`` and ``sgd_from_optax`` SGD's, and
 ``optimizer_to_optax``/``optimizer_from_optax`` pick by the optimizer.
 
 ``shard_recurrent`` cuts the recurrent model's params into one model rank's
@@ -43,7 +44,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.optim import Adam, Optimizer, RMSProp
+from sheeprl_tpu_torch.ops.optim import SGD, Adam, Optimizer, RMSProp
 from sheeprl_tpu_torch.utils.checkpoint import (
     EmptyState,
     ScaleByAdamState,
@@ -368,8 +369,9 @@ def _rmsprop_nesting(opt: RMSProp, scale_state: Any, trace: Any) -> Any:
     return (EmptyState(), state) if opt.max_grad_norm > 0 else state
 
 
-def _rmsprop_core(opt: RMSProp, state: Any) -> Any:
-    """The inner ``rmsprop`` chain of an optax state with ``opt``'s nesting."""
+def _rmsprop_core(opt: Union[RMSProp, SGD], state: Any) -> Any:
+    """The inner ``rmsprop`` (or ``sgd``) chain of an optax state with
+    ``opt``'s nesting."""
     if opt.max_grad_norm > 0:
         state = state[1]
     return state[1] if opt.weight_decay else state
@@ -408,20 +410,58 @@ def rmsprop_from_optax(
         opt.count.fill_(int(np.asarray(core[1].count)))
 
 
+def _sgd_nesting(opt: SGD, trace: Any) -> Any:
+    """optax's state nesting of ``sheeprl_tpu/ops/optim.py::sgd``: ``chain(
+    trace or identity, scale_by_learning_rate)``, behind ``chain(
+    add_decayed_weights, .)`` with weight decay and ``chain(
+    clip_by_global_norm, .)`` when clipping."""
+    lr_state = ScaleByScheduleState(np.asarray(opt.count.item(), dtype=np.int32)) if opt.schedule_steps > 0 else EmptyState()
+    state: Any = (TraceState(trace) if opt.trace is not None else EmptyState(), lr_state)
+    if opt.weight_decay:
+        state = (EmptyState(), state)
+    return (EmptyState(), state) if opt.max_grad_norm > 0 else state
+
+
+def sgd_to_optax(opt: SGD, names: Sequence[str], to_flax: Callable[[Mapping[str, Any]], Any]) -> Any:
+    """``opt``'s state in optax's nesting (``trace`` as a flax tree), as
+    :func:`adam_to_optax` builds Adam's."""
+    trace = to_flax(dict(zip(names, opt.trace, strict=True))) if opt.trace is not None else None
+    return _sgd_nesting(opt, trace)
+
+
+@torch.no_grad()
+def sgd_from_optax(
+    state: Any, opt: SGD, names: Sequence[str], from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
+) -> None:
+    """Load an optax SGD state (the JAX package's or the port's) into
+    ``opt``, in place; raises unless it has ``opt``'s nesting."""
+    want = _sgd_nesting(opt, None)
+    if _nesting(state) != _nesting(want):
+        raise ValueError(f"optimizer state nesting {_nesting(state)} is not this optimizer's {_nesting(want)}")
+    core = _rmsprop_core(opt, state)
+    if opt.trace is not None:
+        flat = from_flax(core[0].trace)
+        for t, name in zip(opt.trace, names):
+            t.copy_(flat[name])
+    if opt.schedule_steps > 0:
+        opt.count.fill_(int(np.asarray(core[1].count)))
+
+
+_CONVERSIONS = {Adam: (adam_to_optax, adam_from_optax), RMSProp: (rmsprop_to_optax, rmsprop_from_optax), SGD: (sgd_to_optax, sgd_from_optax)}
+
+
 def optimizer_to_optax(opt: Optimizer, names: Sequence[str], to_flax: Callable[[Mapping[str, Any]], Any]) -> Any:
-    """:func:`adam_to_optax` or :func:`rmsprop_to_optax`, by ``opt``'s type."""
-    return rmsprop_to_optax(opt, names, to_flax) if isinstance(opt, RMSProp) else adam_to_optax(opt, names, to_flax)
+    """:func:`adam_to_optax`, :func:`rmsprop_to_optax` or
+    :func:`sgd_to_optax`, by ``opt``'s type."""
+    return _CONVERSIONS[type(opt)][0](opt, names, to_flax)
 
 
 def optimizer_from_optax(
     state: Any, opt: Optimizer, names: Sequence[str], from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]
 ) -> None:
-    """:func:`adam_from_optax` or :func:`rmsprop_from_optax`, by ``opt``'s
-    type."""
-    if isinstance(opt, RMSProp):
-        rmsprop_from_optax(state, opt, names, from_flax)
-    else:
-        adam_from_optax(state, opt, names, from_flax)
+    """:func:`adam_from_optax`, :func:`rmsprop_from_optax` or
+    :func:`sgd_from_optax`, by ``opt``'s type."""
+    _CONVERSIONS[type(opt)][1](state, opt, names, from_flax)
 
 
 # the recurrent model's params in the fused step's order (w1, b1, g1, be1,

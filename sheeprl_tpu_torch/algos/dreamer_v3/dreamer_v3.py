@@ -630,6 +630,7 @@ class EnvLoop:
         self.obs_keys = self.cnn_keys + list(cfg["algo"]["mlp_keys"]["encoder"])
         self.clip_rewards = bool(cfg["env"].get("clip_rewards", False))
         self.log_level = int(cfg["metric"]["log_level"])
+        self.validate_args = bool(cfg["buffer"].get("validate_args", False))
         self.step_data: Dict[str, np.ndarray] = {}
         self.stacked: Dict[str, np.ndarray] = {}
         self.masks: Dict[str, np.ndarray] = {}
@@ -661,7 +662,7 @@ class EnvLoop:
                 actions = self.player.get_actions(prepared, self.player_gen, mask=self.masks or None)
                 real_actions = [env_action(a, self.actions_dim, self.is_continuous) for a in actions]
             step_data["actions"] = np.asarray(actions, np.float32).reshape(1, n, -1)
-            rb.add(step_data)
+            rb.add(step_data, validate_args=self.validate_args)
 
             next_obs, rewards, terminated, truncated, infos = self.envs.step(
                 np.asarray(real_actions).reshape(n, *self.action_space.shape)
@@ -709,7 +710,7 @@ class EnvLoop:
                 reset_data[k] = step_data[k][:, dones_idxes]
             reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(self.actions_dim))), np.float32)
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones_idxes)
+            rb.add(reset_data, dones_idxes, validate_args=self.validate_args)
             for k in ("rewards", "terminated", "truncated"):
                 step_data[k][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0

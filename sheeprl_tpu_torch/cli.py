@@ -19,7 +19,7 @@ from __future__ import annotations
 import importlib
 import os
 import sys
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.config.compose import (
@@ -180,8 +180,19 @@ def run_algorithm(cfg: dotdict) -> None:
         raise
     finally:
         drain_async_checkpoints()
-        register_run(cfg, kind="train", outcome=outcome, error=error)
+        register_run(cfg, kind="train", outcome=outcome, error=error, **loop_variant(cfg.algo))
         shutdown_telemetry()
+
+
+def loop_variant(algo_cfg: Mapping[str, Any]) -> Dict[str, str]:
+    """The run record's ``variant`` field (JAX ``cli.py:248-261``): a fused
+    or overlapped loop lands in its own regress cell, never the host loop's
+    (``tools/regress.py`` keys a cell on it)."""
+    if algo_cfg.get("fused_rollout"):
+        return {"variant": "fused_rollout"}
+    if algo_cfg.get("overlap_collection"):
+        return {"variant": "overlap_collection"}
+    return {}
 
 
 def run(args: Optional[List[str]] = None) -> None:

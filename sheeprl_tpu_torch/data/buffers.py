@@ -11,8 +11,9 @@ when it ends (the JAX package pickles the file references).
 
 Sampling draws from the same ``numpy.random.Generator`` calls in the same
 order as the JAX package's buffers, so one seed gives the same windows in
-both; the gather is numpy fancy indexing where the JAX package calls its
-C++ gather (``sheeprl_tpu.native``). ``add`` takes ``[seq_len, n_envs, ...]``;
+both; the gather is the port's C++ gather (``sheeprl_tpu_torch.native``)
+where the JAX package calls its own, numpy fancy indexing for an array the
+kernel does not take. ``add`` takes ``[seq_len, n_envs, ...]``;
 ``ReplayBuffer.sample`` returns ``[n_samples, batch_size, ...]`` and the
 sequential buffers ``[n_samples, seq_len, batch_size, ...]``.
 """
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
+from sheeprl_tpu_torch import native
 from sheeprl_tpu_torch.data.memmap import ALLOWED_MODES, MemmapArray
 
 
@@ -213,10 +215,17 @@ class ReplayBuffer:
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
             v = np.asarray(v)
-            out[k] = v[batch_idxes, env_idxes]
+            out[k] = _gather_rows(v, batch_idxes, env_idxes)
             if sample_next_obs and k in self._obs_keys:
-                out[f"next_{k}"] = v[(batch_idxes + 1) % self._buffer_size, env_idxes]
+                out[f"next_{k}"] = _gather_rows(v, (batch_idxes + 1) % self._buffer_size, env_idxes)
         return {k: v.reshape(n_samples, batch_size, *v.shape[1:]) for k, v in out.items()}
+
+
+def _gather_rows(arr: np.ndarray, rows: np.ndarray, envs: np.ndarray) -> np.ndarray:
+    """``arr[rows, envs]``: the native gather, numpy where it does not take
+    ``arr``."""
+    g = native.gather_rows(arr, rows, envs)
+    return arr[rows, envs] if g is None else g
 
 
 class SequentialReplayBuffer(ReplayBuffer):
@@ -260,21 +269,23 @@ class SequentialReplayBuffer(ReplayBuffer):
         else:
             start_idxes = self._rng.integers(0, self._pos - span + 1, size=(batch_dim,), dtype=np.intp)
         env_idxes = self._rng.integers(0, self._n_envs, size=(batch_dim,), dtype=np.intp)
-        # [batch_dim, L] index grids -> [n_samples, L, batch_size, ...]
-        idxes = (start_idxes[:, None] + np.arange(sequence_length, dtype=np.intp)[None, :]) % self._buffer_size
-        envs = np.repeat(env_idxes[:, None], sequence_length, axis=1)
 
-        def gather(rows: np.ndarray, arr: np.ndarray) -> np.ndarray:
-            g = arr[rows, envs]
-            g = g.reshape(n_samples, batch_size, sequence_length, *g.shape[2:]).swapaxes(1, 2)
-            return np.ascontiguousarray(g)
+        def gather(arr: np.ndarray, shift: int) -> np.ndarray:
+            # one pass into [n_samples, L, batch_size, ...]
+            g = native.gather_sequences(arr, start_idxes, env_idxes, sequence_length, n_samples, batch_size, shift)
+            if g is not None:
+                return g
+            # [batch_dim, L] index grids, then the same layout
+            rows = (start_idxes[:, None] + shift + np.arange(sequence_length, dtype=np.intp)[None, :]) % self._buffer_size
+            g = arr[rows, np.repeat(env_idxes[:, None], sequence_length, axis=1)]
+            return np.ascontiguousarray(g.reshape(n_samples, batch_size, sequence_length, *g.shape[2:]).swapaxes(1, 2))
 
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
             v = np.asarray(v)
-            out[k] = gather(idxes, v)
+            out[k] = gather(v, 0)
             if sample_next_obs and k in self._obs_keys:
-                out[f"next_{k}"] = gather((idxes + 1) % self._buffer_size, v)
+                out[f"next_{k}"] = gather(v, 1)
         return out
 
 

@@ -66,8 +66,6 @@ _BACKENDS = ("sync", "async", "pool")
 _NOT_PORTED = {
     "gymnasium": "gymnasium's registry and its envs (ROADMAP A1: the port has no gymnasium; "
     "use env=pixel_pendulum, env=pixel_pointmass, env=pixel_catcher or env=dummy)",
-    "sheeprl_tpu_torch.envs.dmc": "the DMC adapter (ROADMAP A1)",
-    "sheeprl_tpu_torch.envs.dmc_variants": "the DMC adapter (ROADMAP A1)",
     "sheeprl_tpu_torch.envs.crafter": "the Crafter adapter (ROADMAP A1)",
     "sheeprl_tpu_torch.envs.minerl": "the MineRL adapter (ROADMAP A1)",
     "sheeprl_tpu_torch.envs.minedojo": "the MineDojo adapter (ROADMAP A1)",

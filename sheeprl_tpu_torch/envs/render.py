@@ -15,7 +15,11 @@ integer arithmetic, so that a frame equals gymnasium's:
   anti-aliased ellipse, whose offsets depend only on the radius and are
   computed once a radius;
 - ``smoothscale``: pygame's area-averaging shrink in 14-bit fixed point
-  (its SSE path), and ``blit_alpha``, a per-pixel-alpha blit.
+  (its SSE path), and ``blit_alpha``, a per-pixel-alpha blit;
+- ``line`` and ``aalines``: ``pygame.draw``'s own (not SDL_gfx's) one-pixel
+  line, Bresenham's on truncated end points, and its anti-aliased
+  polyline, Wu's algorithm in float32 over float end points, each segment
+  drawn whole (Acrobot's ground, the Mountain Car track).
 
 A pixel drawn with weight ``w`` and colour alpha ``a`` blends with alpha
 ``(a * w) >> 8`` as ``d + floor((c - d) * alpha / 256)``; alpha 255 writes
@@ -29,7 +33,7 @@ import functools
 import math
 import os
 import zlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -445,6 +449,145 @@ def blit_alpha(img: np.ndarray, src_rgba: np.ndarray, x: int, y: int) -> None:
     img[y0:y1, x0:x1] = out.astype(np.uint8)
 
 
+def line(img: np.ndarray, start: Tuple[float, float], end: Tuple[float, float], color: Color) -> None:
+    """``pygame.draw.line`` at width 1: the end points truncated toward
+    zero, then Bresenham's walk from ``start`` with both ends drawn, each
+    pixel clipped to the canvas. Equal to pygame's where both ends lie on
+    the canvas and for every horizontal or vertical line; pygame moves an
+    end off the canvas onto its edge before the walk, which this does not
+    copy (a diagonal leaving the canvas may then differ by a row)."""
+    x1, y1, x2, y2 = int(start[0]), int(start[1]), int(end[0]), int(end[1])
+    if y1 == y2:
+        hline(img, x1, x2, y1, color)
+        return
+    if x1 == x2:
+        vline(img, x1, y1, y2, color)
+        return
+    dx, sx = abs(x2 - x1), 1 if x1 < x2 else -1
+    dy, sy = abs(y2 - y1), 1 if y1 < y2 else -1
+    # C's int division: toward zero
+    err = int((dx if dx > dy else -dy) / 2)
+    xs, ys = [], []
+    while x1 != x2 or y1 != y2:
+        xs.append(x1)
+        ys.append(y1)
+        e2 = err
+        if e2 > -dx:
+            err -= dy
+            x1 += sx
+        if e2 < dy:
+            err += dx
+            y1 += sy
+    xs.append(x2)
+    ys.append(y2)
+    blend(img, np.array(xs), np.array(ys), color, 255)
+
+
+_F = np.float32
+
+
+def _aa_blend(img: np.ndarray, xs: np.ndarray, ys: np.ndarray, color: Color, brightness: np.ndarray) -> None:
+    """pygame.draw's anti-aliased pixel at ``(xs, ys)`` (distinct; off the
+    canvas skipped): ``(Uint8)(b * c + (1 - b) * d)`` in float32, the cast
+    through an int as the C compiler does it."""
+    h, w = img.shape[:2]
+    xs, ys = np.atleast_1d(np.asarray(xs, np.int64)), np.atleast_1d(np.asarray(ys, np.int64))
+    b = np.broadcast_to(np.asarray(brightness, _F), xs.shape)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    xs, ys, b = xs[keep], ys[keep], b[keep][:, None]
+    if xs.size == 0:
+        return
+    mixed = b * np.asarray(color, _F) + (_F(1) - b) * img[ys, xs].astype(_F)
+    img[ys, xs] = (mixed.astype(np.int64) & 0xFF).astype(np.uint8)
+
+
+def draw_aaline(img: np.ndarray, start: Tuple[float, float], end: Tuple[float, float], color: Color) -> None:
+    """``pygame.draw.aaline`` (pygame 2.6's ``draw_aaline``): the end
+    points as float32, the line clipped to one pixel beyond the canvas,
+    both end pixels weighted by their coverage, and between them two
+    pixels a column (a row when steep) weighted by the distance to the
+    line, its height accumulated in float32 from column to column."""
+    h, w = img.shape[:2]
+    fx, fy, tx, ty = _F(start[0]), _F(start[1]), _F(end[0]), _F(end[1])
+    dx, dy = tx - fx, ty - fy
+    if abs(float(dx)) < 0.0001 and abs(float(dy)) < 0.0001:
+        _aa_blend(img, math.floor(float(fx) + 0.5), math.floor(float(fy) + 0.5), color, 1.0)
+        return
+    left, right, top, bottom = _F(-1), _F(w), _F(-1), _F(h)
+    steep = abs(dx) < abs(dy)
+    if steep:
+        fx, fy, tx, ty, dx, dy = fy, fx, ty, tx, dy, dx
+        left, top, right, bottom = top, left, bottom, right
+    if dx < 0:
+        fx, tx, fy, ty, dx, dy = tx, fx, ty, fy, -dx, -dy
+    if tx <= left or fx >= right:
+        return
+    g = dy / dx
+    if fx < left:
+        fy, fx = fy + g * (left - fx), left
+    if tx > right:
+        ty, tx = ty + g * (right - tx), right
+    if g > 0:
+        if ty <= top or fy >= bottom:
+            return
+        if fy < top:
+            fx, fy = fx + (top - fy) / g, top
+        if ty > bottom:
+            tx, ty = tx + (bottom - ty) / g, bottom
+    else:
+        if fy <= top or ty >= bottom:
+            return
+        if ty < top:
+            tx, ty = tx + (top - ty) / g, top
+        if fy > bottom:
+            fx, fy = fx + (bottom - fy) / g, bottom
+    # one pixel down, so that int() rounds down; drawn one pixel up
+    fy, ty = fy + _F(1), ty + _F(1)
+
+    def put(along: Any, across: Any, brightness: Any) -> None:
+        if steep:
+            _aa_blend(img, across, along, color, brightness)
+        else:
+            _aa_blend(img, along, across, color, brightness)
+
+    def end_pixels(x: int, y_end: Any, gap: Any) -> None:
+        frac = y_end - _F(int(y_end))
+        if _F(int(y_end)) < y_end:
+            put(x, int(y_end), frac * gap)
+        put(x, int(y_end) - 1, (_F(1) - frac) * gap)
+
+    x_start = int(fx)
+    inter = fy + g * (_F(x_start) - fx)
+    if tx > left + _F(1):
+        end_pixels(x_start, inter, _F(1 + x_start) - fx)
+        inter = inter + g
+        x_start += 1
+    x_end = int(math.ceil(float(tx)))
+    if fx < right - _F(1):
+        end_pixels(x_end, ty + g * (_F(x_end) - tx), _F(1 - x_end) + tx)
+    n = x_end - x_start
+    if n <= 0:
+        return
+    # intersect_y += gradient, column after column, rounded each time
+    ys = np.add.accumulate(np.concatenate([[inter], np.full(n - 1, g, _F)]).astype(_F))
+    xs = np.arange(x_start, x_end)
+    yi = ys.astype(np.int64)
+    bright = (_F(1) - ys) + yi.astype(_F)
+    put(xs, yi - 1, bright)
+    below = yi.astype(_F) < ys
+    put(xs[below], yi[below], _F(1) - bright[below])
+
+
+def aalines(img: np.ndarray, points: Sequence[Tuple[float, float]], color: Color, closed: bool = False) -> None:
+    """``pygame.draw.aalines``: each segment by :func:`draw_aaline`, whole,
+    in order (and the closing one when ``closed`` with 3 points or more)."""
+    segments = list(zip(points[:-1], points[1:]))
+    if closed and len(points) > 2:
+        segments.append((points[-1], points[0]))
+    for a, b in segments:
+        draw_aaline(img, a, b, color)
+
+
 def rotate_rad(vec: Tuple[float, float], angle: float, epsilon: float = 1e-6) -> Tuple[float, float]:
     """``pygame.math.Vector2(vec).rotate_rad(angle)``: exact at multiples of
     90 degrees (within ``epsilon``), else the float64 rotation."""
@@ -544,4 +687,90 @@ def pendulum_frame(theta: float, last_u: Optional[float] = None) -> np.ndarray:
         blit_alpha(img, arrow, offset - size // 2, offset - size // 2)
     aacircle(img, offset, offset, int(0.05 * scale), (0, 0, 0))
     filled_circle(img, offset, offset, int(0.05 * scale), (0, 0, 0))
+    return img[::-1].copy()
+
+
+# -- Acrobot and the two Mountain Cars (gymnasium 1.2.2 classic_control/
+# acrobot.py, mountain_car.py and continuous_mountain_car.py ``render``).
+# Each expression is written as gymnasium writes it, on the state's own
+# numpy scalars, so that NumPy's promotion (float32 for a float32 state)
+# is the same on both sides.
+
+ACROBOT_SIZE = (500, 500)
+MOUNTAIN_CAR_SIZE = (400, 600)
+_CAR_MIN, _CAR_MAX = -1.2, 0.6
+
+
+def acrobot_frame(s: np.ndarray) -> np.ndarray:
+    """Acrobot's frame at state ``s`` (the two angles and their
+    velocities, float32 after a reset and float64 after a step)."""
+    dim = ACROBOT_SIZE[0]
+    img = np.full((dim, dim, 3), 255, np.uint8)
+    bound = 1.0 + 1.0 + 0.2
+    scale = dim / (bound * 2)
+    offset = dim / 2
+    p1 = [-1.0 * np.cos(s[0]) * scale, 1.0 * np.sin(s[0]) * scale]
+    p2 = [p1[0] - 1.0 * np.cos(s[0] + s[1]) * scale, p1[1] + 1.0 * np.sin(s[0] + s[1]) * scale]
+    xys = np.array([[0, 0], p1, p2])[:, ::-1]
+    thetas = [s[0] - math.pi / 2, s[0] + s[1] - math.pi / 2]
+    link_lengths = [1.0 * scale, 1.0 * scale]
+    line(img, (-2.2 * scale + offset, 1 * scale + offset), (2.2 * scale + offset, 1 * scale + offset), (0, 0, 0))
+    for (x, y), th, llen in zip(xys, thetas, link_lengths):
+        x = x + offset
+        y = y + offset
+        l, r, t, b = 0, llen, 0.1 * scale, -0.1 * scale
+        coords = []
+        for corner in ((l, b), (l, t), (r, t), (r, b)):
+            cx, cy = rotate_rad(corner, th)
+            coords.append((cx + x, cy + y))
+        aapolygon(img, coords, (0, 204, 204))
+        filled_polygon(img, coords, (0, 204, 204))
+        aacircle(img, int(x), int(y), int(0.1 * scale), (204, 204, 0))
+        filled_circle(img, int(x), int(y), int(0.1 * scale), (204, 204, 0))
+    return img[::-1].copy()
+
+
+def _car_height(xs: Any) -> Any:
+    return np.sin(3 * xs) * 0.45 + 0.55
+
+
+@functools.lru_cache(maxsize=1)
+def _mountain_track() -> np.ndarray:
+    """The white canvas with the track drawn: it depends on no state."""
+    height, width = MOUNTAIN_CAR_SIZE
+    img = np.full((height, width, 3), 255, np.uint8)
+    scale = width / (_CAR_MAX - _CAR_MIN)
+    xs = np.linspace(_CAR_MIN, _CAR_MAX, 100)
+    aalines(img, list(zip((xs - _CAR_MIN) * scale, _car_height(xs) * scale)), (0, 0, 0))
+    img.flags.writeable = False
+    return img
+
+
+def mountain_car_frame(pos: Any, goal_position: float) -> np.ndarray:
+    """A Mountain Car frame with the car at position ``pos`` (a numpy
+    scalar: float64, or float32 for the continuous car after a step) and
+    the flag at ``goal_position`` (0.5 for MountainCar-v0, 0.45 for
+    MountainCarContinuous-v0)."""
+    img = _mountain_track().copy()
+    scale = MOUNTAIN_CAR_SIZE[1] / (_CAR_MAX - _CAR_MIN)
+    carwidth, carheight, clearance = 40, 20, 10
+    l, r, t, b = -carwidth / 2, carwidth / 2, carheight, 0
+    coords = []
+    for corner in ((l, b), (l, t), (r, t), (r, b)):
+        cx, cy = rotate_rad(corner, math.cos(3 * pos))
+        coords.append((cx + (pos - _CAR_MIN) * scale, cy + clearance + _car_height(pos) * scale))
+    aapolygon(img, coords, (0, 0, 0))
+    filled_polygon(img, coords, (0, 0, 0))
+    for corner in ((carwidth / 4, 0), (-carwidth / 4, 0)):
+        cx, cy = rotate_rad(corner, math.cos(3 * pos))
+        wheel = (int(cx + (pos - _CAR_MIN) * scale), int(cy + clearance + _car_height(pos) * scale))
+        aacircle(img, wheel[0], wheel[1], int(carheight / 2.5), (128, 128, 128))
+        filled_circle(img, wheel[0], wheel[1], int(carheight / 2.5), (128, 128, 128))
+    flagx = int((goal_position - _CAR_MIN) * scale)
+    flagy1 = int(_car_height(goal_position) * scale)
+    flagy2 = flagy1 + 50
+    vline(img, flagx, flagy1, flagy2, (0, 0, 0))
+    flag = [(flagx, flagy2), (flagx, flagy2 - 10), (flagx + 25, flagy2 - 5)]
+    aapolygon(img, flag, (204, 204, 0))
+    filled_polygon(img, flag, (204, 204, 0))
     return img[::-1].copy()

@@ -186,6 +186,7 @@ class RunTelemetry:
         device: Any = "cuda",
         precision: str = "fp32",
         poll_interval: float = 30.0,
+        poll_rtt: bool = False,
         max_bytes: int = 0,
         flightrec_events: int = _FLIGHTREC_EVENTS,
         profiler: Optional[TriggeredProfiler] = None,
@@ -195,6 +196,7 @@ class RunTelemetry:
         self.process_index = 0
         self.step = 0
         self.poll_interval = float(poll_interval)
+        self.poll_rtt = bool(poll_rtt)
         self.writer = TelemetryWriter(jsonl_path, max_bytes=max_bytes)
         self.watchdog = CaptureWatchdog(self.emit)
         self._flightrec: Optional[deque] = deque(maxlen=int(flightrec_events)) if int(flightrec_events or 0) > 0 else None
@@ -392,8 +394,15 @@ class RunTelemetry:
             entry["bytes_in_use"] = int(stats.get("allocated_bytes.all.current", 0))
             entry["peak_bytes_in_use"] = int(stats.get("allocated_bytes.all.peak", 0))
             self._hbm_peak_bytes = max(self._hbm_peak_bytes, entry["peak_bytes_in_use"])
+        fields: Dict[str, Any] = {"devices": [entry]}
+        if self.poll_rtt and self.device.type != "cpu":
+            # the link-health probe is a real sync point, so it is opt-in
+            # and rides the memory poll's low-rate schedule
+            from sheeprl_tpu_torch.parallel.fabric import tiny_op_roundtrip_seconds
+
+            fields["rtt_ms"] = tiny_op_roundtrip_seconds(self.device) * 1e3
         self._device_polls += 1
-        self.emit("device_poll", devices=[entry])
+        self.emit("device_poll", **fields)
 
     def device_kind(self) -> str:
         return torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
@@ -696,7 +705,7 @@ def get_telemetry() -> Optional[RunTelemetry]:
 def configure_telemetry(cfg: Mapping[str, Any], log_dir: Optional[str] = None, device: Any = None) -> Optional[RunTelemetry]:
     """Build the process-wide :class:`RunTelemetry` from
     ``cfg.metric.telemetry`` (``enabled``, ``jsonl``, ``poll_interval``,
-    ``max_bytes``, ``flightrec_events``, ``profile_windows``,
+    ``poll_rtt``, ``max_bytes``, ``flightrec_events``, ``profile_windows``,
     ``slow_window_factor``, ``slow_window_min_history``) for the run on
     ``device`` (by default the one ``fabric.accelerator`` names); ``None``,
     and the subsystem inert, unless enabled."""
@@ -728,6 +737,7 @@ def configure_telemetry(cfg: Mapping[str, Any], log_dir: Optional[str] = None, d
         device=device,
         precision=Precision(fabric_cfg.get("precision", "fp32")).name,
         poll_interval=float(tel_cfg.get("poll_interval", 30.0) or 0.0),
+        poll_rtt=bool(tel_cfg.get("poll_rtt", False)),
         max_bytes=int(tel_cfg.get("max_bytes", 0) or 0),
         flightrec_events=int(tel_cfg.get("flightrec_events", _FLIGHTREC_EVENTS) or 0),
         profiler=profiler,

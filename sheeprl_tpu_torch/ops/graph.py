@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import sys
+import time
 from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
@@ -69,12 +71,52 @@ def collector_paused(collect: bool = True) -> Iterator[None]:
         gc.enable()
 
 
+@contextlib.contextmanager
+def _side_stream_capture(graph: torch.cuda.CUDAGraph, device: torch.device) -> Iterator[None]:
+    """``torch.cuda.graph(graph)`` without its preamble: the capture begins
+    on a side stream that waits for the current one, with no device
+    synchronise and no release of the device and pinned-host allocators'
+    caches first. In a serving pause that release (every free cached block
+    handed back, pinned ones through ``cudaFreeHost``) took 0.15-0.36 s of
+    a 0.43 s pause on the H100; a process capturing many large graphs (a
+    training run) needs it, so that each new graph's pool reuses the memory
+    the last ones left cached."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
+@contextlib.contextmanager
+def _timed(ctx: contextlib.AbstractContextManager, parts: Dict[str, float]) -> Iterator[None]:
+    """``ctx`` entered and left, the seconds of each in ``parts``
+    (``enter_s``: the capture begun; ``instantiate_s``: ended and the graph
+    instantiated)."""
+    t0 = time.perf_counter()
+    ctx.__enter__()
+    parts["enter_s"] = time.perf_counter() - t0
+    try:
+        yield
+    except BaseException:
+        ctx.__exit__(*sys.exc_info())
+        raise
+    t1 = time.perf_counter()
+    ctx.__exit__(None, None, None)
+    parts["instantiate_s"] = time.perf_counter() - t1
+
+
 class CapturedStep:
     """``step(inputs) -> outputs`` on ``inputs``, replayed from one CUDA
     graph on the card and run eagerly on the CPU. ``outputs`` is a tensor
     or a tuple of tensors. ``state`` lists every tensor the step updates in
     place (restored after the warm-up); ``generators`` (one or several) are
-    registered with the graph; ``warmup`` calls run before the capture."""
+    registered with the graph; ``warmup`` calls run before the capture;
+    ``release_caches`` (the default) empties the allocators' caches before
+    it, as ``torch.cuda.graph`` does (``_side_stream_capture`` does not)."""
 
     def __init__(
         self,
@@ -83,8 +125,12 @@ class CapturedStep:
         state: Sequence[torch.Tensor],
         generators: Union[None, torch.Generator, Sequence[torch.Generator]] = None,
         warmup: int = WARMUP_STEPS,
+        release_caches: bool = True,
     ) -> None:
         self.step = step
+        # capture with torch.cuda.graph's cache release or without
+        # (``_side_stream_capture``)
+        self.release_caches = bool(release_caches)
         self.inputs = inputs
         self.state = list(state)
         if generators is None:
@@ -104,6 +150,10 @@ class CapturedStep:
         # eager run (a warm-up on the card) is counted into ``flops``
         self.count_flops = False
         self.flops: Optional[float] = None
+        # the capture's seconds by part: the warm-up, beginning the
+        # capture, the step captured, and ending it (the graph
+        # instantiated); see ``_timed``
+        self.capture_parts: Dict[str, float] = {}
 
     def _eager(self) -> Outputs:
         if self.count_flops and self.flops is None:
@@ -118,28 +168,43 @@ class CapturedStep:
         for t, s in zip(self.state, saved):
             t.copy_(s)
 
-    def capture(self) -> None:
-        """Warm up, restore the state and the generators, capture one call."""
+    def warm(self) -> Optional[Outputs]:
+        """Run the warm-up calls on a side stream, then restore the state
+        and the generators; returns the last call's outputs. A caller that
+        pauses other work for its captures (a server pausing its replicas)
+        warms up before the pause: no capture is underway, so replays
+        elsewhere may run beside it."""
+        t0 = time.perf_counter()
         dev = self.device
         saved = [t.detach().clone() for t in self.state]
         gen_states = [g.get_state() for g in self.generators]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        out = None
         with torch.cuda.stream(side):
             for _ in range(self.warmup):
-                self._eager()
+                out = self._eager()
         torch.cuda.current_stream(dev).wait_stream(side)
         self._restore(saved)
         for g, state in zip(self.generators, gen_states):
             g.set_state(state)
-        del saved
+        self.capture_parts["warmup_s"] = time.perf_counter() - t0
+        return out
+
+    def capture(self) -> None:
+        """Capture one call, warming up first unless :meth:`warm` ran."""
+        if "warmup_s" not in self.capture_parts:
+            self.warm()
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
         before = fused_gru.launch_count
-        with collector_paused():
-            with torch.cuda.graph(graph):
-                self._out = self.step(self.inputs)
+        parts = self.capture_parts
+        ctx = torch.cuda.graph(graph) if self.release_caches else _side_stream_capture(graph, self.device)
+        with collector_paused(), _timed(ctx, parts):
+            t0 = time.perf_counter()
+            self._out = self.step(self.inputs)
+            parts["capture_s"] = time.perf_counter() - t0
         self.captured_launches = fused_gru.launch_count - before
         self.graph = graph
         global capture_count

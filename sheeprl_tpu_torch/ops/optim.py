@@ -1,4 +1,4 @@
-"""Adam and RMSProp with optax's semantics (port of
+"""Adam, RMSProp and SGD with optax's semantics (port of
 ``sheeprl_tpu/ops/optim.py``: ``adam`` :32-48, ``optax.adam``/``optax.adamw``
 behind ``optax.clip_by_global_norm``; ``rmsprop_tf`` and ``rmsprop``
 :67-114), as plain tensor code over a list of parameters.
@@ -16,7 +16,11 @@ as ``torch.optim.RMSprop`` does), ``rmsprop_tf`` inside. Its
 ``weight_decay`` is ``optax.add_decayed_weights`` chained in front of the
 scaling: coupled L2, ``g + wd * param``, not Adam's decoupled form.
 ``momentum`` adds optax's ``trace`` after the learning rate; 0 means none.
-``sgd`` is not ported: no ported algorithm selects it.
+
+SGD is optax's ``sgd`` (JAX ``sgd`` :51-64) behind the same
+``add_decayed_weights`` and clipping: a ``trace`` of the gradients *before*
+the learning rate (``momentum`` 0 means none), Nesterov's look-ahead when
+``nesterov``, then ``-lr``.
 """
 
 from __future__ import annotations
@@ -214,7 +218,74 @@ class RMSProp:
         return norm
 
 
-Optimizer = Union[Adam, RMSProp]
+class SGD:
+    """optax's ``sgd`` behind ``add_decayed_weights`` (when
+    ``weight_decay``) and global-norm clipping (when ``max_grad_norm >
+    0``). ``step(grads)`` updates ``params`` in place and returns the
+    gradients' global norm before clipping; ``schedule_steps`` decays the
+    learning rate linearly to 0 as :class:`Adam` does.
+
+    The state lives on the parameters' device and is updated in place, in
+    optax's fields: ``trace`` when ``momentum`` (``TraceState``, the
+    gradients' running sum before the learning rate) and ``count`` for a
+    schedule (``ScaleByScheduleState``). Each update::
+
+        g     = clip(g) + wd * p
+        trace = g + momentum * trace
+        u     = g + momentum * trace   (nesterov)   or   trace
+        p     = p + (-lr) * u
+    """
+
+    def __init__(
+        self,
+        params: Sequence[torch.nn.Parameter],
+        lr: float = 1e-2,
+        momentum: float = 0.0,
+        nesterov: bool = False,
+        weight_decay: float = 0.0,
+        max_grad_norm: float = 0.0,
+        schedule_steps: int = 0,
+    ) -> None:
+        self.params = list(params)
+        self.lr = float(lr)
+        self.momentum = float(momentum or 0.0)
+        # optax reads nesterov only where there is a trace
+        self.nesterov = bool(nesterov) and bool(self.momentum)
+        self.weight_decay = float(weight_decay or 0.0)
+        self.max_grad_norm = float(max_grad_norm or 0.0)
+        self.schedule_steps = int(schedule_steps or 0)
+        self.count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
+        self.trace: Optional[List[torch.Tensor]] = (
+            [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in self.params] if self.momentum else None
+        )
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every state tensor ``step`` writes in place."""
+        return [*(self.trace or ()), self.count]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        grads = [g.detach() for g in grads]
+        norm = global_norm(grads)
+        if self.max_grad_norm > 0:
+            grads = clip_by_global_norm(grads, self.max_grad_norm, norm)
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, torch._foreach_mul(self.params, self.weight_decay))
+        lr = self.lr
+        if self.schedule_steps > 0:
+            done = self.count.clamp(0, self.schedule_steps).float() / self.schedule_steps
+            lr = self.lr * (1 - done)
+        self.count.add_(1)
+        update = grads
+        if self.trace is not None:
+            torch._foreach_mul_(self.trace, self.momentum)
+            torch._foreach_add_(self.trace, grads)
+            update = torch._foreach_add(grads, torch._foreach_mul(self.trace, self.momentum)) if self.nesterov else self.trace
+        torch._foreach_add_(self.params, torch._foreach_mul(update, -lr))
+        return norm
+
+
+Optimizer = Union[Adam, RMSProp, SGD]
 
 
 def rmsprop(
@@ -243,14 +314,34 @@ def rmsprop_tf(params: Sequence[torch.nn.Parameter], opt_cfg: Mapping[str, Any],
     return rmsprop(params, opt_cfg, clip, schedule_steps, eps_in_sqrt=True)
 
 
-_FACTORIES = {"adam": adam, "rmsprop": rmsprop, "rmsprop_tf": rmsprop_tf}
+def sgd(params: Sequence[torch.nn.Parameter], opt_cfg: Mapping[str, Any], clip: float = 0.0, schedule_steps: int = 0) -> SGD:
+    """SGD from a config group (``lr``, ``momentum``, ``weight_decay``,
+    ``nesterov``) with the algo's clipping (JAX ``sgd``). Another key
+    raises ``TypeError``, as the JAX factory's call does: ``exp=ppo``
+    sets Adam's ``eps``, so selecting SGD there takes
+    ``optim=sgd ~algo.optimizer.eps``."""
+    unknown = sorted(set(opt_cfg) - {"_target_", "lr", "momentum", "weight_decay", "nesterov"})
+    if unknown:
+        raise TypeError(f"sgd() got an unexpected keyword argument {unknown[0]!r}")
+    return SGD(
+        params,
+        lr=float(opt_cfg["lr"]),
+        momentum=float(opt_cfg.get("momentum", 0.0) or 0.0),
+        nesterov=bool(opt_cfg.get("nesterov", False)),
+        weight_decay=float(opt_cfg.get("weight_decay", 0.0) or 0.0),
+        max_grad_norm=float(clip or 0.0),
+        schedule_steps=schedule_steps,
+    )
+
+
+_FACTORIES = {"adam": adam, "rmsprop": rmsprop, "rmsprop_tf": rmsprop_tf, "sgd": sgd}
 
 
 def build_optimizer(
     params: Sequence[torch.nn.Parameter], opt_cfg: Mapping[str, Any], clip: float = 0.0, schedule_steps: int = 0
 ) -> Optimizer:
     """The optimizer a config group's ``_target_`` names (its last part:
-    ``adam``, ``rmsprop`` or ``rmsprop_tf``; Adam when it has none), with
+    ``adam``, ``rmsprop``, ``rmsprop_tf`` or ``sgd``; Adam when it has none), with
     the algo's clipping and the linear decay's length."""
     name = str(opt_cfg.get("_target_", "adam")).rsplit(".", 1)[-1]
     if name not in _FACTORIES:

@@ -30,12 +30,14 @@ import torch
 
 from sheeprl_tpu_torch.device import Precision, resolve_device
 
-ACCELERATORS = ("auto", "gpu", "cuda", "cpu")
+ACCELERATORS = ("auto", "gpu", "cuda", "tpu", "cpu")
 
 
 def accelerator_device(accelerator: str) -> torch.device:
-    """``cpu`` -> the CPU; ``auto``, ``gpu`` and ``cuda`` -> the CUDA card
-    (raises without one)."""
+    """``cpu`` -> the CPU; ``auto``, ``gpu``, ``cuda`` and ``tpu`` (the
+    config tree's name for its accelerator: ``fabric/tpu.yaml``,
+    ``exp=dreamer_v3_dmc_walker_walk``) -> the CUDA card (raises without
+    one)."""
     acc = str(accelerator).lower()
     if acc not in ACCELERATORS:
         raise ValueError(f"unsupported accelerator {accelerator!r}; one of {ACCELERATORS}")
@@ -102,19 +104,24 @@ _HOST_TRAIN_PARAM_BUDGET = 300_000
 _rtt_cache: Dict[str, float] = {}
 
 
-def dispatch_roundtrip_seconds(device: Any = None) -> float:
+def tiny_op_roundtrip_seconds(device: Any = None) -> float:
     """Seconds of one tiny op on ``device`` (the card by default) with its
-    result read back: the mean of 3 calls after a warm-up, cached per
-    process."""
-    dev = resolve_device(device)
-    key = str(dev)
-    if key not in _rtt_cache:
-        x = torch.zeros(1, device=dev)
+    result read back: the mean of 3 calls after a warm-up, measured anew on
+    every call (the link-health probe of ``metric.telemetry.poll_rtt``)."""
+    x = torch.zeros(1, device=resolve_device(device))
+    (x + 1.0).cpu()
+    t0 = time.perf_counter()
+    for _ in range(3):
         (x + 1.0).cpu()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            (x + 1.0).cpu()
-        _rtt_cache[key] = (time.perf_counter() - t0) / 3
+    return (time.perf_counter() - t0) / 3
+
+
+def dispatch_roundtrip_seconds(device: Any = None) -> float:
+    """:func:`tiny_op_roundtrip_seconds`, measured once per device and
+    process (the placement decisions' probe)."""
+    key = str(resolve_device(device))
+    if key not in _rtt_cache:
+        _rtt_cache[key] = tiny_op_roundtrip_seconds(device)
     return _rtt_cache[key]
 
 

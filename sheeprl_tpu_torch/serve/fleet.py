@@ -680,10 +680,12 @@ class FleetServer(ServingFacade):
         if not self.store.has_graphs(slot.index):
             capture = self.store.capture_slot(slot.index)
             self.slot_captures.append({"replica": slot.index, **capture})
+        # counted before the slot takes traffic: no snapshot shows it serving
+        # uncounted
+        self.scale_ups += 1
         slot.retiring = False
         slot.active = True
         self._spawn(slot)
-        self.scale_ups += 1
         self._event("fleet_scale_up", {"replica": slot.index, **info})
 
     def _previous_busy(self, slot: FleetSlot) -> bool:

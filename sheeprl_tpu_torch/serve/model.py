@@ -32,8 +32,8 @@ params as a call argument. So:
   weights: a hot swap captures the candidate's set and then flips the
   current version, so a batch is computed by exactly one version, whose
   step the replica stamps on its requests;
-- ``torch.cuda.graph`` captures in the global mode, in which CUDA work from
-  any other thread breaks the capture (the ``thread_local`` mode, with the
+- a capture runs in CUDA's global capture mode, in which CUDA work from
+  any other thread breaks it (the ``thread_local`` mode, with the
   replicas replaying beside it, does not hold either: such a capture can be
   invalidated). Captures therefore happen only while nothing
   serves: at :class:`ModelStore` construction (before the replicas start)
@@ -41,10 +41,15 @@ params as a call argument. So:
   :class:`ServingGate` held exclusively, which waits for the batches in
   flight and pauses the next ones, one slot's set at a time with serving
   resumed in between (a fleet's three slots captured under one pause held
-  requests past a 400 ms deadline). Without a full collection first, a
-  slot's set pauses serving for a few hundredths of a second (``pauses_s``
-  in the swap event, ``pause_s`` the longest). Freeing a version's graphs
-  (a flip or a rollback dropping one) also happens under the gate.
+  requests past a 400 ms deadline). Everything else a slot's set needs
+  (the params placed, the forward bound, the staging and static inputs
+  allocated, the warm-up run) is built before its pause, while the old
+  version serves; the capture itself releases no allocator cache
+  (``ops/graph.py::_side_stream_capture``). Without a full collection first, a
+  slot's captures pause serving for about a hundredth of a second
+  (``pauses_s`` in the swap event, ``pause_s`` the longest, each pause by
+  part in ``pause_parts``). Freeing a version's graphs (a flip or a
+  rollback dropping one) also happens under the gate.
 
 **Hot swap.** Promotion is validate-then-promote; a candidate must pass ALL
 of:
@@ -157,6 +162,9 @@ class _Rung:
         }
         self.host_np = {k: t.numpy() for k, t in self.host.items()}
         self.step: Optional[CapturedStep] = None
+        # the capture's seconds by part (``CapturedStep.capture_parts``; the
+        # warm-up ran before it), the first replay's in ``other_s``
+        self.capture_parts: Dict[str, float] = {}
         if cuda:
             inputs = {k: t.to(device) for k, t in self.host.items()}
 
@@ -164,11 +172,22 @@ class _Rung:
                 with torch.no_grad():
                     return forward(obs)
 
-            self.step = CapturedStep(step, inputs, ())
-            self.step.capture()
-            out = self.step.replay()
-            torch.cuda.current_stream(device).synchronize()
+            # small graphs captured in a serving pause: no cache release
+            self.step = CapturedStep(step, inputs, (), release_caches=False)
+            out = self.step.warm()
             self.host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+
+    def capture(self) -> None:
+        """Capture the rung's graph and replay it once (on the card; the
+        CPU runs the forward eagerly and has nothing to capture)."""
+        if self.step is None:
+            return
+        t0 = time.perf_counter()
+        self.step.capture()
+        self.step.replay()
+        torch.cuda.current_stream(self.step.device).synchronize()
+        self.capture_parts = {k: v for k, v in self.step.capture_parts.items() if k != "warmup_s"}
+        self.capture_parts["other_s"] = time.perf_counter() - t0 - sum(self.capture_parts.values())
 
     def run(self, obs_list: Sequence[Any]) -> np.ndarray:
         """The rung's ``[batch, ...]`` actions (a copy) for ``obs_list``."""
@@ -200,9 +219,11 @@ class _Rung:
 
 class CompiledLadder:
     """One CUDA graph a batch rung, over one version's weights, for one
-    replica slot on ``device`` (default: the policy's), captured at
-    construction (each rung's seconds in ``compile_s``). Replays run on the
-    slot's ``stream``. On the CPU a rung runs the eager forward."""
+    replica slot on ``device`` (default: the policy's). Construction builds
+    each rung (its staging, its static inputs and the warm-up); on the card
+    the graphs are captured by :meth:`capture`, before the ladder serves.
+    Each rung's seconds, both together, are in ``compile_s``. Replays run
+    on the slot's ``stream``. On the CPU a rung runs the eager forward."""
 
     def __init__(
         self,
@@ -221,6 +242,25 @@ class CompiledLadder:
             t0 = time.perf_counter()
             self._rungs[b] = _Rung(forward, policy.obs_spec, b, self.device, stream)
             self.compile_s[b] = time.perf_counter() - t0
+
+    def capture(self) -> "CompiledLadder":
+        """Capture every rung's graph (see :class:`ModelStore` for when);
+        returns the ladder."""
+        for b, rung in self._rungs.items():
+            t0 = time.perf_counter()
+            rung.capture()
+            self.compile_s[b] += time.perf_counter() - t0
+        return self
+
+    @property
+    def capture_parts(self) -> Dict[str, float]:
+        """The rungs' capture seconds by part, summed (none on the CPU, or
+        before :meth:`capture`)."""
+        parts: Dict[str, float] = {}
+        for rung in self._rungs.values():
+            for k, v in rung.capture_parts.items():
+                parts[k] = parts.get(k, 0.0) + v
+        return parts
 
     @property
     def max_batch(self) -> int:
@@ -359,47 +399,43 @@ class ModelStore:
         self.rollbacks = 0
 
     def _ladder(self, slot: int, params: Params, forwards: Dict[torch.device, Forward]) -> "CompiledLadder":
-        """``slot``'s graph set over ``params``: bound once a device within
-        a version, on a copy of the params where the slot's device is not
-        theirs (a CPU-spill slot). A failed placement or capture raises."""
+        """``slot``'s graph set over ``params``, built and not captured:
+        bound once a device within a version, on a copy of the params where
+        the slot's device is not theirs (a CPU-spill slot). A failed
+        placement or build raises."""
         device = self.slot_devices[slot]
         if device not in forwards:
             placed = params if device == self.policy.device else {k: v.to(device) for k, v in params.items()}
             forwards[device] = self.policy.bind(placed)
         return CompiledLadder(self.policy, self.rungs, forwards[device], self._streams[slot], device)
 
-    def _build_version(self, step: int, path: str, params: Params, pauses: Optional[List[Tuple[float, float]]] = None) -> ModelVersion:
+    def _captured_ladder(self, slot: int, ladder: "CompiledLadder", pauses: Optional[List[Dict[str, Any]]]) -> "CompiledLadder":
+        """``ladder`` captured; while replicas serve (``pauses`` given)
+        under the gate held alone, the pause appended (:func:`_pause`)."""
+        t0 = time.perf_counter()
+        with self.gate.exclusive() if pauses is not None else nullcontext():
+            t1 = time.perf_counter()
+            # the collector stays off through the captures; no full
+            # collection first, which would lengthen the pause
+            with collector_paused(collect=False):
+                ladder.capture()
+            t2 = time.perf_counter()
+        if pauses is not None:
+            pauses.append(_pause(slot, t0, t1, t2, ladder))
+        return ladder
+
+    def _build_version(self, step: int, path: str, params: Params, pauses: Optional[List[Dict[str, Any]]] = None) -> ModelVersion:
         """A version over ``params`` with a graph set for each captured slot.
-        While replicas serve (``pauses`` given), each slot's set is captured
-        under the gate held alone, one slot at a time, and each pause is
-        appended as ``(pause_s, capture_s)``: serving resumes between slots,
-        so no request waits out more than one slot's captures."""
+        Each slot's set is built (bound, staged, warmed up) while replicas
+        serve, then captured; while replicas serve (``pauses`` given), each
+        capture holds the gate alone, one slot at a time: serving resumes
+        between slots, so no request waits out more than one slot's
+        captures."""
         forwards: Dict[torch.device, Forward] = {}
         ladders: List[Optional[CompiledLadder]] = []
         for i, captured in enumerate(self._captured):
-            if not captured:
-                ladders.append(None)
-                continue
-            t0 = time.perf_counter()
-            with self.gate.exclusive() if pauses is not None else nullcontext():
-                t1 = time.perf_counter()
-                # the collector stays off through the captures; no full
-                # collection first, which would lengthen the pause
-                with collector_paused(collect=False):
-                    ladders.append(self._ladder(i, params, forwards))
-                t2 = time.perf_counter()
-            if pauses is not None:
-                pauses.append((time.perf_counter() - t0, t2 - t1))
+            ladders.append(self._captured_ladder(i, self._ladder(i, params, forwards), pauses) if captured else None)
         return ModelVersion(step, path, params, tuple(ladders))
-
-    def _with_slot(self, version: ModelVersion, slot: int) -> ModelVersion:
-        """``version`` with ``slot``'s graph set captured (the gate held)."""
-        if version.ladders[slot] is not None:
-            return version
-        ladders = list(version.ladders)
-        with collector_paused(collect=False):
-            ladders[slot] = self._ladder(slot, version.params, {})
-        return version._replace(ladders=tuple(ladders))
 
     def has_graphs(self, slot: int) -> bool:
         return self._captured[slot]
@@ -414,19 +450,21 @@ class ModelStore:
         on standby."""
         with self._swap_lock:
             if self._captured[slot]:
-                return {"capture_s": 0.0, "pause_s": 0.0, "pauses_s": []}
-            capture_s, pauses = 0.0, []
+                return {"capture_s": 0.0, "pause_s": 0.0, "pauses_s": [], "pause_parts": []}
+            pauses: List[Dict[str, Any]] = []
             for which in ("_current", "_previous"):
-                if getattr(self, which) is None:
+                version = getattr(self, which)
+                if version is None or version.ladders[slot] is not None:
                     continue
-                t0 = time.perf_counter()
-                with self.gate.exclusive():
-                    t1 = time.perf_counter()
-                    setattr(self, which, self._with_slot(getattr(self, which), slot))
-                    capture_s += time.perf_counter() - t1
-                pauses.append(time.perf_counter() - t0)
+                ladder = self._captured_ladder(slot, self._ladder(slot, version.params, {}), pauses)
+                ladders = list(version.ladders)
+                ladders[slot] = ladder
+                # the version is replaced whole (a reference write): a
+                # replica reads ``_current`` once a batch
+                setattr(self, which, version._replace(ladders=tuple(ladders)))
             self._captured[slot] = True
-            info = {"capture_s": capture_s, "pause_s": max(pauses), "pauses_s": pauses}
+            pauses_s = [p["pause_s"] for p in pauses]
+            info = {"capture_s": sum(p["capture_s"] for p in pauses), "pause_s": max(pauses_s), "pauses_s": pauses_s, "pause_parts": pauses}
         self._emit("slot_capture", {"replica": slot, **info})
         return info
 
@@ -536,7 +574,7 @@ class ModelStore:
             if not bool(all_finite(list(params.values()))):
                 return self._reject(candidate, "non-finite weights (poisoned checkpoint)")
 
-            pauses: List[Tuple[float, float]] = []
+            pauses: List[Dict[str, Any]] = []
             try:
                 version = self._build_version(candidate.step, candidate.path, params, pauses)
             except Exception as err:
@@ -553,7 +591,7 @@ class ModelStore:
                 # the version two swaps back is freed here, where no replay runs
                 self._previous, self._current = self._current, version
                 self.swaps += 1
-            pauses_s = [p for p, _ in pauses] + [time.perf_counter() - t0]
+            pauses_s = [p["pause_s"] for p in pauses] + [time.perf_counter() - t0]
             del version
             trace_event("model_swap", ckpt_step=candidate.step, attempt=attempt)
             self._emit(
@@ -562,9 +600,10 @@ class ModelStore:
                     "step": candidate.step,
                     "path": candidate.path,
                     "attempt": attempt,
-                    "capture_s": sum(c for _, c in pauses),
+                    "capture_s": sum(p["capture_s"] for p in pauses),
                     "pause_s": max(pauses_s),  # the longest that serving stood still
                     "pauses_s": pauses_s,  # one a captured slot, then the flip
+                    "pause_parts": pauses,  # each slot's pause by part
                 },
             )
             return True, "promoted"
@@ -595,6 +634,15 @@ class ModelStore:
                 self._on_event(kind, info)
             except Exception:
                 pass
+
+
+def _pause(slot: int, t0: float, t1: float, t2: float, ladder: Optional["CompiledLadder"]) -> Dict[str, Any]:
+    """One pause of serving for ``slot``'s graph set, begun at ``t0``
+    (asking for the gate), the gate held from ``t1``, the set captured at
+    ``t2``, released now: its seconds in all, waiting for the gate and
+    capturing, and the capture's parts (``CompiledLadder.capture_parts``)."""
+    parts = ladder.capture_parts if ladder is not None else {}
+    return {"slot": slot, "pause_s": time.perf_counter() - t0, "gate_wait_s": t1 - t0, "capture_s": t2 - t1, "parts": parts}
 
 
 def _structure_mismatch(current: Params, new: Params) -> Optional[str]:

@@ -87,7 +87,7 @@ def test_make_env_builds_the_host_env_for_gymnasium_make():
 
 @pytest.mark.parametrize(
     "overrides",
-    [["env.id=Acrobot-v1"], ["env.id=MountainCar-v0", "algo.cnn_keys.encoder=[rgb]"]],
+    [["env.id=LunarLander-v3"], ["env.id=LunarLander-v3", "algo.cnn_keys.encoder=[rgb]"]],
 )
 def test_other_ids_and_pixels_raise_naming_a1(overrides):
     """An id without a host env raises naming ROADMAP A1, with vector or

@@ -99,15 +99,16 @@ def test_cli_trains_and_evaluates_on_the_cpu_with_jax_and_friends_blocked(tmp_pa
 
 def test_without_a_card_the_default_accelerator_raises(tmp_path):
     """``fabric.accelerator=auto`` (the default) means the CUDA card: no
-    CPU fallback."""
+    CPU fallback. So does ``tpu``, the config tree's name for its
+    accelerator (``exp=dreamer_v3_dmc_walker_walk``)."""
     argv = [a for a in TINY if a != "fabric=cpu"] + [f"log_base_dir={tmp_path}"]
     with pytest.raises(RuntimeError, match="CUDA card"):
         cli.run(argv)
-    for accelerator in ("auto", "gpu", "cuda"):
+    for accelerator in ("auto", "gpu", "cuda", "tpu"):
         with pytest.raises(RuntimeError, match="CUDA card"):
             Fabric(accelerator=accelerator)
     with pytest.raises(ValueError, match="accelerator"):
-        Fabric(accelerator="tpu")
+        Fabric(accelerator="xla")
 
 
 @pytest.mark.parametrize(

@@ -169,8 +169,8 @@ def test_group_options_list_the_port_tree():
     "node",
     [
         {"_target_": "gymnasium.make", "id": "CartPole-v1"},
-        {"_target_": "sheeprl_tpu_torch.envs.dmc.DMCWrapper"},
-        {"_target_": "sheeprl_tpu_torch.ops.optim.sgd"},
+        {"_target_": "sheeprl_tpu_torch.envs.crafter.CrafterWrapper"},
+        {"_target_": "sheeprl_tpu_torch.ops.optim.lamb"},
         {"_target_": "sheeprl_tpu.utils.metric.MeanMetric"},
     ],
 )

@@ -374,11 +374,11 @@ def test_make_env_matches_jax(case):
 
 
 def test_make_env_refusals_name_roadmap_items():
-    _, cfg = _cfgs(["env=gym", "env.id=Acrobot-v1"])
+    _, cfg = _cfgs(["env=gym", "env.id=LunarLander-v3"])
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         tfactory.make_env(cfg, 0)()
-    _, cfg = _cfgs(["env=dmc"])
-    with pytest.raises(NotImplementedError, match="DMC adapter"):
+    _, cfg = _cfgs(["env=crafter"])
+    with pytest.raises(NotImplementedError, match="Crafter adapter"):
         tfactory.make_env(cfg, 0)()
     _, cfg = _cfgs(["env=pixel_catcher", "env.capture_video=True"])
     with pytest.raises(NotImplementedError, match="moviepy"):

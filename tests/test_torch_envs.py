@@ -78,10 +78,10 @@ def test_make_env_refuses_what_is_not_ported():
     # frame stacks are ported now (the JAX pipeline's FrameStack, NHWC frames on a leading axis)
     env = make_env(compose("XS", overrides={"env.frame_stack": 4, "env.screen_size": 16}), 0)()
     assert env.reset(seed=0)[0]["rgb"].shape == (4, 16, 16, 3)
-    # gymnasium's registry (beyond the port's CartPole-v1 and Pendulum-v1,
+    # gymnasium's registry (beyond the port's own classic-control envs,
     # whose frames it draws) and video capture are not
     with pytest.raises(NotImplementedError, match="gymnasium"):
-        make_env(compose("XS", overrides={"env.wrapper": {"_target_": "gymnasium.make", "id": "Acrobot-v1"}}), 0)()
+        make_env(compose("XS", overrides={"env.wrapper": {"_target_": "gymnasium.make", "id": "LunarLander-v3"}}), 0)()
     with pytest.raises(NotImplementedError, match="capture_video"):
         make_env(compose("XS", overrides={"env.capture_video": True}), 0, 0, "run_dir")()
 

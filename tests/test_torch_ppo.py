@@ -414,11 +414,11 @@ def test_a_twinless_env_falls_back_with_one_event(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ("env.id=Acrobot-v1", "A1"),
-        # CartPole-v1's pixels are drawn by the port now (envs/render.py,
-        # test_ppo_trains_on_cartpole_pixels); those of an id without a host
-        # env are not
-        pytest.param("algo.cnn_keys.encoder=[rgb] env.id=MountainCar-v0", "A1", id="algo.cnn_keys.encoder=[rgb]-A1"),
+        ("env.id=LunarLander-v3", "A1"),
+        # the classic-control ids' pixels are drawn by the port now
+        # (envs/render.py, test_ppo_trains_on_cartpole_pixels); those of an
+        # id without a host env are not
+        pytest.param("algo.cnn_keys.encoder=[rgb] env.id=LunarLander-v3", "A1", id="algo.cnn_keys.encoder=[rgb]-A1"),
     ],
 )
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path, override, item):

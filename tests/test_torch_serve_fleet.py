@@ -470,6 +470,68 @@ def test_a_fleet_swap_pauses_once_a_slot_then_for_the_flip(make_fleet):
     assert info["pause_s"] == max(info["pauses_s"]) and info["capture_s"] <= sum(info["pauses_s"])
 
 
+def test_a_slow_graph_build_in_a_swap_beside_an_activation_expires_nothing(make_fleet, monkeypatch):
+    """A swap whose first slot's graph set takes 0.6 s to build (slowed
+    here), past the requests' 0.4 s deadline, while the standby slot is
+    activated: the sets are built while the old version serves, so each of
+    the swap's pauses (the slot's captures, then the flip) and each of the
+    activation's stays short and no request expires. The activation waits
+    for the swap and captures the standby in pauses of its own, never
+    inside one of the swap's."""
+    from sheeprl_tpu_torch.serve import model
+    from sheeprl_tpu_torch.serve.policy import make_linear_state
+
+    server, ckpt_dir, state = make_fleet(fleet={"num_replicas": 1, "max_replicas": 2, "scale_up_depth": 1e9})
+    events = []
+    server._on_event = lambda kind, info: events.append((kind, info))
+    server.start()
+    real, building = model.ModelStore._ladder, threading.Event()
+
+    def slow_first_slot(self, slot, params, forwards):
+        if slot == 0 and params is not self._current.params:  # the candidate's set
+            building.set()
+            time.sleep(0.6)
+        return real(self, slot, params, forwards)
+
+    monkeypatch.setattr(model.ModelStore, "_ladder", slow_first_slot)
+    path, _ = commit_linear(ckpt_dir, 200, state=make_linear_state(seed=7))
+    stop, served, failures = threading.Event(), [], []
+
+    def traffic(i):
+        while not stop.is_set():
+            try:
+                served.append(server.wait(server.submit(linear_obs(state, value=float(i)), deadline_s=0.4)))
+            except Exception as err:  # counted: a drill's failure
+                failures.append(repr(err))
+
+    threads = [threading.Thread(target=traffic, args=(i,), daemon=True) for i in range(4)]
+    swap = threading.Thread(target=server.request_swap, args=(path,), daemon=True)
+    try:
+        for t in threads:
+            t.start()
+        swap.start()
+        assert building.wait(5.0)
+        server._activate(server.slots[1], {"drill": "overlap"})  # waits for the swap
+        swap.join(10.0)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads + [swap]:
+            t.join(10.0)
+    assert not any(t.is_alive() for t in threads + [swap])
+    snap = server.snapshot()
+    assert not failures and snap["shed_expired"] == 0 and snap["failed"] == 0 and served
+    assert snap["serving_step"] == 200 and server.store.has_graphs(1)
+    ((_, swap_info),) = [e for e in events if e[0] == "swap"]
+    ((_, capture),) = [e for e in events if e[0] == "slot_capture"]
+    # the swap paused for slot 0's captures and the flip; the standby, not
+    # captured then, paused in its own capture for each version
+    assert len(swap_info["pauses_s"]) == 2 and [p["slot"] for p in swap_info["pause_parts"]] == [0]
+    assert len(capture["pauses_s"]) == 2 and {p["slot"] for p in capture["pause_parts"]} == {1}
+    assert max(swap_info["pauses_s"] + capture["pauses_s"]) < 0.3
+    assert [kind for kind, _ in events if kind in ("swap", "slot_capture")] == ["swap", "slot_capture"]
+
+
 def test_a_failed_capture_raises_rather_than_falling_back(make_fleet, monkeypatch):
     """A slot's ladder that fails to capture raises: the fleet does not
     start (no replica thread runs), and no other device's ladder stands in

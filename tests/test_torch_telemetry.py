@@ -332,3 +332,46 @@ def test_a_timer_idle_in_the_window_reports_no_rate(tmp_path):
         assert summary["sps_train"] == summary["sps_train"] > 0
     finally:
         shutdown_telemetry()
+
+
+@pytest.mark.parametrize("poll_rtt", [False, True])
+def test_poll_rtt_adds_a_fresh_round_trip_to_each_poll_off_the_cpu(tmp_path, monkeypatch, poll_rtt):
+    """``metric.telemetry.poll_rtt`` adds ``rtt_ms`` to every ``device_poll``
+    of a run off the CPU, each from a probe of its own (JAX
+    ``obs/telemetry.py:714-721``); a CPU run's polls carry none."""
+    from sheeprl_tpu_torch.parallel import fabric
+
+    probes = iter([0.002, 0.003])
+    monkeypatch.setattr(fabric, "tiny_op_roundtrip_seconds", lambda device=None: next(probes))
+    monkeypatch.setattr(fabric, "_rtt_cache", {})
+    path = tmp_path / "t.jsonl"
+    cfg = {"metric": {"telemetry": {"enabled": True, "jsonl": str(path), "poll_rtt": poll_rtt}}, "fabric": {"accelerator": "cpu"}}
+    tel = configure_telemetry(cfg)
+    try:
+        assert tel.poll_rtt is poll_rtt
+        tel.maybe_poll_devices(force=True)
+        # a device that is neither the CPU nor a card: no memory statistics,
+        # but the probe's rule applies as it does on the card
+        tel.device = torch.device("meta")
+        tel.maybe_poll_devices(force=True)
+        tel.maybe_poll_devices(force=True)
+    finally:
+        shutdown_telemetry()
+    polls = [e for e in map(json.loads, open(path)) if e["event"] == "device_poll"][-3:]
+    assert [p.get("rtt_ms") for p in polls] == ([None, 2.0, 3.0] if poll_rtt else [None] * 3)
+    assert fabric._rtt_cache == {}
+
+
+def test_the_link_probe_is_measured_anew_and_the_placement_probe_once(monkeypatch):
+    import itertools
+
+    from sheeprl_tpu_torch.parallel import fabric
+
+    monkeypatch.setattr(fabric, "_rtt_cache", {})
+    clock = itertools.count(0.0, 0.25)
+    monkeypatch.setattr(fabric.time, "perf_counter", lambda: next(clock))
+    assert fabric.tiny_op_roundtrip_seconds("cpu") == fabric.tiny_op_roundtrip_seconds("cpu") == pytest.approx(0.25 / 3)
+    assert next(clock) == 1.0
+    assert fabric.dispatch_roundtrip_seconds("cpu") == pytest.approx(0.25 / 3)
+    assert fabric.dispatch_roundtrip_seconds("cpu") == pytest.approx(0.25 / 3)
+    assert next(clock) == 1.75
